@@ -1,0 +1,463 @@
+"""Chip smoke test of the PyTorch/CUDA port (`src/repro_torch`) on one GPU.
+
+    python3 chip_smoke.py
+
+Drives the port only (it imports neither jax nor the JAX package) and
+prints one JSON line per phase:
+
+  card     the card's name and power limit (nvidia-smi), torch's name;
+  build    nvcc builds the four kernels from `src/repro_torch/csrc`;
+  kernels  each kernel on numpy-seeded inputs at the 8x8 main-path shapes
+           (E = 12.8 M synapses, N = 64,000 neurons), bit-equal to its
+           plain PyTorch version on a CPU copy of the inputs (and the
+           ordered sum also to its plain version on the card), timed with
+           CUDA events beside its plain version, its memory/compute bound
+           and, for the ordered sum, `index_add_`;
+  check    the main path (`StepProgram(..., device="cuda").run`) at 4x4,
+           full width, 150 steps, at H=1 block, H=4 block, H=4 scatter:
+           raster and weight signatures equal to the committed AVX-pinned
+           JAX reference (`src/repro_torch/data/jax_reference.json`) and
+           every kernel launched once per step;
+  timed    the main path at 8x8 (12.8 M synapses), H=1, 500 steps after a
+           warm-up: ms/step, the phase A / exchange / B split from a
+           separate synchronised pass, rate, the paper's normalised metric,
+           synaptic events/s, peak memory, raster signature, and a
+           torch.profiler breakdown by kernel.
+
+Then the `{"kernels": [...]}` line (launches from the timed main-path run)
+and, last, `{"ok": true, "device": {...}}`.  Any failed phase exits
+non-zero before that line.  Without a CUDA device, or without the rest of
+the repository beside it, it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (data sheet)
+PEAK_FP32_PER_S = 67e12        # H100 SXM fp32, outside the tensor cores
+MAIN_STEPS = 500
+
+
+class PhaseFailed(RuntimeError):
+    pass
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def bit_equal(a, b) -> bool:
+    a, b = a.detach().cpu(), b.detach().cpu()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        return bool((a.view(torch.int32) == b.view(torch.int32)).all())
+    return bool((a == b).all())
+
+
+def max_abs_err(a, b) -> float:
+    a, b = a.detach().cpu(), b.detach().cpu()
+    if a.dtype == torch.bool:
+        return float((a != b).sum())
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def cuda_ms(fn, calls: int = 20, reps: int = 5, warmup: int = 3) -> float:
+    """Time of one fn() call in ms: CUDA events around `calls` calls back to
+    back, over the count; the median of `reps` such runs.  For a kernel
+    shorter than its launch this is the launch's cost, which is what the
+    step pays; `device_ms` below has the kernel alone."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def device_kernel_events(prof):
+    """(name, device microseconds, calls) of the CUDA kernels a
+    torch.profiler run recorded (operator rows are left out: they repeat
+    their kernels' time)."""
+    from torch.autograd import DeviceType
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            rows.append((e.key, e.self_device_time_total, e.count))
+    return rows
+
+
+def device_ms(fn, calls: int = 10) -> float:
+    """The kernel's own device time per call in ms (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = device_kernel_events(prof)
+    return sum(us for _, us, _ in rows) * 1e-3 / calls if rows else None
+
+
+def bound(n_bytes: float, n_flops: float):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    fp32 operations over the fp32 peak."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_flops / PEAK_FP32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+# ----------------------------------------------------------------------------
+# phases
+# ----------------------------------------------------------------------------
+
+
+def phase_card():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if smi.returncode != 0:
+        raise PhaseFailed(f"nvidia-smi failed: {smi.stderr}")
+    line = smi.stdout.strip().splitlines()[0]
+    print(line, flush=True)
+    name, power = (s.strip() for s in line.split(",", 1))
+    emit({"phase": "card", "name": name, "power_limit": power,
+          "torch_device_name": torch.cuda.get_device_name(0),
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+    return line
+
+
+def phase_build():
+    t0 = time.perf_counter()
+    path = _build.build()
+    _build.library()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "library": os.path.relpath(path, HERE)})
+
+
+def _kernel_inputs(rng, E: int, N: int, t: float):
+    """numpy-seeded inputs at the main-path shapes."""
+    f = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    b = lambda x: torch.from_numpy(np.ascontiguousarray(x, bool))
+    exc = np.arange(N) % 5 != 4
+    neuron = dict(
+        v=f(rng.uniform(-80.0, 29.9, N)), u=f(rng.uniform(-20.0, 10.0, N)),
+        current=f(rng.uniform(-10.0, 25.0, N)),
+        a=f(np.where(exc, 0.02, 0.1)), b=f(np.full(N, 0.2)),
+        c=f(np.full(N, -65.0)), d=f(np.where(exc, 8.0, 2.0)))
+
+    def times():
+        recent = rng.uniform(t - 200.0, t, E)
+        return f(np.where(rng.random(E) < 0.7, recent, engine.NEG_TIME))
+    synapse = dict(arr=b(rng.random(E) < 0.05), w=f(rng.uniform(0, 10, E)),
+                   last_post=times(), last_arr=times(),
+                   plastic=b(rng.random(E) < 0.8), post=b(rng.random(E) < 0.03),
+                   valid=b(rng.random(E) < 0.99))
+    return neuron, synapse
+
+
+def phase_kernels(plan8, spec8):
+    """Each kernel against its plain version at the 8x8 shapes."""
+    H, E = plan8.syn_valid.shape
+    N = plan8.gid.shape[1]
+    t = 1000.0
+    rng = np.random.default_rng(2013)
+    neuron, syn = _kernel_inputs(rng, H * E, H * N, t)
+    # the main path's [H, N] / [H, E] layouts
+    neuron = {k: v.view(H, N) for k, v in neuron.items()}
+    syn = {k: v.view(H, E) for k, v in syn.items()}
+    izh, stdp = spec8.izh, spec8.stdp
+    cuda = lambda d: {k: v.cuda() for k, v in d.items()}
+    gn, gs = cuda(neuron), cuda(syn)
+    ltd_kw = dict(a_minus=stdp.a_minus, tau_minus=stdp.tau_minus,
+                  w_min=stdp.w_min, w_max=stdp.w_max,
+                  neg_time=engine.NEG_TIME)
+    ltp_kw = dict(a_plus=stdp.a_plus, tau_plus=stdp.tau_plus,
+                  w_min=stdp.w_min, w_max=stdp.w_max,
+                  neg_time=engine.NEG_TIME)
+    izh_kw = dict(v_peak=izh.v_peak, dt=izh.dt, substeps=izh.v_substeps)
+    nargs = lambda d: (d["v"], d["u"], d["current"], d["a"], d["b"], d["c"],
+                       d["d"])
+    aargs = lambda d: (d["arr"], d["w"], d["last_post"], d["last_arr"],
+                       d["plastic"], t)
+    largs = lambda d: (d["post"], d["w"], d["last_arr"], d["plastic"],
+                       d["valid"], t)
+    contrib_cpu = torch.from_numpy(
+        rng.uniform(-5.0, 10.0, (H, E)).astype(np.float32))
+    contrib = contrib_cpu.cuda()
+    seg_cpu = kref.make_segments(plan8.row_ptr.cpu(), E)
+    seg = kref.make_segments(plan8.row_ptr, E)
+    n_valid = int(plan8.row_ptr[:, -1].sum())
+    # index_add_'s operands: the valid synapses' flat targets and values
+    valid = torch.nonzero(plan8.syn_valid.reshape(-1)).reshape(-1)
+    lib_tgt = (plan8.syn_tgt + (torch.arange(H, device="cuda") * N)[:, None]
+               ).reshape(-1)[valid]
+    lib_contrib = contrib.reshape(-1)[valid]
+
+    cases = [
+        dict(name="izhikevich_update",
+             source="src/repro_torch/csrc/izhikevich.cu",
+             replaces="src/repro/kernels/izhikevich.py:37",
+             kernel=lambda: kizh.izhikevich_update(*nargs(gn), **izh_kw),
+             plain_gpu=lambda: kref.izhikevich_update(*nargs(gn), **izh_kw),
+             plain_cpu=lambda: kref.izhikevich_update(*nargs(neuron),
+                                                      **izh_kw),
+             bytes=nbytes(*nargs(gn)) + H * N * (4 + 4 + 1),
+             flops=H * N * 20, library=None),
+        dict(name="stdp_arrival", source="src/repro_torch/csrc/stdp.cu",
+             replaces="src/repro/kernels/stdp.py:57",
+             kernel=lambda: kstdp.stdp_arrival(*aargs(gs), **ltd_kw),
+             plain_gpu=lambda: kref.stdp_arrival(*aargs(gs), **ltd_kw),
+             plain_cpu=lambda: kref.stdp_arrival(*aargs(syn), **ltd_kw),
+             bytes=nbytes(*aargs(gs)[:5]) + H * E * 12,
+             flops=H * E * 25, library=None),
+        dict(name="stdp_ltp", source="src/repro_torch/csrc/stdp.cu",
+             replaces="src/repro/kernels/stdp.py:81",
+             kernel=lambda: kstdp.stdp_ltp(*largs(gs), **ltp_kw),
+             plain_gpu=lambda: kref.stdp_ltp(*largs(gs), **ltp_kw),
+             plain_cpu=lambda: kref.stdp_ltp(*largs(syn), **ltp_kw),
+             bytes=nbytes(*largs(gs)[:5]) + H * E * 4,
+             flops=H * E * 25, library=None),
+        dict(name="segment_sum_ordered",
+             source="src/repro_torch/csrc/segment_sum.cu",
+             replaces="src/repro/core/engine.py:230",
+             kernel=lambda: kseg.segment_sum_ordered(contrib, seg),
+             plain_gpu=lambda: kref.segment_sum_ordered(contrib, seg),
+             plain_cpu=lambda: kref.segment_sum_ordered(contrib_cpu,
+                                                        seg_cpu),
+             bytes=n_valid * 4 + nbytes(plan8.row_ptr) + H * N * 4,
+             flops=n_valid,
+             library=lambda: torch.zeros(H * N, device="cuda").index_add_(
+                 0, lib_tgt, lib_contrib)),
+    ]
+    rows, failed = [], []
+    for c in cases:
+        got = c["kernel"]()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        with kref.flush_denormal():
+            want = c["plain_cpu"]()
+        want = want if isinstance(want, tuple) else (want,)
+        equal = all(bit_equal(a, b) for a, b in zip(got, want))
+        err = max(max_abs_err(a, b) for a, b in zip(got, want))
+        if c["name"] == "segment_sum_ordered":
+            equal &= bit_equal(got[0], c["plain_gpu"]())
+        if not equal:
+            failed.append(c["name"])
+        bms, by = bound(c["bytes"], c["flops"])
+        rows.append(dict(
+            name=c["name"], route="cuda", source=c["source"],
+            replaces=c["replaces"], launches=None, max_abs_err=err,
+            ms=cuda_ms(c["kernel"]), device_ms=device_ms(c["kernel"]),
+            plain_ms=cuda_ms(c["plain_gpu"], calls=3),
+            bound_ms=bms, bound_by=by,
+            library_ms=(cuda_ms(c["library"]) if c["library"] else None),
+            equal=equal, tolerance="bit-equal (every output, 0 ulp)",
+            shape={"E": H * E, "N": H * N,
+                                "synapses_summed": n_valid}))
+    emit({"phase": "kernels", "rows": rows})
+    if failed:
+        raise PhaseFailed(f"kernels differ from their plain versions: "
+                          f"{failed}")
+    return rows
+
+
+def _first_divergence(a: np.ndarray, b: np.ndarray):
+    diff = np.nonzero((a != b).reshape(a.shape[0], -1).any(axis=1))[0]
+    return int(diff[0]) if diff.size else None
+
+
+def phase_check():
+    """4x4 full width, 150 steps, three layouts, against the committed
+    AVX-pinned JAX reference."""
+    with open(os.path.join(HERE, "src", "repro_torch", "data",
+                           "jax_reference.json")) as f:
+        ref = json.load(f)
+    cfg = GridConfig(**ref["grid"],
+                     neurons_per_column=ref["neurons_per_column"],
+                     synapses_per_neuron=ref["synapses_per_neuron"])
+    steps = ref["steps"]
+    results, failed = {}, []
+    for name, r in ref["runs"].items():
+        eng = EngineConfig(n_shards=r["n_shards"], placement=r["placement"])
+        sp = StepProgram(cfg, eng, device="cuda")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, raster, _ = sp.run(sp.init_state(), 0, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        raster_np = raster.cpu().numpy()
+        rsig = observables.raster_signature(raster_np,
+                                            sp.plan.gid.cpu().numpy()).hex()
+        wsig = sp.weight_signature(state).hex()
+        per_step = raster_np.sum(axis=(1, 2)).astype(int)
+        ok = (rsig == r["raster_signature"] and wsig == r["weight_signature"]
+              and all(v == steps for v in counts.values()))
+        res = dict(raster_equal=rsig == r["raster_signature"],
+                   weights_equal=wsig == r["weight_signature"],
+                   spikes=int(per_step.sum()), launches=counts,
+                   wall_s=wall)
+        if not ok:
+            failed.append(name)
+            res["first_step_spike_count_differs"] = _first_divergence(
+                per_step, np.asarray(r["spikes_per_step"]))
+            cpu = StepProgram(cfg, eng, device="cpu")
+            _, raster_cpu, _ = cpu.run(cpu.init_state(), 0, steps)
+            res["first_step_gpu_differs_from_cpu_port"] = _first_divergence(
+                raster_np, raster_cpu.numpy())
+        results[name] = res
+    emit({"phase": "check", "grid": "4x4", "steps": steps,
+          "runs": results})
+    if failed:
+        raise PhaseFailed(f"main path differs from the JAX reference: "
+                          f"{failed}")
+
+
+def phase_timed(sp8):
+    spec, plan = sp8.spec, sp8.plan
+    cfg = spec.cfg
+    state0 = sp8.init_state()
+    sp8.run(state0, 0, 20)                          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, raster, tm = sp8.run(state0, 0, MAIN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    raster_np = raster.cpu().numpy()
+    rate = observables.mean_rate_hz(raster_np, cfg.n_neurons)
+    events = int(tm.arrivals.sum())
+    norm = wall / (cfg.n_synapses * MAIN_STEPS * 1e-3 * max(rate, 1e-9))
+
+    # separate synchronised pass: the per-phase split (paper Table 2)
+    fns = engine.make_step_fn(spec, plan, 0, MAIN_STEPS)
+    s = engine.clone_state(state0)
+    split = dict(phase_a_s=0.0, exchange_s=0.0, phase_b_s=0.0)
+    n_split = 100
+    for t_ in range(n_split):
+        torch.cuda.synchronize()
+        c0 = time.perf_counter()
+        s, spiked, _ = fns.phase_a(s, t_)
+        torch.cuda.synchronize()
+        c1 = time.perf_counter()
+        ss = fns.exchange(spiked)
+        torch.cuda.synchronize()
+        c2 = time.perf_counter()
+        s = fns.phase_b(s, ss, t_)
+        torch.cuda.synchronize()
+        c3 = time.perf_counter()
+        split["phase_a_s"] += c1 - c0
+        split["exchange_s"] += c2 - c1
+        split["phase_b_s"] += c3 - c2
+    split_ms = {k.replace("_s", "_ms_per_step"): v / n_split * 1e3
+                for k, v in split.items()}
+
+    emit({"phase": "timed", "grid": f"{cfg.grid_x}x{cfg.grid_y}",
+          "neurons": cfg.n_neurons, "synapses": cfg.n_synapses,
+          "shards": spec.eng.n_shards, "steps": MAIN_STEPS,
+          "wall_s": wall, "ms_per_step": wall / MAIN_STEPS * 1e3,
+          "split_sync_pass": split_ms, "rate_hz": rate,
+          "s_per_synapse_per_sim_s_per_hz": norm,
+          "synaptic_events": events, "synaptic_events_per_s": events / wall,
+          "max_memory_allocated_bytes": peak, "launches": launches,
+          "raster_signature": observables.raster_signature(
+              raster_np, plan.gid.cpu().numpy()).hex()})
+    missing = [k for k, v in launches.items() if v != MAIN_STEPS]
+    if missing:
+        raise PhaseFailed(f"kernels not launched once per step on the "
+                          f"main path: {launches}")
+    return launches
+
+
+def phase_profile(sp8, n_steps: int = 20):
+    """Device time by kernel over a short steady window (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    state0 = sp8.init_state()
+    sp8.run(state0, 0, n_steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sp8.run(state0, 0, n_steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(((us, k, c) for k, us, c in device_kernel_events(prof)),
+                  reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    emit({"phase": "profile", "steps": n_steps, "wall_s": wall,
+          "device_busy_s": busy_us * 1e-6 if rows else None,
+          "device_idle_share": (1.0 - busy_us * 1e-6 / wall) if rows
+          else None,
+          "top": [dict(name=k[:90], device_ms_per_step=us * 1e-3 / n_steps,
+                       calls=c) for us, k, c in rows[:15]]})
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    try:
+        phase_card()
+        phase_build()
+        t0 = time.perf_counter()
+        sp8 = StepProgram(GridConfig(grid_x=8, grid_y=8), EngineConfig(),
+                          device="cuda")
+        emit({"phase": "build_8x8", "seconds": time.perf_counter() - t0,
+              "synapses": int(sp8.plan.row_ptr[:, -1].sum())})
+        rows = phase_kernels(sp8.plan, sp8.spec)
+        phase_check()
+        launches = phase_timed(sp8)
+        phase_profile(sp8)
+    except PhaseFailed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    emit({"kernels": [{k: r[k] for k in (
+        "name", "route", "source", "replaces", "launches", "max_abs_err",
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        for r in rows]})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import torch
+    from repro_torch.core import (EngineConfig, GridConfig, StepProgram,
+                                  engine, observables)
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import izhikevich as kizh
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import segment_sum as kseg
+    from repro_torch.kernels import stdp as kstdp
+    sys.exit(main())

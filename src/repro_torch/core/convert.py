@@ -1,0 +1,31 @@
+"""Carry a JAX run's plan and state across into the port.
+
+`from_jax(plan, state, device)` takes the JAX package's `ShardPlan` and
+`ShardState` (NamedTuples whose leaves are numpy arrays, or anything
+`np.asarray` takes) and returns the port's tensors on `device`, so a run
+started in JAX continues here bit for bit.  This module does not import
+JAX: it reads the fields by name.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from .engine import ShardPlan, ShardState, plan_from_arrays, resolve_device
+
+_PLAN_FIELDS = ("src_gid", "syn_src", "syn_tgt", "syn_delay", "syn_plastic",
+                "syn_valid", "exc_mask", "neuron_valid", "gid", "columns",
+                "shard_id")
+
+
+def from_jax(plan, state, device=None) -> Tuple[ShardPlan, ShardState]:
+    """(port ShardPlan, port ShardState) from the JAX package's stacked
+    dense-delivery ShardPlan / ShardState."""
+    dev = resolve_device(device)
+    p = plan_from_arrays({k: getattr(plan, k) for k in _PLAN_FIELDS}, dev)
+    s = ShardState(**{
+        k: torch.from_numpy(np.array(getattr(state, k))).to(dev)
+        for k in ShardState._fields})
+    return p, s

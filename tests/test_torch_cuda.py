@@ -1,0 +1,100 @@
+"""The port's CUDA kernels on the card (skipped without one).
+
+Each kernel is held bit for bit against its plain PyTorch version on a CPU
+copy of the same inputs, and a short main-path run on the card against the
+CPU port.  Run on a machine with an NVIDIA GPU and nvcc:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+`chip_smoke.py` does the same at the main path's full shapes.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import (EngineConfig, GridConfig, StepProgram,
+                              observables)
+from repro_torch.kernels import ops, ref
+
+pytestmark = pytest.mark.cuda
+
+LTD_KW = dict(a_minus=0.12, tau_minus=20.0, w_min=0.0, w_max=10.0,
+              neg_time=-1.0e9)
+LTP_KW = dict(a_plus=0.1, tau_plus=20.0, w_min=0.0, w_max=10.0,
+              neg_time=-1.0e9)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the port's kernels run only on "
+                    "the card)")
+    return torch.device("cuda")
+
+
+def _bits_equal(got, want):
+    got, want = got.cpu(), want.cpu()
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    return torch.equal(got, want)
+
+
+def _inputs(n, seed=0):
+    rng = np.random.default_rng(seed)
+    f = lambda x: torch.from_numpy(np.asarray(x, np.float32))
+    times = lambda: f(np.where(rng.random(n) < 0.7,
+                               rng.uniform(-2000.0, 200.0, n), -1.0e9))
+    exc = np.arange(n) % 5 != 4
+    return dict(
+        v=f(rng.uniform(-80, 31, n)), u=f(rng.uniform(-20, 10, n)),
+        cur=f(rng.uniform(-10, 25, n)), a=f(np.where(exc, 0.02, 0.1)),
+        b=f(np.full(n, 0.2)), c=f(np.full(n, -65.0)),
+        d=f(np.where(exc, 8.0, 2.0)),
+        arr=torch.from_numpy(rng.random(n) < 0.3), w=f(rng.uniform(0, 10, n)),
+        lp=times(), la=times(), plastic=torch.from_numpy(rng.random(n) < 0.8),
+        post=torch.from_numpy(rng.random(n) < 0.5),
+        valid=torch.from_numpy(rng.random(n) < 0.95))
+
+
+@pytest.mark.parametrize("n", [1, 1000, 300_001])
+def test_kernels_equal_plain_versions(cuda, n):
+    z = _inputs(n, seed=n)
+    g = {k: v.to(cuda) for k, v in z.items()}
+    izh = ("v", "u", "cur", "a", "b", "c", "d")
+    cases = [
+        (lambda d: ops.izhikevich_update(*(d[k] for k in izh), v_peak=30.0)),
+        (lambda d: ops.stdp_arrival(d["arr"], d["w"], d["lp"], d["la"],
+                                    d["plastic"], 200.0, **LTD_KW)),
+        (lambda d: (ops.stdp_ltp(d["post"], d["w"], d["la"], d["plastic"],
+                                 d["valid"], 200.0, **LTP_KW),)),
+    ]
+    for fn in cases:
+        for got, want in zip(fn(g), fn(z)):
+            assert _bits_equal(got, want)
+    counts = np.random.default_rng(n).integers(0, 9, n // 4 + 1)
+    row_ptr = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)])
+                               .astype(np.int32)).view(1, -1)
+    contrib = torch.randn(1, int(counts.sum()) + 5)
+    want = ops.segment_sum_ordered(contrib, ref.make_segments(
+        row_ptr, contrib.shape[1]))
+    got = ops.segment_sum_ordered(contrib.to(cuda), ref.make_segments(
+        row_ptr.to(cuda), contrib.shape[1], with_index=False))
+    assert _bits_equal(got, want)
+
+
+def test_main_path_on_card_equals_cpu_port(cuda):
+    cfg = GridConfig(grid_x=2, grid_y=2, neurons_per_column=100,
+                     synapses_per_neuron=40, seed=7)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        sp = StepProgram(cfg, EngineConfig(n_shards=2, placement="scatter"),
+                         device=dev)
+        ops.reset_launch_counts()
+        state, raster, _ = sp.run(sp.init_state(), 0, 60)
+        counts = ops.launch_counts()
+        runs[dev] = (observables.raster_signature(
+            raster.cpu().numpy(), sp.plan.gid.cpu().numpy()),
+            sp.weight_signature(state), counts)
+    assert runs["cuda"][:2] == runs["cpu"][:2]
+    assert runs["cpu"][2] == dict.fromkeys(ops.KERNELS, 0)
+    assert runs["cuda"][2] == dict.fromkeys(ops.KERNELS, 60)

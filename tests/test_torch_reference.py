@@ -1,0 +1,134 @@
+"""The committed JAX reference of the port's main-path check.
+
+The machine with the card has no JAX, so `chip_smoke.py` holds the port's
+GPU runs against `src/repro_torch/data/jax_reference.json`: raster and
+weight signatures and spike counts of the JAX package at a 4x4 grid, full
+width (1,000 neurons per column, M = 200), 150 steps, at H=1 block, H=4
+block and H=4 scatter.  The reference is jitted on the CPU with
+`XLA_FLAGS=--xla_cpu_max_isa=AVX` (no FMA contraction), which is the
+setting under which the port's plain PyTorch path equals it bit for bit.
+
+The test below regenerates the file in AVX subprocesses and asserts it
+equals the committed one, so it cannot go stale.  To rewrite it:
+
+    python tests/test_torch_reference.py --write
+
+This module also holds the AVX-subprocess helpers the other
+`test_torch_*` files use: the flag must be set before jax starts, and the
+test workers have started jax already.
+"""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+REF_PATH = SRC / "repro_torch" / "data" / "jax_reference.json"
+AVX_FLAG = "--xla_cpu_max_isa=AVX"
+STEPS = 150
+GRID = dict(grid_x=4, grid_y=4)            # full width: the params defaults
+LAYOUTS = {"h1_block": (1, "block"), "h4_block": (4, "block"),
+           "h4_scatter": (4, "scatter")}
+
+
+def avx_env() -> dict:
+    """Environment of a subprocess whose jax is pinned to AVX (no FMA)."""
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = f"{env.get('XLA_FLAGS', '')} {AVX_FLAG}".strip()
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(SRC), env.get("PYTHONPATH")) if p)
+    return env
+
+
+def start_avx(script: str, arg_lists):
+    """Start `python script *args` for each args in `arg_lists`, all at
+    once, under `avx_env()`."""
+    return [subprocess.Popen([sys.executable, script, *map(str, args)],
+                             env=avx_env(), cwd=ROOT, text=True,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+            for args in arg_lists]
+
+
+def wait_avx(procs, timeout: float = 600.0):
+    """The standard outputs of `start_avx`'s processes, in order; raises if
+    one failed, and leaves none running."""
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                raise RuntimeError(f"AVX reference subprocess failed:\n"
+                                   f"{err[-4000:]}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def run_avx(script: str, arg_lists, timeout: float = 600.0):
+    """`start_avx` then `wait_avx`."""
+    return wait_avx(start_avx(script, arg_lists), timeout)
+
+
+def jax_run_summary(cfg_kw: dict, eng_kw: dict, steps: int) -> dict:
+    """Run the JAX package (call inside an AVX subprocess) and summarise
+    the run: signatures and spike counts."""
+    import jax  # noqa: F401  (jax must start under the AVX flag)
+    from repro.core import (EngineConfig, GridConfig, StepProgram,
+                            observables)
+    sp = StepProgram(GridConfig(**cfg_kw), EngineConfig(**eng_kw))
+    state, raster, _ = sp.run(sp.init_state(), 0, steps)
+    raster = np.asarray(raster)
+    return dict(
+        raster_signature=observables.raster_signature(
+            raster, np.asarray(sp.plan.gid)).hex(),
+        weight_signature=sp.weight_signature(state).hex(),
+        spikes=int(raster.sum()),
+        spikes_per_step=raster.sum(axis=(1, 2)).astype(int).tolist())
+
+
+def build_reference() -> dict:
+    """The reference file's content, from fresh AVX subprocesses (one per
+    layout, run in parallel)."""
+    outs = run_avx(__file__, [["--layout", name] for name in LAYOUTS])
+    runs = {}
+    for name, out in zip(LAYOUTS, outs):
+        runs[name] = json.loads(out.strip().splitlines()[-1])
+    return dict(
+        source="JAX package (repro.core.StepProgram), jitted on the CPU "
+               f"with XLA_FLAGS={AVX_FLAG}",
+        grid=GRID, neurons_per_column=1000, synapses_per_neuron=200,
+        steps=STEPS, runs=runs)
+
+
+def test_committed_reference_is_current():
+    committed = json.loads(REF_PATH.read_text())
+    fresh = build_reference()
+    assert committed == fresh
+
+
+def _main(argv):
+    if argv[:1] == ["--layout"]:
+        h, placement = LAYOUTS[argv[1]]
+        summary = jax_run_summary(GRID, dict(n_shards=h, placement=placement),
+                                  STEPS)
+        print(json.dumps(dict(n_shards=h, placement=placement, **summary)))
+    elif argv[:1] == ["--write"]:
+        REF_PATH.parent.mkdir(parents=True, exist_ok=True)
+        REF_PATH.write_text(json.dumps(build_reference(), indent=1) + "\n")
+        print(f"wrote {REF_PATH}")
+    else:
+        raise SystemExit(f"usage: {sys.argv[0]} --write | --layout NAME")
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, str(SRC))
+    _main(sys.argv[1:])
