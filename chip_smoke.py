@@ -6,7 +6,7 @@ Drives the port only (it imports neither jax nor the JAX package) and
 prints one JSON line per phase:
 
   card     the card's name and power limit (nvidia-smi), torch's name;
-  build    nvcc builds the four kernels from `src/repro_torch/csrc`;
+  build    nvcc builds the five kernels from `src/repro_torch/csrc`;
   kernels  each kernel on numpy-seeded inputs at the 8x8 main-path shapes
            (E = 12.8 M synapses, N = 64,000 neurons), bit-equal to its
            plain PyTorch version on a CPU copy of the inputs (and the
@@ -23,11 +23,39 @@ prints one JSON line per phase:
            separate synchronised pass, rate, the paper's normalised metric,
            synaptic events/s, peak memory, raster signature, and a
            torch.profiler breakdown by kernel.
+  profile  device time by kernel over 20 steps of the 8x8 path.
 
-Then the `{"kernels": [...]}` line (launches from the timed main-path run)
-and, last, `{"ok": true, "device": {...}}`.  Any failed phase exits
-non-zero before that line.  Without a CUDA device, or without the rest of
-the repository beside it, it exits non-zero and prints no result.
+Then the LM serving path (`recurrentgemma-2b`, `repro_torch.serve`):
+
+  lm_kernels  the RG-LRU scan kernel on numpy-seeded inputs at its prefill
+              (1, 512, 2560), decode (4, 1, 2560) and a tail (3, 100, 96)
+              shape, bit-equal to its plain version on a CPU copy and on
+              the card, timed beside its plain version and its bound;
+  lm_check    SMOKE size, fp32 and bf16, weights from the numpy seed of
+              the committed JAX reference
+              (`src/repro_torch/data/lm_reference.json`): `ServeEngine`
+              (batch 2, s_max 48, the 32-slot window ring wraps) gives the
+              reference's greedy tokens in fp32, request 0 gives the same
+              tokens alone, the teacher-forced logits are within 2e-4
+              (fp32) and 0.1 (bf16) of the reference, and the scan kernel
+              ran once per RG-LRU layer and forward call;
+  lm_serve    full width (26 layers, d 2560, vocab 256,000, bf16, the
+              port's own init from a seeded CUDA generator): 8 requests
+              (prompts of 16-512 tokens, 32 new tokens each) through
+              `ServeEngine(batch=4, s_max=1024)`: parameter count and
+              bytes, init seconds, prefill tokens/s, decode ms/step and
+              tokens/s, peak memory, kernel launches (18 per forward
+              call), every sampled logit finite, and the kernel bit-equal
+              to its plain version on the real inputs the first admission
+              gives layer 0;
+  lm_profile  device time by kernel and the device's idle share over a
+              short serving run at full width.
+
+Then the `{"kernels": [...]}` line (launches from the timed SNN run and
+from the lm_serve run) and, last, `{"ok": true, "device": {...}}`.  Any
+failed phase exits non-zero before that line.  Without a CUDA device, or
+without the rest of the repository beside it, it exits non-zero and prints
+no result.
 """
 from __future__ import annotations
 
@@ -44,6 +72,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (data sheet)
 PEAK_FP32_PER_S = 67e12        # H100 SXM fp32, outside the tensor cores
 MAIN_STEPS = 500
+LM_ARCH = "recurrentgemma-2b"
+LM_SCAN_SHAPES = (("prefill", (1, 512, 2560)), ("decode", (4, 1, 2560)),
+                  ("tail", (3, 100, 96)))
+LM_TOL = {"float32": 2e-4, "bfloat16": 0.1}
 
 
 class PhaseFailed(RuntimeError):
@@ -307,7 +339,7 @@ def phase_check():
         state, raster, _ = sp.run(sp.init_state(), 0, steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = ops.launch_counts()
+        counts = {k: ops.launch_counts()[k] for k in ops.SNN_KERNELS}
         raster_np = raster.cpu().numpy()
         rsig = observables.raster_signature(raster_np,
                                             sp.plan.gid.cpu().numpy()).hex()
@@ -347,7 +379,7 @@ def phase_timed(sp8):
     state, raster, tm = sp8.run(state0, 0, MAIN_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ops.launch_counts()
+    launches = {k: ops.launch_counts()[k] for k in ops.SNN_KERNELS}
     peak = torch.cuda.max_memory_allocated()
     raster_np = raster.cpu().numpy()
     rate = observables.mean_rate_hz(raster_np, cfg.n_neurons)
@@ -417,6 +449,233 @@ def phase_profile(sp8, n_steps: int = 20):
                        calls=c) for us, k, c in rows[:15]]})
 
 
+# ----------------------------------------------------------------------------
+# the LM serving path (recurrentgemma-2b)
+# ----------------------------------------------------------------------------
+
+
+def _scan_inputs(rng, shape):
+    B, T, D = shape
+    f = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    return (f(rng.uniform(0.5, 0.999, shape)),
+            f(rng.standard_normal(shape) * 0.1),
+            f(rng.standard_normal((B, D))))
+
+
+def phase_lm_kernels():
+    """The RG-LRU scan kernel against its plain version at three shapes."""
+    rng = np.random.default_rng(12)
+    rows, failed = [], []
+    for label, shape in LM_SCAN_SHAPES:
+        cpu = _scan_inputs(rng, shape)
+        gpu = tuple(x.cuda() for x in cpu)
+        got = krg.rg_lru_scan(*gpu)
+        torch.cuda.synchronize()
+        with kref.flush_denormal():
+            want_cpu = kref.rg_lru_scan(*cpu)
+        want_gpu = kref.rg_lru_scan(*gpu)
+        equal = bit_equal(got, want_cpu) and bit_equal(got, want_gpu)
+        if not equal:
+            failed.append(label)
+        B, T, D = shape
+        bms, by = bound(nbytes(*gpu) + B * T * D * 4, 2 * B * T * D)
+        rows.append(dict(
+            name="rg_lru_scan", route="cuda",
+            source="src/repro_torch/csrc/rg_lru.cu",
+            replaces="src/repro/kernels/rg_lru.py:39", launches=None,
+            max_abs_err=max(max_abs_err(got, want_cpu),
+                            max_abs_err(got, want_gpu)),
+            ms=cuda_ms(lambda: krg.rg_lru_scan(*gpu)),
+            device_ms=device_ms(lambda: krg.rg_lru_scan(*gpu)),
+            plain_ms=cuda_ms(lambda: kref.rg_lru_scan(*gpu), calls=3),
+            bound_ms=bms, bound_by=by, library_ms=None, equal=equal,
+            tolerance="bit-equal (0 ulp), to the plain version on a CPU "
+                      "copy and on the card",
+            shape={"label": label, "B": B, "T": T, "D": D}))
+    emit({"phase": "lm_kernels", "rows": rows})
+    if failed:
+        raise PhaseFailed(f"rg_lru_scan differs from its plain version at "
+                          f"{failed}")
+    return rows
+
+
+def _n_rg(cfg) -> int:
+    return sum(kinds[0] == "rg" for kinds in cfg.layers)
+
+
+def _requests(prompts, max_new):
+    return [serve_engine.Request(prompt=np.asarray(p), max_new=m)
+            for p, m in zip(prompts, max_new)]
+
+
+def phase_lm_check():
+    """SMOKE serving in fp32 and bf16 against the committed JAX
+    reference."""
+    with open(os.path.join(HERE, "src", "repro_torch", "data",
+                           "lm_reference.json")) as f:
+        ref = json.load(f)
+    prompts = [q["prompt"] for q in ref["requests"]]
+    max_new = [q["max_new"] for q in ref["requests"]]
+    results, failed = {}, []
+    for dtype, r in ref["variants"].items():
+        cfg = get_smoke_config(ref["arch"]).scaled(dtype=dtype)
+        params = convert.lm_params_from_jax(
+            convert.numpy_params(cfg, ref["weights_seed"]), cfg, "cuda")
+        eng = serve_engine.ServeEngine(cfg, params, batch=ref["batch"],
+                                       s_max=ref["s_max"], device="cuda")
+        ops.reset_launch_counts()
+        done = eng.run(_requests(prompts, max_new))
+        launches = ops.launch_counts()["rg_lru_scan"]
+        calls = eng.stats["admissions"] + eng.stats["decode_steps"]
+        tokens = [q.out.tolist() for q in done]
+        solo = eng.run(_requests(prompts[:1], max_new[:1]))[0].out.tolist()
+        ops.reset_launch_counts()
+        tf = serve_engine.teacher_forced_logits(
+            cfg, params, prompts[0], r["tokens"][0], ref["t_pad"],
+            ref["s_max"])
+        tf_launches = ops.launch_counts()["rg_lru_scan"]
+        err = max_abs_err(tf, torch.tensor(r["teacher_forced_logits"]))
+        res = dict(
+            tokens_equal=tokens == r["tokens"], solo_equal=solo == tokens[0],
+            teacher_forced_max_abs_err=err, tolerance=LM_TOL[dtype],
+            finite=bool(torch.isfinite(tf).all()),
+            launches=launches, forward_calls=calls,
+            expected_launches=_n_rg(cfg) * calls,
+            teacher_forced_launches=tf_launches,
+            teacher_forced_expected=_n_rg(cfg) * (len(r["tokens"][0]) + 1))
+        ok = (res["solo_equal"] and res["finite"] and err <= LM_TOL[dtype]
+              and launches == res["expected_launches"]
+              and tf_launches == res["teacher_forced_expected"]
+              and (res["tokens_equal"] or dtype != "float32"))
+        if not ok:
+            failed.append(dtype)
+        results[dtype] = res
+    emit({"phase": "lm_check", "arch": ref["arch"], "config": "SMOKE",
+          "runs": results})
+    if failed:
+        raise PhaseFailed(f"LM serving differs from the JAX reference: "
+                          f"{failed}")
+
+
+def _full_width_requests(cfg, n=8, lo=16, hi=512, max_new=32):
+    rng = np.random.default_rng(0)
+    lens = rng.integers(lo, hi + 1, n)
+    return _requests([rng.integers(0, cfg.vocab_size, int(k)) for k in lens],
+                     [max_new] * n)
+
+
+def phase_lm_serve():
+    """recurrentgemma-2b at full width: serve 8 requests."""
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = lm.init_params(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = serve_engine.ServeEngine(cfg, params, batch=4, s_max=1024,
+                                   device="cuda")
+    eng.run(_requests([np.arange(16)] * 2, [2, 2]))          # warm-up
+
+    captured, finite = {}, []
+    real_scan, real_greedy = ops.rg_lru_scan, sampling.greedy
+
+    def capture(a, b, h0=None):
+        if not captured:
+            captured.update(a=a.clone(), b=b.clone(),
+                            h0=None if h0 is None else h0.clone())
+        return real_scan(a, b, h0)
+
+    def checked(logits):
+        finite.append(torch.isfinite(logits).all())
+        return real_greedy(logits)
+
+    reqs = _full_width_requests(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.rg_lru_scan, sampling.greedy = capture, checked
+    ops.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ops.rg_lru_scan, sampling.greedy = real_scan, real_greedy
+    launches = ops.launch_counts()["rg_lru_scan"]
+    peak = torch.cuda.max_memory_allocated()
+    st = eng.stats
+    calls = st["admissions"] + st["decode_steps"]
+    n_tok = sum(r.out.shape[0] for r in done)
+    decode_tok = n_tok - st["admissions"]
+
+    a, b, h0 = captured["a"], captured["b"], captured["h0"]
+    if h0 is None:
+        h0 = a.new_zeros((a.shape[0], a.shape[2]))
+    layer0_equal = bit_equal(krg.rg_lru_scan(a, b, h0),
+                             kref.rg_lru_scan(a, b, h0))
+    all_finite = bool(torch.stack(finite).all())
+    n_params = lm.param_count(params)
+    emit({"phase": "lm_serve", "arch": LM_ARCH, "dtype": cfg.dtype,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab_size, "params": n_params,
+          "param_bytes": sum(w.numel() * w.element_size()
+                             for w in params.parameters()),
+          "init_s": init_s, "requests": len(done), "batch": eng.batch,
+          "s_max": eng.s_max,
+          "prompt_lens": [int(r.prompt.shape[0]) for r in done],
+          "padded_prompt_len": st["prompt_tokens"] // st["admissions"],
+          "tokens": n_tok, "wall_s": wall,
+          "admissions": st["admissions"], "prefill_s": st["prefill_s"],
+          "prefill_tokens_per_s": st["prompt_tokens"] / st["prefill_s"],
+          "decode_steps": st["decode_steps"], "decode_s": st["decode_s"],
+          "decode_ms_per_step": st["decode_s"] / st["decode_steps"] * 1e3,
+          "decode_tokens_per_s": decode_tok / st["decode_s"],
+          "tokens_per_s": n_tok / wall,
+          "max_memory_allocated_bytes": peak,
+          "rg_lru_scan_launches": launches,
+          "expected_launches": _n_rg(cfg) * calls,
+          "all_logits_finite": all_finite,
+          "layer0_scan_shape": list(a.shape),
+          "layer0_scan_bit_equal": layer0_equal})
+    if not (all_finite and layer0_equal
+            and launches == _n_rg(cfg) * calls):
+        raise PhaseFailed("full-width serving failed its gates")
+    return params, launches
+
+
+def phase_lm_profile(params):
+    """Device time by kernel over a short full-width serving run (4
+    requests of 128 tokens, 8 new tokens each), and the device's idle
+    share: 1 - device busy time (torch.profiler, device activity only)
+    over the wall of the same run unprofiled."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config(LM_ARCH)
+    eng = serve_engine.ServeEngine(cfg, params, batch=4, s_max=1024,
+                                   device="cuda")
+    reqs = lambda: _requests([np.arange(128) % cfg.vocab_size] * 4, [8] * 4)
+    eng.run(reqs())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(reqs())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run(reqs())
+        torch.cuda.synchronize()
+        wall_profiled = time.perf_counter() - t0
+    rows = sorted(((us, k, c) for k, us, c in device_kernel_events(prof)),
+                  reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    emit({"phase": "lm_profile", "wall_s": wall,
+          "wall_profiled_s": wall_profiled, "stats": eng.stats,
+          "device_busy_s": busy_us * 1e-6 if rows else None,
+          "device_idle_share": (1.0 - busy_us * 1e-6 / wall) if rows
+          else None,
+          "top": [dict(name=k[:90], device_ms=us * 1e-3, calls=c)
+                  for us, k, c in rows[:15]]})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -434,11 +693,18 @@ def main() -> int:
         phase_check()
         launches = phase_timed(sp8)
         phase_profile(sp8)
+        del sp8                  # so that the LM's peak memory is its own
+        torch.cuda.empty_cache()
+        lm_rows = phase_lm_kernels()
+        phase_lm_check()
+        params, lm_launches = phase_lm_serve()
+        phase_lm_profile(params)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     for r in rows:
         r["launches"] = launches[r["name"]]
+    rows.append(dict(lm_rows[0], launches=lm_launches))   # prefill shape
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -453,11 +719,16 @@ def main() -> int:
 if __name__ == "__main__":
     sys.path.insert(0, os.path.join(HERE, "src"))
     import torch
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import (EngineConfig, GridConfig, StepProgram,
                                   engine, observables)
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import izhikevich as kizh
     from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import rg_lru as krg
     from repro_torch.kernels import segment_sum as kseg
     from repro_torch.kernels import stdp as kstdp
+    from repro_torch.models import convert, lm
+    from repro_torch.serve import engine as serve_engine
+    from repro_torch.serve import sampling
     sys.exit(main())

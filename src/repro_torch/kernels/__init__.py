@@ -1,4 +1,5 @@
-"""Kernels of the dense DPSNN-STDP step: CUDA wrappers (`izhikevich`,
-`stdp`, `segment_sum`, built by `_build` from `csrc/`), their plain
-PyTorch versions (`ref`) and the device dispatch (`ops`).  Nothing here
-imports triton or builds a kernel at import time."""
+"""Kernels of the port: CUDA wrappers (`izhikevich`, `stdp`, `segment_sum`
+for the DPSNN-STDP step, `rg_lru` for the RG-LRU scan of the LM; built by
+`_build` from `csrc/`), their plain PyTorch versions (`ref`) and the device
+dispatch (`ops`).  Nothing here imports triton or builds a kernel at
+import time."""

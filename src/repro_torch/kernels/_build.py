@@ -40,6 +40,7 @@ SIGNATURES = {
     "repro_stdp_arrival": [_P] * 8 + [_I64] + [_F] * 6 + [_P],
     "repro_stdp_ltp": [_P] * 6 + [_I64] + [_F] * 6 + [_P],
     "repro_segment_sum_ordered": [_P] * 3 + [_I64] * 3 + [_P],
+    "repro_rg_lru_scan": [_P] * 4 + [_I64] * 3 + [_P],
 }
 
 _lib = None

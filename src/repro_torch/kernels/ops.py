@@ -15,11 +15,15 @@ import torch
 
 from . import izhikevich as _izh
 from . import ref
+from . import rg_lru as _rg
 from . import segment_sum as _seg
 from . import stdp as _stdp
 
-KERNELS = ("izhikevich_update", "stdp_arrival", "stdp_ltp",
-           "segment_sum_ordered")
+#: The kernels of the DPSNN-STDP step, and of the LM's RG-LRU layers.
+SNN_KERNELS = ("izhikevich_update", "stdp_arrival", "stdp_ltp",
+               "segment_sum_ordered")
+LM_KERNELS = ("rg_lru_scan",)
+KERNELS = SNN_KERNELS + LM_KERNELS
 
 
 def _route(x: torch.Tensor, name: str) -> bool:
@@ -72,12 +76,24 @@ def segment_sum_ordered(contrib, seg: ref.Segments):
     return ref.segment_sum_ordered(contrib, seg)
 
 
+def rg_lru_scan(a, b, h0=None):
+    """h_t = a_t * h_{t-1} + b_t.  a, b [B, T, D] fp32; h0 [B, D] or None
+    (zeros) -> h [B, T, D]."""
+    if h0 is None:
+        h0 = a.new_zeros((a.shape[0], a.shape[2]))
+    if _route(a, "rg_lru_scan"):
+        return _rg.rg_lru_scan(a, b, h0)
+    with ref.flush_denormal():
+        return ref.rg_lru_scan(a, b, h0)
+
+
 def launch_counts() -> dict:
     """Launches of each kernel since the last reset."""
     return {"izhikevich_update": _izh.launches,
             "stdp_arrival": _stdp.launches["stdp_arrival"],
             "stdp_ltp": _stdp.launches["stdp_ltp"],
-            "segment_sum_ordered": _seg.launches}
+            "segment_sum_ordered": _seg.launches,
+            "rg_lru_scan": _rg.launches}
 
 
 def reset_launch_counts() -> None:
@@ -85,3 +101,4 @@ def reset_launch_counts() -> None:
     _stdp.launches["stdp_arrival"] = 0
     _stdp.launches["stdp_ltp"] = 0
     _seg.launches = 0
+    _rg.launches = 0

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of every kernel on the dense DPSNN-STDP path.
+"""Plain PyTorch versions of every kernel of the port: the dense
+DPSNN-STDP path, and the RG-LRU scan of the LM (`rg_lru_scan`, last).
 
 These are the port's counterparts of `repro.kernels.ref` and of the sorted
 `jax.ops.segment_sum` in `repro.core.engine.phase_a_dynamics`.  On a CPU
@@ -206,3 +207,20 @@ def segment_sum_ordered(contrib: torch.Tensor,
     for k in range(seg.max_fan_in):
         acc = acc + rows[:, k]
     return acc
+
+
+def rg_lru_scan(a: torch.Tensor, b: torch.Tensor,
+                h0: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernels.rg_lru: h_t = a_t * h_{t-1} + b_t.
+
+    a, b [B, T, D] fp32, h0 [B, D] fp32 -> h [B, T, D].  A sequential loop
+    over T, a multiply then an add (two roundings, no FMA): what the Pallas
+    body (`repro/kernels/rg_lru.py::_kernel`) computes, and what
+    `csrc/rg_lru.cu` computes bit for bit.  (The JAX package's CPU oracle
+    is an associative scan, equal to this to about 1e-5.)"""
+    out = torch.empty_like(a)
+    h = h0
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        out[:, t] = h
+    return out

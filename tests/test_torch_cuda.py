@@ -91,10 +91,47 @@ def test_main_path_on_card_equals_cpu_port(cuda):
                          device=dev)
         ops.reset_launch_counts()
         state, raster, _ = sp.run(sp.init_state(), 0, 60)
-        counts = ops.launch_counts()
+        counts = {k: ops.launch_counts()[k] for k in ops.SNN_KERNELS}
         runs[dev] = (observables.raster_signature(
             raster.cpu().numpy(), sp.plan.gid.cpu().numpy()),
             sp.weight_signature(state), counts)
     assert runs["cuda"][:2] == runs["cpu"][:2]
-    assert runs["cpu"][2] == dict.fromkeys(ops.KERNELS, 0)
-    assert runs["cuda"][2] == dict.fromkeys(ops.KERNELS, 60)
+    assert runs["cpu"][2] == dict.fromkeys(ops.SNN_KERNELS, 0)
+    assert runs["cuda"][2] == dict.fromkeys(ops.SNN_KERNELS, 60)
+
+
+@pytest.mark.parametrize("shape", [(1, 512, 2560), (4, 1, 2560), (3, 100, 96),
+                                   (2, 0, 8)])
+def test_rg_lru_scan_equals_plain_version(cuda, shape):
+    rng = np.random.default_rng(sum(shape))
+    B, T, D = shape
+    a = torch.from_numpy(rng.uniform(0.5, 0.999, shape).astype(np.float32))
+    b = torch.from_numpy((rng.standard_normal(shape) * 0.1).astype(
+        np.float32))
+    h0 = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32))
+    ops.reset_launch_counts()
+    got = ops.rg_lru_scan(a.to(cuda), b.to(cuda), h0.to(cuda))
+    assert _bits_equal(got, ops.rg_lru_scan(a, b, h0))
+    assert ops.launch_counts()["rg_lru_scan"] == (1 if T else 0)
+
+
+def test_lm_serving_on_card_equals_cpu_port(cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import convert
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = get_smoke_config("recurrentgemma-2b").scaled(dtype="float32")
+    tree = convert.numpy_params(cfg, 0)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (24, 3, 17)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = convert.lm_params_from_jax(tree, cfg, dev)
+        eng = ServeEngine(cfg, params, batch=2, s_max=48, device=dev)
+        ops.reset_launch_counts()
+        done = eng.run([Request(prompt=p, max_new=6) for p in prompts])
+        calls = eng.stats["admissions"] + eng.stats["decode_steps"]
+        out[dev] = ([r.out.tolist() for r in done],
+                    ops.launch_counts()["rg_lru_scan"], calls)
+    assert out["cuda"][0] == out["cpu"][0]
+    assert out["cpu"][1] == 0
+    assert out["cuda"][1] == 4 * out["cuda"][2]

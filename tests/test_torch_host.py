@@ -160,6 +160,16 @@ sp = StepProgram(GridConfig(neurons_per_column=50, synapses_per_neuron=10),
                  EngineConfig(), device="cpu")
 state, raster, tm = sp.run(sp.init_state(), 0, 1)
 assert raster.shape == (1, 1, 50)
+import numpy as np
+import repro_torch.launch.serve, repro_torch.models, repro_torch.serve
+from repro_torch.configs import get_smoke_config
+from repro_torch.models import lm
+from repro_torch.serve.engine import Request, ServeEngine
+cfg = get_smoke_config("recurrentgemma-2b")
+eng = ServeEngine(cfg, lm.init_params(cfg, device="cpu"), batch=1, s_max=16,
+                  device="cpu")
+done = eng.run([Request(prompt=np.arange(5), max_new=2)])
+assert done[0].out.shape == (2,)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad

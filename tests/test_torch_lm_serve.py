@@ -1,0 +1,259 @@
+"""The port's `recurrentgemma-2b` serving path as a whole, at SMOKE size.
+
+The machine with the card has no JAX, so `chip_smoke.py` holds the port's
+serving run against `src/repro_torch/data/lm_reference.json`: for SMOKE in
+fp32 and in bf16, the numpy seed of the weights (`convert.numpy_params`,
+cast to the model dtype on both sides by round-to-nearest-even), four
+requests, the JAX package's greedy tokens from `ServeEngine(batch=2,
+s_max=48)`, and the teacher-forced logits of request 0 (the slot prefill,
+then one decode step per reference token).  Request 0 has the longest
+prompt (24 tokens) and 12 new tokens, so its positions reach 35 and the
+32-slot local-attention ring wraps; the others are short, so their slot is
+refilled while request 0 decodes.  The reference is run on the CPU with
+`XLA_FLAGS=--xla_cpu_max_isa=AVX`, in subprocesses.  The first test below
+regenerates it and compares (tokens equal, logits within 1e-6), so it
+cannot go stale.  To rewrite it:
+
+    python tests/test_torch_lm_serve.py --write
+
+Tolerances: fp32 logits within 2e-4 of JAX and greedy tokens equal; bf16
+teacher-forced logits within 0.1 (about twice the gap between the bf16 and
+the fp32 model on the same weights).
+"""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from test_torch_reference import ROOT, SRC, AVX_FLAG, run_avx  # noqa: E402
+
+sys.path.insert(0, str(SRC))         # also when run as a script
+
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.models import convert  # noqa: E402
+from repro_torch.serve import engine as tengine  # noqa: E402
+
+REF_PATH = SRC / "repro_torch" / "data" / "lm_reference.json"
+ARCH = "recurrentgemma-2b"
+WEIGHTS_SEED = 0
+REQUESTS_SEED = 1
+PROMPT_LENS = (24, 3, 17, 9)
+MAX_NEW = (12, 4, 5, 6)
+BATCH, S_MAX = 2, 48
+VARIANTS = ("float32", "bfloat16")
+TOL = {"float32": 2e-4, "bfloat16": 0.1}
+
+
+def make_requests(vocab: int):
+    rng = np.random.default_rng(REQUESTS_SEED)
+    return [dict(prompt=rng.integers(0, vocab, n).tolist(), max_new=m)
+            for n, m in zip(PROMPT_LENS, MAX_NEW)]
+
+
+def jax_variant(dtype: str) -> dict:
+    """The reference of one dtype (call inside an AVX subprocess)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_smoke_config as jax_smoke
+    from repro.models import lm as jlm
+    from repro.serve.engine import Request, ServeEngine
+
+    jc = jax_smoke(ARCH).scaled(dtype=dtype)
+    tree = convert.numpy_params(get_smoke_config(ARCH).scaled(dtype=dtype),
+                                WEIGHTS_SEED)
+    shapes = jax.eval_shape(lambda k: jlm.init_params(jc, k),
+                            jax.random.key(0))
+    params = jax.tree.map(lambda x, s: jnp.asarray(x).astype(s.dtype), tree,
+                          shapes)
+    reqs = make_requests(jc.vocab_size)
+    done = ServeEngine(jc, params, batch=BATCH, s_max=S_MAX).run(
+        [Request(prompt=np.asarray(r["prompt"], np.int32),
+                 max_new=r["max_new"]) for r in reqs])
+    tokens = [r.out.tolist() for r in done]
+
+    step = jax.jit(lambda p, c, t: jlm.decode_step(jc, p, c, t))
+    t_pad = max(PROMPT_LENS)
+    toks = np.zeros((1, t_pad), np.int32)
+    toks[0, t_pad - PROMPT_LENS[0]:] = reqs[0]["prompt"]
+    logits, cache = step(params, jlm.init_cache(jc, 1, S_MAX),
+                         jnp.asarray(toks))
+    rows = [logits[0, -1]]
+    for tok in tokens[0]:
+        logits, cache = step(params, cache, jnp.asarray([[tok]], jnp.int32))
+        rows.append(logits[0, 0])
+    tf = np.asarray(jnp.stack(rows).astype(jnp.float32))
+    return dict(dtype=dtype, tokens=tokens,
+                teacher_forced_logits=[[float(x) for x in row]
+                                       for row in tf])
+
+
+def build_reference() -> dict:
+    outs = run_avx(__file__, [["--variant", v] for v in VARIANTS])
+    return dict(
+        source="JAX package (repro.serve.engine.ServeEngine and "
+               "repro.models.lm.decode_step), on the CPU with "
+               f"XLA_FLAGS={AVX_FLAG}",
+        arch=ARCH, config="SMOKE", weights_seed=WEIGHTS_SEED,
+        weights="repro_torch.models.convert.numpy_params(cfg, "
+                "weights_seed), cast to the model dtype",
+        batch=BATCH, s_max=S_MAX, t_pad=max(PROMPT_LENS),
+        requests=make_requests(get_smoke_config(ARCH).vocab_size),
+        variants={v: json.loads(o.strip().splitlines()[-1])
+                  for v, o in zip(VARIANTS, outs)})
+
+
+@pytest.fixture(scope="module")
+def reference():
+    return json.loads(REF_PATH.read_text())
+
+
+def _port(dtype: str, ref):
+    cfg = get_smoke_config(ARCH).scaled(dtype=dtype)
+    params = convert.lm_params_from_jax(
+        convert.numpy_params(cfg, ref["weights_seed"]), cfg, "cpu")
+    return cfg, params
+
+
+def _serve(cfg, params, reqs):
+    eng = tengine.ServeEngine(cfg, params, batch=BATCH, s_max=S_MAX,
+                              device="cpu")
+    done = eng.run([tengine.Request(prompt=np.asarray(r["prompt"]),
+                                    max_new=r["max_new"]) for r in reqs])
+    return [r.out.tolist() for r in done], eng.stats
+
+
+def test_committed_lm_reference_is_current():
+    committed = json.loads(REF_PATH.read_text())
+    fresh = build_reference()
+    for v in VARIANTS:
+        c, f = committed["variants"].pop(v), fresh["variants"].pop(v)
+        assert c["tokens"] == f["tokens"], v
+        np.testing.assert_allclose(f["teacher_forced_logits"],
+                                   c["teacher_forced_logits"], rtol=0,
+                                   atol=1e-6)
+    assert committed == fresh
+
+
+def test_serve_fp32_greedy_tokens_equal_jax(reference):
+    cfg, params = _port("float32", reference)
+    ops.reset_launch_counts()
+    tokens, stats = _serve(cfg, params, reference["requests"])
+    assert tokens == reference["variants"]["float32"]["tokens"]
+    assert stats["admissions"] == 4 and stats["decode_steps"] > 0
+    assert ops.launch_counts()["rg_lru_scan"] == 0   # the CPU: no kernel
+
+
+@pytest.mark.parametrize("dtype", VARIANTS)
+def test_teacher_forced_logits_equal_jax(reference, dtype):
+    cfg, params = _port(dtype, reference)
+    ref = reference["variants"][dtype]
+    req = reference["requests"][0]
+    got = tengine.teacher_forced_logits(cfg, params, req["prompt"],
+                                        ref["tokens"][0],
+                                        reference["t_pad"], S_MAX)
+    want = np.asarray(ref["teacher_forced_logits"], np.float32)
+    assert got.shape == want.shape == (req["max_new"] + 1, cfg.vocab_size)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL[dtype])
+    if dtype == "float32":
+        assert got[:-1].argmax(-1).tolist() == ref["tokens"][0]
+
+
+def test_refill_does_not_change_a_live_slot(reference):
+    """Request 0 decodes while its companion's slot is refilled twice; its
+    tokens equal its solo run's."""
+    cfg, params = _port("float32", reference)
+    reqs = reference["requests"]
+    together, stats = _serve(cfg, params, reqs)
+    solo, _ = _serve(cfg, params, reqs[:1])
+    assert together[0] == solo[0]
+    assert stats["admissions"] == len(reqs)
+
+
+def test_temperature_sampling_draws_from_the_top_k(reference):
+    from repro_torch.serve import sampling
+    logits = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (3, 512)).astype(np.float32))
+    gen = torch.Generator().manual_seed(0)
+    top = torch.topk(logits, 5, dim=-1).indices
+    for _ in range(20):
+        tok = sampling.temperature(gen, logits, temp=0.7, top_k=5)
+        assert tok.shape == (3,)
+        assert all(int(t) in top[i].tolist() for i, t in enumerate(tok))
+    cold = sampling.temperature(gen, logits, temp=1e-9)
+    assert torch.equal(cold, sampling.greedy(logits))
+    cfg, params = _port("float32", reference)
+    eng = tengine.ServeEngine(cfg, params, batch=2, s_max=S_MAX,
+                              greedy=False, seed=3, device="cpu")
+    reqs = reference["requests"][:3]
+    outs = [r.out for r in eng.run(
+        [tengine.Request(prompt=np.asarray(r["prompt"]),
+                         max_new=r["max_new"]) for r in reqs])]
+    assert [o.shape[0] for o in outs] == [r["max_new"] for r in reqs]
+    assert all(((o >= 0) & (o < cfg.vocab_size)).all() for o in outs)
+
+
+def test_no_hidden_fallback_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the no-card refusal is not testable")
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    cfg = get_smoke_config(ARCH)
+    params = lm.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tengine.ServeEngine(cfg, params, batch=1, s_max=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", ARCH, "--smoke", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init_params(cfg)
+    # a CUDA tensor reaches the kernel, which cannot build here: it raises
+    # rather than run the plain version
+    with FakeTensorMode():
+        a = torch.empty(1, 4, 8, device="cuda")
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            ops.rg_lru_scan(a, a)
+    assert ops.launch_counts()["rg_lru_scan"] == 0
+
+
+def _cli(*args):
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *args], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=300)
+
+
+def test_cli_serves_smoke_on_cpu():
+    out = _cli("--arch", ARCH, "--smoke", "--device", "cpu", "--requests",
+               "3", "--max-new", "4")
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "[serve] 3 requests, 12 tokens" in out.stdout
+    assert "3 slot prefills" in out.stdout
+
+
+def test_cli_refuses_unported_arch():
+    out = _cli("--arch", "rwkv6-1.6b", "--smoke", "--device", "cpu")
+    assert out.returncode != 0
+    assert "ROADMAP queue 1 item 13" in out.stderr
+
+
+def _main(argv):
+    if argv[:1] == ["--variant"]:
+        print(json.dumps(jax_variant(argv[1])))
+    elif argv[:1] == ["--write"]:
+        REF_PATH.write_text(json.dumps(build_reference()) + "\n")
+        print(f"wrote {REF_PATH}")
+    else:
+        raise SystemExit(f"usage: {sys.argv[0]} --write | --variant DTYPE")
+
+
+if __name__ == "__main__":
+    _main(sys.argv[1:])
