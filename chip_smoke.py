@@ -6,7 +6,8 @@ Drives the port only (it imports neither jax nor the JAX package) and
 prints one JSON line per phase:
 
   card     the card's name and power limit (nvidia-smi), torch's name;
-  build    nvcc builds the five kernels from `src/repro_torch/csrc`;
+  build    nvcc builds the kernels from `src/repro_torch/csrc` (one nvcc
+           per source, all at once);
   kernels  each kernel on numpy-seeded inputs at the 8x8 main-path shapes
            (E = 12.8 M synapses, N = 64,000 neurons), bit-equal to its
            plain PyTorch version on a CPU copy of the inputs (and the
@@ -31,6 +32,17 @@ Then the LM serving path (`recurrentgemma-2b`, `repro_torch.serve`):
               (1, 512, 2560), decode (4, 1, 2560) and a tail (3, 100, 96)
               shape, bit-equal to its plain version on a CPU copy and on
               the card, timed beside its plain version and its bound;
+  attn_kernels  the port's `kernels.ops.attention` (the hand-written
+              blockwise attention kernel) at six shapes: RecurrentGemma-2B's
+              local attention (10 query heads over 1 KV head of 256, window
+              2048, bf16) at a 2048-token prefill, a 4096-token prefill and
+              batch-4 decode, and fp32, softcap and ragged bidirectional
+              shapes.  One call per shape with the launch counts reset
+              before and read after; each output within 2e-5 (fp32) / one
+              bf16 ulp (bf16: rtol 2^-7, atol 1e-4) of the plain version on
+              a CPU copy and on the card;
+              timed beside the plain version, its bound, and
+              `scaled_dot_product_attention` at the same shape and scale;
   lm_check    SMOKE size, fp32 and bf16, weights from the numpy seed of
               the committed JAX reference
               (`src/repro_torch/data/lm_reference.json`): `ServeEngine`
@@ -51,11 +63,11 @@ Then the LM serving path (`recurrentgemma-2b`, `repro_torch.serve`):
   lm_profile  device time by kernel and the device's idle share over a
               short serving run at full width.
 
-Then the `{"kernels": [...]}` line (launches from the timed SNN run and
-from the lm_serve run) and, last, `{"ok": true, "device": {...}}`.  Any
-failed phase exits non-zero before that line.  Without a CUDA device, or
-without the rest of the repository beside it, it exits non-zero and prints
-no result.
+Then the `{"kernels": [...]}` line (launches from the timed SNN run, from
+the lm_serve run, and from attn_kernels' one call per shape) and, last,
+`{"ok": true, "device": {...}}`.  Any failed phase exits non-zero before
+that line.  Without a CUDA device, or without the rest of the repository
+beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -71,11 +83,35 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (data sheet)
 PEAK_FP32_PER_S = 67e12        # H100 SXM fp32, outside the tensor cores
+PEAK_BF16_PER_S = 989e12       # H100 SXM bf16, dense tensor cores
 MAIN_STEPS = 500
 LM_ARCH = "recurrentgemma-2b"
 LM_SCAN_SHAPES = (("prefill", (1, 512, 2560)), ("decode", (4, 1, 2560)),
                   ("tail", (3, 100, 96)))
 LM_TOL = {"float32": 2e-4, "bfloat16": 0.1}
+# attn_kernels: B x heads query heads over B x kv_heads KV heads (repeated
+# to B x heads before the call).  Tolerances (rtol, atol): fp32 that of
+# tests/test_kernels.py; bf16 one bf16 ulp of the output, since the kernel
+# and the plain version both compute in fp32 and round once at the output
+# (a typical |o| at these shapes is about 0.03, so 2e-2 would pass a kernel
+# that drops a whole kv tile)
+RG_LOCAL = dict(heads=10, kv_heads=1, D=256, dtype="bfloat16", causal=True,
+                window=2048, softcap=None, qk_scale=1.0)
+ATTN_SHAPES = (
+    ("rg_local_prefill", dict(RG_LOCAL, B=1, T=2048, S=2048)),
+    ("rg_local_long", dict(RG_LOCAL, B=1, T=4096, S=4096)),
+    ("rg_local_decode", dict(RG_LOCAL, B=4, T=1, S=2048)),
+    ("fp32_causal", dict(B=1, heads=16, kv_heads=16, T=1024, S=1024, D=128,
+                         dtype="float32", causal=True, window=None,
+                         softcap=None, qk_scale=1.0)),
+    ("softcap", dict(B=1, heads=8, kv_heads=8, T=512, S=512, D=128,
+                     dtype="bfloat16", causal=True, window=256, softcap=50.0,
+                     qk_scale=4.0)),
+    ("bidir_ragged", dict(B=1, heads=3, kv_heads=3, T=100, S=300, D=80,
+                          dtype="float32", causal=False, window=64,
+                          softcap=None, qk_scale=1.0)),
+)
+ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2.0 ** -7, 1e-4)}
 
 
 class PhaseFailed(RuntimeError):
@@ -147,11 +183,12 @@ def device_ms(fn, calls: int = 10) -> float:
     return sum(us for _, us, _ in rows) * 1e-3 / calls if rows else None
 
 
-def bound(n_bytes: float, n_flops: float):
+def bound(n_bytes: float, n_flops: float,
+          peak_flops: float = PEAK_FP32_PER_S):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
-    fp32 operations over the fp32 peak."""
+    operations over `peak_flops` (the fp32 peak unless given)."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_flops / PEAK_FP32_PER_S * 1e3
+    t_ops = n_flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -499,6 +536,130 @@ def phase_lm_kernels():
     return rows
 
 
+def _attn_inputs(rng, c):
+    """numpy-seeded fp32 q [BH, T, D] and k, v [B * kv_heads, S, D], cast
+    to the row's dtype and the KV heads repeated to BH (GQA)."""
+    bh, g = c["B"] * c["heads"], c["heads"] // c["kv_heads"]
+    dtype = getattr(torch, c["dtype"])
+    f = lambda shape, scale: torch.from_numpy(
+        (rng.standard_normal(shape) * scale).astype(np.float32)).to(dtype)
+    q = f((bh, c["T"], c["D"]), c["qk_scale"])
+    kv_shape = (c["B"] * c["kv_heads"], c["S"], c["D"])
+    k = f(kv_shape, c["qk_scale"]).repeat_interleave(g, 0).contiguous()
+    v = f(kv_shape, 1.0).repeat_interleave(g, 0).contiguous()
+    return q, k, v
+
+
+def _attn_mask(c):
+    """The [T, S] visibility mask of the contract (kernels.ref.attention)."""
+    T, S = c["T"], c["S"]
+    q_pos = torch.arange(T)[:, None] + (S - T)
+    k_pos = torch.arange(S)[None, :]
+    mask = torch.ones((T, S), dtype=torch.bool)
+    if c["causal"]:
+        mask &= k_pos <= q_pos
+    if c["window"] is not None:
+        mask &= k_pos > q_pos - c["window"]
+    return mask
+
+
+def _within(got, want, tol) -> bool:
+    rtol, atol = tol
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+
+
+def _sdpa(q, k, v, c, mask, scale):
+    """(fn, how) for scaled_dot_product_attention at the same function, or
+    (None, reason).  PyTorch's is_causal aligns the mask top-left, the
+    contract bottom-right (q_pos = i + S - T): is_causal only where the
+    two agree, an explicit boolean mask otherwise."""
+    import torch.nn.functional as F
+    if c["softcap"] is not None:
+        return None, "no PyTorch call applies a logit softcap"
+    q4, k4, v4 = q[None], k[None], v[None]
+    if bool(mask.all()):
+        kw, how = {}, "no mask (every key visible)"
+    elif c["T"] == c["S"] and torch.equal(mask, torch.ones_like(mask).tril()):
+        kw, how = dict(is_causal=True), "is_causal=True"
+    else:
+        kw, how = dict(attn_mask=mask.cuda()), "explicit boolean mask"
+    return (lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale,
+                                                   **kw)[0]), how
+
+
+def phase_attn_kernels():
+    """The blockwise attention kernel through `ops.attention` at six shapes:
+    one call each with the launch counts reset before and read after, then
+    each output against the plain version and the kernel timed."""
+    rng = np.random.default_rng(13)
+    cases = []
+    for label, c in ATTN_SHAPES:
+        cpu = _attn_inputs(rng, c)
+        cases.append((label, c, cpu, tuple(x.cuda() for x in cpu)))
+    kw = lambda c: dict(causal=c["causal"], window=c["window"],
+                        softcap=c["softcap"])
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    outs = [ops.attention(*gpu, **kw(c)) for _, c, _, gpu in cases]
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["flash_attention"]
+    rows, failed = [], []
+    for (label, c, cpu, gpu), got in zip(cases, outs):
+        tol = ATTN_TOL[c["dtype"]]
+        want_cpu = kref.attention(*cpu, **kw(c))
+        want_gpu = kref.attention(*gpu, **kw(c))
+        ok = (got.dtype == gpu[0].dtype and bool(torch.isfinite(got).all())
+              and _within(got, want_cpu, tol) and _within(got, want_gpu, tol))
+        err = max(max_abs_err(got, want_cpu), max_abs_err(got, want_gpu))
+        del want_cpu
+        if not ok:
+            failed.append(label)
+        scale = c["D"] ** -0.5
+        kkw = dict(kw(c), scale=scale)
+        mask = _attn_mask(c)
+        bh = c["B"] * c["heads"]
+        pairs = bh * int(mask.sum())
+        peak = PEAK_BF16_PER_S if c["dtype"] == "bfloat16" else PEAK_FP32_PER_S
+        bms, by = bound(nbytes(*gpu) + nbytes(got), 4 * c["D"] * pairs, peak)
+        lib, how = _sdpa(*gpu, c, mask, scale)
+        lib_err = max_abs_err(lib(), want_gpu) if lib else None
+        rows.append(dict(
+            name="flash_attention", route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:92",
+            launches=None,
+            max_abs_err=err,
+            ms=cuda_ms(lambda: kfa.flash_attention(*gpu, **kkw)),
+            device_ms=device_ms(lambda: kfa.flash_attention(*gpu, **kkw)),
+            plain_ms=cuda_ms(lambda: kref.attention(*gpu, **kw(c)), calls=3),
+            bound_ms=bms, bound_by=by,
+            library_ms=cuda_ms(lib) if lib else None,
+            library_call=("torch.nn.functional.scaled_dot_product_attention, "
+                          + how) if lib else None,
+            library_max_abs_err=lib_err,
+            library_note=None if lib else how, within_tolerance=ok,
+            tolerance=f"rtol = {tol[0]}, atol = {tol[1]} against the plain "
+                      f"version on a CPU copy and on the card",
+            visible_pairs=pairs, flops=4 * c["D"] * pairs,
+            bytes=nbytes(*gpu) + nbytes(got),
+            shape=dict(label=label, BH=bh, T=c["T"], S=c["S"], D=c["D"],
+                       dtype=c["dtype"], causal=c["causal"],
+                       window=c["window"], softcap=c["softcap"],
+                       kv_heads=c["B"] * c["kv_heads"])))
+        del want_gpu
+    emit({"phase": "attn_kernels", "launches": launches, "rows": rows})
+    del cases, outs
+    torch.cuda.empty_cache()
+    if launches != len(ATTN_SHAPES):
+        raise PhaseFailed(f"ops.attention launched the kernel {launches} "
+                          f"times for {len(ATTN_SHAPES)} calls")
+    if failed:
+        raise PhaseFailed(f"flash_attention differs from its plain version "
+                          f"at {failed}")
+    return rows, launches
+
+
 def _n_rg(cfg) -> int:
     return sum(kinds[0] == "rg" for kinds in cfg.layers)
 
@@ -696,6 +857,7 @@ def main() -> int:
         del sp8                  # so that the LM's peak memory is its own
         torch.cuda.empty_cache()
         lm_rows = phase_lm_kernels()
+        attn_rows, attn_launches = phase_attn_kernels()
         phase_lm_check()
         params, lm_launches = phase_lm_serve()
         phase_lm_profile(params)
@@ -705,6 +867,7 @@ def main() -> int:
     for r in rows:
         r["launches"] = launches[r["name"]]
     rows.append(dict(lm_rows[0], launches=lm_launches))   # prefill shape
+    rows.append(dict(attn_rows[0], launches=attn_launches))  # rg_local_prefill
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -723,6 +886,7 @@ if __name__ == "__main__":
     from repro_torch.core import (EngineConfig, GridConfig, StepProgram,
                                   engine, observables)
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import izhikevich as kizh
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels import rg_lru as krg

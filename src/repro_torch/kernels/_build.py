@@ -41,6 +41,8 @@ SIGNATURES = {
     "repro_stdp_ltp": [_P] * 6 + [_I64] + [_F] * 6 + [_P],
     "repro_segment_sum_ordered": [_P] * 3 + [_I64] * 3 + [_P],
     "repro_rg_lru_scan": [_P] * 4 + [_I64] * 3 + [_P],
+    "repro_flash_attention": [_P] * 4 + [_I64] * 4 + [ctypes.c_int] * 2
+    + [_I64, _F, _F, _P],
 }
 
 _lib = None

@@ -13,17 +13,20 @@ from __future__ import annotations
 
 import torch
 
+from . import flash_attention as _fa
 from . import izhikevich as _izh
 from . import ref
 from . import rg_lru as _rg
 from . import segment_sum as _seg
 from . import stdp as _stdp
 
-#: The kernels of the DPSNN-STDP step, and of the LM's RG-LRU layers.
+#: The kernels of the DPSNN-STDP step, of the LM's RG-LRU layers, and of
+#: the `attention` entry point (which no model of the port calls).
 SNN_KERNELS = ("izhikevich_update", "stdp_arrival", "stdp_ltp",
                "segment_sum_ordered")
 LM_KERNELS = ("rg_lru_scan",)
-KERNELS = SNN_KERNELS + LM_KERNELS
+ATTN_KERNELS = ("flash_attention",)
+KERNELS = SNN_KERNELS + LM_KERNELS + ATTN_KERNELS
 
 
 def _route(x: torch.Tensor, name: str) -> bool:
@@ -87,13 +90,55 @@ def rg_lru_scan(a, b, h0=None):
         return ref.rg_lru_scan(a, b, h0)
 
 
+def attention(q, k, v, *, causal=True, window=None, softcap=None,
+              scale=None):
+    """Blockwise attention: q [BH, T, D], k/v [BH, S, D] -> o [BH, T, D]
+    in q's dtype (fp32 or bf16 on the card, D <= 256).  GQA: repeat the KV
+    heads to BH before the call.
+
+    The contract, the JAX package's `repro.kernels.ops.attention` without
+    its TPU tiling (`block_q`, `block_k`) and test plumbing (`use_pallas`,
+    `interpret`):
+
+    * queries are the last T of S positions (q_pos = i + S - T, k_pos = j);
+    * `causal`: a query sees k_pos <= q_pos;
+    * `window` (>= 1): a query sees k_pos > q_pos - window, also when not
+      causal (the window is one-sided);
+    * `softcap` (> 0): scores become softcap * tanh(s / softcap);
+    * `scale` defaults to D ** -0.5, applied after the product.
+
+    Causal with T > S raises ValueError: the first T - S rows would see no
+    key, and there the JAX package's kernel (which writes 0) and its oracle
+    (which writes the mean of v) disagree."""
+    bh, t, d = q.shape
+    s_len = k.shape[1]
+    if tuple(k.shape) != (bh, s_len, d) or v.shape != k.shape:
+        raise ValueError(f"attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}: expected "
+                         f"[BH, T, D] and [BH, S, D] twice")
+    if causal and t > s_len:
+        raise ValueError(f"attention: causal with T > S ({t} > {s_len}): "
+                         f"the first {t - s_len} query rows see no key")
+    if window is not None and window < 1:
+        raise ValueError(f"attention: window {window} < 1 sees no key")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"attention: softcap {softcap} is not > 0")
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              scale=(d ** -0.5) if scale is None else scale)
+    if _route(q, "attention"):
+        return _fa.flash_attention(q, k, v, **kw)
+    with ref.flush_denormal():
+        return ref.attention(q, k, v, **kw)
+
+
 def launch_counts() -> dict:
     """Launches of each kernel since the last reset."""
     return {"izhikevich_update": _izh.launches,
             "stdp_arrival": _stdp.launches["stdp_arrival"],
             "stdp_ltp": _stdp.launches["stdp_ltp"],
             "segment_sum_ordered": _seg.launches,
-            "rg_lru_scan": _rg.launches}
+            "rg_lru_scan": _rg.launches,
+            "flash_attention": _fa.launches}
 
 
 def reset_launch_counts() -> None:
@@ -102,3 +147,4 @@ def reset_launch_counts() -> None:
     _stdp.launches["stdp_ltp"] = 0
     _seg.launches = 0
     _rg.launches = 0
+    _fa.launches = 0

@@ -1,13 +1,14 @@
 """Plain PyTorch versions of every kernel of the port: the dense
-DPSNN-STDP path, and the RG-LRU scan of the LM (`rg_lru_scan`, last).
+DPSNN-STDP path, the RG-LRU scan of the LM (`rg_lru_scan`) and blockwise
+attention (`attention`, last).
 
 These are the port's counterparts of `repro.kernels.ref` and of the sorted
 `jax.ops.segment_sum` in `repro.core.engine.phase_a_dynamics`.  On a CPU
 tensor `kernels.ops` runs them; on a CUDA tensor it launches the
 hand-written kernels under `csrc/`, which are held bit-for-bit against
-these functions.  They are written to give the same bits as the JAX
-reference jitted on the CPU under `XLA_FLAGS=--xla_cpu_max_isa=AVX`
-(no FMA contraction):
+these functions (attention within a tolerance).  They are written to give
+the same bits as the JAX reference jitted on the CPU under
+`XLA_FLAGS=--xla_cpu_max_isa=AVX` (no FMA contraction):
 
 * every fp32 operation runs in the reference's order, with fp32
   literals (0-dim float32 tensors, never Python doubles);
@@ -19,6 +20,9 @@ reference jitted on the CPU under `XLA_FLAGS=--xla_cpu_max_isa=AVX`
   segment sum computes;
 * XLA-CPU flushes denormals; run these inside `flush_denormal()` on the
   CPU (the engine does).
+
+`rg_lru_scan` and `attention` agree with the JAX package within a
+tolerance, not bit for bit (see their docstrings).
 """
 from __future__ import annotations
 
@@ -224,3 +228,35 @@ def rg_lru_scan(a: torch.Tensor, b: torch.Tensor,
         h = a[:, t] * h + b[:, t]
         out[:, t] = h
     return out
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              softcap: Optional[float] = None,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version of kernels.flash_attention: q [BH, T, D], k/v [BH, S,
+    D] -> o [BH, T, D] in q's dtype.
+
+    Step for step `repro/kernels/ref.py::attention`: fp32 products, the
+    scale applied after them, softcap, absolute positions q_pos = i + (S -
+    T) and k_pos = j, the causal mask k_pos <= q_pos and the window mask
+    k_pos > q_pos - window (one-sided, also when not causal), masked
+    scores set to -1e30, a softmax, the product with v, a cast.  The kernel
+    agrees with it within 2e-5 (fp32) and one bf16 ulp (bf16): it sums in
+    another order, tile by tile, in fp32, and rounds once at the output."""
+    t, d = q.shape[1], q.shape[2]
+    s_len = k.shape[1]
+    scale = (d ** -0.5) if scale is None else scale
+    s = torch.einsum("btd,bsd->bts", q.to(F32), k.to(F32)) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = torch.arange(t, device=q.device)[:, None] + (s_len - t)
+    k_pos = torch.arange(s_len, device=q.device)[None, :]
+    mask = torch.ones((t, s_len), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    s = s.masked_fill(~mask[None], -1.0e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bts,bsd->btd", p, v.to(F32)).to(q.dtype)

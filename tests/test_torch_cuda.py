@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card (skipped without one).
 
 Each kernel is held bit for bit against its plain PyTorch version on a CPU
-copy of the same inputs, and a short main-path run on the card against the
-CPU port.  Run on a machine with an NVIDIA GPU and nvcc:
+copy of the same inputs (attention within 2e-5 fp32 / one bf16 ulp of its
+plain version on the card), and a short main-path run on the card against
+the CPU port.  Run on a machine with an NVIDIA GPU and nvcc:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -135,3 +136,31 @@ def test_lm_serving_on_card_equals_cpu_port(cuda):
     assert out["cuda"][0] == out["cpu"][0]
     assert out["cpu"][1] == 0
     assert out["cuda"][1] == 4 * out["cuda"][2]
+
+
+@pytest.mark.parametrize("case", [
+    # (BH, T, S, D, dtype, causal, window, softcap): three of chip_smoke.py's
+    # attn_kernels shapes at reduced BH
+    (2, 2048, 2048, 256, torch.bfloat16, True, 2048, None),
+    (2, 1024, 1024, 128, torch.float32, True, None, None),
+    (3, 100, 300, 80, torch.float32, False, 64, None),
+    # rows of 40 bytes: the kernel's element-wise tile loads
+    (2, 70, 90, 20, torch.bfloat16, True, 33, 30.0),
+], ids=["rg_local_prefill", "fp32_causal", "bidir_ragged", "odd_rows"])
+def test_flash_attention_equals_plain_version(cuda, case):
+    BH, T, S, D, dtype, causal, window, softcap = case
+    rng = np.random.default_rng(T + S + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal((BH, n, D)).astype(
+        np.float32)).to(dtype) for n in (T, S, S))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    ops.reset_launch_counts()
+    got = ops.attention(q.to(cuda), k.to(cuda), v.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = ref.attention(q.to(cuda), k.to(cuda), v.to(cuda), **kw)
+    # both compute in fp32 and round once: bf16 within one ulp of the output
+    bf16 = dtype == torch.bfloat16
+    rtol, atol = (2.0 ** -7, 1e-4) if bf16 else (2e-5, 2e-5)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float().cpu(), want.float().cpu(),
+                               rtol=rtol, atol=atol)
