@@ -8,6 +8,10 @@ prints one JSON line per phase:
   card     the card's name and power limit (nvidia-smi), torch's name;
   build    nvcc builds the kernels from `src/repro_torch/csrc` (one nvcc
            per source, all at once);
+  attn_sass  `-Xptxas -v` of the bf16 prefill and the decode attention
+           sources (registers, spills) and the count of wgmma (HGMMA) and
+           TMA load (UTMALDG) instructions in the prefill kernel's SASS
+           (`cuobjdump`); fails if either is missing;
   kernels  each kernel on numpy-seeded inputs at the 8x8 main-path shapes
            (E = 12.8 M synapses, N = 64,000 neurons), bit-equal to its
            plain PyTorch version on a CPU copy of the inputs (and the
@@ -32,17 +36,21 @@ Then the LM serving path (`recurrentgemma-2b`, `repro_torch.serve`):
               (1, 512, 2560), decode (4, 1, 2560) and a tail (3, 100, 96)
               shape, bit-equal to its plain version on a CPU copy and on
               the card, timed beside its plain version and its bound;
-  attn_kernels  the port's `kernels.ops.attention` (the hand-written
-              blockwise attention kernel) at six shapes: RecurrentGemma-2B's
-              local attention (10 query heads over 1 KV head of 256, window
-              2048, bf16) at a 2048-token prefill, a 4096-token prefill and
-              batch-4 decode, and fp32, softcap and ragged bidirectional
-              shapes.  One call per shape with the launch counts reset
-              before and read after; each output within 2e-5 (fp32) / one
-              bf16 ulp (bf16: rtol 2^-7, atol 1e-4) of the plain version on
-              a CPU copy and on the card;
-              timed beside the plain version, its bound, and
-              `scaled_dot_product_attention` at the same shape and scale;
+  attn_kernels  the port's `kernels.ops.attention` (three hand-written
+              attention kernels, picked by `kernels.flash_attention.variant`:
+              "wgmma" for bf16 prefill, "splitkv" for T < 64, "simt" for
+              the rest) at seven shapes: RecurrentGemma-2B's local attention
+              (10 query heads over 1 KV head of 256, window 2048, bf16) at a
+              2048-token prefill, a 4096-token prefill, batch-4 decode and a
+              ragged 1000-token prefill, and fp32, softcap and ragged
+              bidirectional shapes.  One call per shape with the launch
+              counts reset before and read after; each row names the kernel
+              the call took (`variant`), which must be the one the rule
+              names; each output within 2e-5 (fp32) / one bf16 ulp (bf16:
+              rtol 2^-7, atol 1e-4) of the plain version on a CPU copy and
+              on the card; timed beside the plain version, its bound, and
+              `scaled_dot_product_attention` at the same shape and scale
+              (events and device time);
   lm_check    SMOKE size, fp32 and bf16, weights from the numpy seed of
               the committed JAX reference
               (`src/repro_torch/data/lm_reference.json`): `ServeEngine`
@@ -110,7 +118,17 @@ ATTN_SHAPES = (
     ("bidir_ragged", dict(B=1, heads=3, kv_heads=3, T=100, S=300, D=80,
                           dtype="float32", causal=False, window=64,
                           softcap=None, qk_scale=1.0)),
+    ("rg_local_ragged", dict(RG_LOCAL, B=1, T=1000, S=1000)),
 )
+# each attention kernel's source, and the one `kernels.flash_attention.
+# variant` must pick for each shape
+ATTN_SOURCES = {"wgmma": "src/repro_torch/csrc/flash_attention_sm90.cu",
+                "splitkv": "src/repro_torch/csrc/flash_decode.cu",
+                "simt": "src/repro_torch/csrc/flash_attention.cu"}
+ATTN_VARIANTS = {"rg_local_prefill": "wgmma", "rg_local_long": "wgmma",
+                 "rg_local_decode": "splitkv", "fp32_causal": "simt",
+                 "softcap": "wgmma", "bidir_ragged": "simt",
+                 "rg_local_ragged": "wgmma"}
 ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2.0 ** -7, 1e-4)}
 
 
@@ -223,6 +241,19 @@ def phase_build():
     _build.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": os.path.relpath(path, HERE)})
+
+
+def phase_attn_sass():
+    """What ptxas says of the bf16 prefill and the decode attention sources
+    (registers, spills), and the prefill kernel's wgmma (HGMMA) and TMA
+    load (UTMALDG) instructions in its SASS, where a disassembler is."""
+    reports = [_build.inspect(name) for name in ("flash_attention_sm90.cu",
+                                                 "flash_decode.cu")]
+    emit({"phase": "attn_sass", "reports": reports})
+    counts = reports[0]["sass_counts"]
+    if counts is not None and not (counts["HGMMA"] and counts["UTMALDG"]):
+        raise PhaseFailed(f"flash_attention_sm90.cu's SASS lacks wgmma or "
+                          f"TMA loads: {counts}")
 
 
 def _kernel_inputs(rng, E: int, N: int, t: float):
@@ -589,9 +620,10 @@ def _sdpa(q, k, v, c, mask, scale):
 
 
 def phase_attn_kernels():
-    """The blockwise attention kernel through `ops.attention` at six shapes:
-    one call each with the launch counts reset before and read after, then
-    each output against the plain version and the kernel timed."""
+    """The attention kernels through `ops.attention` at seven shapes: one
+    call each with the launch counts reset before and read after, the kernel
+    each call took against the rule's, then each output against the plain
+    version and the kernel timed."""
     rng = np.random.default_rng(13)
     cases = []
     for label, c in ATTN_SHAPES:
@@ -601,11 +633,22 @@ def phase_attn_kernels():
                         softcap=c["softcap"])
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    outs = [ops.attention(*gpu, **kw(c)) for _, c, _, gpu in cases]
+    outs, taken = [], []
+    for _, c, _, gpu in cases:
+        before = dict(kfa.variant_launches)
+        outs.append(ops.attention(*gpu, **kw(c)))
+        taken.append([k for k, n in kfa.variant_launches.items()
+                      if n != before[k]])
     torch.cuda.synchronize()
     launches = ops.launch_counts()["flash_attention"]
+    variant_launches = dict(kfa.variant_launches)
     rows, failed = [], []
-    for (label, c, cpu, gpu), got in zip(cases, outs):
+    for (label, c, cpu, gpu), got, kinds in zip(cases, outs, taken):
+        rule = kfa.variant(gpu[0].dtype, c["T"], c["S"], c["D"], all(
+            x.data_ptr() % 16 == 0 for x in gpu))
+        kind = kinds[0] if len(kinds) == 1 else None
+        if kind != rule or kind != ATTN_VARIANTS[label]:
+            failed.append(f"{label} took {kinds}, the rule names {rule}")
         tol = ATTN_TOL[c["dtype"]]
         want_cpu = kref.attention(*cpu, **kw(c))
         want_gpu = kref.attention(*gpu, **kw(c))
@@ -624,17 +667,24 @@ def phase_attn_kernels():
         bms, by = bound(nbytes(*gpu) + nbytes(got), 4 * c["D"] * pairs, peak)
         lib, how = _sdpa(*gpu, c, mask, scale)
         lib_err = max_abs_err(lib(), want_gpu) if lib else None
+        ms = cuda_ms(lambda: kfa.flash_attention(*gpu, **kkw))
+        dev_ms = device_ms(lambda: kfa.flash_attention(*gpu, **kkw))
+        lib_ms = cuda_ms(lib) if lib else None
+        lib_dev_ms = device_ms(lib) if lib else None
         rows.append(dict(
             name="flash_attention", route="cuda",
-            source="src/repro_torch/csrc/flash_attention.cu",
+            source=ATTN_SOURCES[rule], variant=kind,
             replaces="src/repro/kernels/flash_attention.py:92",
             launches=None,
             max_abs_err=err,
-            ms=cuda_ms(lambda: kfa.flash_attention(*gpu, **kkw)),
-            device_ms=device_ms(lambda: kfa.flash_attention(*gpu, **kkw)),
+            ms=ms, device_ms=dev_ms,
             plain_ms=cuda_ms(lambda: kref.attention(*gpu, **kw(c)), calls=3),
             bound_ms=bms, bound_by=by,
-            library_ms=cuda_ms(lib) if lib else None,
+            library_ms=lib_ms, library_device_ms=lib_dev_ms,
+            ms_over_library=ms / lib_ms if lib else None,
+            device_ms_over_library=(dev_ms / lib_dev_ms
+                                    if lib and dev_ms and lib_dev_ms
+                                    else None),
             library_call=("torch.nn.functional.scaled_dot_product_attention, "
                           + how) if lib else None,
             library_max_abs_err=lib_err,
@@ -648,7 +698,8 @@ def phase_attn_kernels():
                        window=c["window"], softcap=c["softcap"],
                        kv_heads=c["B"] * c["kv_heads"])))
         del want_gpu
-    emit({"phase": "attn_kernels", "launches": launches, "rows": rows})
+    emit({"phase": "attn_kernels", "launches": launches,
+          "variant_launches": variant_launches, "rows": rows})
     del cases, outs
     torch.cuda.empty_cache()
     if launches != len(ATTN_SHAPES):
@@ -656,7 +707,8 @@ def phase_attn_kernels():
                           f"times for {len(ATTN_SHAPES)} calls")
     if failed:
         raise PhaseFailed(f"flash_attention differs from its plain version "
-                          f"at {failed}")
+                          f"or took another kernel than its rule's at "
+                          f"{failed}")
     return rows, launches
 
 
@@ -845,6 +897,7 @@ def main() -> int:
     try:
         phase_card()
         phase_build()
+        phase_attn_sass()
         t0 = time.perf_counter()
         sp8 = StepProgram(GridConfig(grid_x=8, grid_y=8), EngineConfig(),
                           device="cuda")

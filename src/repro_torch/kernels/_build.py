@@ -10,7 +10,12 @@ sources and flags, and is built at first use.
 The flags pin what the bits depend on, in one place for every kernel:
 `-fmad=false` (no multiply-add contraction: the JAX reference is held with
 FMA off), `-ftz=true` (fp32 denormals flush, as on XLA-CPU) and
-`-prec-div=true`; never `--use_fast_math`.
+`-prec-div=true`; never `--use_fast_math`.  A source may set flags of its
+own (`SOURCE_FLAGS`, each replacing the base flag of the same name): the
+tensor-core attention kernels, held to a tolerance and not to bit
+equality, contract multiply-adds.  Their TMA descriptors are encoded with
+the driver's `cuTensorMapEncodeTiled`, reached through the runtime's
+driver entry point, so the library links no `-lcuda`.
 
 A failed build raises; nothing falls back to the plain versions.
 """
@@ -29,6 +34,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-fmad=false", "-ftz=true",
                      "-prec-div=true", "-Xcompiler", "-fPIC"]
+#: Flags of one source (by file name); each replaces the NVCC_FLAGS entry
+#: of the same option name (nvcc refuses an option given twice).
+SOURCE_FLAGS = {"flash_attention_sm90.cu": ["-fmad=true"],
+                "flash_decode.cu": ["-fmad=true"]}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -42,6 +51,10 @@ SIGNATURES = {
     "repro_segment_sum_ordered": [_P] * 3 + [_I64] * 3 + [_P],
     "repro_rg_lru_scan": [_P] * 4 + [_I64] * 3 + [_P],
     "repro_flash_attention": [_P] * 4 + [_I64] * 4 + [ctypes.c_int] * 2
+    + [_I64, _F, _F, _P],
+    "repro_flash_attention_sm90": [_P] * 4 + [_I64] * 4 + [ctypes.c_int]
+    + [_I64, _F, _F, _P],
+    "repro_flash_decode": [_P] * 6 + [_I64] * 5 + [ctypes.c_int] * 2
     + [_I64, _F, _F, _P],
 }
 
@@ -60,12 +73,20 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
 
+def flags(source: Path) -> list:
+    """nvcc's flags for one source."""
+    own = SOURCE_FLAGS.get(source.name, [])
+    names = {f.split("=")[0] for f in own}
+    return [f for f in NVCC_FLAGS if f.split("=")[0] not in names] + own
+
+
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     srcs, hdrs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in srcs + hdrs:
         h.update(p.name.encode())
+        h.update(" ".join(flags(p)).encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"librepro_kernels_{h.hexdigest()[:16]}.so"
 
@@ -82,7 +103,7 @@ def build() -> Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / (s.stem + ".o") for s in srcs]
         procs = [subprocess.Popen(
-            [exe, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+            [exe, *flags(s), "-c", str(s), "-o", str(o)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for s, o in zip(srcs, objs)]
         logs = [p.communicate()[0] for p in procs]
@@ -99,6 +120,45 @@ def build() -> Path:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
         os.replace(tmp_lib, out)
     return out
+
+
+def inspect(name: str) -> dict:
+    """What ptxas and the disassembler say of one source: its `-Xptxas -v`
+    lines (registers, shared memory, spills per kernel) and, where
+    `cuobjdump` is found, how many SASS instructions are wgmma (HGMMA) and
+    TMA loads (UTMALDG) (None without a disassembler)."""
+    src = CSRC / name
+    exe = nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = Path(tmp) / (src.stem + ".cubin")
+        run = subprocess.run(
+            [exe, *[f for f in flags(src) if f not in ("-Xcompiler",
+                                                        "-fPIC")],
+             "-Xptxas", "-v", "-cubin", str(src), "-o", str(cubin)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if run.returncode != 0:
+            raise RuntimeError(f"nvcc -cubin failed:\n{run.stdout}")
+        # "Used N registers, ...", "N bytes stack frame, N bytes spill ..."
+        ptxas = [ln.strip() for ln in run.stdout.splitlines()
+                 if "entry function" in ln or "registers" in ln
+                 or "spill" in ln or "arning" in ln]
+        dis = shutil.which("cuobjdump") or str(Path(exe).with_name(
+            "cuobjdump"))
+        counts = None
+        if os.path.exists(dis):
+            sass = subprocess.run([dis, "-sass", str(cubin)],
+                                  stdout=subprocess.PIPE, text=True).stdout
+            # "/*0050*/  @P0 HGMMA.64x64x16.F32.BF16 R24, ... ;  /* 0x.. */"
+            ops = []
+            for ln in sass.splitlines():
+                words = ln.split("*/", 1)[-1].split()
+                if ln.strip().startswith("/*") and words:
+                    ops.append(words[1] if words[0].startswith("@")
+                               and len(words) > 1 else words[0])
+            counts = {op: sum(o.startswith(op) for o in ops)
+                      for op in ("HGMMA", "UTMALDG")}
+    return {"source": name, "ptxas": ptxas, "disassembler": dis
+            if counts is not None else None, "sass_counts": counts}
 
 
 def library() -> ctypes.CDLL:

@@ -148,3 +148,5 @@ def reset_launch_counts() -> None:
     _seg.launches = 0
     _rg.launches = 0
     _fa.launches = 0
+    for kind in _fa.variant_launches:
+        _fa.variant_launches[kind] = 0

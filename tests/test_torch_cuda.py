@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.core import (EngineConfig, GridConfig, StepProgram,
                               observables)
+from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import ops, ref
 
 pytestmark = pytest.mark.cuda
@@ -139,16 +140,22 @@ def test_lm_serving_on_card_equals_cpu_port(cuda):
 
 
 @pytest.mark.parametrize("case", [
-    # (BH, T, S, D, dtype, causal, window, softcap): three of chip_smoke.py's
+    # (BH, T, S, D, dtype, causal, window, softcap, kernel): chip_smoke.py's
     # attn_kernels shapes at reduced BH
-    (2, 2048, 2048, 256, torch.bfloat16, True, 2048, None),
-    (2, 1024, 1024, 128, torch.float32, True, None, None),
-    (3, 100, 300, 80, torch.float32, False, 64, None),
-    # rows of 40 bytes: the kernel's element-wise tile loads
-    (2, 70, 90, 20, torch.bfloat16, True, 33, 30.0),
-], ids=["rg_local_prefill", "fp32_causal", "bidir_ragged", "odd_rows"])
+    (2, 2048, 2048, 256, torch.bfloat16, True, 2048, None, "wgmma"),
+    (2, 1024, 1024, 128, torch.float32, True, None, None, "simt"),
+    (3, 100, 300, 80, torch.float32, False, 64, None, "simt"),
+    # rows of 40 bytes: the SIMT kernel's element-wise tile loads
+    (2, 70, 90, 20, torch.bfloat16, True, 33, 30.0, "simt"),
+    (4, 1, 2048, 256, torch.bfloat16, True, 2048, None, "splitkv"),
+    # every split of 128 keys but the last sees no key
+    (2, 1, 2048, 128, torch.float32, True, 100, None, "splitkv"),
+    # ragged q and kv tiles: TMA fills zeros past T and S
+    (2, 1000, 1000, 256, torch.bfloat16, True, 2048, None, "wgmma"),
+], ids=["rg_local_prefill", "fp32_causal", "bidir_ragged", "odd_rows",
+        "rg_local_decode", "decode_window_last_split", "rg_local_ragged"])
 def test_flash_attention_equals_plain_version(cuda, case):
-    BH, T, S, D, dtype, causal, window, softcap = case
+    BH, T, S, D, dtype, causal, window, softcap, kind = case
     rng = np.random.default_rng(T + S + D)
     q, k, v = (torch.from_numpy(rng.standard_normal((BH, n, D)).astype(
         np.float32)).to(dtype) for n in (T, S, S))
@@ -157,6 +164,7 @@ def test_flash_attention_equals_plain_version(cuda, case):
     got = ops.attention(q.to(cuda), k.to(cuda), v.to(cuda), **kw)
     torch.cuda.synchronize()
     assert ops.launch_counts()["flash_attention"] == 1
+    assert kfa.variant_launches[kind] == 1
     want = ref.attention(q.to(cuda), k.to(cuda), v.to(cuda), **kw)
     # both compute in fp32 and round once: bf16 within one ulp of the output
     bf16 = dtype == torch.bfloat16
