@@ -14,10 +14,17 @@ prints one JSON line per phase:
            (`cuobjdump`); fails if either is missing;
   kernels  each kernel on numpy-seeded inputs at the 8x8 main-path shapes
            (E = 12.8 M synapses, N = 64,000 neurons), bit-equal to its
-           plain PyTorch version on a CPU copy of the inputs (and the
-           ordered sum also to its plain version on the card), timed with
-           CUDA events beside its plain version, its memory/compute bound
-           and, for the ordered sum, `index_add_`;
+           plain PyTorch version on a CPU copy of the inputs (the ordered
+           sum and the STDP passes also to their plain versions on the
+           card), timed with CUDA events beside its plain version, its
+           memory/compute bound and, for the ordered sum, `index_add_`.
+           The two STDP passes run on the 8x8 plan's own synapse arrays
+           and row pointers, with the ring and spikes drawn at the main
+           path's density (2.15%) and at 10x it; they update their inputs
+           in place, so every timed call starts from restored inputs and
+           only the kernel is timed (events around it, profiler device
+           time by its own name), and their bound counts the bytes these
+           inputs make them move;
   check    the main path (`StepProgram(..., device="cuda").run`) at 4x4,
            full width, 150 steps, at H=1 block, H=4 block, H=4 scatter:
            raster and weight signatures equal to the committed AVX-pinned
@@ -28,7 +35,10 @@ prints one JSON line per phase:
            separate synchronised pass, rate, the paper's normalised metric,
            synaptic events/s, peak memory, raster signature, and a
            torch.profiler breakdown by kernel.
-  profile  device time by kernel over 20 steps of the 8x8 path.
+  profile  device time by kernel, device busy and idle share, and device
+           operations (kernels and copies) per step of the 8x8 path over
+           steps 0-19 (nearly silent) and over the timed run's 500 steps
+           (activity comes in bursts).
 
 Then the LM serving path (`recurrentgemma-2b`, `repro_torch.serve`):
 
@@ -93,6 +103,12 @@ PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (data sheet)
 PEAK_FP32_PER_S = 67e12        # H100 SXM fp32, outside the tensor cores
 PEAK_BF16_PER_S = 989e12       # H100 SXM bf16, dense tensor cores
 MAIN_STEPS = 500
+# kernels phase: the STDP passes' inputs flag this share of the valid
+# synapses and spike this share of the neurons (the 8x8 timed run's mean:
+# 275,342 arrivals a step among 12.8 M synapses, 21.52 Hz), and 10x it
+STDP_DENSITY = 0.0215
+STDP_REPLACES = {"stdp_arrival": "src/repro/kernels/stdp.py:57",
+                 "stdp_ltp": "src/repro/kernels/stdp.py:81"}
 LM_ARCH = "recurrentgemma-2b"
 LM_SCAN_SHAPES = (("prefill", (1, 512, 2560)), ("decode", (4, 1, 2560)),
                   ("tail", (3, 100, 96)))
@@ -188,17 +204,22 @@ def device_kernel_events(prof):
     return rows
 
 
-def device_ms(fn, calls: int = 10) -> float:
-    """The kernel's own device time per call in ms (torch.profiler)."""
+def device_ms(fn, calls: int = 10, restore=None, kernel: str = "") -> float:
+    """The device time per call in ms (torch.profiler) of the CUDA kernels
+    whose name holds `kernel` (all of fn's by default); `restore()` runs
+    before every call where fn updates its inputs in place."""
     from torch.profiler import ProfilerActivity, profile
+    restore = restore or (lambda: None)
+    restore()
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
+            restore()
             fn()
         torch.cuda.synchronize()
-    rows = device_kernel_events(prof)
-    return sum(us for _, us, _ in rows) * 1e-3 / calls if rows else None
+    rows = [us for k, us, _ in device_kernel_events(prof) if kernel in k]
+    return sum(rows) * 1e-3 / calls if rows else None
 
 
 def bound(n_bytes: float, n_flops: float,
@@ -256,53 +277,193 @@ def phase_attn_sass():
                           f"TMA loads: {counts}")
 
 
-def _kernel_inputs(rng, E: int, N: int, t: float):
-    """numpy-seeded inputs at the main-path shapes."""
+def _neuron_inputs(rng, N: int):
+    """numpy-seeded Izhikevich inputs at the main-path width."""
     f = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32))
-    b = lambda x: torch.from_numpy(np.ascontiguousarray(x, bool))
     exc = np.arange(N) % 5 != 4
-    neuron = dict(
+    return dict(
         v=f(rng.uniform(-80.0, 29.9, N)), u=f(rng.uniform(-20.0, 10.0, N)),
         current=f(rng.uniform(-10.0, 25.0, N)),
         a=f(np.where(exc, 0.02, 0.1)), b=f(np.full(N, 0.2)),
         c=f(np.full(N, -65.0)), d=f(np.where(exc, 8.0, 2.0)))
 
-    def times():
-        recent = rng.uniform(t - 200.0, t, E)
-        return f(np.where(rng.random(E) < 0.7, recent, engine.NEG_TIME))
-    synapse = dict(arr=b(rng.random(E) < 0.05), w=f(rng.uniform(0, 10, E)),
-                   last_post=times(), last_arr=times(),
-                   plastic=b(rng.random(E) < 0.8), post=b(rng.random(E) < 0.03),
-                   valid=b(rng.random(E) < 0.99))
-    return neuron, synapse
+
+def _stdp_state(rng, plan_cpu: dict, D: int, r: int, t: float,
+                density: float) -> dict:
+    """numpy-seeded dynamic inputs of the STDP passes on a plan's arrays
+    (CPU tensors): ring slot r flagged on `density` of the valid synapses
+    (as phase B flags them), `density` of the neurons spiking, weights in
+    [0, 10], last spike and arrival times within 200 steps or never."""
+    valid = plan_cpu["valid"].numpy()
+    H, E = valid.shape
+    N = plan_cpu["row_ptr"].shape[1] - 1
+    f = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32))
+
+    def times(shape):
+        return f(np.where(rng.random(shape) < 0.7,
+                          rng.uniform(t - 200.0, t, shape), engine.NEG_TIME))
+    ring = np.zeros((H, D, E), bool)
+    ring[:, r] = (rng.random((H, E)) < density) & valid
+    return dict(ring=torch.from_numpy(ring), last_post=times((H, N)),
+                w=f(rng.uniform(0.0, 10.0, (H, E))), last_arr=times((H, E)),
+                spiked=torch.from_numpy(rng.random((H, N)) < density))
 
 
-def phase_kernels(plan8, spec8):
-    """Each kernel against its plain version at the 8x8 shapes."""
+def _stdp_traffic(plan_cpu: dict, st: dict, r: int, half_neg: float):
+    """(arrival bytes, arrival flops, LTP bytes, LTP flops, counts): what
+    the two passes must move and compute on these inputs, each input byte
+    read once and each output byte written once, counting only the
+    synapses the data makes them touch (`csrc/stdp.cu`'s note)."""
+    valid, plastic = plan_cpu["valid"], plan_cpu["plastic"]
+    tgt, row_ptr = plan_cpu["tgt"], plan_cpu["row_ptr"]
+    H, E = valid.shape
+    N = row_ptr.shape[1] - 1
+    flags = st["ring"][:, r]
+    arr = flags & valid
+    lp = torch.gather(st["last_post"], 1, tgt)
+    arr_pl = arr & plastic
+    ltd = arr_pl & (lp > half_neg)
+    n = lambda m: int(m.sum())
+    # per synapse: ring flag in, contrib out; per flag: valid in, flag
+    # cleared; per arrival: plastic and w in, last_arr out; per plastic
+    # arrival: syn_tgt and last_post[tgt] in; per LTD: w out; n_arrived
+    a_bytes = (H * E * (1 + 4) + n(flags) * 2 + n(arr) * (1 + 4 + 4)
+               + n(arr_pl) * (8 + 4) + n(ltd) * 4 + H * 8)
+    row = kref.rows_of_synapses(row_ptr, E)
+    post = torch.cat([st["spiked"], st["spiked"].new_zeros(H, 1)],
+                     1).gather(1, row)
+    post_pl = post & plastic
+    ltp = post_pl & (st["last_arr"] > half_neg)
+    # per neuron: spiked in; per spiking neuron: its two row pointers in,
+    # last_post out; per synapse of a spiking target: plastic in; per
+    # plastic one: last_arr in; per LTP: w in and out
+    l_bytes = (H * N + n(st["spiked"]) * (8 + 4) + n(post) + n(post_pl) * 4
+               + n(ltp) * 8)
+    counts = dict(flagged=n(flags), arrivals=n(arr), ltd=n(ltd),
+                  spiking=n(st["spiked"]), synapses_of_spiking=n(post),
+                  ltp=n(ltp))
+    return a_bytes, n(ltd) * 25, l_bytes, n(ltp) * 25, counts
+
+
+def in_place_ms(fn, restore, calls: int = 20, warmup: int = 3) -> float:
+    """Time of one call of a kernel that updates its inputs, in ms: the
+    inputs restored before every call, CUDA events around the call alone;
+    the median of `calls`."""
+    for _ in range(warmup):
+        restore()
+        fn()
+    times = []
+    for _ in range(calls):
+        restore()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _stdp_rows(plan8, spec8):
+    """The two STDP passes on plan8's own arrays at the main path's density
+    (2.15% of the valid synapses arrive, 2.15% of the neurons spike) and at
+    10x it: bit-equal to the plain version on a CPU copy and on the card,
+    in every output and updated state tensor, and timed alone."""
+    stdp = spec8.stdp
     H, E = plan8.syn_valid.shape
-    N = plan8.gid.shape[1]
+    D = spec8.cfg.n_delay_slots
     t = 1000.0
-    rng = np.random.default_rng(2013)
-    neuron, syn = _kernel_inputs(rng, H * E, H * N, t)
-    # the main path's [H, N] / [H, E] layouts
-    neuron = {k: v.view(H, N) for k, v in neuron.items()}
-    syn = {k: v.view(H, E) for k, v in syn.items()}
-    izh, stdp = spec8.izh, spec8.stdp
-    cuda = lambda d: {k: v.cuda() for k, v in d.items()}
-    gn, gs = cuda(neuron), cuda(syn)
+    r = int(t) % D
+    half_neg = engine.NEG_TIME / 2
     ltd_kw = dict(a_minus=stdp.a_minus, tau_minus=stdp.tau_minus,
                   w_min=stdp.w_min, w_max=stdp.w_max,
                   neg_time=engine.NEG_TIME)
     ltp_kw = dict(a_plus=stdp.a_plus, tau_plus=stdp.tau_plus,
                   w_min=stdp.w_min, w_max=stdp.w_max,
                   neg_time=engine.NEG_TIME)
+    pg = dict(valid=plan8.syn_valid, tgt=plan8.syn_tgt,
+              plastic=plan8.syn_plastic, row_ptr=plan8.row_ptr)
+    pc = {k: v.cpu() for k, v in pg.items()}
+    rng = np.random.default_rng(2015)
+    rows, failed = [], []
+    for label, density in (("main", STDP_DENSITY), ("10x",
+                                                    10 * STDP_DENSITY)):
+        st = _stdp_state(rng, pc, D, r, t, density)
+        a_bytes, a_flops, l_bytes, l_flops, counts = _stdp_traffic(
+            pc, st, r, half_neg)
+        saved = {k: v.cuda() for k, v in st.items()}
+        work = {k: v.clone() for k, v in saved.items()}
+
+        def restore(*names):
+            for k in names:
+                src, dst = saved[k], work[k]
+                (dst[:, r] if k == "ring" else dst).copy_(
+                    src[:, r] if k == "ring" else src)
+
+        def arrival(impl, d, p):
+            contrib, n_arr = impl.stdp_arrival(
+                d["ring"], r, p["valid"], p["tgt"], p["plastic"],
+                d["last_post"], d["w"], d["last_arr"], t, **ltd_kw)
+            return contrib, n_arr, d["w"], d["last_arr"], d["ring"]
+
+        def ltp(impl, d, p):
+            impl.stdp_ltp(d["spiked"], p["row_ptr"], p["plastic"],
+                          d["last_arr"], d["w"], d["last_post"], t, **ltp_kw)
+            return d["w"], d["last_post"]
+
+        for name, fn, state, kname, n_bytes, n_flops in (
+                ("stdp_arrival", arrival, ("ring", "w", "last_arr"),
+                 "arrival_kernel", a_bytes, a_flops),
+                ("stdp_ltp", ltp, ("w", "last_post"), "ltp_kernel",
+                 l_bytes, l_flops)):
+            restore(*saved)
+            got = [x.clone() for x in fn(kstdp, work, pg)]
+            torch.cuda.synchronize()
+            cpu = {k: v.clone() for k, v in st.items()}
+            with kref.flush_denormal():
+                want = fn(kref, cpu, pc)
+            restore(*state)
+            want_gpu = fn(kref, work, pg)
+            equal = all(bit_equal(a, b) and bit_equal(a, c)
+                        for a, b, c in zip(got, want, want_gpu))
+            err = max(max(max_abs_err(a, b), max_abs_err(a, c))
+                      for a, b, c in zip(got, want, want_gpu))
+            if not equal:
+                failed.append(f"{name} ({label})")
+            bms, by = bound(n_bytes, n_flops)
+            launch = lambda: fn(kstdp, work, pg)
+            again = lambda: restore(*state)
+            rows.append(dict(
+                name=name, route="cuda", source="src/repro_torch/csrc/stdp.cu",
+                replaces=STDP_REPLACES[name], launches=None,
+                max_abs_err=err, ms=in_place_ms(launch, again),
+                device_ms=device_ms(launch, restore=again, kernel=kname),
+                plain_ms=in_place_ms(lambda: fn(kref, work, pg), again,
+                                     calls=3, warmup=1),
+                bound_ms=bms, bound_by=by, library_ms=None, equal=equal,
+                tolerance="bit-equal (every output and updated state "
+                          "tensor, 0 ulp), to the plain version on a CPU "
+                          "copy and on the card",
+                density=label, bytes=n_bytes, flops=n_flops,
+                shape={"H": H, "E": E, "D": D,
+                       "N": plan8.gid.shape[1], **counts}))
+        del saved, work
+    return rows, failed
+
+
+def phase_kernels(plan8, spec8):
+    """Each kernel against its plain version at the 8x8 shapes; returns the
+    rows of the `kernels` line (the STDP passes at the main density)."""
+    H, E = plan8.syn_valid.shape
+    N = plan8.gid.shape[1]
+    rng = np.random.default_rng(2013)
+    neuron = {k: v.view(H, N) for k, v in _neuron_inputs(rng, H * N).items()}
+    izh = spec8.izh
+    gn = {k: v.cuda() for k, v in neuron.items()}
     izh_kw = dict(v_peak=izh.v_peak, dt=izh.dt, substeps=izh.v_substeps)
     nargs = lambda d: (d["v"], d["u"], d["current"], d["a"], d["b"], d["c"],
                        d["d"])
-    aargs = lambda d: (d["arr"], d["w"], d["last_post"], d["last_arr"],
-                       d["plastic"], t)
-    largs = lambda d: (d["post"], d["w"], d["last_arr"], d["plastic"],
-                       d["valid"], t)
     contrib_cpu = torch.from_numpy(
         rng.uniform(-5.0, 10.0, (H, E)).astype(np.float32))
     contrib = contrib_cpu.cuda()
@@ -325,20 +486,6 @@ def phase_kernels(plan8, spec8):
                                                       **izh_kw),
              bytes=nbytes(*nargs(gn)) + H * N * (4 + 4 + 1),
              flops=H * N * 20, library=None),
-        dict(name="stdp_arrival", source="src/repro_torch/csrc/stdp.cu",
-             replaces="src/repro/kernels/stdp.py:57",
-             kernel=lambda: kstdp.stdp_arrival(*aargs(gs), **ltd_kw),
-             plain_gpu=lambda: kref.stdp_arrival(*aargs(gs), **ltd_kw),
-             plain_cpu=lambda: kref.stdp_arrival(*aargs(syn), **ltd_kw),
-             bytes=nbytes(*aargs(gs)[:5]) + H * E * 12,
-             flops=H * E * 25, library=None),
-        dict(name="stdp_ltp", source="src/repro_torch/csrc/stdp.cu",
-             replaces="src/repro/kernels/stdp.py:81",
-             kernel=lambda: kstdp.stdp_ltp(*largs(gs), **ltp_kw),
-             plain_gpu=lambda: kref.stdp_ltp(*largs(gs), **ltp_kw),
-             plain_cpu=lambda: kref.stdp_ltp(*largs(syn), **ltp_kw),
-             bytes=nbytes(*largs(gs)[:5]) + H * E * 4,
-             flops=H * E * 25, library=None),
         dict(name="segment_sum_ordered",
              source="src/repro_torch/csrc/segment_sum.cu",
              replaces="src/repro/core/engine.py:230",
@@ -376,11 +523,14 @@ def phase_kernels(plan8, spec8):
             equal=equal, tolerance="bit-equal (every output, 0 ulp)",
             shape={"E": H * E, "N": H * N,
                                 "synapses_summed": n_valid}))
+    stdp_rows, stdp_failed = _stdp_rows(plan8, spec8)
+    rows[1:1] = stdp_rows
+    failed += stdp_failed
     emit({"phase": "kernels", "rows": rows})
     if failed:
         raise PhaseFailed(f"kernels differ from their plain versions: "
                           f"{failed}")
-    return rows
+    return [r for r in rows if r.get("density", "main") == "main"]
 
 
 def _first_divergence(a: np.ndarray, b: np.ndarray):
@@ -495,26 +645,39 @@ def phase_timed(sp8):
 
 
 def phase_profile(sp8, n_steps: int = 20):
-    """Device time by kernel over a short steady window (torch.profiler)."""
+    """Device time by kernel over two windows (torch.profiler): the first
+    `n_steps` steps from the initial state, where the network is still
+    nearly silent, and the timed run's whole range, whose activity comes
+    in bursts: the STDP kernels' work follows the arrivals and spikes, so
+    only the whole run gives their mean."""
     from torch.profiler import ProfilerActivity, profile
     state0 = sp8.init_state()
-    sp8.run(state0, 0, n_steps)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sp8.run(state0, 0, n_steps)
+    windows = {}
+    for label, steps in (("first", n_steps), ("run", MAIN_STEPS)):
+        sp8.run(state0, 0, steps)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = sorted(((us, k, c) for k, us, c in device_kernel_events(prof)),
-                  reverse=True)
-    busy_us = sum(r[0] for r in rows)
-    emit({"phase": "profile", "steps": n_steps, "wall_s": wall,
-          "device_busy_s": busy_us * 1e-6 if rows else None,
-          "device_idle_share": (1.0 - busy_us * 1e-6 / wall) if rows
-          else None,
-          "top": [dict(name=k[:90], device_ms_per_step=us * 1e-3 / n_steps,
-                       calls=c) for us, k, c in rows[:15]]})
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            c0 = time.perf_counter()
+            _, _, tm = sp8.run(state0, 0, steps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - c0
+        rows = sorted(((us, k, c) for k, us, c in device_kernel_events(prof)),
+                      reverse=True)
+        busy_us = sum(r[0] for r in rows)
+        windows[label] = dict(
+            steps=steps, wall_s=wall,
+            arrivals_per_step=int(tm.arrivals.sum()) / steps,
+            spikes_per_step=int(tm.spikes.sum()) / steps,
+            device_busy_s=busy_us * 1e-6 if rows else None,
+            device_busy_ms_per_step=busy_us * 1e-3 / steps if rows
+            else None,
+            device_idle_share=(1.0 - busy_us * 1e-6 / wall) if rows
+            else None,
+            device_ops_per_step=sum(r[2] for r in rows) / steps,
+            top=[dict(name=k[:90], device_ms_per_step=us * 1e-3 / steps,
+                      calls=c) for us, k, c in rows[:15]])
+    emit({"phase": "profile", "windows": windows})
 
 
 # ----------------------------------------------------------------------------

@@ -26,8 +26,10 @@ would wrap, so every pad is masked explicitly.  Index tables are int64
 (what torch indexing takes).
 
 `run` leaves the state it is given untouched: it copies it once and then
-updates the copy's `arr_ring` in place each step (the phase functions of
-`make_step_fn` do that to the state they are given).
+updates the copy in place each step.  The phase functions of
+`make_step_fn` update the state they are given: phase A its `w`,
+`last_arr`, `last_post` and `arr_ring` (the STDP kernels write them in
+place, gathering by target themselves), phase B its `arr_ring`.
 """
 from __future__ import annotations
 
@@ -286,30 +288,27 @@ def phase_a_dynamics(spec: SimSpec, plan: ShardPlan, state: ShardState,
 
     `stim` is this step's (index, amp) row of `stimulus.stim_inputs`, `seg`
     the plan's `kref.make_segments(plan.row_ptr, E)`.
-    Returns (state', spiked [H, N], timings); `state'.last_post` is
-    untouched (plasticity owns it).  Clears ring slot t mod D in place."""
+    Returns (state', spiked [H, N], timings).  Updates `state.w`,
+    `state.last_arr` and `state.arr_ring` (slot t mod D cleared) in place,
+    so state' shares them; `last_post` is untouched (plasticity owns it)."""
     cfg, stdp = spec.cfg, spec.stdp
     r = t % cfg.n_delay_slots
 
-    arrivals = state.arr_ring[:, r] & plan.syn_valid               # [H, E]
-    # 2+3. fused arrival pass: current contributions (pre-LTD weights, in
-    # canonical (tgt, src, j) order => reproducible sum), LTD against the
-    # nearest post spike, last_arrival refresh.
-    lp = torch.gather(state.last_post, 1, plan.syn_tgt)
-    w, last_arr, contrib = kops.stdp_arrival(
-        arrivals, state.w, lp, state.last_arr, plan.syn_plastic, t,
-        a_minus=stdp.a_minus, tau_minus=stdp.tau_minus, w_min=stdp.w_min,
-        w_max=stdp.w_max, neg_time=NEG_TIME)
+    # 1-3. fused arrival pass: pop slot r, current contributions (pre-LTD
+    # weights, in canonical (tgt, src, j) order => reproducible sum), LTD
+    # against the nearest post spike, last_arrival refresh.
+    contrib, n_arrived = kops.stdp_arrival(
+        state.arr_ring, r, plan.syn_valid, plan.syn_tgt, plan.syn_plastic,
+        state.last_post, state.w, state.last_arr, t, a_minus=stdp.a_minus,
+        tau_minus=stdp.tau_minus, w_min=stdp.w_min, w_max=stdp.w_max,
+        neg_time=NEG_TIME)
     i_syn = kops.segment_sum_ordered(contrib, seg)
-    state.arr_ring[:, r] = False
 
     # 4+5. stimulus + Izhikevich
     v, u, spiked = neuron_update(spec, plan, state, i_syn, stim)
 
-    new = ShardState(v=v, u=u, last_post=state.last_post, w=w,
-                     last_arr=last_arr, arr_ring=state.arr_ring)
-    tm = StepTimings(spikes=spiked.sum(1), arrivals=arrivals.sum(1))
-    return new, spiked, tm
+    tm = StepTimings(spikes=spiked.sum(1), arrivals=n_arrived)
+    return state._replace(v=v, u=u), spiked, tm
 
 
 def neuron_update(spec: SimSpec, plan: ShardPlan, state: ShardState,
@@ -337,23 +336,23 @@ def phase_a_plasticity(spec: SimSpec, plan: ShardPlan, state: ShardState,
                        spiked: torch.Tensor, t: int) -> ShardState:
     """Phase A step 6: LTP for incoming synapses of spiking neurons.
 
-    dW = +a_plus * exp((last_arrival - t) / tau_plus), dt >= 0."""
+    dW = +a_plus * exp((last_arrival - t) / tau_plus), dt >= 0.  Updates
+    `state.w` and `state.last_post` (t where spiked) in place and returns
+    `state`."""
     stdp = spec.stdp
-    post = torch.gather(spiked, 1, plan.syn_tgt)
-    w = kops.stdp_ltp(post, state.w, state.last_arr, plan.syn_plastic,
-                      plan.syn_valid, t, a_plus=stdp.a_plus,
-                      tau_plus=stdp.tau_plus, w_min=stdp.w_min,
-                      w_max=stdp.w_max, neg_time=NEG_TIME)
-    last_post = torch.where(spiked, kref.f32(t, spiked.device),
-                            state.last_post)
-    return state._replace(w=w, last_post=last_post)
+    kops.stdp_ltp(spiked, plan.row_ptr, plan.syn_plastic, state.last_arr,
+                  state.w, state.last_post, t, a_plus=stdp.a_plus,
+                  tau_plus=stdp.tau_plus, w_min=stdp.w_min, w_max=stdp.w_max,
+                  neg_time=NEG_TIME)
+    return state
 
 
 def phase_a(spec: SimSpec, plan: ShardPlan, state: ShardState, t: int,
             stim, seg: kref.Segments
             ) -> Tuple[ShardState, torch.Tensor, StepTimings]:
     """Local dynamics: arrivals -> currents -> LTD -> neuron -> LTP.
-    Returns (state', spiked [H, N] bool, timings)."""
+    Returns (state', spiked [H, N] bool, timings).  Updates the state's
+    w, last_arr, last_post and arr_ring in place (v and u are new)."""
     state, spiked, tm = phase_a_dynamics(spec, plan, state, t, stim, seg)
     state = phase_a_plasticity(spec, plan, state, spiked, t)
     return state, spiked, tm

@@ -46,8 +46,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "repro_izhikevich_update": [_P] * 10 + [_I64, _F, _F, _F, ctypes.c_int,
                                             _P],
-    "repro_stdp_arrival": [_P] * 8 + [_I64] + [_F] * 6 + [_P],
-    "repro_stdp_ltp": [_P] * 6 + [_I64] + [_F] * 6 + [_P],
+    "repro_stdp_arrival": [_P] * 10 + [_I64] * 5 + [_F] * 6 + [_P],
+    "repro_stdp_ltp": [_P] * 6 + [_I64] * 3 + [_F] * 6 + [_P],
     "repro_segment_sum_ordered": [_P] * 3 + [_I64] * 3 + [_P],
     "repro_rg_lru_scan": [_P] * 4 + [_I64] * 3 + [_P],
     "repro_flash_attention": [_P] * 4 + [_I64] * 4 + [ctypes.c_int] * 2
@@ -194,5 +194,13 @@ def require(name: str, dtype, shape, **tensors) -> None:
         if not x.is_contiguous():
             raise ValueError(f"{name}: {arg} is not contiguous")
         devices.add(x.device)
+    if len(devices) > 1:
+        raise ValueError(f"{name}: tensors on several devices {devices}")
+
+
+def one_device(name: str, *tensors) -> None:
+    """Raise unless every tensor lies on one device (a kernel's arguments
+    checked by several `require` calls)."""
+    devices = {x.device for x in tensors}
     if len(devices) > 1:
         raise ValueError(f"{name}: tensors on several devices {devices}")

@@ -48,28 +48,36 @@ def izhikevich_update(v, u, current, a, b, c, d, *, v_peak, dt=1.0,
         return ref.izhikevich_update(v, u, current, a, b, c, d, **kw)
 
 
-def stdp_arrival(arr, w, last_post_g, last_arr, plastic, t, *, a_minus,
-                 tau_minus, w_min, w_max, neg_time):
-    """[E] tensors + step t -> (w', last_arr', contrib)."""
+def stdp_arrival(arr_ring, r, syn_valid, syn_tgt, syn_plastic, last_post,
+                 w, last_arr, t, *, a_minus, tau_minus, w_min, w_max,
+                 neg_time):
+    """Pop ring slot r: LTD, last-arrival refresh and current contributions
+    of the synapses that arrive at step t.  arr_ring [H, D, E], the plan's
+    [H, E] synapse arrays, last_post [H, N], w / last_arr [H, E] ->
+    (contrib [H, E], n_arrived [H]); updates w, last_arr and arr_ring[:, r]
+    in place (`kernels.stdp.stdp_arrival`)."""
+    args = (arr_ring, r, syn_valid, syn_tgt, syn_plastic, last_post, w,
+            last_arr, t)
     kw = dict(a_minus=a_minus, tau_minus=tau_minus, w_min=w_min,
               w_max=w_max, neg_time=neg_time)
     if _route(w, "stdp_arrival"):
-        return _stdp.stdp_arrival(arr, w, last_post_g, last_arr, plastic, t,
-                                  **kw)
+        return _stdp.stdp_arrival(*args, **kw)
     with ref.flush_denormal():
-        return ref.stdp_arrival(arr, w, last_post_g, last_arr, plastic, t,
-                                **kw)
+        return ref.stdp_arrival(*args, **kw)
 
 
-def stdp_ltp(post_g, w, last_arr, plastic, valid, t, *, a_plus, tau_plus,
-             w_min, w_max, neg_time):
-    """[E] tensors + step t -> w'."""
+def stdp_ltp(spiked, row_ptr, syn_plastic, last_arr, w, last_post, t, *,
+             a_plus, tau_plus, w_min, w_max, neg_time) -> None:
+    """LTP on the incoming synapses of the targets that spiked at step t,
+    through the per-target CSR row_ptr [H, N + 1]; updates w [H, E] and
+    last_post [H, N] in place (`kernels.stdp.stdp_ltp`)."""
+    args = (spiked, row_ptr, syn_plastic, last_arr, w, last_post, t)
     kw = dict(a_plus=a_plus, tau_plus=tau_plus, w_min=w_min, w_max=w_max,
               neg_time=neg_time)
     if _route(w, "stdp_ltp"):
-        return _stdp.stdp_ltp(post_g, w, last_arr, plastic, valid, t, **kw)
+        return _stdp.stdp_ltp(*args, **kw)
     with ref.flush_denormal():
-        return ref.stdp_ltp(post_g, w, last_arr, plastic, valid, t, **kw)
+        return ref.stdp_ltp(*args, **kw)
 
 
 def segment_sum_ordered(contrib, seg: ref.Segments):

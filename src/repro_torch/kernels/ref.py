@@ -134,15 +134,13 @@ def _stdp_update(w, apply, last, tf, amp, tau, sign, w_min, w_max):
     return out.view(w.shape)
 
 
-def stdp_arrival(arr, w, last_post_g, last_arr, plastic, t: float, *,
-                 a_minus, tau_minus, w_min, w_max, neg_time):
-    """Plain version of kernels.stdp.stdp_arrival.  Any shape; `t` is a
-    Python number (the step), used as float32.
-
-    Returns (w', last_arr', contrib) with contrib the PRE-LTD weight where
-    the synapse arrived, else 0."""
+def _arrival(arr, w, last_post_g, last_arr, plastic, tf, *, a_minus,
+             tau_minus, w_min, w_max, neg_time):
+    """The JAX package's `repro.kernels.ref.stdp_arrival` on gathered [E]
+    arrays (arr = ring slot & valid, last_post_g = last_post[syn_tgt]) and
+    t as a 0-dim fp32 tensor -> (w', last_arr', contrib), contrib the
+    PRE-LTD weight where the synapse arrived, else 0."""
     dev = w.device
-    tf = f32(t, dev)
     apply = arr & plastic & (last_post_g > f32(neg_time / 2, dev))
     w_out = _stdp_update(w, apply, last_post_g, tf, a_minus, tau_minus, -1,
                          w_min, w_max)
@@ -151,14 +149,71 @@ def stdp_arrival(arr, w, last_post_g, last_arr, plastic, t: float, *,
     return w_out, la_out, contrib
 
 
-def stdp_ltp(post_g, w, last_arr, plastic, valid, t: float, *,
-             a_plus, tau_plus, w_min, w_max, neg_time):
-    """Plain version of kernels.stdp.stdp_ltp."""
-    dev = w.device
-    tf = f32(t, dev)
-    apply = post_g & plastic & valid & (last_arr > f32(neg_time / 2, dev))
+def _ltp(post_g, w, last_arr, plastic, valid, tf, *, a_plus, tau_plus,
+         w_min, w_max, neg_time):
+    """The JAX package's `repro.kernels.ref.stdp_ltp` on gathered [E]
+    arrays (post_g = spiked[syn_tgt]) -> w'."""
+    apply = post_g & plastic & valid & (last_arr > f32(neg_time / 2,
+                                                       w.device))
     return _stdp_update(w, apply, last_arr, tf, a_plus, tau_plus, +1,
                         w_min, w_max)
+
+
+def stdp_arrival(arr_ring, r: int, syn_valid, syn_tgt, syn_plastic,
+                 last_post, w, last_arr, t: float, *, a_minus, tau_minus,
+                 w_min, w_max, neg_time):
+    """Plain version of kernels.stdp.stdp_arrival: arr_ring [H, D, E] bool,
+    slot r, syn_valid / syn_plastic [H, E] bool, syn_tgt [H, E] int64,
+    last_post [H, N] fp32, w / last_arr [H, E] fp32; `t` is a Python
+    number (the step), used as float32.
+
+    Pops slot r: arr = arr_ring[:, r] & syn_valid, LTD against
+    last_post[syn_tgt] where arr and plastic, last_arr = t where arr.
+    Updates w, last_arr and arr_ring[:, r] (cleared) in place; returns
+    (contrib [H, E], the pre-LTD weight where arr else 0, and n_arrived
+    [H] int64)."""
+    arr = arr_ring[:, r] & syn_valid
+    lp = torch.gather(last_post, 1, syn_tgt)
+    w_out, la_out, contrib = _arrival(
+        arr, w, lp, last_arr, syn_plastic, f32(t, w.device), a_minus=a_minus,
+        tau_minus=tau_minus, w_min=w_min, w_max=w_max, neg_time=neg_time)
+    w.copy_(w_out)
+    last_arr.copy_(la_out)
+    arr_ring[:, r] = False
+    return contrib, arr.sum(1)
+
+
+def rows_of_synapses(row_ptr: torch.Tensor, n_syn: int) -> torch.Tensor:
+    """[H, n_syn] int64: the CSR row (local target) holding each synapse,
+    N for a synapse past row_ptr[h, N] (a pad).  Synapse e lies in row n
+    iff row_ptr[h, n] <= e < row_ptr[h, n + 1], so its row is the number of
+    rows that end at or before e."""
+    H = row_ptr.shape[0]
+    ends = row_ptr[:, 1:].to(torch.int64)
+    marks = torch.zeros((H, n_syn + 1), dtype=torch.int64,
+                        device=row_ptr.device)
+    marks.scatter_add_(1, ends, torch.ones_like(ends))
+    return marks.cumsum(1)[:, :n_syn]
+
+
+def stdp_ltp(spiked, row_ptr, syn_plastic, last_arr, w, last_post,
+             t: float, *, a_plus, tau_plus, w_min, w_max, neg_time) -> None:
+    """Plain version of kernels.stdp.stdp_ltp: spiked [H, N] bool, row_ptr
+    [H, N + 1] int32 (the per-target CSR of the valid synapses, pads
+    outside every row), syn_plastic [H, E] bool, last_arr / w [H, E] fp32,
+    last_post [H, N] fp32.
+
+    LTP where post = spiked[syn_tgt], with syn_tgt and syn_valid read off
+    row_ptr; updates w and last_post (= t where spiked) in place."""
+    H, N = spiked.shape
+    row = rows_of_synapses(row_ptr, w.shape[1])
+    valid = row < N
+    post = torch.cat([spiked, spiked.new_zeros(H, 1)], 1).gather(1, row)
+    tf = f32(t, w.device)
+    w.copy_(_ltp(post, w, last_arr, syn_plastic, valid, tf, a_plus=a_plus,
+                 tau_plus=tau_plus, w_min=w_min, w_max=w_max,
+                 neg_time=neg_time))
+    last_post.copy_(torch.where(spiked, tf, last_post))
 
 
 class Segments(NamedTuple):

@@ -44,18 +44,38 @@ def _bits_equal(got, want):
 def _inputs(n, seed=0):
     rng = np.random.default_rng(seed)
     f = lambda x: torch.from_numpy(np.asarray(x, np.float32))
-    times = lambda: f(np.where(rng.random(n) < 0.7,
-                               rng.uniform(-2000.0, 200.0, n), -1.0e9))
     exc = np.arange(n) % 5 != 4
     return dict(
         v=f(rng.uniform(-80, 31, n)), u=f(rng.uniform(-20, 10, n)),
         cur=f(rng.uniform(-10, 25, n)), a=f(np.where(exc, 0.02, 0.1)),
         b=f(np.full(n, 0.2)), c=f(np.full(n, -65.0)),
-        d=f(np.where(exc, 8.0, 2.0)),
-        arr=torch.from_numpy(rng.random(n) < 0.3), w=f(rng.uniform(0, 10, n)),
-        lp=times(), la=times(), plastic=torch.from_numpy(rng.random(n) < 0.8),
-        post=torch.from_numpy(rng.random(n) < 0.5),
-        valid=torch.from_numpy(rng.random(n) < 0.95))
+        d=f(np.where(exc, 8.0, 2.0)))
+
+
+def _stdp_inputs(H, E, N, D, density, seed=0):
+    """The fused STDP passes' arguments in the engine's layout (valid
+    synapses first, sorted by target; pads after), with `density` of the
+    ring flags (pads included) and of the neurons spiking."""
+    rng = np.random.default_rng(seed)
+    f = lambda x: torch.from_numpy(np.asarray(x, np.float32))
+    times = lambda shape: f(np.where(rng.random(shape) < 0.7,
+                                     rng.uniform(-2000.0, 200.0, shape),
+                                     -1.0e9))
+    tgt = np.zeros((H, E), np.int64)
+    valid = np.zeros((H, E), bool)
+    row_ptr = np.zeros((H, N + 1), np.int32)
+    for h in range(H):
+        n_valid = E - 40 - 8 * h
+        tgt[h, :n_valid] = np.sort(rng.integers(0, N, n_valid))
+        valid[h, :n_valid] = True
+        row_ptr[h, 1:] = np.cumsum(np.bincount(tgt[h, :n_valid],
+                                               minlength=N))
+    t = lambda x: torch.from_numpy(x)
+    return dict(
+        ring=t(rng.random((H, D, E)) < density), valid=t(valid), tgt=t(tgt),
+        plastic=t(rng.random((H, E)) < 0.8), row_ptr=t(row_ptr),
+        last_post=times((H, N)), w=f(rng.uniform(0, 10, (H, E))),
+        last_arr=times((H, E)), spiked=t(rng.random((H, N)) < density))
 
 
 @pytest.mark.parametrize("n", [1, 1000, 300_001])
@@ -63,16 +83,10 @@ def test_kernels_equal_plain_versions(cuda, n):
     z = _inputs(n, seed=n)
     g = {k: v.to(cuda) for k, v in z.items()}
     izh = ("v", "u", "cur", "a", "b", "c", "d")
-    cases = [
-        (lambda d: ops.izhikevich_update(*(d[k] for k in izh), v_peak=30.0)),
-        (lambda d: ops.stdp_arrival(d["arr"], d["w"], d["lp"], d["la"],
-                                    d["plastic"], 200.0, **LTD_KW)),
-        (lambda d: (ops.stdp_ltp(d["post"], d["w"], d["la"], d["plastic"],
-                                 d["valid"], 200.0, **LTP_KW),)),
-    ]
-    for fn in cases:
-        for got, want in zip(fn(g), fn(z)):
-            assert _bits_equal(got, want)
+    izh_update = lambda d: ops.izhikevich_update(*(d[k] for k in izh),
+                                                 v_peak=30.0)
+    for got, want in zip(izh_update(g), izh_update(z)):
+        assert _bits_equal(got, want)
     counts = np.random.default_rng(n).integers(0, 9, n // 4 + 1)
     row_ptr = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)])
                                .astype(np.int32)).view(1, -1)
@@ -82,6 +96,43 @@ def test_kernels_equal_plain_versions(cuda, n):
     got = ops.segment_sum_ordered(contrib.to(cuda), ref.make_segments(
         row_ptr.to(cuda), contrib.shape[1], with_index=False))
     assert _bits_equal(got, want)
+
+
+@pytest.mark.parametrize("density", [0.0, 0.02, 1.0])
+def test_stdp_kernels_equal_plain_versions(cuda, density):
+    """Both passes, in place, against their plain versions on a CPU copy:
+    every updated state tensor, the contributions and the arrival counts,
+    at no arrivals and spikes, the main path's few, and all."""
+    z = _stdp_inputs(2, 300_000, 6_000, 3, density, seed=int(density * 100))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        d = {k: v.clone().to(dev) for k, v in z.items()}
+        ops.reset_launch_counts()
+        contrib, n_arr = ops.stdp_arrival(
+            d["ring"], 1, d["valid"], d["tgt"], d["plastic"], d["last_post"],
+            d["w"], d["last_arr"], 200.0, **LTD_KW)
+        ops.stdp_ltp(d["spiked"], d["row_ptr"], d["plastic"], d["last_arr"],
+                     d["w"], d["last_post"], 200.0, **LTP_KW)
+        counts = ops.launch_counts()
+        out[dev] = dict(d, contrib=contrib, n_arrived=n_arr)
+    for k, want in out["cpu"].items():
+        assert _bits_equal(out["cuda"][k], want), k
+    assert counts["stdp_arrival"] == counts["stdp_ltp"] == 1
+    arrived = (z["ring"][:, 1] & z["valid"]).sum(1)
+    assert torch.equal(out["cuda"]["n_arrived"].cpu(), arrived)
+    assert not out["cuda"]["ring"][:, 1].any()
+
+
+def test_stdp_arrival_refuses_unaligned_rows(cuda):
+    """E % 8 != 0 raises on the card: the kernel reads 8 flags at once, and
+    nothing runs the plain version in its place."""
+    z = {k: v.to(cuda) for k, v in _stdp_inputs(1, 1004, 50, 2, 0.5).items()}
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.stdp_arrival(z["ring"], 0, z["valid"], z["tgt"], z["plastic"],
+                         z["last_post"], z["w"], z["last_arr"], 200.0,
+                         **LTD_KW)
+    assert ops.launch_counts()["stdp_arrival"] == 0
 
 
 def test_main_path_on_card_equals_cpu_port(cuda):

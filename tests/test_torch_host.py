@@ -200,11 +200,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     kw = dict(w_min=0.0, w_max=10.0, neg_time=-1e9)
     with pytest.raises(ValueError, match="not CUDA"):
         kizh.izhikevich_update(x, x, x, x, x, x, x, v_peak=30.0)
+    x2, b2 = x.view(1, 8), b.view(1, 8)
+    i2 = torch.zeros((1, 8), dtype=torch.int64)
     with pytest.raises(ValueError, match="not CUDA"):
-        kstdp.stdp_arrival(b, x, x, x, b, 1.0, a_minus=0.1, tau_minus=20.0,
-                           **kw)
+        kstdp.stdp_arrival(b.view(1, 1, 8), 0, b2, i2, b2, x2, x2, x2, 1.0,
+                           a_minus=0.1, tau_minus=20.0, **kw)
+    row_ptr = torch.zeros((1, 9), dtype=torch.int32)
     with pytest.raises(ValueError, match="not CUDA"):
-        kstdp.stdp_ltp(b, x, x, b, b, 1.0, a_plus=0.1, tau_plus=20.0, **kw)
+        kstdp.stdp_ltp(b2, row_ptr, b2, x2, x2, x2, 1.0, a_plus=0.1,
+                       tau_plus=20.0, **kw)
     seg = kref.make_segments(torch.zeros((1, 3), dtype=torch.int32), 8)
     with pytest.raises(ValueError, match="not CUDA"):
         kseg.segment_sum_ordered(x.view(1, 8), seg)

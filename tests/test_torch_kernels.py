@@ -4,8 +4,13 @@
   `jax.ops.segment_sum(..., indices_are_sorted=True)`), run in a
   subprocess under `XLA_FLAGS=--xla_cpu_max_isa=AVX` on 1,000,000-element
   numpy inputs that cover the -1e9 "never" sentinels and the clip edges.
+  The port's STDP passes take the engine's own arrays (ring, plan, state)
+  and update them in place; the JAX functions take the arrays numpy
+  gathers from the same inputs (ring slot & valid, last_post[syn_tgt],
+  spiked[syn_tgt]).
 * Against the Pallas kernel bodies in interpret mode, in this process,
-  with the tolerances of `tests/test_kernels.py`.
+  with the tolerances of `tests/test_kernels.py`, also on the plans of a
+  real 2x2 grid in three layouts.
 
 The CUDA kernels themselves need the card: `chip_smoke.py` holds each of
 them bit for bit against these plain versions.
@@ -29,22 +34,29 @@ LTP_KW = dict(a_plus=0.1, tau_plus=20.0, **STDP_KW)
 T_STEP = 200.0
 
 
+def _times(rng, shape) -> np.ndarray:
+    """Spike / arrival times mixing recent steps, far-past steps (exp
+    underflow) and the -1e9 "never" sentinel."""
+    kind = rng.random(shape)
+    return np.asarray(np.where(
+        kind < 0.5, rng.uniform(0.0, T_STEP, shape),
+        np.where(kind < 0.8, rng.uniform(-3000.0, 0.0, shape), -1.0e9)),
+        np.float32)
+
+
+def _weights(rng, shape) -> np.ndarray:
+    """Weights across and at the clip edges [0, 10]."""
+    w = rng.uniform(-0.5, 10.5, shape)
+    return np.asarray(np.where(rng.random(shape) < 0.2, rng.choice(
+        [0.0, 10.0, 0.05, 9.95], shape), w), np.float32)
+
+
 def make_inputs(n: int, seed: int = 0) -> dict:
-    """numpy inputs for every kernel: neuron states around threshold,
-    synapse times mixing recent steps, far-past steps (exp underflow) and
-    the -1e9 sentinel, weights at and near the clip edges."""
+    """numpy inputs for the elementwise kernels: neuron states around
+    threshold, exp arguments, and sorted segments of contributions."""
     rng = np.random.default_rng(seed)
     f32 = lambda x: np.asarray(x, np.float32)
     exc = np.arange(n) % 5 != 4
-
-    def times():
-        kind = rng.random(n)
-        return f32(np.where(kind < 0.5, rng.uniform(0.0, T_STEP, n),
-                   np.where(kind < 0.8, rng.uniform(-3000.0, 0.0, n),
-                            -1.0e9)))
-    w = rng.uniform(-0.5, 10.5, n)
-    w = np.where(rng.random(n) < 0.2, rng.choice([0.0, 10.0, 0.05, 9.95], n),
-                 w)
     n_seg = max(n // 200, 9)
     tgt = np.sort(rng.integers(0, n_seg, n))
     tgt[tgt == 7] = 8                                  # an empty segment
@@ -54,11 +66,61 @@ def make_inputs(n: int, seed: int = 0) -> dict:
         cur=f32(rng.uniform(-10.0, 25.0, n)),
         a=f32(np.where(exc, 0.02, 0.1)), b=f32(np.full(n, 0.2)),
         c=f32(np.full(n, -65.0)), d=f32(np.where(exc, 8.0, 2.0)),
-        arr=rng.random(n) < 0.3, w=f32(w), lp=times(), la=times(),
-        plastic=rng.random(n) < 0.8, post=rng.random(n) < 0.5,
-        valid=rng.random(n) < 0.95,
         contrib=f32(np.where(rng.random(n) < 0.3, rng.uniform(-5, 10, n), 0)),
         tgt=tgt.astype(np.int32), n_seg=np.int64(n_seg))
+
+
+# STDP inputs: H shards of E synapse slots (valid ones first, sorted by
+# target, pads after), N neurons a shard, a D-slot ring popped at slot R
+STDP_SHAPE = dict(H=2, E=500_000, N=20_000, D=4)
+R_SLOT = 2
+
+
+def make_stdp_inputs(H: int, E: int, N: int, D: int, seed: int = 0) -> dict:
+    """numpy arguments of the port's fused STDP passes, in the engine's
+    layout: every shard has pads (E > n_valid) and an empty row, the ring
+    has flags on 30% of the slots, pads too (`& syn_valid` must drop
+    them), and half the neurons spiked."""
+    rng = np.random.default_rng(seed)
+    n_valid = [E - max(8, E // 50) - 3 * h for h in range(H)]
+    tgt = np.zeros((H, E), np.int64)
+    valid = np.zeros((H, E), bool)
+    row_ptr = np.zeros((H, N + 1), np.int32)
+    for h, n in enumerate(n_valid):
+        t_h = np.sort(rng.integers(0, N, n))
+        t_h[t_h == N // 3] = N // 3 + 1                    # an empty row
+        tgt[h, :n], valid[h, :n] = t_h, True
+        row_ptr[h, 1:] = np.cumsum(np.bincount(t_h, minlength=N))
+    return dict(ring=rng.random((H, D, E)) < 0.3, valid=valid, tgt=tgt,
+                plastic=rng.random((H, E)) < 0.8, row_ptr=row_ptr,
+                last_post=_times(rng, (H, N)), w=_weights(rng, (H, E)),
+                last_arr=_times(rng, (H, E)),
+                spiked=rng.random((H, N)) < 0.5)
+
+
+def gather_stdp(s: dict, r: int = R_SLOT) -> dict:
+    """What the JAX functions take: numpy's gathers of `make_stdp_inputs`
+    (the JAX engine's `ring[r] & valid`, `last_post[syn_tgt]`,
+    `spiked[syn_tgt]`)."""
+    take = lambda a: np.take_along_axis(a, s["tgt"], axis=1)
+    return dict(arr=s["ring"][:, r] & s["valid"], lp=take(s["last_post"]),
+                post=take(s["spiked"]))
+
+
+def run_port_stdp(s: dict, r: int = R_SLOT) -> dict:
+    """The port's two passes (`kernels.ops`) on torch copies of `s`, each
+    from the same inputs: the updated state and the returned values."""
+    g = {k: torch.from_numpy(np.array(v)) for k, v in s.items()}
+    contrib, n_arr = ops.stdp_arrival(
+        g["ring"], r, g["valid"], g["tgt"], g["plastic"], g["last_post"],
+        g["w"], g["last_arr"], T_STEP, **LTD_KW)
+    out = dict(arr_w=g["w"], arr_la=g["last_arr"], ring=g["ring"],
+               contrib=contrib, n_arrived=n_arr)
+    g = {k: torch.from_numpy(np.array(v)) for k, v in s.items()}
+    ops.stdp_ltp(g["spiked"], g["row_ptr"], g["plastic"], g["last_arr"],
+                 g["w"], g["last_post"], T_STEP, **LTP_KW)
+    out.update(ltp_w=g["w"], ltp_lp=g["last_post"])
+    return out
 
 
 def _jax_outputs(path: str) -> None:
@@ -71,10 +133,12 @@ def _jax_outputs(path: str) -> None:
     t = np.float32(T_STEP)
     izh = jax.jit(lambda *a: jref.izhikevich_update(*a, v_peak=30.0))(
         z["v"], z["u"], z["cur"], z["a"], z["b"], z["c"], z["d"])
+    s = make_stdp_inputs(**STDP_SHAPE)
+    g = gather_stdp(s)
     arr = jax.jit(lambda *a: jref.stdp_arrival(*a, **LTD_KW))(
-        z["arr"], z["w"], z["lp"], z["la"], z["plastic"], t)
+        g["arr"], s["w"], g["lp"], s["last_arr"], s["plastic"], t)
     ltp = jax.jit(lambda *a: jref.stdp_ltp(*a, **LTP_KW))(
-        z["post"], z["w"], z["la"], z["plastic"], z["valid"], t)
+        g["post"], s["w"], s["last_arr"], s["plastic"], s["valid"], t)
     seg = jax.jit(lambda c, i: jax.ops.segment_sum(
         c, i, num_segments=int(z["n_seg"]), indices_are_sorted=True))(
             z["contrib"], z["tgt"])
@@ -91,6 +155,13 @@ def avx(tmp_path_factory):
     inputs = {k: torch.from_numpy(np.asarray(v))
               for k, v in make_inputs(N_ELEM).items()}
     return inputs, dict(np.load(path))
+
+
+@pytest.fixture(scope="module")
+def stdp_port():
+    """The STDP inputs of the AVX run and the port's outputs on them."""
+    s = make_stdp_inputs(**STDP_SHAPE)
+    return s, run_port_stdp(s)
 
 
 def assert_bits(got: torch.Tensor, want: np.ndarray):
@@ -120,22 +191,34 @@ def test_izhikevich_bit_exact(avx):
     assert 0 < int(s.sum()) < N_ELEM
 
 
-def test_stdp_arrival_bit_exact(avx):
-    z, want = avx
-    w, la, c = ops.stdp_arrival(z["arr"], z["w"], z["lp"], z["la"],
-                                z["plastic"], T_STEP, **LTD_KW)
-    assert_bits(w, want["arr_w"])
-    assert_bits(la, want["arr_la"])
-    assert_bits(c, want["arr_contrib"])
-    assert bool((w != z["w"]).any())
+def test_stdp_arrival_bit_exact(avx, stdp_port):
+    _, want = avx
+    s, got = stdp_port
+    arr = gather_stdp(s)["arr"]
+    assert_bits(got["arr_w"], want["arr_w"])
+    assert_bits(got["arr_la"], want["arr_la"])
+    assert_bits(got["contrib"], want["arr_contrib"])
+    assert_bits(got["n_arrived"], arr.sum(1))
+    assert not got["ring"][:, R_SLOT].any()
+    keep = np.arange(STDP_SHAPE["D"]) != R_SLOT
+    assert_bits(got["ring"][:, keep], s["ring"][:, keep])
+    assert bool((got["arr_w"].numpy() != s["w"]).any())
+    assert (s["ring"][:, R_SLOT] & ~s["valid"]).any()
 
 
-def test_stdp_ltp_bit_exact(avx):
-    z, want = avx
-    w = ops.stdp_ltp(z["post"], z["w"], z["la"], z["plastic"], z["valid"],
-                     T_STEP, **LTP_KW)
-    assert_bits(w, want["ltp_w"])
-    assert bool((w != z["w"]).any())
+def test_stdp_ltp_bit_exact(avx, stdp_port):
+    _, want = avx
+    s, got = stdp_port
+    assert_bits(got["ltp_w"], want["ltp_w"])
+    assert_bits(got["ltp_lp"], np.where(s["spiked"], np.float32(T_STEP),
+                                        s["last_post"]))
+    assert bool((got["ltp_w"].numpy() != s["w"]).any())
+    # the plain version reads syn_tgt and syn_valid off row_ptr
+    row = ref.rows_of_synapses(torch.from_numpy(s["row_ptr"]),
+                               STDP_SHAPE["E"]).numpy()
+    assert np.array_equal(row < STDP_SHAPE["N"], s["valid"])
+    assert np.array_equal(np.where(s["valid"], row, 0), s["tgt"])
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
 
 
 def test_segment_sum_ordered_bit_exact(avx):
@@ -177,27 +260,88 @@ def test_izhikevich_matches_pallas_interpret(n):
     assert not (disagree & ~(np.abs(vpre - 30.0) < 1e-2)).any()
 
 
+def _pallas_stdp(s: dict, r: int = R_SLOT) -> dict:
+    """The Pallas kernels in interpret mode on numpy's gathers of `s`,
+    flattened as the JAX engine's [E] arrays."""
+    import jax.numpy as jnp
+    g = gather_stdp(s, r)
+    flat = lambda x: np.ascontiguousarray(x).reshape(-1)
+    t = jnp.float32(T_STEP)
+    shape = s["w"].shape
+    w, la, c = _pallas_ops().stdp_arrival(
+        flat(g["arr"]), flat(s["w"]), flat(g["lp"]), flat(s["last_arr"]),
+        flat(s["plastic"]), t, interpret=True, **LTD_KW)
+    ltp = _pallas_ops().stdp_ltp(
+        flat(g["post"]), flat(s["w"]), flat(s["last_arr"]),
+        flat(s["plastic"]), flat(s["valid"]), t, interpret=True, **LTP_KW)
+    return {k: np.asarray(v).reshape(shape) for k, v in
+            dict(arr_w=w, arr_la=la, contrib=c, ltp_w=ltp).items()}
+
+
+def _assert_close(got: dict, want: dict):
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k].numpy(), v, rtol=1e-6, atol=1e-6,
+                                   err_msg=k)
+
+
 @pytest.mark.parametrize("e", [16, 1024, 9999])
 def test_stdp_matches_pallas_interpret(e):
-    import jax.numpy as jnp
-    z = make_inputs(e, seed=e)
-    t = jnp.float32(T_STEP)
-    got_a = ops.stdp_arrival(*(torch.from_numpy(z[k]) for k in
-                               ("arr", "w", "lp", "la", "plastic")),
-                             T_STEP, **LTD_KW)
-    want_a = _pallas_ops().stdp_arrival(z["arr"], z["w"], z["lp"], z["la"],
-                                        z["plastic"], t, interpret=True,
-                                        **LTD_KW)
-    for g, w in zip(got_a, want_a):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
-                                   atol=1e-6)
-    got_l = ops.stdp_ltp(*(torch.from_numpy(z[k]) for k in
-                           ("post", "w", "la", "plastic", "valid")),
-                         T_STEP, **LTP_KW)
-    want_l = _pallas_ops().stdp_ltp(z["post"], z["w"], z["la"], z["plastic"],
-                                    z["valid"], t, interpret=True, **LTP_KW)
-    np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), rtol=1e-6,
-                               atol=1e-6)
+    s = make_stdp_inputs(H=2, E=e, N=max(e // 20, 4), D=3, seed=e)
+    _assert_close(run_port_stdp(s), _pallas_stdp(s))
+
+
+def _plan_inputs(n_shards: int, placement: str, seed: int) -> dict:
+    """`make_stdp_inputs`' dynamic arrays on the plan of a 2x2 grid (100
+    neurons a column, 40 synapses each): ring flags only on valid
+    synapses, as phase B sets them."""
+    from repro_torch.core import EngineConfig, GridConfig, engine
+    cfg = GridConfig(grid_x=2, grid_y=2, neurons_per_column=100,
+                     synapses_per_neuron=40, seed=7)
+    _, plan, _ = engine.build(cfg, EngineConfig(n_shards=n_shards,
+                                                placement=placement),
+                              device="cpu")
+    H, E = plan.syn_valid.shape
+    N = plan.gid.shape[1]
+    s = make_stdp_inputs(H, E, N, 3, seed=seed)
+    valid = plan.syn_valid.numpy()
+    s.update(valid=valid, tgt=plan.syn_tgt.numpy(),
+             plastic=plan.syn_plastic.numpy(), row_ptr=plan.row_ptr.numpy(),
+             ring=s["ring"] & valid[:, None],
+             spiked=s["spiked"] & plan.neuron_valid.numpy())
+    return s
+
+
+@pytest.mark.parametrize("kernel", ["arrival", "ltp"])
+@pytest.mark.parametrize("layout", [(1, "block"), (4, "block"),
+                                    (4, "scatter")],
+                         ids=["h1_block", "h4_block", "h4_scatter"])
+def test_stdp_on_real_plans(kernel, layout):
+    """Against the Pallas kernels on a real plan's arrays; pads (past each
+    shard's valid synapses) keep their state, and the popped ring slot is
+    cleared while the others keep their flags."""
+    s = _plan_inputs(*layout, seed=layout[0])
+    got, want = run_port_stdp(s), _pallas_stdp(s)
+    pads = ~s["valid"]
+    if kernel == "arrival":
+        _assert_close(got, {k: want[k] for k in ("arr_w", "arr_la",
+                                                 "contrib")})
+        arr = gather_stdp(s)["arr"]
+        assert np.array_equal(got["n_arrived"].numpy(), arr.sum(1))
+        assert not got["ring"][:, R_SLOT].any()
+        keep = np.arange(3) != R_SLOT
+        assert np.array_equal(got["ring"][:, keep].numpy(),
+                              s["ring"][:, keep])
+        assert 0 < arr.sum() < s["valid"].sum()
+        w, la = got["arr_w"].numpy(), got["arr_la"].numpy()
+    else:
+        _assert_close(got, {"ltp_w": want["ltp_w"]})
+        assert np.array_equal(got["ltp_lp"].numpy(), np.where(
+            s["spiked"], np.float32(T_STEP), s["last_post"]))
+        w, la = got["ltp_w"].numpy(), s["last_arr"]
+    assert np.array_equal(w[pads], s["w"][pads])
+    assert np.array_equal(la[pads], s["last_arr"][pads])
+    assert (got["contrib"].numpy()[pads] == 0).all()
+    assert bool((w != s["w"]).any())
 
 
 if __name__ == "__main__":
