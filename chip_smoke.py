@@ -18,18 +18,23 @@ prints one JSON line per phase:
            sum and the STDP passes also to their plain versions on the
            card), timed with CUDA events beside its plain version, its
            memory/compute bound and, for the ordered sum, `index_add_`.
-           The two STDP passes run on the 8x8 plan's own synapse arrays
-           and row pointers, with the ring and spikes drawn at the main
-           path's density (2.15%) and at 10x it; they update their inputs
-           in place, so every timed call starts from restored inputs and
-           only the kernel is timed (events around it, profiler device
-           time by its own name), and their bound counts the bytes these
-           inputs make them move;
+           The STDP passes (the main path's fused arrival pass and ordered
+           sum `stdp_arrival_current`, LTP, and the arrival pass alone)
+           run on the 8x8 plan's own synapse arrays and row pointers, with
+           the ring and spikes drawn at the main path's density (2.15%)
+           and at 10x it; they update their inputs in place, so every
+           timed call starts from restored inputs and only the kernel is
+           timed (events around it, profiler device time by its own name),
+           and their bound counts the bytes these inputs make them move.
+           The fused row is also timed against the pair it replaced
+           (`stdp_arrival` then `segment_sum_ordered`, bit-equal to it) on
+           the same restored inputs: no PyTorch call gives an ordered sum;
   check    the main path (`StepProgram(..., device="cuda").run`) at 4x4,
            full width, 150 steps, at H=1 block, H=4 block, H=4 scatter:
            raster and weight signatures equal to the committed AVX-pinned
-           JAX reference (`src/repro_torch/data/jax_reference.json`) and
-           every kernel launched once per step;
+           JAX reference (`src/repro_torch/data/jax_reference.json`),
+           every main-path kernel (`ops.SNN_KERNELS`) launched once per
+           step and the replaced pair never;
   timed    the main path at 8x8 (12.8 M synapses), H=1, 500 steps after a
            warm-up: ms/step, the phase A / exchange / B split from a
            separate synchronised pass, rate, the paper's normalised metric,
@@ -43,9 +48,11 @@ prints one JSON line per phase:
 Then the LM serving path (`recurrentgemma-2b`, `repro_torch.serve`):
 
   lm_kernels  the RG-LRU scan kernel on numpy-seeded inputs at its prefill
-              (1, 512, 2560), decode (4, 1, 2560) and a tail (3, 100, 96)
-              shape, bit-equal to its plain version on a CPU copy and on
-              the card, timed beside its plain version and its bound;
+              (1, 512, 2560), decode (4, 1, 2560), tail (3, 100, 96) and
+              ragged (2, 77, 100) shapes and at prefill on views 4 bytes
+              past an aligned address, bit-equal to its plain version on
+              a CPU copy and on the card, timed beside its plain version
+              and its bound;
   attn_kernels  the port's `kernels.ops.attention` (three hand-written
               attention kernels, picked by `kernels.flash_attention.variant`:
               "wgmma" for bf16 prefill, "splitkv" for T < 64, "simt" for
@@ -107,11 +114,14 @@ MAIN_STEPS = 500
 # synapses and spike this share of the neurons (the 8x8 timed run's mean:
 # 275,342 arrivals a step among 12.8 M synapses, 21.52 Hz), and 10x it
 STDP_DENSITY = 0.0215
-STDP_REPLACES = {"stdp_arrival": "src/repro/kernels/stdp.py:57",
+STDP_REPLACES = {"stdp_arrival_current": "src/repro/kernels/stdp.py:57",
+                 "stdp_arrival": "src/repro/kernels/stdp.py:57",
                  "stdp_ltp": "src/repro/kernels/stdp.py:81"}
 LM_ARCH = "recurrentgemma-2b"
-LM_SCAN_SHAPES = (("prefill", (1, 512, 2560)), ("decode", (4, 1, 2560)),
-                  ("tail", (3, 100, 96)))
+# (label, shape, bytes past an aligned address of the inputs on the card)
+LM_SCAN_SHAPES = (("prefill", (1, 512, 2560), 0), ("decode", (4, 1, 2560), 0),
+                  ("tail", (3, 100, 96), 0), ("ragged", (2, 77, 100), 0),
+                  ("offset", (1, 512, 2560), 4))
 LM_TOL = {"float32": 2e-4, "bfloat16": 0.1}
 # attn_kernels: B x heads query heads over B x kv_heads KV heads (repeated
 # to B x heads before the call).  Tolerances (rtol, atol): fp32 that of
@@ -204,10 +214,11 @@ def device_kernel_events(prof):
     return rows
 
 
-def device_ms(fn, calls: int = 10, restore=None, kernel: str = "") -> float:
+def device_ms(fn, calls: int = 10, restore=None, kernel="") -> float:
     """The device time per call in ms (torch.profiler) of the CUDA kernels
-    whose name holds `kernel` (all of fn's by default); `restore()` runs
-    before every call where fn updates its inputs in place."""
+    whose name holds `kernel` (or one of a tuple of names; all of fn's by
+    default); `restore()` runs before every call where fn updates its
+    inputs in place."""
     from torch.profiler import ProfilerActivity, profile
     restore = restore or (lambda: None)
     restore()
@@ -218,7 +229,9 @@ def device_ms(fn, calls: int = 10, restore=None, kernel: str = "") -> float:
             restore()
             fn()
         torch.cuda.synchronize()
-    rows = [us for k, us, _ in device_kernel_events(prof) if kernel in k]
+    names = (kernel,) if isinstance(kernel, str) else kernel
+    rows = [us for k, us, _ in device_kernel_events(prof)
+            if any(n in k for n in names)]
     return sum(rows) * 1e-3 / calls if rows else None
 
 
@@ -310,10 +323,10 @@ def _stdp_state(rng, plan_cpu: dict, D: int, r: int, t: float,
 
 
 def _stdp_traffic(plan_cpu: dict, st: dict, r: int, half_neg: float):
-    """(arrival bytes, arrival flops, LTP bytes, LTP flops, counts): what
-    the two passes must move and compute on these inputs, each input byte
-    read once and each output byte written once, counting only the
-    synapses the data makes them touch (`csrc/stdp.cu`'s note)."""
+    """({name: (bytes, flops)}, counts): what each STDP pass must move and
+    compute on these inputs, each input byte read once and each output
+    byte written once, counting only the synapses the data makes them
+    touch (`csrc/stdp.cu`'s note)."""
     valid, plastic = plan_cpu["valid"], plan_cpu["plastic"]
     tgt, row_ptr = plan_cpu["tgt"], plan_cpu["row_ptr"]
     H, E = valid.shape
@@ -329,6 +342,11 @@ def _stdp_traffic(plan_cpu: dict, st: dict, r: int, half_neg: float):
     # arrival: syn_tgt and last_post[tgt] in; per LTD: w out; n_arrived
     a_bytes = (H * E * (1 + 4) + n(flags) * 2 + n(arr) * (1 + 4 + 4)
                + n(arr_pl) * (8 + 4) + n(ltd) * 4 + H * 8)
+    # the fused pass: every ring flag, the row pointers and last_post in,
+    # i_syn out; per arrival: plastic and w in, last_arr out, the flag
+    # cleared; per LTD: w out; n_arrived
+    c_bytes = (H * E + nbytes(row_ptr) + H * N * (4 + 4)
+               + n(arr) * (1 + 4 + 4 + 1) + n(ltd) * 4 + H * 8)
     row = kref.rows_of_synapses(row_ptr, E)
     post = torch.cat([st["spiked"], st["spiked"].new_zeros(H, 1)],
                      1).gather(1, row)
@@ -342,7 +360,9 @@ def _stdp_traffic(plan_cpu: dict, st: dict, r: int, half_neg: float):
     counts = dict(flagged=n(flags), arrivals=n(arr), ltd=n(ltd),
                   spiking=n(st["spiked"]), synapses_of_spiking=n(post),
                   ltp=n(ltp))
-    return a_bytes, n(ltd) * 25, l_bytes, n(ltp) * 25, counts
+    return {"stdp_arrival_current": (c_bytes, n(ltd) * 25 + n(arr)),
+            "stdp_arrival": (a_bytes, n(ltd) * 25),
+            "stdp_ltp": (l_bytes, n(ltp) * 25)}, counts
 
 
 def in_place_ms(fn, restore, calls: int = 20, warmup: int = 3) -> float:
@@ -366,10 +386,12 @@ def in_place_ms(fn, restore, calls: int = 20, warmup: int = 3) -> float:
 
 
 def _stdp_rows(plan8, spec8):
-    """The two STDP passes on plan8's own arrays at the main path's density
-    (2.15% of the valid synapses arrive, 2.15% of the neurons spike) and at
-    10x it: bit-equal to the plain version on a CPU copy and on the card,
-    in every output and updated state tensor, and timed alone."""
+    """The STDP passes (fused arrival and sum, arrival alone, LTP) on
+    plan8's own arrays at the main path's density (2.15% of the valid
+    synapses arrive, 2.15% of the neurons spike) and at 10x it: bit-equal
+    to the plain version on a CPU copy and on the card, in every output
+    and updated state tensor, and timed alone; the fused pass also beside
+    the pair it replaced, bit-equal to it."""
     stdp = spec8.stdp
     H, E = plan8.syn_valid.shape
     D = spec8.cfg.n_delay_slots
@@ -385,13 +407,14 @@ def _stdp_rows(plan8, spec8):
     pg = dict(valid=plan8.syn_valid, tgt=plan8.syn_tgt,
               plastic=plan8.syn_plastic, row_ptr=plan8.row_ptr)
     pc = {k: v.cpu() for k, v in pg.items()}
+    pg["seg"] = kref.make_segments(plan8.row_ptr, E)
+    pc["seg"] = kref.make_segments(pc["row_ptr"], E)
     rng = np.random.default_rng(2015)
     rows, failed = [], []
     for label, density in (("main", STDP_DENSITY), ("10x",
                                                     10 * STDP_DENSITY)):
         st = _stdp_state(rng, pc, D, r, t, density)
-        a_bytes, a_flops, l_bytes, l_flops, counts = _stdp_traffic(
-            pc, st, r, half_neg)
+        traffic, counts = _stdp_traffic(pc, st, r, half_neg)
         saved = {k: v.cuda() for k, v in st.items()}
         work = {k: v.clone() for k, v in saved.items()}
 
@@ -400,6 +423,26 @@ def _stdp_rows(plan8, spec8):
                 src, dst = saved[k], work[k]
                 (dst[:, r] if k == "ring" else dst).copy_(
                     src[:, r] if k == "ring" else src)
+
+        def current(impl, d, p):
+            if impl is kstdp:
+                i_syn, n_arr = kstdp.stdp_arrival_current(
+                    d["ring"], r, p["seg"], p["plastic"], d["last_post"],
+                    d["w"], d["last_arr"], t, **ltd_kw)
+            else:
+                i_syn, n_arr = kref.stdp_arrival_current(
+                    d["ring"], r, p["seg"], p["valid"], p["tgt"],
+                    p["plastic"], d["last_post"], d["w"], d["last_arr"], t,
+                    **ltd_kw)
+            return i_syn, n_arr, d["w"], d["last_arr"], d["ring"]
+
+        def pair(d, p):
+            # the kernels the fused one replaced, on the same inputs
+            contrib, n_arr = kstdp.stdp_arrival(
+                d["ring"], r, p["valid"], p["tgt"], p["plastic"],
+                d["last_post"], d["w"], d["last_arr"], t, **ltd_kw)
+            i_syn = kseg.segment_sum_ordered(contrib, p["seg"])
+            return i_syn, n_arr, d["w"], d["last_arr"], d["ring"]
 
         def arrival(impl, d, p):
             contrib, n_arr = impl.stdp_arrival(
@@ -412,11 +455,13 @@ def _stdp_rows(plan8, spec8):
                           d["last_arr"], d["w"], d["last_post"], t, **ltp_kw)
             return d["w"], d["last_post"]
 
-        for name, fn, state, kname, n_bytes, n_flops in (
+        for name, fn, state, kname in (
+                ("stdp_arrival_current", current, ("ring", "w", "last_arr"),
+                 "arrival_current_kernel"),
                 ("stdp_arrival", arrival, ("ring", "w", "last_arr"),
-                 "arrival_kernel", a_bytes, a_flops),
-                ("stdp_ltp", ltp, ("w", "last_post"), "ltp_kernel",
-                 l_bytes, l_flops)):
+                 "arrival_kernel"),
+                ("stdp_ltp", ltp, ("w", "last_post"), "ltp_kernel")):
+            n_bytes, n_flops = traffic[name]
             restore(*saved)
             got = [x.clone() for x in fn(kstdp, work, pg)]
             torch.cuda.synchronize()
@@ -429,11 +474,23 @@ def _stdp_rows(plan8, spec8):
                         for a, b, c in zip(got, want, want_gpu))
             err = max(max(max_abs_err(a, b), max_abs_err(a, c))
                       for a, b, c in zip(got, want, want_gpu))
+            again = lambda: restore(*state)
+            extra = {}
+            if name == "stdp_arrival_current":
+                again()
+                equal &= all(bit_equal(a, b) for a, b in
+                             zip(got, pair(work, pg)))
+                extra = dict(
+                    pair="stdp_arrival (arrival_kernel) then "
+                         "segment_sum_ordered (segment_sum_kernel)",
+                    pair_ms=in_place_ms(lambda: pair(work, pg), again),
+                    pair_device_ms=device_ms(
+                        lambda: pair(work, pg), restore=again,
+                        kernel=("arrival_kernel", "segment_sum_kernel")))
             if not equal:
                 failed.append(f"{name} ({label})")
             bms, by = bound(n_bytes, n_flops)
             launch = lambda: fn(kstdp, work, pg)
-            again = lambda: restore(*state)
             rows.append(dict(
                 name=name, route="cuda", source="src/repro_torch/csrc/stdp.cu",
                 replaces=STDP_REPLACES[name], launches=None,
@@ -447,7 +504,7 @@ def _stdp_rows(plan8, spec8):
                           "copy and on the card",
                 density=label, bytes=n_bytes, flops=n_flops,
                 shape={"H": H, "E": E, "D": D,
-                       "N": plan8.gid.shape[1], **counts}))
+                       "N": plan8.gid.shape[1], **counts}, **extra))
         del saved, work
     return rows, failed
 
@@ -538,6 +595,12 @@ def _first_divergence(a: np.ndarray, b: np.ndarray):
     return int(diff[0]) if diff.size else None
 
 
+def _main_path_counts(steps: int) -> dict:
+    """Each main-path kernel once a step, the replaced pair never."""
+    return dict(dict.fromkeys(ops.SNN_KERNELS, steps),
+                **dict.fromkeys(ops.PAIR_KERNELS, 0))
+
+
 def phase_check():
     """4x4 full width, 150 steps, three layouts, against the committed
     AVX-pinned JAX reference."""
@@ -557,14 +620,15 @@ def phase_check():
         state, raster, _ = sp.run(sp.init_state(), 0, steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {k: ops.launch_counts()[k] for k in ops.SNN_KERNELS}
+        counts = {k: ops.launch_counts()[k]
+                  for k in ops.SNN_KERNELS + ops.PAIR_KERNELS}
         raster_np = raster.cpu().numpy()
         rsig = observables.raster_signature(raster_np,
                                             sp.plan.gid.cpu().numpy()).hex()
         wsig = sp.weight_signature(state).hex()
         per_step = raster_np.sum(axis=(1, 2)).astype(int)
         ok = (rsig == r["raster_signature"] and wsig == r["weight_signature"]
-              and all(v == steps for v in counts.values()))
+              and counts == _main_path_counts(steps))
         res = dict(raster_equal=rsig == r["raster_signature"],
                    weights_equal=wsig == r["weight_signature"],
                    spikes=int(per_step.sum()), launches=counts,
@@ -597,7 +661,8 @@ def phase_timed(sp8):
     state, raster, tm = sp8.run(state0, 0, MAIN_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: ops.launch_counts()[k] for k in ops.SNN_KERNELS}
+    counts = ops.launch_counts()
+    launches = {k: counts[k] for k in ops.SNN_KERNELS + ops.PAIR_KERNELS}
     peak = torch.cuda.max_memory_allocated()
     raster_np = raster.cpu().numpy()
     rate = observables.mean_rate_hz(raster_np, cfg.n_neurons)
@@ -637,11 +702,11 @@ def phase_timed(sp8):
           "max_memory_allocated_bytes": peak, "launches": launches,
           "raster_signature": observables.raster_signature(
               raster_np, plan.gid.cpu().numpy()).hex()})
-    missing = [k for k, v in launches.items() if v != MAIN_STEPS]
-    if missing:
+    if launches != _main_path_counts(MAIN_STEPS):
         raise PhaseFailed(f"kernels not launched once per step on the "
-                          f"main path: {launches}")
-    return launches
+                          f"main path (or the replaced pair launched): "
+                          f"{launches}")
+    return counts
 
 
 def phase_profile(sp8, n_steps: int = 20):
@@ -693,13 +758,23 @@ def _scan_inputs(rng, shape):
             f(rng.standard_normal((B, D))))
 
 
+def _on_card(x, offset: int):
+    """A copy of x on the card whose first element lies `offset` bytes past
+    an aligned address (a view into a larger buffer)."""
+    k = offset // x.element_size()
+    buf = torch.empty(x.numel() + k, dtype=x.dtype, device="cuda")
+    view = buf[k:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
 def phase_lm_kernels():
     """The RG-LRU scan kernel against its plain version at three shapes."""
     rng = np.random.default_rng(12)
     rows, failed = [], []
-    for label, shape in LM_SCAN_SHAPES:
+    for label, shape, offset in LM_SCAN_SHAPES:
         cpu = _scan_inputs(rng, shape)
-        gpu = tuple(x.cuda() for x in cpu)
+        gpu = tuple(_on_card(x, offset) for x in cpu)
         got = krg.rg_lru_scan(*gpu)
         torch.cuda.synchronize()
         with kref.flush_denormal():
@@ -722,7 +797,8 @@ def phase_lm_kernels():
             bound_ms=bms, bound_by=by, library_ms=None, equal=equal,
             tolerance="bit-equal (0 ulp), to the plain version on a CPU "
                       "copy and on the card",
-            shape={"label": label, "B": B, "T": T, "D": D}))
+            shape={"label": label, "B": B, "T": T, "D": D,
+                   "offset_bytes": offset}))
     emit({"phase": "lm_kernels", "rows": rows})
     if failed:
         raise PhaseFailed(f"rg_lru_scan differs from its plain version at "

@@ -294,15 +294,15 @@ def phase_a_dynamics(spec: SimSpec, plan: ShardPlan, state: ShardState,
     cfg, stdp = spec.cfg, spec.stdp
     r = t % cfg.n_delay_slots
 
-    # 1-3. fused arrival pass: pop slot r, current contributions (pre-LTD
-    # weights, in canonical (tgt, src, j) order => reproducible sum), LTD
-    # against the nearest post spike, last_arrival refresh.
-    contrib, n_arrived = kops.stdp_arrival(
-        state.arr_ring, r, plan.syn_valid, plan.syn_tgt, plan.syn_plastic,
-        state.last_post, state.w, state.last_arr, t, a_minus=stdp.a_minus,
-        tau_minus=stdp.tau_minus, w_min=stdp.w_min, w_max=stdp.w_max,
-        neg_time=NEG_TIME)
-    i_syn = kops.segment_sum_ordered(contrib, seg)
+    # 1-3. fused arrival pass: pop slot r, the current of each target (its
+    # arrived pre-LTD weights summed in canonical (tgt, src, j) order =>
+    # reproducible sum), LTD against the nearest post spike, last_arrival
+    # refresh.
+    i_syn, n_arrived = kops.stdp_arrival_current(
+        state.arr_ring, r, seg, plan.syn_valid, plan.syn_tgt,
+        plan.syn_plastic, state.last_post, state.w, state.last_arr, t,
+        a_minus=stdp.a_minus, tau_minus=stdp.tau_minus, w_min=stdp.w_min,
+        w_max=stdp.w_max, neg_time=NEG_TIME)
 
     # 4+5. stimulus + Izhikevich
     v, u, spiked = neuron_update(spec, plan, state, i_syn, stim)

@@ -48,6 +48,7 @@ SIGNATURES = {
                                             _P],
     "repro_stdp_arrival": [_P] * 10 + [_I64] * 5 + [_F] * 6 + [_P],
     "repro_stdp_ltp": [_P] * 6 + [_I64] * 3 + [_F] * 6 + [_P],
+    "repro_stdp_arrival_current": [_P] * 9 + [_I64] * 5 + [_F] * 6 + [_P],
     "repro_segment_sum_ordered": [_P] * 3 + [_I64] * 3 + [_P],
     "repro_rg_lru_scan": [_P] * 4 + [_I64] * 3 + [_P],
     "repro_flash_attention": [_P] * 4 + [_I64] * 4 + [ctypes.c_int] * 2
@@ -196,6 +197,18 @@ def require(name: str, dtype, shape, **tensors) -> None:
         devices.add(x.device)
     if len(devices) > 1:
         raise ValueError(f"{name}: tensors on several devices {devices}")
+
+
+def require_aligned(name: str, nbytes: int, **tensors) -> None:
+    """Raise unless every tensor's first element lies on an `nbytes`
+    boundary: a kernel that reads or writes it `nbytes` at a time faults
+    on the card with a misaligned address otherwise (a contiguous view at
+    an odd storage offset passes `require`)."""
+    for arg, x in tensors.items():
+        if x.data_ptr() % nbytes:
+            raise ValueError(f"{name}: {arg} starts at an address that is "
+                             f"not a multiple of {nbytes} bytes (the kernel "
+                             f"accesses it {nbytes} bytes at a time)")
 
 
 def one_device(name: str, *tensors) -> None:

@@ -21,12 +21,15 @@ from . import segment_sum as _seg
 from . import stdp as _stdp
 
 #: The kernels of the DPSNN-STDP step, of the LM's RG-LRU layers, and of
-#: the `attention` entry point (which no model of the port calls).
-SNN_KERNELS = ("izhikevich_update", "stdp_arrival", "stdp_ltp",
-               "segment_sum_ordered")
+#: the `attention` entry point (which no model of the port calls).  The
+#: arrival pass and the ordered sum as two kernels (`stdp_arrival`,
+#: `segment_sum_ordered`) are off the main path, which runs them fused
+#: (`stdp_arrival_current`); they stay as its yardstick.
+SNN_KERNELS = ("izhikevich_update", "stdp_arrival_current", "stdp_ltp")
+PAIR_KERNELS = ("stdp_arrival", "segment_sum_ordered")
 LM_KERNELS = ("rg_lru_scan",)
 ATTN_KERNELS = ("flash_attention",)
-KERNELS = SNN_KERNELS + LM_KERNELS + ATTN_KERNELS
+KERNELS = SNN_KERNELS + PAIR_KERNELS + LM_KERNELS + ATTN_KERNELS
 
 
 def _route(x: torch.Tensor, name: str) -> bool:
@@ -46,6 +49,28 @@ def izhikevich_update(v, u, current, a, b, c, d, *, v_peak, dt=1.0,
         return _izh.izhikevich_update(v, u, current, a, b, c, d, **kw)
     with ref.flush_denormal():
         return ref.izhikevich_update(v, u, current, a, b, c, d, **kw)
+
+
+def stdp_arrival_current(arr_ring, r, seg: ref.Segments, syn_valid,
+                         syn_tgt, syn_plastic, last_post, w, last_arr, t, *,
+                         a_minus, tau_minus, w_min, w_max, neg_time):
+    """Pop ring slot r and sum the current: LTD and last-arrival refresh of
+    the synapses that arrive at step t, and each target's in-order sum of
+    their pre-LTD weights.  arr_ring [H, D, E], `seg` over the plan's CSR
+    `row_ptr` [H, N + 1] (with its index on the CPU), the plan's [H, E]
+    synapse arrays, last_post [H, N], w / last_arr [H, E] -> (i_syn [H, N],
+    n_arrived [H]); updates w, last_arr and arr_ring[:, r] in place.  The
+    kernel reads the targets off `seg.row_ptr` and never syn_valid or
+    syn_tgt (`kernels.stdp.stdp_arrival_current`)."""
+    kw = dict(a_minus=a_minus, tau_minus=tau_minus, w_min=w_min,
+              w_max=w_max, neg_time=neg_time)
+    if _route(w, "stdp_arrival_current"):
+        return _stdp.stdp_arrival_current(arr_ring, r, seg, syn_plastic,
+                                          last_post, w, last_arr, t, **kw)
+    with ref.flush_denormal():
+        return ref.stdp_arrival_current(arr_ring, r, seg, syn_valid, syn_tgt,
+                                        syn_plastic, last_post, w, last_arr,
+                                        t, **kw)
 
 
 def stdp_arrival(arr_ring, r, syn_valid, syn_tgt, syn_plastic, last_post,
@@ -142,6 +167,7 @@ def attention(q, k, v, *, causal=True, window=None, softcap=None,
 def launch_counts() -> dict:
     """Launches of each kernel since the last reset."""
     return {"izhikevich_update": _izh.launches,
+            "stdp_arrival_current": _stdp.launches["stdp_arrival_current"],
             "stdp_arrival": _stdp.launches["stdp_arrival"],
             "stdp_ltp": _stdp.launches["stdp_ltp"],
             "segment_sum_ordered": _seg.launches,
@@ -151,8 +177,8 @@ def launch_counts() -> dict:
 
 def reset_launch_counts() -> None:
     _izh.launches = 0
-    _stdp.launches["stdp_arrival"] = 0
-    _stdp.launches["stdp_ltp"] = 0
+    for name in _stdp.launches:
+        _stdp.launches[name] = 0
     _seg.launches = 0
     _rg.launches = 0
     _fa.launches = 0

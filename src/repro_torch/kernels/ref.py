@@ -183,6 +183,22 @@ def stdp_arrival(arr_ring, r: int, syn_valid, syn_tgt, syn_plastic,
     return contrib, arr.sum(1)
 
 
+def stdp_arrival_current(arr_ring, r: int, seg, syn_valid, syn_tgt,
+                         syn_plastic, last_post, w, last_arr, t: float, *,
+                         a_minus, tau_minus, w_min, w_max, neg_time):
+    """Plain version of kernels.stdp.stdp_arrival_current: `stdp_arrival`
+    followed by `segment_sum_ordered` of its contributions over `seg`
+    (`make_segments(row_ptr, E)`, with its index).  Updates w, last_arr
+    and arr_ring[:, r] in place as `stdp_arrival` does; returns (i_syn
+    [H, N], each target's in-order sum of the pre-LTD weights that
+    arrived, and n_arrived [H] int64)."""
+    contrib, n_arrived = stdp_arrival(
+        arr_ring, r, syn_valid, syn_tgt, syn_plastic, last_post, w, last_arr,
+        t, a_minus=a_minus, tau_minus=tau_minus, w_min=w_min, w_max=w_max,
+        neg_time=neg_time)
+    return segment_sum_ordered(contrib, seg), n_arrived
+
+
 def rows_of_synapses(row_ptr: torch.Tensor, n_syn: int) -> torch.Tensor:
     """[H, n_syn] int64: the CSR row (local target) holding each synapse,
     N for a synapse past row_ptr[h, N] (a pad).  Synapse e lies in row n

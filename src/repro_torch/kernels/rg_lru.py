@@ -1,8 +1,11 @@
 """CUDA wrapper of the RG-LRU scan (`csrc/rg_lru.cu`).
 
 Replaces the Pallas TPU kernel `repro/kernels/rg_lru.py::rg_lru_scan`.
-One thread per (b, d) channel walks T with the carry in a register;
-memory-bound (12 B per element), launch-bound at decode.  The plain
+One lane per (b, d) channel walks T with the carry in a register, a warp
+of 32 channels a block, reading a and b from T-chunks that the warp
+stages into shared memory ahead of the walk (cp.async, 4 bytes a copy, so
+any fp32 view is aligned enough and none is refused for its offset).
+Memory-bound (12 B per element), launch-bound at decode.  The plain
 version is `kernels.ref.rg_lru_scan`.
 """
 from __future__ import annotations

@@ -123,6 +123,86 @@ def test_stdp_kernels_equal_plain_versions(cuda, density):
     assert not out["cuda"]["ring"][:, 1].any()
 
 
+@pytest.mark.parametrize("density", [0.0, 0.0215, 0.215, 1.0])
+def test_stdp_arrival_current_equals_plain_version(cuda, density):
+    """The fused arrival pass and ordered sum, in place, against its plain
+    version on a CPU copy and against the pair it replaces on the card:
+    i_syn, n_arrived, w, last_arr and the popped slot, bit for bit.  Flags
+    lie on valid synapses only, as phase B sets them."""
+    z = _stdp_inputs(2, 300_000, 6_000, 3, density, seed=int(density * 1e4))
+    z["ring"] &= z["valid"][:, None]
+    E = z["w"].shape[1]
+    out = {}
+    for dev, fused in (("cpu", True), ("cuda", True), ("cuda", False)):
+        d = {k: v.clone().to(dev) for k, v in z.items()}
+        seg = ref.make_segments(d["row_ptr"], E, with_index=dev == "cpu")
+        ops.reset_launch_counts()
+        if fused:
+            i_syn, n_arr = ops.stdp_arrival_current(
+                d["ring"], 1, seg, d["valid"], d["tgt"], d["plastic"],
+                d["last_post"], d["w"], d["last_arr"], 200.0, **LTD_KW)
+        else:
+            contrib, n_arr = ops.stdp_arrival(
+                d["ring"], 1, d["valid"], d["tgt"], d["plastic"],
+                d["last_post"], d["w"], d["last_arr"], 200.0, **LTD_KW)
+            i_syn = ops.segment_sum_ordered(contrib, seg)
+        torch.cuda.synchronize()
+        out[(dev, fused)] = dict(i_syn=i_syn, n_arrived=n_arr, w=d["w"],
+                                 last_arr=d["last_arr"], ring=d["ring"])
+        if dev == "cuda":
+            counts = ops.launch_counts()
+            assert counts["stdp_arrival_current"] == int(fused)
+            assert counts["stdp_arrival"] == counts[
+                "segment_sum_ordered"] == int(not fused)
+    for k, want in out[("cpu", True)].items():
+        assert _bits_equal(out[("cuda", True)][k], want), k
+        assert _bits_equal(out[("cuda", False)][k], want), k
+    arrived = (z["ring"][:, 1] & z["valid"]).sum(1)
+    assert torch.equal(out[("cuda", True)]["n_arrived"].cpu(), arrived)
+    assert not out[("cuda", True)]["ring"][:, 1].any()
+
+
+def _misaligned(x: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """A contiguous copy of x whose first element lies `nbytes` past an
+    aligned address (a view at an element offset of a larger buffer)."""
+    k = nbytes // x.element_size()
+    buf = torch.empty(x.numel() + k, dtype=x.dtype, device=x.device)
+    view = buf[k:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def test_stdp_wrappers_refuse_misaligned_pointers(cuda):
+    """A contiguous view at an offset passes the dtype, shape and
+    contiguity checks; the wrappers whose kernels read 8 or 16 bytes at a
+    time refuse it before any launch, and nothing runs the plain version
+    in its place."""
+    z = {k: v.to(cuda) for k, v in _stdp_inputs(1, 1008, 50, 2, 0.5).items()}
+    seg = ref.make_segments(z["row_ptr"], 1008, with_index=False)
+    arrival = lambda d: ops.stdp_arrival(
+        d["ring"], 0, d["valid"], d["tgt"], d["plastic"], d["last_post"],
+        d["w"], d["last_arr"], 200.0, **LTD_KW)
+    current = lambda d: ops.stdp_arrival_current(
+        d["ring"], 0, seg, d["valid"], d["tgt"], d["plastic"],
+        d["last_post"], d["w"], d["last_arr"], 200.0, **LTD_KW)
+    cases = [(arrival, "ring", 1), (arrival, "valid", 4),
+             (arrival, "plastic", 1), (arrival, "w", 4),
+             (arrival, "last_arr", 8), (current, "ring", 1),
+             (current, "ring", 4)]
+    ops.reset_launch_counts()
+    for fn, name, nbytes in cases:
+        d = dict(z, **{name: _misaligned(z[name], nbytes)})
+        with pytest.raises(ValueError, match="not a multiple of"):
+            fn(d)
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+    # the same tensors, aligned, run
+    arrival({k: v.clone() for k, v in z.items()})
+    current({k: v.clone() for k, v in z.items()})
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["stdp_arrival"] == counts["stdp_arrival_current"] == 1
+
+
 def test_stdp_arrival_refuses_unaligned_rows(cuda):
     """E % 8 != 0 raises on the card: the kernel reads 8 flags at once, and
     nothing runs the plain version in its place."""
@@ -144,28 +224,55 @@ def test_main_path_on_card_equals_cpu_port(cuda):
                          device=dev)
         ops.reset_launch_counts()
         state, raster, _ = sp.run(sp.init_state(), 0, 60)
-        counts = {k: ops.launch_counts()[k] for k in ops.SNN_KERNELS}
+        counts = ops.launch_counts()
         runs[dev] = (observables.raster_signature(
             raster.cpu().numpy(), sp.plan.gid.cpu().numpy()),
             sp.weight_signature(state), counts)
     assert runs["cuda"][:2] == runs["cpu"][:2]
-    assert runs["cpu"][2] == dict.fromkeys(ops.SNN_KERNELS, 0)
-    assert runs["cuda"][2] == dict.fromkeys(ops.SNN_KERNELS, 60)
+    assert runs["cpu"][2] == dict.fromkeys(ops.KERNELS, 0)
+    # the main path runs the fused arrival kernel, never the old pair
+    assert runs["cuda"][2] == dict(dict.fromkeys(ops.KERNELS, 0),
+                                   **dict.fromkeys(ops.SNN_KERNELS, 60))
 
 
-@pytest.mark.parametrize("shape", [(1, 512, 2560), (4, 1, 2560), (3, 100, 96),
-                                   (2, 0, 8)])
-def test_rg_lru_scan_equals_plain_version(cuda, shape):
+def _scan_inputs(shape):
     rng = np.random.default_rng(sum(shape))
     B, T, D = shape
     a = torch.from_numpy(rng.uniform(0.5, 0.999, shape).astype(np.float32))
     b = torch.from_numpy((rng.standard_normal(shape) * 0.1).astype(
         np.float32))
     h0 = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32))
+    return a, b, h0
+
+
+@pytest.mark.parametrize("with_h0", [True, False], ids=["h0", "zeros"])
+@pytest.mark.parametrize("shape", [(1, 512, 2560), (4, 1, 2560), (3, 100, 96),
+                                   (2, 77, 100), (2, 0, 8), (1, 0, 64),
+                                   (1, 1, 33), (2, 8, 40), (1, 9, 40)])
+def test_rg_lru_scan_equals_plain_version(cuda, shape, with_h0):
+    """Bit-equal at prefill, decode, ragged T (chunks of 64 steps) and D
+    (warps of 32 channels), T = 0, one step of 33 channels, and either
+    side of the kernel's switch from direct loads (T <= 8) to staging."""
+    a, b, h0 = _scan_inputs(shape)
+    h0 = h0 if with_h0 else None
     ops.reset_launch_counts()
-    got = ops.rg_lru_scan(a.to(cuda), b.to(cuda), h0.to(cuda))
+    got = ops.rg_lru_scan(a.to(cuda), b.to(cuda),
+                          None if h0 is None else h0.to(cuda))
+    torch.cuda.synchronize()
     assert _bits_equal(got, ops.rg_lru_scan(a, b, h0))
-    assert ops.launch_counts()["rg_lru_scan"] == (1 if T else 0)
+    assert ops.launch_counts()["rg_lru_scan"] == (1 if shape[1] else 0)
+
+
+def test_rg_lru_scan_runs_on_offset_views(cuda):
+    """The kernel copies 4 bytes at a time, so a view 4 bytes past an
+    aligned address runs, bit-equal (the wrapper refuses no fp32 view for
+    its offset)."""
+    a, b, h0 = _scan_inputs((2, 77, 100))
+    views = [_misaligned(x.to(cuda), 4) for x in (a, b, h0)]
+    assert all(v.data_ptr() % 16 == 4 for v in views)
+    got = ops.rg_lru_scan(*views)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, ops.rg_lru_scan(a, b, h0))
 
 
 def test_lm_serving_on_card_equals_cpu_port(cuda):
