@@ -3,9 +3,13 @@
     python3 chip_smoke.py
 
 Drives the port only (it imports neither jax nor the JAX package) and
-prints one JSON line per phase:
+prints one JSON line per phase.  The plain versions it runs on the CPU as
+yardsticks run with ATen's and MKL's CPU kernels pinned to the code paths
+every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
+`MKL_CBWR=COMPATIBLE`), so their bits do not depend on the host.
 
-  card     the card's name and power limit (nvidia-smi), torch's name;
+  card     the card's name and power limit (nvidia-smi), torch's name, the
+           CPU kernels' instruction set;
   build    nvcc builds the kernels from `src/repro_torch/csrc` (one nvcc
            per source, all at once);
   attn_sass  `-Xptxas -v` of the bf16 prefill and the decode attention
@@ -18,28 +22,36 @@ prints one JSON line per phase:
            sum and the STDP passes also to their plain versions on the
            card), timed with CUDA events beside its plain version, its
            memory/compute bound and, for the ordered sum, `index_add_`.
-           The STDP passes (the main path's fused arrival pass and ordered
-           sum `stdp_arrival_current`, LTP, and the arrival pass alone)
-           run on the 8x8 plan's own synapse arrays and row pointers, with
-           the ring and spikes drawn at the main path's density (2.15%)
-           and at 10x it; they update their inputs in place, so every
-           timed call starts from restored inputs and only the kernel is
-           timed (events around it, profiler device time by its own name),
-           and their bound counts the bytes these inputs make them move.
-           The fused row is also timed against the pair it replaced
-           (`stdp_arrival` then `segment_sum_ordered`, bit-equal to it) on
-           the same restored inputs: no PyTorch call gives an ordered sum;
+           The STDP passes (the main path's phase-A kernel
+           `stdp_phase_a`, the fused arrival pass and ordered sum
+           `stdp_arrival_current`, LTP, and the arrival pass alone) run on
+           the 8x8 plan's own synapse arrays and row pointers, with the
+           ring and spikes drawn at the main path's density (2.15%) and at
+           10x it; they update their inputs in place, so every timed call
+           starts from restored inputs and only the kernel is timed
+           (events around it, profiler device time by its own name), and
+           their bound counts the bytes these inputs make them move.  The
+           phase-A row is also timed against the sequence it replaced
+           (`stdp_arrival_current`, the stimulus, the constants,
+           `izhikevich_update`, the mask and sum, `stdp_ltp`), and the
+           fused arrival row against the pair it replaced (`stdp_arrival`
+           then `segment_sum_ordered`), each bit-equal to what it
+           replaced, on the same restored inputs: no PyTorch call does
+           either.  The phase also prints ptxas's registers and spills of
+           `stdp.cu`;
   check    the main path (`StepProgram(..., device="cuda").run`) at 4x4,
            full width, 150 steps, at H=1 block, H=4 block, H=4 scatter:
            raster and weight signatures equal to the committed AVX-pinned
            JAX reference (`src/repro_torch/data/jax_reference.json`),
            every main-path kernel (`ops.SNN_KERNELS`) launched once per
-           step and the replaced pair never;
+           step and the kernels it replaced (`ops.PHASE_A_KERNELS`,
+           `ops.PAIR_KERNELS`) never;
   timed    the main path at 8x8 (12.8 M synapses), H=1, 500 steps after a
            warm-up: ms/step, the phase A / exchange / B split from a
-           separate synchronised pass, rate, the paper's normalised metric,
-           synaptic events/s, peak memory, raster signature, and a
-           torch.profiler breakdown by kernel.
+           separate synchronised pass, a few phase-A steps under
+           `torch.cuda.set_sync_debug_mode("error")` (it fails if one
+           synchronises), rate, the paper's normalised metric, synaptic
+           events/s, peak memory, raster signature;
   profile  device time by kernel, device busy and idle share, and device
            operations (kernels and copies) per step of the 8x8 path over
            steps 0-19 (nearly silent) and over the timed run's 500 steps
@@ -110,13 +122,22 @@ PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (data sheet)
 PEAK_FP32_PER_S = 67e12        # H100 SXM fp32, outside the tensor cores
 PEAK_BF16_PER_S = 989e12       # H100 SXM bf16, dense tensor cores
 MAIN_STEPS = 500
+SYNC_DEBUG_STEPS = 5     # timed: phase-A steps under sync-debug "error"
 # kernels phase: the STDP passes' inputs flag this share of the valid
 # synapses and spike this share of the neurons (the 8x8 timed run's mean:
 # 275,342 arrivals a step among 12.8 M synapses, 21.52 Hz), and 10x it
 STDP_DENSITY = 0.0215
-STDP_REPLACES = {"stdp_arrival_current": "src/repro/kernels/stdp.py:57",
+STDP_REPLACES = {"stdp_phase_a": "src/repro/kernels/izhikevich.py:37, "
+                                 "src/repro/kernels/stdp.py:57, "
+                                 "src/repro/kernels/stdp.py:81",
+                 "stdp_arrival_current": "src/repro/kernels/stdp.py:57",
                  "stdp_arrival": "src/repro/kernels/stdp.py:57",
                  "stdp_ltp": "src/repro/kernels/stdp.py:81"}
+# the profiler's names of the STDP kernels (row_kernel<true> is phase A)
+STDP_KERNEL_NAMES = {"stdp_phase_a": "row_kernel<true>",
+                     "stdp_arrival_current": "row_kernel<false>",
+                     "stdp_arrival": "arrival_kernel",
+                     "stdp_ltp": "ltp_kernel"}
 LM_ARCH = "recurrentgemma-2b"
 # (label, shape, bytes past an aligned address of the inputs on the card)
 LM_SCAN_SHAPES = (("prefill", (1, 512, 2560), 0), ("decode", (4, 1, 2560), 0),
@@ -214,11 +235,13 @@ def device_kernel_events(prof):
     return rows
 
 
-def device_ms(fn, calls: int = 10, restore=None, kernel="") -> float:
+def device_ms(fn, calls: int = 10, restore=None, kernel="",
+              skip="Memcpy DtoD") -> float:
     """The device time per call in ms (torch.profiler) of the CUDA kernels
-    whose name holds `kernel` (or one of a tuple of names; all of fn's by
-    default); `restore()` runs before every call where fn updates its
-    inputs in place."""
+    and copies whose name holds `kernel` (or one of a tuple of names; all
+    of fn's by default) and not `skip` (the device-to-device copies of
+    `restore()`, which runs before every call where fn updates its inputs
+    in place)."""
     from torch.profiler import ProfilerActivity, profile
     restore = restore or (lambda: None)
     restore()
@@ -231,7 +254,7 @@ def device_ms(fn, calls: int = 10, restore=None, kernel="") -> float:
         torch.cuda.synchronize()
     names = (kernel,) if isinstance(kernel, str) else kernel
     rows = [us for k, us, _ in device_kernel_events(prof)
-            if any(n in k for n in names)]
+            if any(n in k for n in names) and skip not in k]
     return sum(rows) * 1e-3 / calls if rows else None
 
 
@@ -265,7 +288,9 @@ def phase_card():
     name, power = (s.strip() for s in line.split(",", 1))
     emit({"phase": "card", "name": name, "power_limit": power,
           "torch_device_name": torch.cuda.get_device_name(0),
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "cpu_capability": torch.backends.cpu.get_cpu_capability(),
+          "mkl_cbwr": os.environ.get("MKL_CBWR")})
     return line
 
 
@@ -385,15 +410,58 @@ def in_place_ms(fn, restore, calls: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def _phase_a_inputs(rng, plan_cpu: dict, st: dict, stim, density: float):
+    """numpy-seeded neuron state for the phase-A kernel beside `st`: about
+    `density` of the neurons at or past the threshold (they spike), the
+    others at rest, and the step's stimulus row `stim` (index, amp)."""
+    H, N = plan_cpu["exc"].shape
+    f = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    v = np.where(rng.random((H, N)) < density, rng.uniform(30.0, 40.0, (H, N)),
+                 rng.uniform(-80.0, -60.0, (H, N)))
+    return dict(st, v=f(v), u=f(rng.uniform(-20.0, 10.0, (H, N))),
+                stim_idx=stim[0].cpu(), stim_amp=stim[1].cpu())
+
+
+def _phase_a_traffic(plan_cpu: dict, st: dict, spiked, r: int, t: float,
+                     half_neg: float, current_bytes: int):
+    """(bytes, flops) the phase-A kernel must move and compute on these
+    inputs: the fused arrival pass's bytes less i_syn, 19 bytes a neuron
+    (v and u in and out, its two flags, the spike out), the stimulus list,
+    and LTP of the rows of the neurons that spiked (`spiked`, the plain
+    version's): their row pointers and last_post, and per synapse plastic,
+    per plastic one last_arr, per update w in and out."""
+    plastic, row_ptr = plan_cpu["plastic"], plan_cpu["row_ptr"]
+    H, E = plastic.shape
+    N = row_ptr.shape[1] - 1
+    n = lambda m: int(m.sum())
+    row = kref.rows_of_synapses(row_ptr, E)
+    post = torch.cat([spiked, spiked.new_zeros(H, 1)], 1).gather(1, row)
+    post_pl = post & plastic
+    # LTP reads last_arr after the arrival pass set it to t
+    la = torch.where(st["ring"][:, r] & plan_cpu["valid"],
+                     torch.tensor(np.float32(t)), st["last_arr"])
+    ltp = post_pl & (la > half_neg)
+    k = st["stim_idx"].shape[1]
+    n_bytes = (current_bytes - H * N * 4 + H * N * 19 + H * k * 12 + H * 8
+               + n(spiked) * (8 + 4) + n(post) + n(post_pl) * 4 + n(ltp) * 8)
+    counts = dict(spiking=n(spiked), synapses_of_spiking=n(post),
+                  ltp=n(ltp))
+    return n_bytes, n(ltp) * 25 + H * N * 20, counts
+
+
 def _stdp_rows(plan8, spec8):
-    """The STDP passes (fused arrival and sum, arrival alone, LTP) on
-    plan8's own arrays at the main path's density (2.15% of the valid
-    synapses arrive, 2.15% of the neurons spike) and at 10x it: bit-equal
-    to the plain version on a CPU copy and on the card, in every output
-    and updated state tensor, and timed alone; the fused pass also beside
-    the pair it replaced, bit-equal to it."""
-    stdp = spec8.stdp
+    """The STDP passes (phase A in one kernel, the fused arrival and sum,
+    the arrival pass alone, LTP) on plan8's own arrays at the main path's
+    density (2.15% of the valid synapses arrive, 2.15% of the neurons
+    spike) and at 10x it: bit-equal to the plain version on a CPU copy and
+    on the card, in every output and updated state tensor, and timed
+    alone; phase A also beside the sequence of kernels and ops it replaced
+    (`stdp_arrival_current`, the stimulus, the constants, `izhikevich_update`,
+    the mask and sum, `stdp_ltp`), and the fused arrival pass beside the
+    pair it replaced, each bit-equal to what it replaced."""
+    stdp, izh = spec8.stdp, spec8.izh
     H, E = plan8.syn_valid.shape
+    N = plan8.gid.shape[1]
     D = spec8.cfg.n_delay_slots
     t = 1000.0
     r = int(t) % D
@@ -404,17 +472,30 @@ def _stdp_rows(plan8, spec8):
     ltp_kw = dict(a_plus=stdp.a_plus, tau_plus=stdp.tau_plus,
                   w_min=stdp.w_min, w_max=stdp.w_max,
                   neg_time=engine.NEG_TIME)
+    izh_kw = dict(v_peak=izh.v_peak, dt=izh.dt, substeps=izh.v_substeps)
+    pa_kw = dict(izh=izh, stdp=stdp, neg_time=engine.NEG_TIME,
+                 with_ltp=True)
     pg = dict(valid=plan8.syn_valid, tgt=plan8.syn_tgt,
-              plastic=plan8.syn_plastic, row_ptr=plan8.row_ptr)
+              plastic=plan8.syn_plastic, row_ptr=plan8.row_ptr,
+              exc=plan8.exc_mask, neuron_valid=plan8.neuron_valid)
     pc = {k: v.cpu() for k, v in pg.items()}
     pg["seg"] = kref.make_segments(plan8.row_ptr, E)
     pc["seg"] = kref.make_segments(pc["row_ptr"], E)
+    gids = torch.from_numpy(stimulus.stim_table(
+        spec8.cfg, plan8.columns.cpu().numpy(), int(t), 1)).cuda()
+    stim = stimulus.stim_inputs(spec8.cfg, plan8.columns,
+                                engine.make_gid_to_local(spec8,
+                                                         plan8.shard_id),
+                                gids.to(torch.int64), spec8.n_local)
+    stim = (stim[0][0], stim[1][0])
     rng = np.random.default_rng(2015)
     rows, failed = [], []
-    for label, density in (("main", STDP_DENSITY), ("10x",
-                                                    10 * STDP_DENSITY)):
+    for i, (label, density) in enumerate((("main", STDP_DENSITY),
+                                          ("10x", 10 * STDP_DENSITY))):
         st = _stdp_state(rng, pc, D, r, t, density)
         traffic, counts = _stdp_traffic(pc, st, r, half_neg)
+        st = _phase_a_inputs(np.random.default_rng(2017 + i), pc, st, stim,
+                             density)
         saved = {k: v.cuda() for k, v in st.items()}
         work = {k: v.clone() for k, v in saved.items()}
 
@@ -423,6 +504,53 @@ def _stdp_rows(plan8, spec8):
                 src, dst = saved[k], work[k]
                 (dst[:, r] if k == "ring" else dst).copy_(
                     src[:, r] if k == "ring" else src)
+
+        def phase_a(impl, d, p):
+            spiked, n_arr, n_spk = impl.stdp_phase_a(
+                d["ring"], r, p["seg"], *(
+                    (p["valid"], p["tgt"]) if impl is kref else ()),
+                p["plastic"], p["exc"], p["neuron_valid"], d["stim_idx"],
+                d["stim_amp"], d["v"], d["u"], d["last_post"], d["w"],
+                d["last_arr"], t, **pa_kw)
+            return (spiked, n_arr, n_spk, d["v"], d["u"], d["w"],
+                    d["last_arr"], d["last_post"], d["ring"])
+
+        def sequence(d, p):
+            # what the engine ran for phase A before the phase-A kernel
+            i_syn, n_arr = kstdp.stdp_arrival_current(
+                d["ring"], r, p["seg"], p["plastic"], d["last_post"],
+                d["w"], d["last_arr"], t, **ltd_kw)
+            i_tot = i_syn + kref.stim_current(d["stim_idx"], d["stim_amp"],
+                                              N)
+            a, b, c, dd = kref.izh_coefficients(p["exc"], izh)
+            v, u, spiked = kizh.izhikevich_update(d["v"], d["u"], i_tot, a,
+                                                  b, c, dd, **izh_kw)
+            spiked = spiked & p["neuron_valid"]
+            n_spk = spiked.sum(1)
+            kstdp.stdp_ltp(spiked, p["row_ptr"], p["plastic"],
+                           d["last_arr"], d["w"], d["last_post"], t,
+                           **ltp_kw)
+            return (spiked, n_arr, n_spk, v, u, d["w"], d["last_arr"],
+                    d["last_post"], d["ring"])
+
+        def stim_ops():
+            return kref.stim_current(work["stim_idx"], work["stim_amp"], N)
+
+        def no_ltp(d, p):
+            return kstdp.stdp_phase_a(
+                d["ring"], r, p["seg"], p["plastic"], p["exc"],
+                p["neuron_valid"], d["stim_idx"], d["stim_amp"], d["v"],
+                d["u"], d["last_post"], d["w"], d["last_arr"], t,
+                **dict(pa_kw, with_ltp=False))
+
+        def split(d, p):
+            # the split schedule: phase A without LTP, then the LTP kernel
+            spiked, n_arr, n_spk = no_ltp(d, p)
+            kstdp.stdp_ltp(spiked, p["row_ptr"], p["plastic"],
+                           d["last_arr"], d["w"], d["last_post"], t,
+                           **ltp_kw)
+            return (spiked, n_arr, n_spk, d["v"], d["u"], d["w"],
+                    d["last_arr"], d["last_post"], d["ring"])
 
         def current(impl, d, p):
             if impl is kstdp:
@@ -455,13 +583,12 @@ def _stdp_rows(plan8, spec8):
                           d["last_arr"], d["w"], d["last_post"], t, **ltp_kw)
             return d["w"], d["last_post"]
 
-        for name, fn, state, kname in (
-                ("stdp_arrival_current", current, ("ring", "w", "last_arr"),
-                 "arrival_current_kernel"),
-                ("stdp_arrival", arrival, ("ring", "w", "last_arr"),
-                 "arrival_kernel"),
-                ("stdp_ltp", ltp, ("w", "last_post"), "ltp_kernel")):
-            n_bytes, n_flops = traffic[name]
+        for name, fn, state in (
+                ("stdp_phase_a", phase_a,
+                 ("ring", "w", "last_arr", "v", "u", "last_post")),
+                ("stdp_arrival_current", current, ("ring", "w", "last_arr")),
+                ("stdp_arrival", arrival, ("ring", "w", "last_arr")),
+                ("stdp_ltp", ltp, ("w", "last_post"))):
             restore(*saved)
             got = [x.clone() for x in fn(kstdp, work, pg)]
             torch.cuda.synchronize()
@@ -475,7 +602,47 @@ def _stdp_rows(plan8, spec8):
             err = max(max(max_abs_err(a, b), max_abs_err(a, c))
                       for a, b, c in zip(got, want, want_gpu))
             again = lambda: restore(*state)
-            extra = {}
+            extra, shape = {}, dict(counts)
+            n_bytes, n_flops = traffic.get(name, (None, None))
+            if name == "stdp_phase_a":
+                n_bytes, n_flops, spiking = _phase_a_traffic(
+                    pc, st, want[0], r, t, half_neg,
+                    traffic["stdp_arrival_current"][0])
+                shape.update(spiking, stim_entries=int(
+                    st["stim_idx"].numel()))
+                again()
+                equal &= all(bit_equal(a, b) for a, b in
+                             zip(got, sequence(work, pg)))
+                extra = dict(
+                    replaced="stdp_arrival_current (row_kernel<false>), "
+                             "stim_current, the add, a, b, c, d from 8 "
+                             "constants, izhikevich_update, & "
+                             "neuron_valid, the spike sum, stdp_ltp",
+                    replaced_ms=in_place_ms(lambda: sequence(work, pg),
+                                            again),
+                    replaced_device_ms=device_ms(lambda: sequence(work, pg),
+                                                 restore=again),
+                    replaced_device_ops=device_ops(lambda: sequence(work, pg),
+                                                   again),
+                    no_ltp_device_ms=device_ms(
+                        lambda: no_ltp(work, pg), restore=again,
+                        kernel=STDP_KERNEL_NAMES[name]),
+                    split_device_ms=device_ms(
+                        lambda: split(work, pg), restore=again,
+                        kernel=(STDP_KERNEL_NAMES[name], "ltp_kernel")),
+                    # the stimulus: the kernel's own test of the list
+                    # (against an empty list), and the two ops that would
+                    # sum it outside (zeros, then scatter_add_)
+                    no_stimulus_device_ms=device_ms(
+                        lambda: phase_a(kstdp, dict(
+                            work, stim_idx=work["stim_idx"][:, :0],
+                            stim_amp=work["stim_amp"][:, :0]), pg),
+                        restore=again, kernel=STDP_KERNEL_NAMES[name]),
+                    stim_current_ms=cuda_ms(stim_ops),
+                    stim_current_device_ms=device_ms(stim_ops))
+                again()
+                equal &= all(bit_equal(a, b) for a, b in
+                             zip(got, split(work, pg)))
             if name == "stdp_arrival_current":
                 again()
                 equal &= all(bit_equal(a, b) for a, b in
@@ -495,7 +662,8 @@ def _stdp_rows(plan8, spec8):
                 name=name, route="cuda", source="src/repro_torch/csrc/stdp.cu",
                 replaces=STDP_REPLACES[name], launches=None,
                 max_abs_err=err, ms=in_place_ms(launch, again),
-                device_ms=device_ms(launch, restore=again, kernel=kname),
+                device_ms=device_ms(launch, restore=again,
+                                    kernel=STDP_KERNEL_NAMES[name]),
                 plain_ms=in_place_ms(lambda: fn(kref, work, pg), again,
                                      calls=3, warmup=1),
                 bound_ms=bms, bound_by=by, library_ms=None, equal=equal,
@@ -503,10 +671,25 @@ def _stdp_rows(plan8, spec8):
                           "tensor, 0 ulp), to the plain version on a CPU "
                           "copy and on the card",
                 density=label, bytes=n_bytes, flops=n_flops,
-                shape={"H": H, "E": E, "D": D,
-                       "N": plan8.gid.shape[1], **counts}, **extra))
+                shape={"H": H, "E": E, "D": D, "N": N, **shape}, **extra))
         del saved, work
     return rows, failed
+
+
+def device_ops(fn, restore, calls: int = 10) -> float:
+    """Device operations (kernels and copies, torch.profiler) per call of
+    fn, the device-to-device copies of `restore()` left out."""
+    from torch.profiler import ProfilerActivity, profile
+    restore()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            restore()
+            fn()
+        torch.cuda.synchronize()
+    return sum(c for k, _, c in device_kernel_events(prof)
+               if "Memcpy DtoD" not in k) / calls
 
 
 def phase_kernels(plan8, spec8):
@@ -583,7 +766,10 @@ def phase_kernels(plan8, spec8):
     stdp_rows, stdp_failed = _stdp_rows(plan8, spec8)
     rows[1:1] = stdp_rows
     failed += stdp_failed
-    emit({"phase": "kernels", "rows": rows})
+    # registers, shared memory and spills of the STDP kernels (row_kernel<
+    # true> is phase A, row_kernel<false> the fused arrival pass)
+    emit({"phase": "kernels", "stdp_ptxas": _build.inspect("stdp.cu")["ptxas"],
+          "rows": rows})
     if failed:
         raise PhaseFailed(f"kernels differ from their plain versions: "
                           f"{failed}")
@@ -595,10 +781,17 @@ def _first_divergence(a: np.ndarray, b: np.ndarray):
     return int(diff[0]) if diff.size else None
 
 
+def _snn_counted() -> tuple:
+    """The SNN kernels whose launches `check` and `timed` read: the main
+    path's, and those it replaced (off the main path)."""
+    return ops.SNN_KERNELS + ops.PHASE_A_KERNELS + ops.PAIR_KERNELS
+
+
 def _main_path_counts(steps: int) -> dict:
-    """Each main-path kernel once a step, the replaced pair never."""
-    return dict(dict.fromkeys(ops.SNN_KERNELS, steps),
-                **dict.fromkeys(ops.PAIR_KERNELS, 0))
+    """Each main-path kernel once a step; the kernels it replaced
+    (`ops.PHASE_A_KERNELS`) and the older pair never."""
+    return dict(dict.fromkeys(_snn_counted(), 0),
+                **dict.fromkeys(ops.SNN_KERNELS, steps))
 
 
 def phase_check():
@@ -620,8 +813,7 @@ def phase_check():
         state, raster, _ = sp.run(sp.init_state(), 0, steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {k: ops.launch_counts()[k]
-                  for k in ops.SNN_KERNELS + ops.PAIR_KERNELS}
+        counts = {k: ops.launch_counts()[k] for k in _snn_counted()}
         raster_np = raster.cpu().numpy()
         rsig = observables.raster_signature(raster_np,
                                             sp.plan.gid.cpu().numpy()).hex()
@@ -662,7 +854,7 @@ def phase_timed(sp8):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
-    launches = {k: counts[k] for k in ops.SNN_KERNELS + ops.PAIR_KERNELS}
+    launches = {k: counts[k] for k in _snn_counted()}
     peak = torch.cuda.max_memory_allocated()
     raster_np = raster.cpu().numpy()
     rate = observables.mean_rate_hz(raster_np, cfg.n_neurons)
@@ -692,6 +884,21 @@ def phase_timed(sp8):
     split_ms = {k.replace("_s", "_ms_per_step"): v / n_split * 1e3
                 for k, v in split.items()}
 
+    # phase A must not synchronise with the host: a few steps under
+    # sync-debug "error" (a pageable copy or a read of a device value
+    # raises)
+    sync_error = None
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t_ in range(n_split, n_split + SYNC_DEBUG_STEPS):
+            s, _, _ = fns.phase_a(s, t_)
+    except RuntimeError as e:
+        sync_error = str(e)[:300]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
     emit({"phase": "timed", "grid": f"{cfg.grid_x}x{cfg.grid_y}",
           "neurons": cfg.n_neurons, "synapses": cfg.n_synapses,
           "shards": spec.eng.n_shards, "steps": MAIN_STEPS,
@@ -701,10 +908,15 @@ def phase_timed(sp8):
           "synaptic_events": events, "synaptic_events_per_s": events / wall,
           "max_memory_allocated_bytes": peak, "launches": launches,
           "raster_signature": observables.raster_signature(
-              raster_np, plan.gid.cpu().numpy()).hex()})
+              raster_np, plan.gid.cpu().numpy()).hex(),
+          "phase_a_sync_debug_steps": SYNC_DEBUG_STEPS,
+          "phase_a_sync_debug_error": sync_error})
+    if sync_error is not None:
+        raise PhaseFailed(f"phase A synchronised with the host under "
+                          f"sync-debug 'error': {sync_error}")
     if launches != _main_path_counts(MAIN_STEPS):
         raise PhaseFailed(f"kernels not launched once per step on the "
-                          f"main path (or the replaced pair launched): "
+                          f"main path (or a replaced one launched): "
                           f"{launches}")
     return counts
 
@@ -1172,11 +1384,18 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    # The CPU plain versions are yardsticks, so their bits must not depend
+    # on the host: ATen's and MKL's CPU kernels otherwise dispatch on the
+    # host's vector instruction set (AVX-512, AVX2, ...), and the plain
+    # attention's bits follow it (`tests/test_torch_cuda.py --softcap-isa`).
+    # Pin both to the code paths every x86-64 host runs alike, before torch
+    # starts.
+    os.environ.update(ATEN_CPU_CAPABILITY="default", MKL_CBWR="COMPATIBLE")
     sys.path.insert(0, os.path.join(HERE, "src"))
     import torch
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import (EngineConfig, GridConfig, StepProgram,
-                                  engine, observables)
+                                  engine, observables, stimulus)
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import izhikevich as kizh

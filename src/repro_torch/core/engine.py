@@ -27,9 +27,10 @@ would wrap, so every pad is masked explicitly.  Index tables are int64
 
 `run` leaves the state it is given untouched: it copies it once and then
 updates the copy in place each step.  The phase functions of
-`make_step_fn` update the state they are given: phase A its `w`,
-`last_arr`, `last_post` and `arr_ring` (the STDP kernels write them in
-place, gathering by target themselves), phase B its `arr_ring`.
+`make_step_fn` update the state they are given: phase A its `v`, `u`,
+`w`, `last_arr`, `last_post` and `arr_ring` (one kernel on the card,
+`kernels.ops.stdp_phase_a`, gathering by target itself), phase B its
+`arr_ring`.
 """
 from __future__ import annotations
 
@@ -281,53 +282,51 @@ def make_gid_to_local(spec: SimSpec, shard_id: torch.Tensor) -> Callable:
 # ----------------------------------------------------------------------------
 
 
+def _phase_a(spec: SimSpec, plan: ShardPlan, state: ShardState, t: int,
+             stim, seg: kref.Segments, coeffs, with_ltp: bool
+             ) -> Tuple[ShardState, torch.Tensor, StepTimings]:
+    """Phase A steps 1-5, and 6 `with_ltp`, as one op (one launch on the
+    card): pop slot t mod D (the arrived pre-LTD weights of each target
+    summed in canonical (tgt, src, j) order => reproducible current), LTD
+    against the nearest post spike, last-arrival refresh, stimulus,
+    Izhikevich update, and LTP of the targets that spiked."""
+    spiked, n_arrived, n_spikes = kops.stdp_phase_a(
+        state.arr_ring, t % spec.cfg.n_delay_slots, seg, plan.syn_valid,
+        plan.syn_tgt, plan.syn_plastic, plan.exc_mask, plan.neuron_valid,
+        *stim, state.v, state.u, state.last_post, state.w, state.last_arr, t,
+        izh=spec.izh, stdp=spec.stdp, neg_time=NEG_TIME, with_ltp=with_ltp,
+        coeffs=coeffs)
+    return state, spiked, StepTimings(spikes=n_spikes, arrivals=n_arrived)
+
+
 def phase_a_dynamics(spec: SimSpec, plan: ShardPlan, state: ShardState,
-                     t: int, stim, seg: kref.Segments
+                     t: int, stim, seg: kref.Segments, coeffs=None
                      ) -> Tuple[ShardState, torch.Tensor, StepTimings]:
     """Phase A steps 1-5: arrivals -> currents -> LTD -> stimulus -> neuron.
 
     `stim` is this step's (index, amp) row of `stimulus.stim_inputs`, `seg`
-    the plan's `kref.make_segments(plan.row_ptr, E)`.
-    Returns (state', spiked [H, N], timings).  Updates `state.w`,
-    `state.last_arr` and `state.arr_ring` (slot t mod D cleared) in place,
-    so state' shares them; `last_post` is untouched (plasticity owns it)."""
-    cfg, stdp = spec.cfg, spec.stdp
-    r = t % cfg.n_delay_slots
-
-    # 1-3. fused arrival pass: pop slot r, the current of each target (its
-    # arrived pre-LTD weights summed in canonical (tgt, src, j) order =>
-    # reproducible sum), LTD against the nearest post spike, last_arrival
-    # refresh.
-    i_syn, n_arrived = kops.stdp_arrival_current(
-        state.arr_ring, r, seg, plan.syn_valid, plan.syn_tgt,
-        plan.syn_plastic, state.last_post, state.w, state.last_arr, t,
-        a_minus=stdp.a_minus, tau_minus=stdp.tau_minus, w_min=stdp.w_min,
-        w_max=stdp.w_max, neg_time=NEG_TIME)
-
-    # 4+5. stimulus + Izhikevich
-    v, u, spiked = neuron_update(spec, plan, state, i_syn, stim)
-
-    tm = StepTimings(spikes=spiked.sum(1), arrivals=n_arrived)
-    return state._replace(v=v, u=u), spiked, tm
+    the plan's `kref.make_segments(plan.row_ptr, E)`, `coeffs` the plain
+    version's a, b, c, d (`kref.izh_coefficients`, built once by the
+    caller; None builds them here on the CPU, and the card never needs
+    them).  Returns (state, spiked [H, N], timings).  Updates `state.v`,
+    `state.u`, `state.w`, `state.last_arr` and `state.arr_ring` (slot t
+    mod D cleared) in place; `last_post` is untouched (plasticity owns
+    it)."""
+    return _phase_a(spec, plan, state, t, stim, seg, coeffs, with_ltp=False)
 
 
 def neuron_update(spec: SimSpec, plan: ShardPlan, state: ShardState,
                   i_syn: torch.Tensor, stim
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Phase A steps 4-5: thalamic stimulus + Izhikevich update.
-    Returns (v, u, spiked)."""
+    """Phase A steps 4-5 alone, as separate ops: thalamic stimulus +
+    Izhikevich update on a summed current i_syn (for a step that sums
+    the current in pieces, as streamed connectivity does).  Returns (v, u, spiked); the state is not
+    modified."""
     izh = spec.izh
-    dev = i_syn.device
-    c = lambda x: kref.f32(x, dev)
-    i_ext = stimulus.stim_current(*stim, spec.n_local)
-    i_tot = i_syn + i_ext
-    ex = plan.exc_mask
-    a = torch.where(ex, c(izh.a_exc), c(izh.a_inh))
-    b = torch.where(ex, c(izh.b_exc), c(izh.b_inh))
-    cc = torch.where(ex, c(izh.c_exc), c(izh.c_inh))
-    d = torch.where(ex, c(izh.d_exc), c(izh.d_inh))
+    i_tot = i_syn + kref.stim_current(*stim, spec.n_local)
+    a, b, c, d = kref.izh_coefficients(plan.exc_mask, izh)
     v, u, spiked = kops.izhikevich_update(
-        state.v, state.u, i_tot, a, b, cc, d, v_peak=izh.v_peak, dt=izh.dt,
+        state.v, state.u, i_tot, a, b, c, d, v_peak=izh.v_peak, dt=izh.dt,
         substeps=izh.v_substeps)
     return v, u, spiked & plan.neuron_valid
 
@@ -348,14 +347,14 @@ def phase_a_plasticity(spec: SimSpec, plan: ShardPlan, state: ShardState,
 
 
 def phase_a(spec: SimSpec, plan: ShardPlan, state: ShardState, t: int,
-            stim, seg: kref.Segments
+            stim, seg: kref.Segments, coeffs=None
             ) -> Tuple[ShardState, torch.Tensor, StepTimings]:
-    """Local dynamics: arrivals -> currents -> LTD -> neuron -> LTP.
-    Returns (state', spiked [H, N] bool, timings).  Updates the state's
-    w, last_arr, last_post and arr_ring in place (v and u are new)."""
-    state, spiked, tm = phase_a_dynamics(spec, plan, state, t, stim, seg)
-    state = phase_a_plasticity(spec, plan, state, spiked, t)
-    return state, spiked, tm
+    """Local dynamics: arrivals -> currents -> LTD -> neuron -> LTP, the
+    same bits as `phase_a_dynamics` then `phase_a_plasticity` in one op.
+    Arguments as `phase_a_dynamics`'.  Returns (state, spiked [H, N] bool,
+    timings).  Updates the state's v, u, w, last_arr, last_post and
+    arr_ring in place."""
+    return _phase_a(spec, plan, state, t, stim, seg, coeffs, with_ltp=True)
 
 
 def phase_b(spec: SimSpec, plan: ShardPlan, state: ShardState,
@@ -399,7 +398,8 @@ def make_step_fn(spec: SimSpec, plan: ShardPlan, t0: int,
     """Step callables for steps t0 .. t0 + n_steps - 1.
 
     The stimulus of the whole window is drawn on the host and uploaded in
-    one copy; the exchange tables are derived from the plan once."""
+    one copy; the exchange tables, and on the CPU the neurons' a, b, c
+    and d, are derived from the plan once."""
     dev = plan.gid.device
     gids = torch.from_numpy(stimulus.stim_table(
         spec.cfg, plan.columns.cpu().numpy(), t0, n_steps)).to(dev)
@@ -409,6 +409,10 @@ def make_step_fn(spec: SimSpec, plan: ShardPlan, t0: int,
                                               spec.n_local)
     seg = kref.make_segments(plan.row_ptr, plan.syn_valid.shape[1],
                              with_index=dev.type != "cuda")
+    # the plain version's per-neuron constants, once per window (the
+    # kernel takes them as launch arguments)
+    coeffs = (None if dev.type == "cuda"
+              else kref.izh_coefficients(plan.exc_mask, spec.izh))
 
     flat_gid = plan.gid.reshape(-1)
     owned = torch.nonzero(flat_gid >= 0).reshape(-1)
@@ -420,7 +424,7 @@ def make_step_fn(spec: SimSpec, plan: ShardPlan, t0: int,
     def pa(state, t):
         i = t - t0
         return phase_a(spec, plan, state, t, (stim_idx[i], stim_amp[i]),
-                       seg)
+                       seg, coeffs)
 
     def exchange(spiked):
         glob = _global_spike_mask(spiked, gid_pos)

@@ -14,13 +14,16 @@ host, following jax 0.9.0 with `jax_threefry_partitionable=True`
 (`jax/_src/prng.py` and `jax/_src/random.py::_randint`), so the events are
 equal to the reference's integer for integer.  The engine computes the
 whole [T, H, C*K] table of target gids of a run once and uploads it in one
-copy; only the per-step scatter of `stim_amplitude` runs on the device.
+copy; on the card the phase-A kernel adds each step's amplitudes to its
+neurons itself (`stim_current`, from `kernels.ref`, is the plain version
+of that sum).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..kernels.ref import stim_current  # noqa: F401  (re-exported)
 from .params import GridConfig
 
 _U32 = np.uint32
@@ -141,13 +144,3 @@ def stim_inputs(cfg: GridConfig, columns: torch.Tensor, gid_to_local,
                                          device=gids.device),
                       torch.tensor(np.float32(0.0), device=gids.device))
     return index, amp
-
-
-def stim_current(index: torch.Tensor, amp: torch.Tensor,
-                 n_local: int) -> torch.Tensor:
-    """[H, n_local] fp32 external current of one step from its row of
-    `stim_inputs`.  Every addend is stim_amplitude or +0.0, so the sum is
-    exact in any order (`scatter_add_` may use atomics on the card)."""
-    out = torch.zeros(index.shape[0], n_local, dtype=torch.float32,
-                      device=index.device)
-    return out.scatter_add_(1, index, amp)

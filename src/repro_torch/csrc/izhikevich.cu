@@ -7,8 +7,10 @@
 //
 // Bound: memory.  37 bytes per neuron (7 fp32 in, 2 fp32 + 1 bool out) and
 // about 20 flops; at N = 64,000 (an 8x8 grid) that is 2.4 MB, under a
-// microsecond at 3.35 TB/s, so on the main path the launch latency is what
-// it costs.
+// microsecond at 3.35 TB/s, so the launch latency is what it costs.  The
+// main path runs this update inside the phase-A kernel
+// (`stdp.cu::row_kernel<true>`), which has no such launch; this kernel is
+// its yardstick.
 //
 // Bits: the reference order is kept literally, every literal is fp32 (a
 // bare 0.04 would make the sum double), and the library is built with

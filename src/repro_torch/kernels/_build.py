@@ -49,6 +49,8 @@ SIGNATURES = {
     "repro_stdp_arrival": [_P] * 10 + [_I64] * 5 + [_F] * 6 + [_P],
     "repro_stdp_ltp": [_P] * 6 + [_I64] * 3 + [_F] * 6 + [_P],
     "repro_stdp_arrival_current": [_P] * 9 + [_I64] * 5 + [_F] * 6 + [_P],
+    # (pointers [16], int64 [8], float [19], stream): csrc/stdp.cu
+    "repro_stdp_phase_a": [_P] * 4,
     "repro_segment_sum_ordered": [_P] * 3 + [_I64] * 3 + [_P],
     "repro_rg_lru_scan": [_P] * 4 + [_I64] * 3 + [_P],
     "repro_flash_attention": [_P] * 4 + [_I64] * 4 + [ctypes.c_int] * 2

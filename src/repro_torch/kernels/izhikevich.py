@@ -1,9 +1,11 @@
 """CUDA wrapper of the fused Izhikevich update (`csrc/izhikevich.cu`).
 
 Replaces the Pallas TPU kernel `repro/kernels/izhikevich.py::
-izhikevich_update`.  Memory-bound (37 B/neuron); at the main path's
-N = 64,000 it is bound by launch latency.  The plain version is
-`kernels.ref.izhikevich_update`.
+izhikevich_update`.  Memory-bound (37 B/neuron); at the 8x8 grid's
+N = 64,000 it is bound by launch latency.  The main path runs the same
+update inside the phase-A kernel (`stdp.stdp_phase_a`); this one is its
+yardstick and the neuron half of a phase A split into parts.  The plain
+version is `kernels.ref.izhikevich_update`.
 """
 from __future__ import annotations
 

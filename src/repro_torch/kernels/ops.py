@@ -22,14 +22,17 @@ from . import stdp as _stdp
 
 #: The kernels of the DPSNN-STDP step, of the LM's RG-LRU layers, and of
 #: the `attention` entry point (which no model of the port calls).  The
-#: arrival pass and the ordered sum as two kernels (`stdp_arrival`,
-#: `segment_sum_ordered`) are off the main path, which runs them fused
-#: (`stdp_arrival_current`); they stay as its yardstick.
-SNN_KERNELS = ("izhikevich_update", "stdp_arrival_current", "stdp_ltp")
+#: main path runs phase A as one kernel (`stdp_phase_a`).  The three it
+#: replaced stay off the main path (`PHASE_A_KERNELS`), as its yardstick
+#: and for the paths that split phase A; so does the pair that
+#: `stdp_arrival_current` replaced (`PAIR_KERNELS`), as its yardstick.
+SNN_KERNELS = ("stdp_phase_a",)
+PHASE_A_KERNELS = ("izhikevich_update", "stdp_arrival_current", "stdp_ltp")
 PAIR_KERNELS = ("stdp_arrival", "segment_sum_ordered")
 LM_KERNELS = ("rg_lru_scan",)
 ATTN_KERNELS = ("flash_attention",)
-KERNELS = SNN_KERNELS + PAIR_KERNELS + LM_KERNELS + ATTN_KERNELS
+KERNELS = (SNN_KERNELS + PHASE_A_KERNELS + PAIR_KERNELS + LM_KERNELS
+           + ATTN_KERNELS)
 
 
 def _route(x: torch.Tensor, name: str) -> bool:
@@ -49,6 +52,33 @@ def izhikevich_update(v, u, current, a, b, c, d, *, v_peak, dt=1.0,
         return _izh.izhikevich_update(v, u, current, a, b, c, d, **kw)
     with ref.flush_denormal():
         return ref.izhikevich_update(v, u, current, a, b, c, d, **kw)
+
+
+def stdp_phase_a(arr_ring, r, seg: ref.Segments, syn_valid, syn_tgt,
+                 syn_plastic, exc_mask, neuron_valid, stim_idx, stim_amp, v,
+                 u, last_post, w, last_arr, t, *, izh, stdp, neg_time,
+                 with_ltp, coeffs=None):
+    """Phase A of a step: pop ring slot r (LTD, last-arrival refresh, each
+    target's in-order current), add the step's stimulus (its (index, amp)
+    row [H, C*K]), update the Izhikevich neurons with a, b, c, d picked by
+    exc_mask from `izh`, mask the spikes by neuron_valid and, with
+    `with_ltp`, apply LTP to the targets that spiked and set their
+    last_post to t.  Updates v, u, w, last_arr, arr_ring[:, r] and
+    last_post in place -> (spiked [H, N], n_arrived [H], spike count [H]).
+
+    `coeffs`, the plain version's (a, b, c, d) built once by the caller
+    (`ref.izh_coefficients`), is used on the CPU only: the kernel takes the
+    constants as launch arguments (`kernels.stdp.stdp_phase_a`)."""
+    kw = dict(izh=izh, stdp=stdp, neg_time=neg_time, with_ltp=with_ltp)
+    if _route(w, "stdp_phase_a"):
+        return _stdp.stdp_phase_a(arr_ring, r, seg, syn_plastic, exc_mask,
+                                  neuron_valid, stim_idx, stim_amp, v, u,
+                                  last_post, w, last_arr, t, **kw)
+    with ref.flush_denormal():
+        return ref.stdp_phase_a(arr_ring, r, seg, syn_valid, syn_tgt,
+                                syn_plastic, exc_mask, neuron_valid,
+                                stim_idx, stim_amp, v, u, last_post, w,
+                                last_arr, t, coeffs=coeffs, **kw)
 
 
 def stdp_arrival_current(arr_ring, r, seg: ref.Segments, syn_valid,
@@ -166,7 +196,8 @@ def attention(q, k, v, *, causal=True, window=None, softcap=None,
 
 def launch_counts() -> dict:
     """Launches of each kernel since the last reset."""
-    return {"izhikevich_update": _izh.launches,
+    return {"stdp_phase_a": _stdp.launches["stdp_phase_a"],
+            "izhikevich_update": _izh.launches,
             "stdp_arrival_current": _stdp.launches["stdp_arrival_current"],
             "stdp_arrival": _stdp.launches["stdp_arrival"],
             "stdp_ltp": _stdp.launches["stdp_ltp"],

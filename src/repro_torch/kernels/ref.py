@@ -232,6 +232,64 @@ def stdp_ltp(spiked, row_ptr, syn_plastic, last_arr, w, last_post,
     last_post.copy_(torch.where(spiked, tf, last_post))
 
 
+def stim_current(index: torch.Tensor, amp: torch.Tensor,
+                 n_local: int) -> torch.Tensor:
+    """[H, n_local] fp32 external current of one step from its (index,
+    amp) row of `core.stimulus.stim_inputs` ([H, C*K] each): each neuron's
+    amplitudes added in list order from +0.0 (a `scatter_add_` on one CPU
+    thread).  Every addend is stim_amplitude or +0.0, so the sum is exact
+    in any order (`scatter_add_` may use atomics on the card)."""
+    out = torch.zeros(index.shape[0], n_local, dtype=F32,
+                      device=index.device)
+    return out.scatter_add_(1, index, amp)
+
+
+def izh_coefficients(exc_mask: torch.Tensor, izh) -> tuple:
+    """(a, b, c, d), each [H, N] fp32: the excitatory or inhibitory
+    constant of `izh` (a `core.params.IzhikevichParams`) picked by
+    exc_mask [H, N], as the phase-A kernel picks it per neuron."""
+    dev = exc_mask.device
+    return tuple(torch.where(exc_mask, f32(getattr(izh, f"{k}_exc"), dev),
+                             f32(getattr(izh, f"{k}_inh"), dev))
+                 for k in "abcd")
+
+
+def stdp_phase_a(arr_ring, r: int, seg, syn_valid, syn_tgt, syn_plastic,
+                 exc_mask, neuron_valid, stim_idx, stim_amp, v, u,
+                 last_post, w, last_arr, t: float, *, izh, stdp,
+                 neg_time: float, with_ltp: bool, coeffs=None):
+    """Plain version of kernels.stdp.stdp_phase_a: phase A of a step, the
+    plain versions in the engine's order.
+
+    `stdp_arrival_current` (pop slot r, LTD, last-arrival refresh, i_syn),
+    i_tot = i_syn + `stim_current(stim_idx, stim_amp)`, `izhikevich_update`
+    with a, b, c, d = `coeffs` (built once by the caller with
+    `izh_coefficients`, or here), spiked &= neuron_valid, and with
+    `with_ltp` `stdp_ltp` of the targets that spiked.  `izh` and `stdp` are
+    `core.params` IzhikevichParams and StdpParams.  Updates v, u, w,
+    last_arr, arr_ring[:, r] and (with LTP) last_post in place; returns
+    (spiked [H, N] bool, n_arrived [H], spike count [H])."""
+    ltd = dict(a_minus=stdp.a_minus, tau_minus=stdp.tau_minus,
+               w_min=stdp.w_min, w_max=stdp.w_max, neg_time=neg_time)
+    i_syn, n_arrived = stdp_arrival_current(
+        arr_ring, r, seg, syn_valid, syn_tgt, syn_plastic, last_post, w,
+        last_arr, t, **ltd)
+    i_tot = i_syn + stim_current(stim_idx, stim_amp, v.shape[1])
+    a, b, c, d = coeffs if coeffs is not None else izh_coefficients(
+        exc_mask, izh)
+    v2, u2, spiked = izhikevich_update(v, u, i_tot, a, b, c, d,
+                                       v_peak=izh.v_peak, dt=izh.dt,
+                                       substeps=izh.v_substeps)
+    v.copy_(v2)
+    u.copy_(u2)
+    spiked = spiked & neuron_valid
+    if with_ltp:
+        stdp_ltp(spiked, seg.row_ptr, syn_plastic, last_arr, w, last_post,
+                 t, a_plus=stdp.a_plus, tau_plus=stdp.tau_plus,
+                 w_min=stdp.w_min, w_max=stdp.w_max, neg_time=neg_time)
+    return spiked, n_arrived, spiked.sum(1)
+
+
 class Segments(NamedTuple):
     """The per-target CSR of the synapses, derived once from a plan.
 

@@ -1,17 +1,23 @@
-"""CUDA wrappers of the STDP passes (`csrc/stdp.cu`).
+"""CUDA wrappers of the STDP passes and of phase A (`csrc/stdp.cu`).
 
 Replace the Pallas TPU kernels `repro/kernels/stdp.py::stdp_arrival` and
-`::stdp_ltp`, and with the first the sorted `jax.ops.segment_sum` of the
-contributions (`repro/core/engine.py:230`).  Each takes the engine's plan
-and state arrays, does its own gather by target, and updates the state in
-place, in one launch:
+`::stdp_ltp`, with the first the sorted `jax.ops.segment_sum` of the
+contributions (`repro/core/engine.py:230`), and in phase A also
+`repro/kernels/izhikevich.py::izhikevich_update`.  Each takes the engine's
+plan and state arrays, does its own gather by target, and updates the
+state in place, in one launch:
 
-* `stdp_arrival_current` (the main path) pops ring slot r (the flags it
-  finds set are cleared), applies LTD and refreshes `last_arr` where a
-  valid synapse arrived, and returns each target's in-order sum of the
-  pre-LTD weights that arrived, and the arrivals per shard;
+* `stdp_phase_a` (the main path) runs phase A of a step: the arrival pass
+  below, then in each target row's own lanes the stimulus, the Izhikevich
+  update with its constants as launch arguments and the spike, and with
+  `with_ltp` LTP of the rows that spiked; it returns the spikes, the
+  arrivals and the spike count per shard;
+* `stdp_arrival_current` pops ring slot r (the flags it finds set are
+  cleared), applies LTD and refreshes `last_arr` where a valid synapse
+  arrived, and returns each target's in-order sum of the pre-LTD weights
+  that arrived, and the arrivals per shard;
 * `stdp_arrival` does the same but returns the pre-LTD contributions
-  [H, E] for `segment_sum.segment_sum_ordered` to add: the pair the first
+  [H, E] for `segment_sum.segment_sum_ordered` to add: the pair the second
   replaced, kept as its yardstick;
 * `stdp_ltp` applies LTP on the rows of the targets that spiked, through
   the per-target CSR `row_ptr` (which holds exactly the valid synapses,
@@ -23,21 +29,26 @@ arrival kernels read the ring slot as 8-byte words (`stdp_arrival` also
 `syn_valid` and `syn_plastic`, and `w`, `last_arr` and `contrib` as
 float4), so their wrappers refuse E % 8 != 0 and misaligned pointers; LTP
 reads and writes single elements.  The plain versions, with the same
-in-place contract, are `kernels.ref.stdp_arrival_current`,
-`kernels.ref.stdp_arrival` and `kernels.ref.stdp_ltp`.
+in-place contract, are `kernels.ref.stdp_phase_a`,
+`kernels.ref.stdp_arrival_current`, `kernels.ref.stdp_arrival` and
+`kernels.ref.stdp_ltp`.
 """
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
 from . import _build
 from .ref import Segments, reciprocal_f32
 
 #: Kernel launches since the last reset (`ops.reset_launch_counts`).
-launches = {"stdp_arrival_current": 0, "stdp_arrival": 0, "stdp_ltp": 0}
+launches = {"stdp_phase_a": 0, "stdp_arrival_current": 0,
+            "stdp_arrival": 0, "stdp_ltp": 0}
 
-# (device, stream) -> uint64 [2 * H] (accumulator, ticket per shard) of the
-# arrival kernel's count; every launch leaves it zero.
+# (device, stream) -> uint64 [3 * H] (arrivals, spikes, ticket per shard) of
+# the kernels' counts; every launch leaves it zero.
 _count_scratch = {}
 
 
@@ -48,8 +59,8 @@ def _stream():
 def _scratch(device: torch.device, stream: int, H: int) -> torch.Tensor:
     key = (device, stream)
     buf = _count_scratch.get(key)
-    if buf is None or buf.numel() < 2 * H:
-        buf = torch.zeros(2 * H, dtype=torch.int64, device=device)
+    if buf is None or buf.numel() < 3 * H:
+        buf = torch.zeros(3 * H, dtype=torch.int64, device=device)
         _count_scratch[key] = buf
     return buf
 
@@ -105,6 +116,68 @@ def stdp_arrival_current(arr_ring, r: int, seg: Segments, syn_plastic,
     _build.check(err, name)
     launches[name] += 1
     return i_syn, n_arrived
+
+
+def stdp_phase_a(arr_ring, r: int, seg: Segments, syn_plastic, exc_mask,
+                 neuron_valid, stim_idx, stim_amp, v, u, last_post, w,
+                 last_arr, t: float, *, izh, stdp, neg_time: float,
+                 with_ltp: bool):
+    """Phase A of a step in one launch: `stdp_arrival_current`'s pass, then
+    in each row's own lanes the stimulus, the Izhikevich update and the
+    spike, and with `with_ltp` LTP of the rows that spiked.
+
+    arr_ring [H, D, E] bool, slot r, `seg.row_ptr` [H, N + 1] int32,
+    syn_plastic [H, E] bool, exc_mask / neuron_valid [H, N] bool, stim_idx
+    [H, C*K] int64 and stim_amp [H, C*K] fp32 (the step's row of
+    `core.stimulus.stim_inputs`), v / u / last_post [H, N] fp32, w /
+    last_arr [H, E] fp32, all contiguous CUDA tensors, E % 8 == 0, slot r
+    8-byte aligned; `izh` and `stdp` the `core.params` constants, passed
+    as launch arguments -> (spiked [H, N] bool, n_arrived [H] int64, spike
+    count [H] int64).  Updates v, u, w, last_arr, arr_ring[:, r] and (with
+    LTP) last_post in place.  No flag of a pad may be set."""
+    name = "stdp_phase_a"
+    H, D, E = arr_ring.shape
+    row_ptr = seg.row_ptr
+    N = row_ptr.shape[1] - 1
+    K = stim_idx.shape[1]
+    _check_ring(name, arr_ring, r)
+    _build.require(name, torch.int32, (H, N + 1), row_ptr=row_ptr)
+    _build.require(name, torch.bool, (H, E), syn_plastic=syn_plastic)
+    _build.require(name, torch.bool, (H, N), exc_mask=exc_mask,
+                   neuron_valid=neuron_valid)
+    _build.require(name, torch.int64, (H, K), stim_idx=stim_idx)
+    _build.require(name, torch.float32, (H, K), stim_amp=stim_amp)
+    _build.require(name, torch.float32, (H, N), v=v, u=u,
+                   last_post=last_post)
+    _build.require(name, torch.float32, (H, E), w=w, last_arr=last_arr)
+    _build.one_device(name, arr_ring, row_ptr, syn_plastic, exc_mask,
+                      stim_idx, stim_amp, v, w)
+    spiked = torch.empty((H, N), dtype=torch.bool, device=w.device)
+    counts = torch.empty((2, H), dtype=torch.int64, device=w.device)
+    if H * N == 0:
+        return spiked, counts[0].zero_(), counts[1].zero_()
+    lib = _build.library()
+    with torch.cuda.device(w.device):
+        stream = _stream()
+        ptrs = (ctypes.c_void_p * 16)(
+            arr_ring.data_ptr(), row_ptr.data_ptr(), syn_plastic.data_ptr(),
+            exc_mask.data_ptr(), neuron_valid.data_ptr(), stim_idx.data_ptr(),
+            stim_amp.data_ptr(), v.data_ptr(), u.data_ptr(),
+            last_post.data_ptr(), w.data_ptr(), last_arr.data_ptr(),
+            spiked.data_ptr(), counts[0].data_ptr(), counts[1].data_ptr(),
+            _scratch(w.device, stream, H).data_ptr())
+        ints = (ctypes.c_int64 * 8)(H, D, E, N, int(r), K,
+                                    int(izh.v_substeps), int(with_ltp))
+        floats = (ctypes.c_float * 19)(
+            float(t), stdp.a_minus, reciprocal_f32(stdp.tau_minus),
+            stdp.a_plus, reciprocal_f32(stdp.tau_plus), stdp.w_min,
+            stdp.w_max, neg_time / 2, izh.a_exc, izh.a_inh, izh.b_exc,
+            izh.b_inh, izh.c_exc, izh.c_inh, izh.d_exc, izh.d_inh,
+            izh.v_peak, np.float32(izh.dt / izh.v_substeps), izh.dt)
+        err = lib.repro_stdp_phase_a(ptrs, ints, floats, stream)
+    _build.check(err, name)
+    launches[name] += 1
+    return spiked, counts[0], counts[1]
 
 
 def stdp_arrival(arr_ring, r: int, syn_valid, syn_tgt, syn_plastic,

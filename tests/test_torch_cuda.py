@@ -7,16 +7,41 @@ the CPU port.  Run on a machine with an NVIDIA GPU and nvcc:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-`chip_smoke.py` does the same at the main path's full shapes.
+`chip_smoke.py` does the same at the main path's full shapes.  Run as a
+script, this file computes `chip_smoke.py`'s `softcap` attention row (the
+kernel's output, and the plain version's on the card, on the CPU and on
+the CPU on one thread) in N separate processes and prints, as JSON, how
+many distinct bit patterns each output took and each process's largest
+error against each plain version; `--softcap-isa` does the same once
+under each CPU instruction-set setting of `SOFTCAP_ISA_ENVS`:
+
+    python tests/test_torch_cuda.py --softcap-processes N
+    python tests/test_torch_cuda.py --softcap-isa
 """
+import os
+import hashlib
+import importlib.util
+import json
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (EngineConfig, GridConfig, StepProgram,
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))     # run as a script
+from repro_torch.core import (DEFAULT_IZH, DEFAULT_STDP,  # noqa: E402
+                              EngineConfig, GridConfig, StepProgram, engine,
                               observables)
-from repro_torch.kernels import flash_attention as kfa
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import flash_attention as kfa  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+sys.path.insert(0, str(ROOT / "tests"))
+from test_torch_phase_a import (EDGE_CASES, check_edge,  # noqa: E402
+                                edge_inputs, run_op)
 
 pytestmark = pytest.mark.cuda
 
@@ -162,6 +187,136 @@ def test_stdp_arrival_current_equals_plain_version(cuda, density):
     assert not out[("cuda", True)]["ring"][:, 1].any()
 
 
+def _phase_a_inputs(density, seed):
+    """`_stdp_inputs` (flags on valid synapses only, as phase B sets them)
+    with the neurons' state: v near and past the threshold, a fifth
+    inhibitory, the last 30 neurons of each shard padding, and a stimulus
+    list of 64 entries a shard with duplicates and +0.0 (dropped) ones."""
+    H, E, N = 2, 300_000, 6_000
+    z = _stdp_inputs(H, E, N, 3, density, seed=seed)
+    z["ring"] &= z["valid"][:, None]
+    rng = np.random.default_rng(seed + 1)
+    f = lambda x: torch.from_numpy(np.asarray(x, np.float32))
+    idx = rng.integers(0, N, (H, 64))
+    idx[:, 1::9] = idx[:, ::9][:, :idx[:, 1::9].shape[1]]   # duplicates
+    amp = np.where(rng.random((H, 64)) < 0.8, 20.0, 0.0)
+    valid = np.ones((H, N), bool)
+    valid[:, -30:] = False
+    z.update(v=f(rng.uniform(-80.0, 35.0, (H, N))),
+             u=f(rng.uniform(-20.0, 10.0, (H, N))),
+             exc=torch.from_numpy(np.arange(N)[None].repeat(H, 0) % 5 != 4),
+             neuron_valid=torch.from_numpy(valid),
+             stim_idx=torch.from_numpy(idx.astype(np.int64)),
+             stim_amp=f(amp))
+    return z
+
+
+def _phase_a(d, with_ltp, seg, t=200.0):
+    return ops.stdp_phase_a(
+        d["ring"], 1, seg, d["valid"], d["tgt"], d["plastic"], d["exc"],
+        d["neuron_valid"], d["stim_idx"], d["stim_amp"], d["v"], d["u"],
+        d["last_post"], d["w"], d["last_arr"], t, izh=DEFAULT_IZH,
+        stdp=DEFAULT_STDP, neg_time=-1.0e9, with_ltp=with_ltp)
+
+
+@pytest.mark.parametrize("with_ltp", [True, False], ids=["ltp", "no_ltp"])
+@pytest.mark.parametrize("density", [0.0, 0.0215, 0.215, 1.0])
+def test_stdp_phase_a_equals_plain_version(cuda, density, with_ltp):
+    """The phase-A kernel, in place, against its plain version on a CPU
+    copy and on the card: spiked, the counts and every updated state
+    tensor bit for bit; without LTP, then `ops.stdp_ltp`, it equals the
+    kernel with LTP."""
+    z = _phase_a_inputs(density, seed=int(density * 1e4) + 3)
+    E = z["w"].shape[1]
+    out = {}
+    for dev, impl in (("cpu", ops), ("cuda", ops), ("cuda", ref)):
+        d = {k: v.clone().to(dev) for k, v in z.items()}
+        seg = ref.make_segments(d["row_ptr"], E, with_index=impl is ref
+                                or dev == "cpu")
+        ops.reset_launch_counts()
+        if impl is ops:
+            spiked, n_arr, n_spk = _phase_a(d, with_ltp, seg)
+        else:
+            spiked, n_arr, n_spk = ref.stdp_phase_a(
+                d["ring"], 1, seg, d["valid"], d["tgt"], d["plastic"],
+                d["exc"], d["neuron_valid"], d["stim_idx"], d["stim_amp"],
+                d["v"], d["u"], d["last_post"], d["w"], d["last_arr"],
+                200.0, izh=DEFAULT_IZH, stdp=DEFAULT_STDP, neg_time=-1.0e9,
+                with_ltp=with_ltp)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert counts == dict(dict.fromkeys(ops.KERNELS, 0), stdp_phase_a=int(
+            dev == "cuda" and impl is ops))
+        out[(dev, impl)] = dict(d, spiked=spiked, n_arrived=n_arr,
+                                n_spikes=n_spk)
+    want = out[("cpu", ops)]
+    for key in (("cuda", ops), ("cuda", ref)):
+        for k in want:
+            assert _bits_equal(out[key][k], want[k]), (key, k)
+    got = out[("cuda", ops)]
+    assert torch.equal(got["n_spikes"].cpu(), want["spiked"].sum(1))
+    assert not bool((got["spiked"].cpu() & ~z["neuron_valid"]).any())
+    if density > 0:
+        assert int(got["n_spikes"].sum()) > 0
+    if not with_ltp:
+        assert _bits_equal(got["last_post"], z["last_post"])
+        d = {k: v.clone().to(cuda) for k, v in z.items()}
+        seg = ref.make_segments(d["row_ptr"], E, with_index=False)
+        _phase_a(d, True, seg)
+        ops.stdp_ltp(got["spiked"], got["row_ptr"], got["plastic"],
+                     got["last_arr"], got["w"], got["last_post"], 200.0,
+                     **LTP_KW)
+        for k in ("w", "last_post"):
+            assert _bits_equal(got[k], d[k]), k
+
+
+@pytest.mark.parametrize("with_ltp", [True, False], ids=["ltp", "no_ltp"])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_stdp_phase_a_edge_rows(cuda, case, with_ltp):
+    """The kernel on `test_torch_phase_a`'s hand-made rows (a target that
+    spikes in the step its row had arrivals, empty rows, rows past one
+    256-synapse round, padded neurons, duplicate stimulus entries, targets
+    that never spiked) against its plain version on a CPU copy."""
+    z = edge_inputs(case)
+    d = {k: v.to(cuda) if torch.is_tensor(v) else v for k, v in z.items()}
+    ops.reset_launch_counts()
+    got = run_op(d, with_ltp)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["stdp_phase_a"] == 1
+    want = run_op({k: v.clone() if torch.is_tensor(v) else v
+                   for k, v in z.items()}, with_ltp)
+    for k in want:
+        assert _bits_equal(got[k], want[k]), k
+    check_edge(case, z, {k: v.cpu() for k, v in got.items()}, with_ltp)
+
+
+def test_phase_a_steps_never_synchronise(cuda, monkeypatch):
+    """A few steps of phase A on the card under sync-debug "error": no
+    pageable copy of a per-step constant, no read of a device value; and
+    no `ref.f32` constant is built per step."""
+    sp = StepProgram(GridConfig(grid_x=2, grid_y=2, neurons_per_column=100,
+                                synapses_per_neuron=40, seed=7),
+                     EngineConfig(n_shards=2), device="cuda")
+    fns = engine.make_step_fn(sp.spec, sp.plan, 0, 10)
+    state = engine.clone_state(sp.init_state())
+    state = fns.step(state, 0)[0]                 # builds, allocates scratch
+    made = []
+    real = ref.f32
+    monkeypatch.setattr(ref, "f32", lambda *a: made.append(a) or real(*a))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(1, 4):
+            state, _, _ = fns.phase_a(state, t)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert made == []
+    assert ops.launch_counts() == dict(dict.fromkeys(ops.KERNELS, 0),
+                                       stdp_phase_a=3)
+
+
 def _misaligned(x: torch.Tensor, nbytes: int) -> torch.Tensor:
     """A contiguous copy of x whose first element lies `nbytes` past an
     aligned address (a view at an element offset of a larger buffer)."""
@@ -230,9 +385,11 @@ def test_main_path_on_card_equals_cpu_port(cuda):
             sp.weight_signature(state), counts)
     assert runs["cuda"][:2] == runs["cpu"][:2]
     assert runs["cpu"][2] == dict.fromkeys(ops.KERNELS, 0)
-    # the main path runs the fused arrival kernel, never the old pair
+    # the main path runs the phase-A kernel once a step, never the kernels
+    # it replaced (PHASE_A_KERNELS) nor the older pair
+    assert ops.SNN_KERNELS == ("stdp_phase_a",)
     assert runs["cuda"][2] == dict(dict.fromkeys(ops.KERNELS, 0),
-                                   **dict.fromkeys(ops.SNN_KERNELS, 60))
+                                   stdp_phase_a=60)
 
 
 def _scan_inputs(shape):
@@ -330,3 +487,108 @@ def test_flash_attention_equals_plain_version(cuda, case):
     assert got.dtype == dtype
     torch.testing.assert_close(got.float().cpu(), want.float().cpu(),
                                rtol=rtol, atol=atol)
+
+
+def _softcap_bits(out: str) -> None:
+    """`chip_smoke.py`'s `softcap` row on its own inputs (numpy seed 13,
+    drawn after the rows before it): the kernel's bf16 output and the plain
+    version's fp32 output (before its cast) on the card, on the CPU as
+    `chip_smoke.py` calls it, and on the CPU inside `ref.flush_denormal()`
+    (one thread), saved to `out`."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    smoke.torch = torch
+    rng = np.random.default_rng(13)
+    for label, c in smoke.ATTN_SHAPES:
+        q, k, v = smoke._attn_inputs(rng, c)
+        if label == "softcap":
+            break
+    kw = dict(causal=c["causal"], window=c["window"], softcap=c["softcap"])
+    got = ops.attention(q.cuda(), k.cuda(), v.cuda(), **kw)
+    f = [x.float() for x in (q, k, v)]
+    gpu = ref.attention(*(x.cuda() for x in f), **kw)
+    cpu = ref.attention(*f, **kw)
+    with ref.flush_denormal():
+        cpu1 = ref.attention(*f, **kw)
+    np.savez(out, kernel=got.view(torch.int16).cpu().numpy(),
+             plain_gpu=gpu.cpu().numpy(), plain_cpu=cpu.numpy(),
+             plain_cpu_one_thread=cpu1.numpy(),
+             cpu_capability=torch.backends.cpu.get_cpu_capability())
+
+
+#: Environments of `--softcap-isa`: the host's own vector code, one
+#: thread, and the CPU kernels of ATen and MKL pinned to narrower
+#: instruction sets.
+SOFTCAP_ISA_ENVS = {"host": {}, "one_thread": {"OMP_NUM_THREADS": "1"},
+                    "aten_avx2": {"ATEN_CPU_CAPABILITY": "avx2"},
+                    "aten_default": {"ATEN_CPU_CAPABILITY": "default"},
+                    "mkl_avx2": {"MKL_CBWR": "AVX2"},
+                    "mkl_compatible": {"MKL_CBWR": "COMPATIBLE"},
+                    "aten_default_mkl_compatible": {
+                        "ATEN_CPU_CAPABILITY": "default",
+                        "MKL_CBWR": "COMPATIBLE"}}
+
+
+def softcap_runs(n: int, envs=None) -> list:
+    """`_softcap_bits` in n separate processes, one after the other, the
+    i-th with `envs[i]` added to its environment."""
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(n):
+            out = Path(tmp) / f"softcap_{i}.npz"
+            env = dict(os.environ, **(envs[i] if envs else {}))
+            subprocess.run([sys.executable, __file__, "--softcap-bits",
+                            str(out)], cwd=ROOT, check=True, timeout=600,
+                           env=env)
+            runs.append(dict(np.load(out)))
+    return runs
+
+
+def softcap_report(runs: list) -> dict:
+    """How many distinct bit patterns each output took across the runs, and
+    each run's largest error of the kernel against each plain version cast
+    to bf16 (and whether it is within one bf16 ulp: rtol 2^-7, atol
+    1e-4)."""
+    distinct = {k: len({r[k].tobytes() for r in runs}) for k in runs[0]
+                if k != "cpu_capability"}
+    errors = []
+    for r in runs:
+        got = torch.from_numpy(r["kernel"]).view(torch.bfloat16).float()
+        row = {"cpu_capability": str(r["cpu_capability"]),
+               "plain_cpu_sha256": hashlib.sha256(
+                   r["plain_cpu"].tobytes()).hexdigest()[:16]}
+        for k in ("plain_gpu", "plain_cpu", "plain_cpu_one_thread"):
+            want = torch.from_numpy(r[k]).to(torch.bfloat16).float()
+            err = (got - want).abs()
+            row[k] = float(err.max())
+            row[f"{k}_within"] = bool((err <= 1e-4 + 2.0 ** -7
+                                       * want.abs()).all())
+        errors.append(row)
+    return {"processes": len(runs), "distinct": distinct, "errors": errors}
+
+
+def test_softcap_row_same_bits_in_two_processes(cuda):
+    """The `softcap` row's kernel and plain outputs, computed in two
+    separate processes, bit for bit the same."""
+    report = softcap_report(softcap_runs(2))
+    assert report["distinct"] == dict.fromkeys(report["distinct"], 1), report
+
+
+if __name__ == "__main__":
+    if sys.argv[1] == "--softcap-bits":
+        _softcap_bits(sys.argv[2])
+    elif sys.argv[1] == "--softcap-isa":
+        runs = softcap_runs(len(SOFTCAP_ISA_ENVS),
+                            list(SOFTCAP_ISA_ENVS.values()))
+        report = softcap_report(runs)
+        report["settings"] = list(SOFTCAP_ISA_ENVS)
+        report["plain_cpu_as_host"] = [
+            bool(np.array_equal(r["plain_cpu"].view(np.uint32),
+                                runs[0]["plain_cpu"].view(np.uint32)))
+            for r in runs]
+        print(json.dumps(report))
+    else:
+        assert sys.argv[1] == "--softcap-processes"
+        print(json.dumps(softcap_report(softcap_runs(int(sys.argv[2])))))
