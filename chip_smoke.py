@@ -37,25 +37,46 @@ every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
            fused arrival row against the pair it replaced (`stdp_arrival`
            then `segment_sum_ordered`), each bit-equal to what it
            replaced, on the same restored inputs: no PyTorch call does
-           either.  The phase also prints ptxas's registers and spills of
-           `stdp.cu`;
+           either.  Phase B's kernel (`arborize`) runs on the 8x8 plan's
+           own synapse tables with 2.15% and 21.5% of the sources spiking,
+           bit-equal to its plain version (the reference's
+           broadcast-compare) on a CPU copy and on the card and to the
+           sequence it replaced (gather, `nonzero`, index put), which is
+           timed beside it; an all-False mask at t = -1 must set nothing.
+           The phase also prints ptxas's registers and spills of
+           `stdp.cu` and `arborize.cu`;
   check    the main path (`StepProgram(..., device="cuda").run`) at 4x4,
            full width, 150 steps, at H=1 block, H=4 block, H=4 scatter:
            raster and weight signatures equal to the committed AVX-pinned
            JAX reference (`src/repro_torch/data/jax_reference.json`),
-           every main-path kernel (`ops.SNN_KERNELS`) launched once per
-           step and the kernels it replaced (`ops.PHASE_A_KERNELS`,
-           `ops.PAIR_KERNELS`) never;
-  timed    the main path at 8x8 (12.8 M synapses), H=1, 500 steps after a
-           warm-up: ms/step, the phase A / exchange / B split from a
-           separate synchronised pass, a few phase-A steps under
+           every main-path kernel (`ops.SNN_KERNELS`: phase A's and phase
+           B's) launched once per step and the kernels phase A's replaced
+           (`ops.PHASE_A_KERNELS`, `ops.PAIR_KERNELS`) never; after each
+           H=4 run, a few whole steps (phase A, the exchange, phase B) of
+           each exchange wire (allgather, halo, hier in 2 groups) under
            `torch.cuda.set_sync_debug_mode("error")` (it fails if one
-           synchronises), rate, the paper's normalised metric, synaptic
-           events/s, peak memory, raster signature;
+           synchronises), so the rolls over several shards and at group
+           stride run there;
+  timed    the main path at 8x8 (12.8 M synapses), H=1, 500 steps after a
+           warm-up: ms/step, the phase A / exchange / B split from
+           `StepProgram.time_phases` (the synchronised pass), the same
+           sync-debug steps of each exchange wire at H=1, rate, the
+           paper's normalised metric (`bench.timing.norm_seconds`),
+           synaptic events/s, peak memory, raster signature;
   profile  device time by kernel, device busy and idle share, and device
            operations (kernels and copies) per step of the 8x8 path over
            steps 0-19 (nearly silent) and over the timed run's 500 steps
-           (activity comes in bursts).
+           (activity comes in bursts);
+  bench    the ported suites (`repro_torch.bench`) on the card, one line
+           per report (its env, config, deterministic and wall keys):
+           `table1` quick (1x1, 4x4, 150 steps; the 4x4 row's raster
+           signature must be the committed JAX reference's), `table1` at
+           1x1, 4x4, 8x4, 8x8 and 16x16 (51.2 M synapses), 300 steps, with
+           each row's build seconds and peak memory, `table2` (2x2, H=1,
+           halo, 200 steps) under `sync` and again under `pipelined`
+           (equal raster signatures), and `profile` (exchange x placement
+           at 2x2, H=4, 150 steps; it raises unless every cell gives the
+           same raster and totals).
 
 Then the LM serving path (`recurrentgemma-2b`, `repro_torch.serve`):
 
@@ -108,6 +129,7 @@ beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -122,7 +144,11 @@ PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (data sheet)
 PEAK_FP32_PER_S = 67e12        # H100 SXM fp32, outside the tensor cores
 PEAK_BF16_PER_S = 989e12       # H100 SXM bf16, dense tensor cores
 MAIN_STEPS = 500
-SYNC_DEBUG_STEPS = 5     # timed: phase-A steps under sync-debug "error"
+SYNC_DEBUG_STEPS = 5     # timed: whole steps under sync-debug "error"
+EXCHANGES = ("allgather", "halo", "hier")   # (hier: one group at H=1)
+# bench: table1's rows (the JAX suite's four and the paper's 256-column
+# row, 51.2 M synapses) at the suite's 300 steps
+TABLE1_ROWS = [(1, 1), (4, 4), (8, 4), (8, 8), (16, 16)]
 # kernels phase: the STDP passes' inputs flag this share of the valid
 # synapses and spike this share of the neurons (the 8x8 timed run's mean:
 # 275,342 arrivals a step among 12.8 M synapses, 21.52 Hz), and 10x it
@@ -692,6 +718,92 @@ def device_ops(fn, restore, calls: int = 10) -> float:
                if "Memcpy DtoD" not in k) / calls
 
 
+def _replaced_phase_b(ring, spiked_src, syn_src, syn_delay, syn_valid, t):
+    """The port's phase B before the arborize kernel, on the same inputs:
+    gather by syn_src, `torch.nonzero` (which waits for the device to size
+    its output), the slots, an index put."""
+    D = ring.shape[1]
+    active = torch.gather(spiked_src, 1, syn_src) & syn_valid
+    h, e = torch.nonzero(active, as_tuple=True)
+    slot = torch.remainder(syn_delay[h, e] + t, D).to(torch.int64)
+    ring[h, slot, e] = True
+    return ring
+
+
+def _arborize_rows(plan8, spec8):
+    """Phase B's kernel on plan8's own synapse tables, with the sources
+    spiking at the main path's share (2.15%) and at 10x it, at a t whose
+    slots wrap: bit-equal to its plain version (the reference's
+    broadcast-compare) on a CPU copy and on the card, and to the sequence
+    it replaced; an all-False spike mask at t = -1 (the pipelined
+    schedule's prologue) sets nothing.  Timed beside its bound and the
+    replaced sequence.  Setting flags that are set changes nothing, so the
+    calls need no restore between them."""
+    H, E = plan8.syn_valid.shape
+    S = plan8.src_gid.shape[1]
+    D = spec8.cfg.n_delay_slots
+    t = 1003                           # t mod D = 5: most slots wrap
+    tables = (plan8.syn_src, plan8.syn_delay, plan8.syn_valid)
+    tables_cpu = tuple(x.cpu() for x in tables)
+    n_valid = int(plan8.syn_valid.sum())
+    rng = np.random.default_rng(2019)
+    ring0 = torch.from_numpy(rng.random((H, D, E), dtype=np.float32)
+                             < STDP_DENSITY) & tables_cpu[2][:, None]
+    rows, failed = [], []
+    for label, density in (("main", STDP_DENSITY), ("10x", 10 * STDP_DENSITY)):
+        spiked_cpu = torch.from_numpy(rng.random((H, S)) < density)
+        spiked = spiked_cpu.cuda()
+        ring = ring0.cuda()
+        got = karb.arborize(ring, spiked, *tables, t).clone()
+        torch.cuda.synchronize()
+        want = kref.arborize(ring0.clone(), spiked_cpu, *tables_cpu, t)
+        want_gpu = kref.arborize(ring0.cuda(), spiked, *tables, t)
+        replaced = _replaced_phase_b(ring0.cuda(), spiked, *tables, t)
+        silent = karb.arborize(ring0.cuda(), torch.zeros_like(spiked),
+                               *tables, -1)
+        equal = (bit_equal(got, want) and bit_equal(got, want_gpu)
+                 and bit_equal(got, replaced) and bit_equal(silent, ring0))
+        if not equal:
+            failed.append(f"arborize ({label})")
+        err = max(max_abs_err(got, want), max_abs_err(got, want_gpu))
+        del want, want_gpu, replaced, silent
+        n_active = int((torch.gather(spiked, 1, plan8.syn_src)
+                        & plan8.syn_valid).sum())
+        # valid flags, the source index of each valid synapse, the spike
+        # flags once, and per active synapse its delay in and flag out
+        n_bytes = H * E + n_valid * 8 + H * S + n_active * (4 + 1)
+        bms, by = bound(n_bytes, 0)
+        launch = lambda: karb.arborize(ring, spiked, *tables, t)
+        old = lambda: _replaced_phase_b(ring, spiked, *tables, t)
+        rows.append(dict(
+            name="arborize", route="cuda",
+            source="src/repro_torch/csrc/arborize.cu",
+            replaces="src/repro/core/engine.py:315", launches=None,
+            max_abs_err=err, ms=cuda_ms(launch),
+            device_ms=device_ms(launch, kernel="arborize_kernel"),
+            plain_ms=cuda_ms(lambda: kref.arborize(ring, spiked, *tables, t),
+                             calls=3),
+            bound_ms=bms, bound_by=by, library_ms=None,
+            library_note="no single PyTorch call does phase B; the "
+                         "sequence it replaced is in replaced_*",
+            replaced="gather by syn_src, & syn_valid, torch.nonzero (a host "
+                     "synchronisation), the slots, an index put",
+            replaced_ms=cuda_ms(old, calls=5),
+            replaced_device_ms=device_ms(old),
+            replaced_device_ops=device_ops(old, lambda: None),
+            equal=equal,
+            tolerance="bit-equal (every flag of the ring), to the plain "
+                      "version on a CPU copy and on the card and to the "
+                      "sequence it replaced; an all-False mask at t = -1 "
+                      "sets nothing",
+            density=label, bytes=n_bytes, flops=0,
+            shape={"H": H, "E": E, "D": D, "S": S, "t": t,
+                   "valid": n_valid, "active": n_active,
+                   "spiking_sources": int(spiked_cpu.sum())}))
+        del ring, spiked
+    return rows, failed
+
+
 def phase_kernels(plan8, spec8):
     """Each kernel against its plain version at the 8x8 shapes; returns the
     rows of the `kernels` line (the STDP passes at the main density)."""
@@ -766,9 +878,14 @@ def phase_kernels(plan8, spec8):
     stdp_rows, stdp_failed = _stdp_rows(plan8, spec8)
     rows[1:1] = stdp_rows
     failed += stdp_failed
+    arb_rows, arb_failed = _arborize_rows(plan8, spec8)
+    rows += arb_rows
+    failed += arb_failed
     # registers, shared memory and spills of the STDP kernels (row_kernel<
-    # true> is phase A, row_kernel<false> the fused arrival pass)
+    # true> is phase A, row_kernel<false> the fused arrival pass) and of
+    # phase B's
     emit({"phase": "kernels", "stdp_ptxas": _build.inspect("stdp.cu")["ptxas"],
+          "arborize_ptxas": _build.inspect("arborize.cu")["ptxas"],
           "rows": rows})
     if failed:
         raise PhaseFailed(f"kernels differ from their plain versions: "
@@ -833,12 +950,52 @@ def phase_check():
             _, raster_cpu, _ = cpu.run(cpu.init_state(), 0, steps)
             res["first_step_gpu_differs_from_cpu_port"] = _first_divergence(
                 raster_np, raster_cpu.numpy())
+        if r["n_shards"] > 1:
+            # the exchange wires across several shards and at group stride
+            errs = _whole_steps_sync_debug(sp.spec, sp.plan, state, steps,
+                                           hier_groups=2)
+            res["whole_steps_sync_debug_errors"] = errs
+            if any(e is not None for e in errs.values()):
+                failed.append(f"{name} (sync-debug)")
         results[name] = res
     emit({"phase": "check", "grid": "4x4", "steps": steps,
           "runs": results})
     if failed:
         raise PhaseFailed(f"main path differs from the JAX reference: "
                           f"{failed}")
+
+
+def _whole_steps_sync_debug(spec, plan, s, t0: int, hier_groups) -> dict:
+    """No step may synchronise with the host: a few whole steps (phase A,
+    the exchange, phase B) through the phase handles of each exchange
+    wire under sync-debug "error" (a pageable copy or a read of a device
+    value raises), from state `s` (updated in place) at step t0.
+    Returns each wire's error text, or None."""
+    errors = {}
+    for ex in EXCHANGES:
+        sp = StepProgram.from_parts(
+            spec._replace(eng=dataclasses.replace(spec.eng, exchange=ex)),
+            plan, s, hier_groups=hier_groups)
+        pp = sp.phase_fns()
+        # one step outside: it draws the stimulus window of t0
+        s, spiked, _ = pp.phase_a(s, t0)
+        s = pp.phase_b(s, pp.exchange(spiked), t0)
+        t0 += 1
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for t_ in range(t0, t0 + SYNC_DEBUG_STEPS):
+                s, spiked, _ = pp.phase_a(s, t_)
+                s = pp.phase_b(s, pp.exchange(spiked), t_)
+            errors[ex] = None
+        except RuntimeError as e:
+            errors[ex] = str(e)[:300]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        t0 += SYNC_DEBUG_STEPS
+        del sp, pp
+    return errors
 
 
 def phase_timed(sp8):
@@ -859,45 +1016,17 @@ def phase_timed(sp8):
     raster_np = raster.cpu().numpy()
     rate = observables.mean_rate_hz(raster_np, cfg.n_neurons)
     events = int(tm.arrivals.sum())
-    norm = wall / (cfg.n_synapses * MAIN_STEPS * 1e-3 * max(rate, 1e-9))
+    norm = timing.norm_seconds(wall, cfg.n_synapses, MAIN_STEPS, rate)
 
-    # separate synchronised pass: the per-phase split (paper Table 2)
-    fns = engine.make_step_fn(spec, plan, 0, MAIN_STEPS)
-    s = engine.clone_state(state0)
-    split = dict(phase_a_s=0.0, exchange_s=0.0, phase_b_s=0.0)
+    # separate synchronised pass: the per-phase split (paper Table 2),
+    # through StepProgram.time_phases under EngineConfig's default 'sync'
+    # schedule; it works on a copy of state0 and returns the state after
     n_split = 100
-    for t_ in range(n_split):
-        torch.cuda.synchronize()
-        c0 = time.perf_counter()
-        s, spiked, _ = fns.phase_a(s, t_)
-        torch.cuda.synchronize()
-        c1 = time.perf_counter()
-        ss = fns.exchange(spiked)
-        torch.cuda.synchronize()
-        c2 = time.perf_counter()
-        s = fns.phase_b(s, ss, t_)
-        torch.cuda.synchronize()
-        c3 = time.perf_counter()
-        split["phase_a_s"] += c1 - c0
-        split["exchange_s"] += c2 - c1
-        split["phase_b_s"] += c3 - c2
+    s, split, _, _ = sp8.time_phases(state0, 0, n_split)
     split_ms = {k.replace("_s", "_ms_per_step"): v / n_split * 1e3
                 for k, v in split.items()}
-
-    # phase A must not synchronise with the host: a few steps under
-    # sync-debug "error" (a pageable copy or a read of a device value
-    # raises)
-    sync_error = None
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        for t_ in range(n_split, n_split + SYNC_DEBUG_STEPS):
-            s, _, _ = fns.phase_a(s, t_)
-    except RuntimeError as e:
-        sync_error = str(e)[:300]
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
+    sync_errors = _whole_steps_sync_debug(spec, plan, s, n_split,
+                                          hier_groups=1)
 
     emit({"phase": "timed", "grid": f"{cfg.grid_x}x{cfg.grid_y}",
           "neurons": cfg.n_neurons, "synapses": cfg.n_synapses,
@@ -909,11 +1038,11 @@ def phase_timed(sp8):
           "max_memory_allocated_bytes": peak, "launches": launches,
           "raster_signature": observables.raster_signature(
               raster_np, plan.gid.cpu().numpy()).hex(),
-          "phase_a_sync_debug_steps": SYNC_DEBUG_STEPS,
-          "phase_a_sync_debug_error": sync_error})
-    if sync_error is not None:
-        raise PhaseFailed(f"phase A synchronised with the host under "
-                          f"sync-debug 'error': {sync_error}")
+          "whole_steps_sync_debug_steps": SYNC_DEBUG_STEPS,
+          "whole_steps_sync_debug_errors": sync_errors})
+    if any(e is not None for e in sync_errors.values()):
+        raise PhaseFailed(f"a step synchronised with the host under "
+                          f"sync-debug 'error': {sync_errors}")
     if launches != _main_path_counts(MAIN_STEPS):
         raise PhaseFailed(f"kernels not launched once per step on the "
                           f"main path (or a replaced one launched): "
@@ -955,6 +1084,53 @@ def phase_profile(sp8, n_steps: int = 20):
             top=[dict(name=k[:90], device_ms_per_step=us * 1e-3 / steps,
                       calls=c) for us, k, c in rows[:15]])
     emit({"phase": "profile", "windows": windows})
+
+
+def _report_line(suite: str, rep: dict, **more) -> None:
+    emit({"phase": "bench", "suite": suite, "env": rep["env"],
+          "config": rep["config"], "deterministic": rep["deterministic"],
+          "wall": rep["wall"], **more})
+
+
+def phase_bench():
+    """The ported bench suites on the card (`repro_torch.bench`), one line
+    per report: `table1` quick (its 4x4 row's raster signature and spike
+    count must be the committed JAX reference's h1_block run: the same
+    grid, layout and 150 steps), `table1` at TABLE1_ROWS and its 300
+    steps (build seconds and peak memory by row), `table2` under
+    `sync` and its cell again under `pipelined` (equal raster
+    signatures), and `profile` (which raises unless every exchange x
+    placement cell gives the same raster and totals)."""
+    with open(os.path.join(HERE, "src", "repro_torch", "data",
+                           "jax_reference.json")) as f:
+        want = json.load(f)["runs"]["h1_block"]
+    quick = table1.run_suite(quick=True, device="cuda")
+    det = quick["deterministic"]
+    quick_ok = (det["sig_4x4"] == want["raster_signature"]
+                and det["spikes_4x4"] == want["spikes"])
+    _report_line("table1_quick", quick, rows=quick["extra"]["rows"],
+                 equal_to_jax_reference=quick_ok)
+    full = table1.run_suite(device="cuda", rows=TABLE1_ROWS)
+    _report_line("table1", full, rows=full["extra"]["rows"])
+    t2 = table2.run_suite(device="cuda")
+    row = t2["extra"]["row"]
+    pipelined = bench_profile.profile_cell(
+        GridConfig(grid_x=2, grid_y=2, neurons_per_column=1000),
+        EngineConfig(n_shards=1, exchange="halo",
+                     exchange_schedule="pipelined"), row["steps"],
+        device="cuda")
+    same = (pipelined["raster_sig"] == row["raster_sig"]
+            and pipelined["spikes"] == row["spikes"])
+    _report_line("table2", t2, row=row, pipelined=pipelined,
+                 schedules_equal=same)
+    prof = bench_profile.run_profile(device="cuda")
+    _report_line("profile", prof, cells=prof["extra"]["cells"])
+    if not quick_ok:
+        raise PhaseFailed(f"table1's 4x4 row differs from the JAX "
+                          f"reference: {det}")
+    if not same:
+        raise PhaseFailed("table2 differs between the sync and pipelined "
+                          "schedules")
 
 
 # ----------------------------------------------------------------------------
@@ -1358,7 +1534,9 @@ def main() -> int:
         phase_check()
         launches = phase_timed(sp8)
         phase_profile(sp8)
-        del sp8                  # so that the LM's peak memory is its own
+        del sp8                  # so that the later peaks are their own
+        torch.cuda.empty_cache()
+        phase_bench()
         torch.cuda.empty_cache()
         lm_rows = phase_lm_kernels()
         attn_rows, attn_launches = phase_attn_kernels()
@@ -1393,10 +1571,14 @@ if __name__ == "__main__":
     os.environ.update(ATEN_CPU_CAPABILITY="default", MKL_CBWR="COMPATIBLE")
     sys.path.insert(0, os.path.join(HERE, "src"))
     import torch
+    from repro_torch.bench import profile as bench_profile
+    from repro_torch.bench import timing
+    from repro_torch.bench.suites import table1, table2
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import (EngineConfig, GridConfig, StepProgram,
                                   engine, observables, stimulus)
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import arborize as karb
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import izhikevich as kizh
     from repro_torch.kernels import ref as kref

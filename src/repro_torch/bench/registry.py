@@ -1,0 +1,73 @@
+"""Benchmark registry: name -> suite runner (port of
+`repro.bench.registry`).
+
+Every entry is a thin loader, so `list` pays no suite import cost.  The
+JAX package's other suites are not ported yet: asking for one raises
+NotImplementedError naming the ROADMAP item (queue 1) that ports it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List
+
+
+@dataclasses.dataclass(frozen=True)
+class Entry:
+    name: str
+    fn: Callable[[bool, object], dict]      # (quick, device) -> report
+    doc: str
+
+
+def _profile(quick, device):
+    from . import profile
+    return profile.run_profile(quick, device)
+
+
+def _table1(quick, device):
+    from .suites import table1
+    return table1.run_suite(quick, device)
+
+
+def _table2(quick, device):
+    from .suites import table2
+    return table2.run_suite(quick, device)
+
+
+BENCHES: Dict[str, Entry] = {e.name: e for e in [
+    Entry("profile", _profile,
+          "per-phase compute/exchange/arborization split, "
+          "{allgather,halo} x {block,scatter} (paper Table 2)"),
+    Entry("table1", _table1,
+          "problem sizes, rates, normalized time/synapse (paper Table 1)"),
+    Entry("table2", _table2,
+          "H=1 compute/communication split (paper Table 2, legacy view)"),
+]}
+
+#: The JAX package's suites that the port does not run yet, and the
+#: ROADMAP item (queue 1) that ports each.
+NOT_PORTED: Dict[str, str] = {
+    "event_vs_dense": "item 6 (event delivery)",
+    "weak_scaling": "item 7 (streamed connectivity)",
+    "comm_overlap": "item 8 (multi-device exchange)",
+    "scaling": "item 8 (multi-device exchange)",
+    "cluster_scaling": "item 10 (the cluster runtime)",
+    "simserve_throughput": "item 11 (the simulation service)",
+    "connectivity_sweep": "item 12 (the rest of the bench tooling)",
+    "roofline": "item 12 (the rest of the bench tooling)",
+    "lm_throughput": "item 13 (the LM substrate)",
+}
+
+
+def get(name: str) -> Entry:
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"benchmark {name!r} is not ported yet (ROADMAP queue 1, "
+            f"{NOT_PORTED[name]})")
+    if name not in BENCHES:
+        raise KeyError(f"unknown benchmark {name!r}; known: "
+                       f"{sorted(BENCHES)}")
+    return BENCHES[name]
+
+
+def default_names() -> List[str]:
+    return list(BENCHES)

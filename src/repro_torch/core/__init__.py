@@ -5,13 +5,14 @@ from .params import (EngineConfig, GridConfig, IzhikevichParams, StdpParams,
                      DEFAULT_IZH, DEFAULT_STDP)
 from .engine import (ShardPlan, ShardState, SimSpec, build, init_state,
                      make_step_fn, run)
-from . import connectivity, convert, observables, profiles, stimulus, topology
+from . import (aer, connectivity, convert, distributed, observables,
+               profiles, stimulus, topology)
 from .step_program import StepProgram
 
 __all__ = [
     "EngineConfig", "GridConfig", "IzhikevichParams", "StdpParams",
     "DEFAULT_IZH", "DEFAULT_STDP", "ShardPlan", "ShardState", "SimSpec",
     "StepProgram", "build", "init_state", "make_step_fn", "run",
-    "connectivity", "convert", "observables", "profiles", "stimulus",
-    "topology",
+    "aer", "connectivity", "convert", "distributed", "observables",
+    "profiles", "stimulus", "topology",
 ]

@@ -30,7 +30,8 @@ updates the copy in place each step.  The phase functions of
 `make_step_fn` update the state they are given: phase A its `v`, `u`,
 `w`, `last_arr`, `last_post` and `arr_ring` (one kernel on the card,
 `kernels.ops.stdp_phase_a`, gathering by target itself), phase B its
-`arr_ring`.
+`arr_ring` (one kernel on the card, `kernels.ops.arborize`).  No phase
+reads a device value on the host, so on the card a step never waits.
 """
 from __future__ import annotations
 
@@ -360,13 +361,11 @@ def phase_a(spec: SimSpec, plan: ShardPlan, state: ShardState, t: int,
 def phase_b(spec: SimSpec, plan: ShardPlan, state: ShardState,
             spiked_src: torch.Tensor, t: int) -> ShardState:
     """Deferred axonal arborization: set arrival flags at slot
-    (t + delay) mod D, in place, for the synapses whose source spiked.
-    Each such synapse sets one flag of its own, so no two writes meet."""
-    D = spec.cfg.n_delay_slots
-    active = torch.gather(spiked_src, 1, plan.syn_src) & plan.syn_valid
-    h, e = torch.nonzero(active, as_tuple=True)
-    slot = torch.remainder(plan.syn_delay[h, e] + t, D).to(torch.int64)
-    state.arr_ring[h, slot, e] = True
+    (t + delay) mod D, in place, for the valid synapses whose source
+    spiked (`kernels.ops.arborize`: one launch on the card, which reads
+    nothing back).  An all-False `spiked_src` sets nothing."""
+    kops.arborize(state.arr_ring, spiked_src, plan.syn_src, plan.syn_delay,
+                  plan.syn_valid, t)
     return state
 
 
@@ -383,14 +382,52 @@ def _global_spike_mask(spiked: torch.Tensor, gid_pos: torch.Tensor
     return spiked.reshape(-1)[gid_pos]
 
 
+class StimWindow:
+    """The stimulus (index, amp) rows of a window of steps [t0, t0 + n),
+    drawn on the host and uploaded in one copy.  `row(t)` of a step
+    outside the window draws the window of n steps that t falls in (the
+    windows tile time from the first t0), so a caller that steps through
+    time pays one upload per window; `draw(t0, n)` sets the window
+    explicitly (a timed loop draws its whole range before it starts)."""
+
+    def __init__(self, spec: SimSpec, plan: ShardPlan, t0: int, n: int):
+        self.spec, self.plan = spec, plan
+        self.columns = plan.columns.cpu().numpy()
+        self.g2l = make_gid_to_local(spec, plan.shard_id)
+        self.origin = t0
+        self.draw(t0, n)
+
+    def draw(self, t0: int, n: int) -> None:
+        gids = torch.from_numpy(stimulus.stim_table(
+            self.spec.cfg, self.columns, t0, n)).to(self.plan.gid.device)
+        self.index, self.amp = stimulus.stim_inputs(
+            self.spec.cfg, self.plan.columns, self.g2l,
+            gids.to(torch.int64), self.spec.n_local)
+        self.t0, self.n = t0, n
+
+    def row(self, t: int):
+        if not self.t0 <= t < self.t0 + self.n:
+            self.draw(self.origin + (t - self.origin) // self.n * self.n,
+                      self.n)
+        i = t - self.t0
+        return self.index[i], self.amp[i]
+
+
 class StepFns(NamedTuple):
     """The phases of one run window [t0, t0 + n_steps), as callables:
     phase_a(state, t) -> (state, spiked, tm), exchange(spiked) ->
-    spiked_src, phase_b(state, spiked_src, t) -> state, step(state, t)."""
+    spiked_src, phase_b(state, spiked_src, t) -> state, step(state, t),
+    and phase A's halves phase_a_dynamics(state, t) -> (state, spiked,
+    tm) and phase_a_plasticity(state, spiked, t) -> state.  `stim` holds
+    the window's stimulus; a phase A outside it draws the window its t
+    falls in."""
     phase_a: Callable
     exchange: Callable
     phase_b: Callable
     step: Callable
+    phase_a_dynamics: Callable
+    phase_a_plasticity: Callable
+    stim: StimWindow
 
 
 def make_step_fn(spec: SimSpec, plan: ShardPlan, t0: int,
@@ -401,12 +438,7 @@ def make_step_fn(spec: SimSpec, plan: ShardPlan, t0: int,
     one copy; the exchange tables, and on the CPU the neurons' a, b, c
     and d, are derived from the plan once."""
     dev = plan.gid.device
-    gids = torch.from_numpy(stimulus.stim_table(
-        spec.cfg, plan.columns.cpu().numpy(), t0, n_steps)).to(dev)
-    g2l = make_gid_to_local(spec, plan.shard_id)
-    stim_idx, stim_amp = stimulus.stim_inputs(spec.cfg, plan.columns, g2l,
-                                              gids.to(torch.int64),
-                                              spec.n_local)
+    stim = StimWindow(spec, plan, t0, n_steps)
     seg = kref.make_segments(plan.row_ptr, plan.syn_valid.shape[1],
                              with_index=dev.type != "cuda")
     # the plain version's per-neuron constants, once per window (the
@@ -422,9 +454,14 @@ def make_step_fn(spec: SimSpec, plan: ShardPlan, t0: int,
     src_safe = torch.where(src_ok, plan.src_gid, 0)
 
     def pa(state, t):
-        i = t - t0
-        return phase_a(spec, plan, state, t, (stim_idx[i], stim_amp[i]),
-                       seg, coeffs)
+        return phase_a(spec, plan, state, t, stim.row(t), seg, coeffs)
+
+    def pa_dyn(state, t):
+        return phase_a_dynamics(spec, plan, state, t, stim.row(t), seg,
+                                coeffs)
+
+    def pa_plast(state, spiked, t):
+        return phase_a_plasticity(spec, plan, state, spiked, t)
 
     def exchange(spiked):
         glob = _global_spike_mask(spiked, gid_pos)
@@ -438,7 +475,9 @@ def make_step_fn(spec: SimSpec, plan: ShardPlan, t0: int,
         state = pb(state, exchange(spiked), t)
         return state, spiked, tm
 
-    return StepFns(phase_a=pa, exchange=exchange, phase_b=pb, step=step)
+    return StepFns(phase_a=pa, exchange=exchange, phase_b=pb, step=step,
+                   phase_a_dynamics=pa_dyn, phase_a_plasticity=pa_plast,
+                   stim=stim)
 
 
 def run(spec: SimSpec, plan: ShardPlan, state: ShardState, t0: int,

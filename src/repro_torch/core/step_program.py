@@ -3,23 +3,42 @@
     sp = StepProgram(cfg, eng)                    # on the card
     sp = StepProgram(cfg, eng, device="cpu")      # plain PyTorch on the CPU
     state, raster, tm = sp.run(sp.init_state(), 0, 500)
+    pa, ex, pb = sp.phase_fns()[:3]               # Table 2 phase split
+    state, times, rasters, counts = sp.time_phases(state, 0, 100)
 
 This is the single-process subset of `repro.core.step_program.StepProgram`
 (`mesh=None`, dense delivery, materialized connectivity), with the shards
-stacked on a leading [H] axis of one device.  The rest of the JAX facade
+stacked on a leading [H] axis of one device.  `run` is the reference
+driver that defines the physics (global-mask exchange); the phase
+handles emulate each exchange wire over the stacked shards ('allgather':
+the global mask; 'halo': `aer.pack` per shard and `torch.roll` over the
+shard axis by each halo offset; 'hier': one AER buffer per group of
+shards, rolled at whole-group stride), so per-phase profiles keep each
+wire's work.  `StepProgram.fused` (an HLO analysis handle) has no
+counterpart here (ROADMAP queue 1, item 13.6); the rest of the JAX facade
 raises `NotImplementedError` naming the ROADMAP item that ports it.
+
+The phase handles update the state they are given in place; `run` and
+`time_phases` copy their input first and leave it untouched.  On the card
+no phase reads a device value on the host.
 """
 from __future__ import annotations
 
 import hashlib
+import time
 from typing import Optional
 
 import numpy as np
+import torch
 
-from . import engine
+from . import aer, distributed, engine
 from .engine import ShardPlan, ShardState, SimSpec
 from .params import (DEFAULT_IZH, DEFAULT_STDP, EngineConfig, GridConfig,
                      IzhikevichParams, StdpParams)
+
+# steps of stimulus a phase handle draws at once when its caller has not
+# drawn a window (`time_phases` draws its whole range)
+PHASE_WINDOW = 100
 
 
 def check_supported(eng: EngineConfig, mesh=None) -> None:
@@ -38,37 +57,55 @@ def check_supported(eng: EngineConfig, mesh=None) -> None:
             "device (ROADMAP queue 1, item 8)")
 
 
+def _match(ids: torch.Tensor, n_total: int, src_safe, src_ok):
+    """[H, S] spiked_src from received AER ids [H, K]: scatter the ids into
+    a per-shard [N_total] mask (INVALID pads into a spare last slot), then
+    one gather by the source table."""
+    idx = torch.where(ids < n_total, ids, n_total).to(torch.int64)
+    mask = torch.zeros((ids.shape[0], n_total + 1), dtype=torch.bool,
+                       device=ids.device)
+    mask.scatter_(1, idx, True)
+    return torch.gather(mask, 1, src_safe) & src_ok
+
+
 class StepProgram:
-    """Run handle for one (GridConfig, EngineConfig) on one device.
+    """Run, phase and timing handles for one (GridConfig, EngineConfig) on
+    one device.
 
     `device=None` means the card; without one it raises.  Pass
-    `device="cpu"` for the plain PyTorch path (what the tests do)."""
+    `device="cpu"` for the plain PyTorch path (what the tests do).
+    `hier_groups` (a group count, or a list of equal-sized contiguous
+    blocks of shards) sets the shard groups of `exchange='hier'`."""
 
     def __init__(self, cfg: GridConfig, eng: EngineConfig, *,
                  device=None, mesh=None,
                  izh: Optional[IzhikevichParams] = None,
-                 stdp: Optional[StdpParams] = None):
+                 stdp: Optional[StdpParams] = None, hier_groups=None):
         check_supported(eng, mesh)
         dev = engine.resolve_device(device)
         spec, plan, state = engine.build(cfg, eng, izh or DEFAULT_IZH,
                                          stdp or DEFAULT_STDP, device=dev)
-        self._init(spec, plan, state)
+        self._init(spec, plan, state, hier_groups)
 
     @classmethod
     def from_parts(cls, spec: SimSpec, plan: ShardPlan,
-                   state0: Optional[ShardState] = None) -> "StepProgram":
+                   state0: Optional[ShardState] = None, *,
+                   hier_groups=None) -> "StepProgram":
         """Wrap an already-built (spec, plan[, state]) without re-running
         connectivity construction (e.g. a plan from `convert.from_jax`)."""
         check_supported(spec.eng)
         sp = cls.__new__(cls)
-        sp._init(spec, plan, state0)
+        sp._init(spec, plan, state0, hier_groups)
         return sp
 
-    def _init(self, spec, plan, state0):
+    def _init(self, spec, plan, state0, hier_groups):
         self.spec: SimSpec = spec
         self.plan: ShardPlan = plan
         self.device = plan.gid.device
+        self.hier_groups = hier_groups
         self._state0 = state0
+        self._fns = None
+        self._phases = None
 
     def init_state(self) -> ShardState:
         """The freshly-built initial state."""
@@ -92,3 +129,216 @@ class StepProgram:
         for hh in range(w.shape[0]):
             h.update(np.ascontiguousarray(w[hh][valid[hh]]).tobytes())
         return h.digest()
+
+    # -- phase handles (paper Table 2 split) -----------------------------
+
+    def phase_fns(self) -> distributed.PhasePrograms:
+        """Phase handles with the JAX package's signatures:
+
+            phase_a(state, t) -> (state, spiked, tm)
+            exchange(spiked) -> spiked_src
+            phase_b(state, spiked_src, t) -> state
+            phase_a_dynamics(state, t) / phase_a_plasticity(state, spiked, t)
+
+        They update the state they are given in place.  A phase A draws
+        the stimulus window its t falls in when t leaves the current one
+        (`engine.StimWindow`)."""
+        if self._phases is None:
+            fns = engine.make_step_fn(self.spec, self.plan, 0, PHASE_WINDOW)
+            num = self._with_numerics
+            self._fns = fns
+            self._phases = distributed.PhasePrograms(
+                phase_a=num(fns.phase_a), exchange=self._exchange(fns),
+                phase_b=num(fns.phase_b),
+                phase_a_dynamics=num(fns.phase_a_dynamics),
+                phase_a_plasticity=num(fns.phase_a_plasticity))
+        return self._phases
+
+    def _with_numerics(self, fn):
+        """fn under the device's numerics (fp32 denormals flushed on the
+        CPU, as the reference's XLA-CPU does)."""
+        if self.device.type != "cpu":
+            return fn
+
+        def wrapped(*args):
+            with engine._numerics(self.device):
+                return fn(*args)
+        return wrapped
+
+    def _exchange(self, fns: engine.StepFns):
+        """The exchange wire over the stacked [H, N] spike masks, each mode
+        keeping its own work: the global mask ('allgather', the run's own
+        `fns.exchange`), AER buffers rolled over the shard axis ('halo'),
+        or over groups of shards ('hier'); all give the same [H, S]
+        spiked_src."""
+        spec, plan = self.spec, self.plan
+        if spec.eng.exchange == "allgather":
+            return fns.exchange
+        src_ok = plan.src_gid >= 0
+        src_safe = torch.where(src_ok, plan.src_gid, 0)
+        n_total = spec.n_total
+        if spec.eng.exchange == "halo":
+            offsets = distributed.halo_offsets(spec, plan)
+            gid = plan.gid
+
+            def ex_halo(spiked):
+                ids, _ = aer.pack(spiked, gid, gid.shape[1])
+                # receiver h hears sender (h - d) mod H
+                received = [torch.roll(ids, d, 0) for d in offsets]
+                return _match(torch.cat(received, 1), n_total, src_safe,
+                              src_ok)
+            return ex_halo
+
+        if spec.eng.exchange == "hier":
+            groups = distributed._resolve_groups(spec, None,
+                                                 self.hier_groups)
+            G, L = len(groups), len(groups[0])
+            g_offsets = distributed.hier_offsets(spec, plan, L)
+            H, N = plan.gid.shape
+            gid_g = plan.gid.reshape(G, L * N)
+
+            def ex_hier(spiked):
+                # level 1: the group's gather is a reshape on one device;
+                # level 2: one buffer a group, rolled at group stride
+                ids, _ = aer.pack(spiked.reshape(G, L * N), gid_g, L * N)
+                received = torch.cat([torch.roll(ids, d, 0)
+                                      for d in g_offsets], 1)
+                per_shard = received[:, None].expand(G, L, -1).reshape(H, -1)
+                return _match(per_shard, n_total, src_safe, src_ok)
+            return ex_hier
+
+        raise ValueError(f"unknown exchange {spec.eng.exchange!r}")
+
+    # -- timing handle (per-phase wall-clock attribution) ----------------
+
+    def time_phases(self, state: ShardState, t0: int, n_steps: int,
+                    collect_rasters: bool = False):
+        """Per-step wall-clock attribution: the paper's Table 2 split.
+
+        Returns (final_state, times, rasters, counts): `times` accumulates
+        phase_a_s / exchange_s / phase_b_s over `n_steps`, each phase
+        fenced by `torch.cuda.synchronize` on the card; `rasters` is a
+        list of per-step [H, N] numpy spike masks when `collect_rasters`
+        else None; `counts` totals the spike and arrival counters.  The
+        input state is not modified (the warm-up and the timed run each
+        work on a copy), and the stimulus of the whole range is drawn
+        before the timed loop.
+
+        Under 'sync' the exchange is fenced between A and B, so
+        exchange_s is its full exposed latency.  Under 'pipelined' the
+        exchange of step t is issued between phase A's halves and only
+        waited for right before the phase B that consumes it, one step
+        later, so exchange_s records the issue and the residual wait; an
+        all-False buffer makes the first phase B (at t0 - 1) a no-op, and
+        an epilogue delivers the last step's spikes.  Keys are the same
+        under both schedules."""
+        self.phase_fns()
+        self._fns.stim.draw(t0, n_steps)
+        if self.spec.eng.exchange_schedule == "pipelined":
+            run = self._time_phases_pipelined
+        else:
+            run = self._time_phases_sync
+        return run(state, t0, n_steps, collect_rasters)
+
+    def _fence(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _time_phases_sync(self, state, t0, n_steps, collect_rasters):
+        pp, fence = self.phase_fns(), self._fence
+        warm = engine.clone_state(state)
+        s_w, spk_w, _ = pp.phase_a(warm, t0)
+        pp.phase_b(s_w, pp.exchange(spk_w), t0)
+        fence()
+        del warm, s_w
+
+        times = dict(phase_a_s=0.0, exchange_s=0.0, phase_b_s=0.0)
+        tally = ([], [], [])
+        s = engine.clone_state(state)
+        fence()
+        for t in range(t0, t0 + n_steps):
+            c0 = time.perf_counter()
+            s, spiked, tm = pp.phase_a(s, t)
+            fence()
+            times["phase_a_s"] += time.perf_counter() - c0
+            c0 = time.perf_counter()
+            spiked_src = pp.exchange(spiked)
+            fence()
+            times["exchange_s"] += time.perf_counter() - c0
+            c0 = time.perf_counter()
+            s = pp.phase_b(s, spiked_src, t)
+            fence()
+            times["phase_b_s"] += time.perf_counter() - c0
+            self._tally(tally, spiked, tm, collect_rasters)
+        return (s, times) + self._totals(tally, collect_rasters)
+
+    def _time_phases_pipelined(self, state, t0, n_steps, collect_rasters):
+        pp, fence = self.phase_fns(), self._fence
+        warm = engine.clone_state(state)
+        s_w, spk_w, _ = pp.phase_a_dynamics(warm, t0)
+        src_w = pp.exchange(spk_w)
+        s_w = pp.phase_a_plasticity(s_w, spk_w, t0)
+        pp.phase_b(s_w, src_w, t0)
+        fence()
+        del warm, s_w
+
+        times = dict(phase_a_s=0.0, exchange_s=0.0, phase_b_s=0.0)
+        tally = ([], [], [])
+        s = engine.clone_state(state)
+        # all-False prologue buffer (phase B of it sets nothing)
+        ss_buf = torch.zeros(self.plan.src_gid.shape, dtype=torch.bool,
+                             device=self.device)
+        fence()
+        for t in range(t0, t0 + n_steps):
+            # the residual exchange wait surfaces only here, right before
+            # the consuming phase B: everything since its issue was hidden
+            c0 = time.perf_counter()
+            fence()
+            times["exchange_s"] += time.perf_counter() - c0
+            c0 = time.perf_counter()
+            s = pp.phase_b(s, ss_buf, t - 1)
+            fence()
+            times["phase_b_s"] += time.perf_counter() - c0
+            c0 = time.perf_counter()
+            s, spiked, tm = pp.phase_a_dynamics(s, t)
+            fence()
+            times["phase_a_s"] += time.perf_counter() - c0
+            c0 = time.perf_counter()
+            ss_buf = pp.exchange(spiked)       # issue, do not wait
+            times["exchange_s"] += time.perf_counter() - c0
+            c0 = time.perf_counter()
+            s = pp.phase_a_plasticity(s, spiked, t)
+            fence()
+            times["phase_a_s"] += time.perf_counter() - c0
+            self._tally(tally, spiked, tm, collect_rasters)
+        # epilogue flush: deliver the last step's spikes
+        c0 = time.perf_counter()
+        fence()
+        times["exchange_s"] += time.perf_counter() - c0
+        c0 = time.perf_counter()
+        s = pp.phase_b(s, ss_buf, t0 + n_steps - 1)
+        fence()
+        times["phase_b_s"] += time.perf_counter() - c0
+        return (s, times) + self._totals(tally, collect_rasters)
+
+    @staticmethod
+    def _tally(tally, spiked, tm, collect_rasters):
+        """Keep the step's outputs (no device work, no host read); the
+        spike mask only when the rasters are asked for."""
+        if collect_rasters:
+            tally[0].append(spiked)
+        tally[1].append(tm.spikes)
+        tally[2].append(tm.arrivals)
+
+    @staticmethod
+    def _totals(tally, collect_rasters):
+        """(rasters or None, counts) read back once, after the loop."""
+        rasters, spikes, arrivals = tally
+        counts = dict(spikes=int(torch.stack(spikes).sum()) if spikes else 0,
+                      arrivals=int(torch.stack(arrivals).sum())
+                      if arrivals else 0)
+        if not collect_rasters:
+            return None, counts
+        if not rasters:
+            return [], counts
+        return list(torch.stack(rasters).cpu().numpy()), counts

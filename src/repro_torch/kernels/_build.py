@@ -44,6 +44,7 @@ _I64 = ctypes.c_int64
 _F = ctypes.c_float
 # C entry point -> argument types; every one returns cudaGetLastError().
 SIGNATURES = {
+    "repro_arborize": [_P] * 5 + [_I64] * 5 + [_P],
     "repro_izhikevich_update": [_P] * 10 + [_I64, _F, _F, _F, ctypes.c_int,
                                             _P],
     "repro_stdp_arrival": [_P] * 10 + [_I64] * 5 + [_F] * 6 + [_P],

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from . import arborize as _arb
 from . import flash_attention as _fa
 from . import izhikevich as _izh
 from . import ref
@@ -22,11 +23,13 @@ from . import stdp as _stdp
 
 #: The kernels of the DPSNN-STDP step, of the LM's RG-LRU layers, and of
 #: the `attention` entry point (which no model of the port calls).  The
-#: main path runs phase A as one kernel (`stdp_phase_a`).  The three it
-#: replaced stay off the main path (`PHASE_A_KERNELS`), as its yardstick
-#: and for the paths that split phase A; so does the pair that
-#: `stdp_arrival_current` replaced (`PAIR_KERNELS`), as its yardstick.
-SNN_KERNELS = ("stdp_phase_a",)
+#: main path runs phase A as one kernel (`stdp_phase_a`) and phase B as
+#: another (`arborize`), each once a step.  The three kernels that
+#: `stdp_phase_a` replaced stay off the main path (`PHASE_A_KERNELS`), as
+#: its yardstick and for the paths that split phase A; so does the pair
+#: that `stdp_arrival_current` replaced (`PAIR_KERNELS`), as its
+#: yardstick.
+SNN_KERNELS = ("stdp_phase_a", "arborize")
 PHASE_A_KERNELS = ("izhikevich_update", "stdp_arrival_current", "stdp_ltp")
 PAIR_KERNELS = ("stdp_arrival", "segment_sum_ordered")
 LM_KERNELS = ("rg_lru_scan",)
@@ -135,6 +138,18 @@ def stdp_ltp(spiked, row_ptr, syn_plastic, last_arr, w, last_post, t, *,
         return ref.stdp_ltp(*args, **kw)
 
 
+def arborize(arr_ring, spiked_src, syn_src, syn_delay, syn_valid, t):
+    """Phase B: for every valid synapse whose source spiked, set its flag
+    at ring slot (t + delay) mod D.  arr_ring [H, D, E] bool (updated in
+    place and returned), spiked_src [H, S] bool, the plan's syn_src [H, E]
+    int64, syn_delay [H, E] int32 and syn_valid [H, E] bool; t an int
+    (`kernels.arborize.arborize`)."""
+    args = (arr_ring, spiked_src, syn_src, syn_delay, syn_valid, t)
+    if _route(arr_ring, "arborize"):
+        return _arb.arborize(*args)
+    return ref.arborize(*args)
+
+
 def segment_sum_ordered(contrib, seg: ref.Segments):
     """contrib [H, E] -> per-target sums [H, N] over `ref.make_segments`."""
     if _route(contrib, "segment_sum_ordered"):
@@ -197,6 +212,7 @@ def attention(q, k, v, *, causal=True, window=None, softcap=None,
 def launch_counts() -> dict:
     """Launches of each kernel since the last reset."""
     return {"stdp_phase_a": _stdp.launches["stdp_phase_a"],
+            "arborize": _arb.launches,
             "izhikevich_update": _izh.launches,
             "stdp_arrival_current": _stdp.launches["stdp_arrival_current"],
             "stdp_arrival": _stdp.launches["stdp_arrival"],
@@ -207,6 +223,7 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
+    _arb.launches = 0
     _izh.launches = 0
     for name in _stdp.launches:
         _stdp.launches[name] = 0

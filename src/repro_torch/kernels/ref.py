@@ -290,6 +290,23 @@ def stdp_phase_a(arr_ring, r: int, seg, syn_valid, syn_tgt, syn_plastic,
     return spiked, n_arrived, spiked.sum(1)
 
 
+def arborize(arr_ring, spiked_src, syn_src, syn_delay, syn_valid, t: int):
+    """Plain version of kernels.arborize.arborize: phase B, the reference's
+    broadcast-compare (`repro.core.engine.phase_b`) with the [H] axis.
+
+    active = spiked_src gathered by syn_src, & syn_valid; slot = (t +
+    delay) mod D (floor mod, as `jnp.mod`); the flags of active synapses
+    at their slot are ORed into arr_ring [H, D, E] in place.  Returns
+    arr_ring."""
+    D = arr_ring.shape[1]
+    active = torch.gather(spiked_src, 1, syn_src) & syn_valid       # [H, E]
+    slot = torch.remainder(syn_delay + t, D)                        # [H, E]
+    slots = torch.arange(D, dtype=slot.dtype, device=slot.device)
+    hit = active[:, None, :] & (slot[:, None, :] == slots[None, :, None])
+    arr_ring |= hit
+    return arr_ring
+
+
 class Segments(NamedTuple):
     """The per-target CSR of the synapses, derived once from a plan.
 

@@ -2,13 +2,18 @@
 
   python -m repro_torch.launch.snn --grid 8x8 --steps 500 [--shards H]
       [--placement block|scatter] [--profile ring3|gaussian:sigma=1.5|...]
-      [--device cuda|cpu]
+      [--exchange allgather|halo|hier [--hier-groups G]]
+      [--exchange-schedule sync|pipelined] [--device cuda|cpu]
 
 Runs the dense DPSNN-STDP step through the hand-written CUDA kernels on the
 card (`--device cuda`, the default) or through their plain PyTorch versions
 on the CPU.  `--shards H` stacks H logical shards on the one device; the
 raster is identical for every H and placement (paper Table 1).  Prints the
-same `[snn]` lines as `python -m repro.launch.snn`.
+same `[snn]` lines as `python -m repro.launch.snn`.  With `--exchange` or
+`--exchange-schedule` it also runs the same steps through
+`StepProgram.time_phases` (the paper's Table 2 split, with that exchange
+wire and schedule) and prints its per-phase walls; the shards of 'hier'
+are `--hier-groups` groups (no mesh: one device).
 
 Not ported yet, and refused with the ROADMAP item that ports it:
 `--delivery event` (queue 1, item 6), `--connectivity-mode streamed:...`
@@ -17,6 +22,8 @@ Not ported yet, and refused with the ROADMAP item that ports it:
 from __future__ import annotations
 
 import argparse
+
+import numpy as np
 
 from repro_torch.core import (EngineConfig, GridConfig, StepProgram,
                               observables, profiles)
@@ -37,6 +44,15 @@ def main(argv=None):
                          "(repro_torch.core.profiles): ring3 | ringN | "
                          "ring:max_ring=N | gaussian:sigma=S | "
                          "exponential:lambda=L")
+    ap.add_argument("--exchange", default=None,
+                    choices=["allgather", "halo", "hier"])
+    ap.add_argument("--exchange-schedule", default=None,
+                    choices=["sync", "pipelined"],
+                    help="'pipelined' issues the spike exchange before the "
+                         "LTP half of phase A and delivers one step later "
+                         "(bit-identical outputs)")
+    ap.add_argument("--hier-groups", type=int, default=None,
+                    help="shard groups of --exchange hier")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--delivery", default="dense")
     ap.add_argument("--connectivity-mode", default="materialized")
@@ -51,7 +67,10 @@ def main(argv=None):
                      neurons_per_column=args.neurons_per_column,
                      synapses_per_neuron=args.synapses,
                      connectivity=args.profile)
+    split = args.exchange is not None or args.exchange_schedule is not None
     eng = EngineConfig(n_shards=args.shards, placement=args.placement,
+                       exchange=args.exchange or "allgather",
+                       exchange_schedule=args.exchange_schedule or "sync",
                        delivery=args.delivery,
                        connectivity=args.connectivity_mode)
     try:
@@ -60,12 +79,32 @@ def main(argv=None):
         ap.error(str(e))
     prof = profiles.from_config(cfg)       # fail fast on a bad spec
     print(f"[snn] {cfg.n_neurons} neurons / {cfg.n_synapses} synapses "
-          f"on {args.shards} shards (allgather, {args.placement}, "
+          f"on {args.shards} shards ({eng.exchange}, {args.placement}, "
           f"{prof.spec()} reach={prof.reach()}, {args.device})")
 
-    sp = StepProgram(cfg, eng, device=args.device)
+    sp = StepProgram(cfg, eng, device=args.device,
+                     hier_groups=args.hier_groups)
+    if split:
+        try:
+            sp.phase_fns()              # fail fast on the hier groups
+        except ValueError as e:
+            ap.error(str(e))
     state, raster, _ = sp.run(sp.init_state(), 0, args.steps)
-    rate = observables.mean_rate_hz(raster.cpu().numpy(), cfg.n_neurons)
+    raster = raster.cpu().numpy()
+    rate = observables.mean_rate_hz(raster, cfg.n_neurons)
+    if split:
+        _, times, rasters, counts = sp.time_phases(
+            sp.init_state(), 0, args.steps, collect_rasters=True)
+        same = np.array_equal(np.stack(rasters), raster)
+        ms = {k: v / args.steps * 1e3 for k, v in times.items()}
+        print(f"[snn] phases ({eng.exchange}, {eng.exchange_schedule}): "
+              f"phase A {ms['phase_a_s']:.4f}, exchange "
+              f"{ms['exchange_s']:.4f}, phase B {ms['phase_b_s']:.4f} "
+              f"ms/step; {counts['spikes']} spikes; raster "
+              f"{'equal to' if same else 'DIFFERS from'} the fused run's")
+        if not same:
+            raise SystemExit("[snn] the phase split's raster differs from "
+                             "the fused run's")
     print(f"[snn] final-window rate {rate:.1f} Hz; done at t={args.steps} ms")
     return rate
 

@@ -1,0 +1,318 @@
+"""The port's measuring tools (`repro_torch.bench`) on the CPU.
+
+* `report`: the schema, `save`/`load`/`load_dir` and the comparator,
+  case by case as `tests/test_bench_report.py` holds the JAX package's,
+  with the toolchain rule keyed on torch;
+* `timing`: the median and spread, the warm-up and rep counts of
+  `time_fn`, and `norm_seconds` equal to the JAX package's;
+* the suites at small sizes on the CPU: `table1.bench(rows=[(1, 1)])`,
+  `table2.bench` and `profile_cell` (both schedules) give the JAX
+  suites' deterministic keys (spikes, arrivals, raster signature, rate)
+  at the same arguments; the JAX suites run in an AVX-pinned subprocess
+  (`test_torch_reference.start_avx`), started with the module;
+* the registry and the CLI: the ported suites, and NotImplementedError
+  naming the ROADMAP item for the JAX package's others.
+"""
+import copy
+import json
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.bench import cli, registry, timing
+from repro_torch.bench import profile as BP
+from repro_torch.bench import report as R
+from repro_torch.bench.suites import table1, table2
+from repro_torch.core import EngineConfig, GridConfig
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from test_torch_reference import start_avx, wait_avx  # noqa: E402
+
+CFG = dict(grid_x=2, grid_y=2, neurons_per_column=60, synapses_per_neuron=24,
+           seed=9)
+STEPS = 40
+TABLE2 = dict(gx=2, gy=2, npc=100, steps=STEPS)
+CELLS = {"halo-2-scatter-pipelined": ("halo", 2, "scatter", "pipelined"),
+         "allgather-4-block-sync": ("allgather", 4, "block", "sync")}
+DET = ("spikes", "arrivals", "raster_sig", "rate_hz")
+
+
+def _jax_suites() -> dict:
+    """Inside the AVX subprocess: the JAX suites' rows and cells."""
+    import jax  # noqa: F401  (jax starts under the AVX flag)
+    from repro.bench import profile as JP
+    from repro.bench.suites import table1 as J1, table2 as J2
+    from repro.core import EngineConfig as JE, GridConfig as JG
+    out = dict(table1=J1.bench(rows=[(1, 1)], steps=STEPS)[0],
+               table2=J2.bench(**TABLE2))
+    for key, (ex, h, pl, sched) in CELLS.items():
+        cell = JP.profile_cell(JG(**CFG), JE(n_shards=h, exchange=ex,
+                                             placement=pl,
+                                             exchange_schedule=sched), STEPS)
+        out[key] = {k: cell[k] for k in DET}
+    return out
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _avx_job():
+    procs = start_avx(__file__, [["--suites"]])
+    yield procs
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+@pytest.fixture(scope="module")
+def jax_suites(_avx_job):
+    return json.loads(wait_avx(_avx_job)[0].strip().splitlines()[-1])
+
+
+# -- report --------------------------------------------------------------
+
+
+def _report(name="unit", **over):
+    rep = R.make_report(
+        name,
+        config=dict(grid="2x2", steps=10, quick=True),
+        deterministic=dict(spikes=123, raster_sig="abcd", flag=True,
+                           hlo_bytes_x=456789),
+        wall=dict(wall_s=1.25, steps_per_s=8.0),
+        extra=dict(rows=[{"grid": "2x2"}]), device="cpu")
+    rep.update(over)
+    return rep
+
+
+def test_report_env_names_the_device():
+    env = _report()["env"]
+    assert env["torch"] == torch.__version__
+    assert env["backend"] == "cpu" and env["device_name"] == "cpu"
+    assert env["power_limit_w"] is None and env["device_count"] == 1
+
+
+def _drop(rep, sect, key):
+    del rep[sect][key]
+
+
+SCHEMA_ERRORS = {
+    "missing_section": (lambda r: r.pop("deterministic"), "deterministic"),
+    "float_deterministic": (lambda r: r["deterministic"].update(rate=27.5),
+                            "rate"),
+    "non_numeric_wall": (lambda r: r["wall"].update(wall_s="fast"),
+                         "wall_s"),
+    "schema_version": (lambda r: r.update(
+        schema_version=R.SCHEMA_VERSION + 1), "schema_version"),
+    "env_without_torch": (lambda r: _drop(r, "env", "torch"), "torch"),
+}
+
+
+def test_valid_report_has_no_errors():
+    assert R.validate(_report()) == []
+
+
+@pytest.mark.parametrize("case", list(SCHEMA_ERRORS))
+def test_schema_errors_flagged(case):
+    rep = _report()
+    edit, word = SCHEMA_ERRORS[case]
+    edit(rep)
+    assert any(word in e for e in R.validate(rep))
+
+
+def test_save_load_round_trip(tmp_path):
+    rep = _report()
+    path = R.save(rep, str(tmp_path))
+    assert path.endswith("BENCH_unit.json")
+    assert R.load(path) == rep
+    assert R.load_dir(str(tmp_path)) == {"unit": rep}
+
+
+def test_save_refuses_invalid(tmp_path):
+    rep = _report()
+    rep["deterministic"]["bad"] = 1.5
+    with pytest.raises(ValueError):
+        R.save(rep, str(tmp_path))
+
+
+def _edit_det(key, value):
+    return lambda cur, base: cur["deterministic"].update({key: value})
+
+
+def _other_torch(edit):
+    def f(cur, base):
+        base["env"]["torch"] = "0.0.0-baseline"
+        edit(cur, base)
+    return f
+
+
+# name -> (edit of (current, baseline), ok, word in a failure or warning)
+COMPARE_CASES = {
+    "identical": (lambda cur, base: None, True, None),
+    "deterministic_drift": (_edit_det("spikes", 124), False, "spikes"),
+    "raster_sig_drift": (_edit_det("raster_sig", "beef"), False,
+                         "raster_sig"),
+    "missing_deterministic": (lambda cur, base: cur["deterministic"].pop(
+        "spikes"), False, "spikes"),
+    "wall_drift_warns": (lambda cur, base: cur["wall"].update(
+        wall_s=base["wall"]["wall_s"] * 3), True, "wall_s"),
+    "wall_within_tolerance": (lambda cur, base: cur["wall"].update(
+        wall_s=base["wall"]["wall_s"] * 1.2), True, None),
+    "config_mismatch": (lambda cur, base: cur["config"].update(steps=999),
+                        False, "config"),
+    "config_lists": (lambda cur, base: (
+        base["config"].update(grids=["1x1", "4x4"]),
+        cur["config"].update(grids=["1x1", "4x4", "8x8"])), False, "grids"),
+    "hlo_drift_other_torch": (_other_torch(_edit_det("hlo_bytes_x", 1)),
+                              True, "hlo_bytes_x"),
+    "spike_drift_other_torch": (_other_torch(_edit_det("spikes", 1)), False,
+                                "spikes"),
+}
+
+
+@pytest.mark.parametrize("case", list(COMPARE_CASES))
+def test_compare(case):
+    edit, ok, word = COMPARE_CASES[case]
+    base = _report()
+    cur = copy.deepcopy(base)
+    edit(cur, base)
+    res = R.compare(cur, base, wall_tol=0.5)
+    assert res.ok == ok
+    notes = res.failures if not ok else res.warnings
+    if word is None:
+        assert not res.warnings and not res.failures
+    else:
+        assert any(word in n for n in notes), notes
+
+
+def test_compare_dirs(tmp_path):
+    basedir, curdir = tmp_path / "base", tmp_path / "cur"
+    R.save(_report("a"), str(basedir))
+    R.save(_report("b"), str(basedir))
+    R.save(_report("a"), str(curdir))
+    res = R.compare_dirs(str(curdir), str(basedir))
+    assert not res.ok and any("b" in f for f in res.failures)
+    R.save(_report("b"), str(curdir))
+    assert R.compare_dirs(str(curdir), str(basedir)).ok
+    assert not R.compare_dirs(str(tmp_path), str(tmp_path / "none")).ok
+
+
+# -- timing --------------------------------------------------------------
+
+
+def test_time_fn_median_and_spread():
+    t = timing.Timing(reps_s=(0.2, 0.1, 0.4))
+    assert t.median_s == 0.2
+    assert t.min_s == 0.1 and t.max_s == 0.4
+    assert abs(t.spread - (0.3 / 0.2)) < 1e-9
+    assert abs(timing.Timing(reps_s=(0.1, 0.3)).median_s - 0.2) < 1e-9
+    calls = []
+
+    def f(x):
+        calls.append(1)
+        return {"y": (x * 2, [x])}
+
+    t = timing.time_fn(f, torch.ones(4), reps=3, warmup=2)
+    assert len(calls) == 5
+    assert len(t.reps_s) == 3 and t.median_s >= 0
+    s = timing.summarize([0.2, 0.1, 0.4])
+    assert s == dict(median_s=0.2, min_s=0.1, max_s=0.4, spread=1.5, reps=3)
+
+
+@pytest.mark.parametrize("args", [(1.0, 1000, 100, 10.0),
+                                  (0.2309371719999973, 12_800_000, 500,
+                                   21.52421875), (3.5, 200_000, 300, 0.0)])
+def test_norm_seconds_equals_jax(args):
+    from repro.bench import timing as jt
+    assert timing.norm_seconds(*args) == jt.norm_seconds(*args)
+    assert timing.steps_per_sec(args[0], args[2]) == jt.steps_per_sec(
+        args[0], args[2])
+
+
+# -- the suites against the JAX package's --------------------------------
+
+
+def test_run_profile_holds_the_invariance(monkeypatch):
+    """run_profile's report on the CPU: every cell the same physics, the
+    report valid, and the left-out HLO costs said so."""
+    rep = BP.run_profile(quick=True, device="cpu")
+    assert R.validate(rep) == []
+    cells = rep["extra"]["cells"]
+    assert len({c["raster_sig"] for c in cells}) == 1
+    assert rep["deterministic"]["spikes"] > 0
+    assert "hlo" in rep["extra"]["not_recorded"]
+    assert rep["env"]["backend"] == "cpu"
+    # a layout that changed the physics would raise
+    fake = iter(range(len(cells)))
+    monkeypatch.setattr(BP, "profile_cell", lambda *a, **k: dict(
+        cells[0], raster_sig=str(next(fake))))
+    with pytest.raises(RuntimeError, match="invariant"):
+        BP.run_profile(quick=True, device="cpu")
+
+
+
+
+def test_table1_equals_jax(jax_suites):
+    row = table1.bench(rows=[(1, 1)], steps=STEPS, device="cpu")[0]
+    want = jax_suites["table1"]
+    for k in ("spikes", "raster_sig", "rate_hz", "synapses", "steps",
+              "paper_rate_hz"):
+        assert row[k] == want[k], k
+    assert row["device"] == "cpu" and row["max_memory_allocated_bytes"] is None
+    rate = row["spikes"] / (row["neurons"] * STEPS * 1e-3)
+    assert row["norm_s_per_syn_per_s_per_hz"] == pytest.approx(
+        timing.norm_seconds(row["wall_s"], row["synapses"], STEPS, rate))
+
+
+def test_table2_equals_jax(jax_suites):
+    row = table2.bench(**TABLE2, device="cpu")
+    want = jax_suites["table2"]
+    for k in ("spikes", "raster_sig", "grid", "steps"):
+        assert row[k] == want[k], k
+    assert row["total_s"] == pytest.approx(
+        row["compute_s"] + row["exchange_s"] + row["arborize_s"])
+
+
+@pytest.mark.parametrize("key", list(CELLS))
+def test_profile_cell_equals_jax(jax_suites, key):
+    ex, h, pl, sched = CELLS[key]
+    cell = BP.profile_cell(GridConfig(**CFG), EngineConfig(
+        n_shards=h, exchange=ex, placement=pl, exchange_schedule=sched),
+        STEPS, device="cpu")
+    assert {k: cell[k] for k in DET} == jax_suites[key]
+    assert cell["exchange_schedule"] == sched and cell["spikes"] > 0
+    assert cell["phases_sum_s"] <= cell["wall_s"]
+
+
+# -- registry and CLI ----------------------------------------------------
+
+
+def test_registry_ports_three_suites():
+    assert sorted(registry.BENCHES) == ["profile", "table1", "table2"]
+    for name in registry.NOT_PORTED:
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+            registry.get(name)
+    with pytest.raises(KeyError):
+        registry.get("nope")
+
+
+def test_cli_runs_table2_on_the_cpu(tmp_path, monkeypatch, capsys):
+    real = table2.bench
+    monkeypatch.setattr(table2, "bench", lambda quick, device: real(
+        **TABLE2, device=device))
+    assert cli.main(["run", "table2", "--device", "cpu", "--out",
+                     str(tmp_path)]) == 0
+    rep = R.load(str(tmp_path / "BENCH_table2.json"))
+    assert rep["env"]["backend"] == "cpu" and R.validate(rep) == []
+    assert cli.main(["compare", "table2", "--current", str(tmp_path),
+                     "--baseline", str(tmp_path)]) == 0
+    assert cli.main(["list"]) == 0
+    out = capsys.readouterr().out
+    assert "table1" in out and "not ported yet" in out
+    assert cli.main(["run", "scaling", "--device", "cpu", "--out",
+                     str(tmp_path)]) == 1
+
+
+if __name__ == "__main__":
+    assert sys.argv[1] == "--suites"
+    print(json.dumps(_jax_suites()))

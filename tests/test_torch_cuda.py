@@ -385,11 +385,133 @@ def test_main_path_on_card_equals_cpu_port(cuda):
             sp.weight_signature(state), counts)
     assert runs["cuda"][:2] == runs["cpu"][:2]
     assert runs["cpu"][2] == dict.fromkeys(ops.KERNELS, 0)
-    # the main path runs the phase-A kernel once a step, never the kernels
-    # it replaced (PHASE_A_KERNELS) nor the older pair
-    assert ops.SNN_KERNELS == ("stdp_phase_a",)
+    # the main path runs the phase-A and phase-B kernels once a step, never
+    # the kernels phase A replaced (PHASE_A_KERNELS) nor the older pair
+    assert ops.SNN_KERNELS == ("stdp_phase_a", "arborize")
     assert runs["cuda"][2] == dict(dict.fromkeys(ops.KERNELS, 0),
-                                   stdp_phase_a=60)
+                                   stdp_phase_a=60, arborize=60)
+
+
+SMALL = GridConfig(grid_x=2, grid_y=2, neurons_per_column=60,
+                   synapses_per_neuron=24, seed=9)
+
+
+def _arborize_inputs(H, density, seed):
+    """A 2x2 plan's own synapse tables at H shards (pads in every shard at
+    H=4), an empty ring with a few flags already set, and `density` of
+    the sources spiking (CPU tensors)."""
+    _, plan, _ = engine.build(SMALL, EngineConfig(n_shards=H),
+                              device="cpu")
+    rng = np.random.default_rng(seed)
+    H, E = plan.syn_valid.shape
+    S = plan.src_gid.shape[1]
+    D = SMALL.n_delay_slots
+    ring = torch.from_numpy(rng.random((H, D, E)) < 0.01) & plan.syn_valid[
+        :, None]
+    return dict(ring=ring, spiked=torch.from_numpy(rng.random((H, S))
+                                                   < density),
+                src=plan.syn_src, delay=plan.syn_delay, valid=plan.syn_valid)
+
+
+@pytest.mark.parametrize("H", [1, 4])
+def test_arborize_equals_plain_version(cuda, H):
+    """Bit-equal to the reference's broadcast-compare on a CPU copy and on
+    the card, at no, the main path's few, many and all sources spiking,
+    at t near the ring's wrap, and at t0 - 1 = -1."""
+    arb = lambda d, t: ops.arborize(d["ring"], d["spiked"], d["src"],
+                                    d["delay"], d["valid"], t)
+    plain = lambda d, t: ref.arborize(d["ring"], d["spiked"], d["src"],
+                                      d["delay"], d["valid"], t)
+    ops.reset_launch_counts()
+    n = 0
+    for density in (0.0, 0.02, 0.2, 1.0):
+        for t in (-1, 0, 4, 5, 6, 11, 1003):
+            z = _arborize_inputs(H, density, seed=t + 7)
+            g = {k: v.to(cuda) for k, v in z.items()}
+            got = arb(g, t)
+            want_gpu = plain({**g, "ring": g["ring"].clone()}, t)
+            want = plain(z, t)
+            n += 1
+            assert got.data_ptr() == g["ring"].data_ptr()     # in place
+            assert torch.equal(got.cpu(), want)
+            assert torch.equal(got, want_gpu)
+            if density == 0.0:
+                assert torch.equal(want, z["ring"])           # a no-op
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == dict(dict.fromkeys(ops.KERNELS, 0),
+                                       arborize=n)
+
+
+def test_arborize_runs_on_offset_views(cuda):
+    """The kernel reads every tensor an element at a time, so it needs no
+    alignment beyond its dtype's: views one element past an aligned
+    address run and give the plain version's bits."""
+    z = _arborize_inputs(1, 0.2, seed=3)
+    views = {k: _misaligned(v.to(cuda), v.element_size())
+             for k, v in z.items()}
+    got = ops.arborize(views["ring"], views["spiked"], views["src"],
+                       views["delay"], views["valid"], 17)
+    torch.cuda.synchronize()
+    want = ref.arborize(z["ring"], z["spiked"], z["src"], z["delay"],
+                        z["valid"], 17)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("exchange", ["allgather", "halo", "hier"])
+def test_whole_steps_never_synchronise(cuda, exchange):
+    """Whole steps through the phase handles on the card under sync-debug
+    "error", in the sync order (A, exchange, B) and in the pipelined one
+    (B of the previous step, A's dynamics, exchange, A's plasticity): no
+    read of a device value, no pageable copy, and the main path's
+    kernels once a phase."""
+    sp = StepProgram(SMALL, EngineConfig(n_shards=4, exchange=exchange),
+                     device="cuda", hier_groups=2)
+    pp = sp.phase_fns()
+    state = engine.clone_state(sp.init_state())
+    state, spiked, _ = pp.phase_a(state, 0)     # builds, allocates scratch
+    state = pp.phase_b(state, pp.exchange(spiked), 0)
+    ss = pp.exchange(spiked)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(1, 4):
+            state, spiked, _ = pp.phase_a(state, t)
+            state = pp.phase_b(state, pp.exchange(spiked), t)
+        for t in range(4, 7):
+            state = pp.phase_b(state, ss, t - 1)
+            state, spiked, _ = pp.phase_a_dynamics(state, t)
+            ss = pp.exchange(spiked)
+            state = pp.phase_a_plasticity(state, spiked, t)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == dict(dict.fromkeys(ops.KERNELS, 0),
+                                       stdp_phase_a=6, arborize=6,
+                                       stdp_ltp=3)
+
+
+@pytest.mark.parametrize("schedule", ["sync", "pipelined"])
+def test_time_phases_on_card_equals_run(cuda, schedule):
+    """`time_phases` on the card gives `run`'s raster, weights and counts
+    under both schedules, with the halo exchange, and leaves its input
+    state untouched."""
+    base = StepProgram(SMALL, EngineConfig(n_shards=4), device="cuda")
+    s0 = base.init_state()
+    s_run, raster, tm = base.run(s0, 0, 40)
+    sp = StepProgram.from_parts(
+        base.spec._replace(eng=EngineConfig(
+            n_shards=4, exchange="halo", exchange_schedule=schedule)),
+        base.plan, s0)
+    before = [x.clone() for x in s0]
+    s, times, rasters, counts = sp.time_phases(s0, 0, 40,
+                                               collect_rasters=True)
+    assert np.array_equal(np.stack(rasters), raster.cpu().numpy())
+    assert sp.weight_signature(s) == base.weight_signature(s_run)
+    assert counts == dict(spikes=int(tm.spikes.sum()),
+                          arrivals=int(tm.arrivals.sum()))
+    assert all(torch.equal(a, b) for a, b in zip(before, s0))
+    assert set(times) == {"phase_a_s", "exchange_s", "phase_b_s"}
 
 
 def _scan_inputs(shape):
