@@ -43,30 +43,50 @@ every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
            broadcast-compare) on a CPU copy and on the card and to the
            sequence it replaced (gather, `nonzero`, index put), which is
            timed beside it; an all-False mask at t = -1 must set nothing.
-           The phase also prints ptxas's registers and spills of
-           `stdp.cu` and `arborize.cu`;
-  check    the main path (`StepProgram(..., device="cuda").run`) at 4x4,
-           full width, 150 steps, at H=1 block, H=4 block, H=4 scatter:
-           raster and weight signatures equal to the committed AVX-pinned
-           JAX reference (`src/repro_torch/data/jax_reference.json`),
-           every main-path kernel (`ops.SNN_KERNELS`: phase A's and phase
-           B's) launched once per step and the kernels phase A's replaced
-           (`ops.PHASE_A_KERNELS`, `ops.PAIR_KERNELS`) never; after each
-           H=4 run, a few whole steps (phase A, the exchange, phase B) of
-           each exchange wire (allgather, halo, hier in 2 groups) under
-           `torch.cuda.set_sync_debug_mode("error")` (it fails if one
-           synchronises), so the rolls over several shards and at group
-           stride run there;
-  timed    the main path at 8x8 (12.8 M synapses), H=1, 500 steps after a
-           warm-up: ms/step, the phase A / exchange / B split from
-           `StepProgram.time_phases` (the synchronised pass), the same
-           sync-debug steps of each exchange wire at H=1, rate, the
-           paper's normalised metric (`bench.timing.norm_seconds`),
-           synaptic events/s, peak memory, raster signature;
+           The event delivery's three ops (`event_arrival`, `event_ltp`,
+           `event_emit`) run on the 8x8 event plan's own tables with the
+           ring's list, the spikes and the sources drawn at 2.15% and
+           21.5% and compacted with the timed run's capacities (c_post =
+           N, c_src = S), and at 21.5% with the default ones (which drop
+           sources), each bit-equal to its plain version on a CPU copy
+           and on the card, timed beside its bound, its plain version
+           and, for the arrivals' sum, `index_add_`.  The phase also prints
+           ptxas's registers and spills of `stdp.cu`, `arborize.cu` and
+           `event.cu`;
+  check    both deliveries (`StepProgram(..., device="cuda").run`; the
+           event one with capacities that drop nothing,
+           `event_engine.no_drop_caps` and a ring of E events a slot) at
+           4x4, full width, 150 steps, at H=1 block, H=4 block, H=4
+           scatter: raster and weight signatures equal to the committed
+           AVX-pinned JAX reference (`src/repro_torch/data/
+           jax_reference.json`, `runs` and `event_runs`), `sat` 0, every
+           kernel of the delivery's path (dense: `ops.SNN_KERNELS`; event:
+           `ops.EVENT_KERNELS` and `izhikevich_update`) launched once per
+           step by the eager loop (`graph=False`) and every other SNN
+           kernel never.  Each run is the first of its program (an eager
+           window, then the capture, then replays), and a second run
+           (replays only) and the eager loop must give the same bits; the
+           graph runs' eager launches plus their replays' (what the
+           capture recorded, times the replays) must be one a step too.  A whole run of
+           replays runs under `torch.cuda.set_sync_debug_mode("error")`,
+           and after each H=4 run a few whole steps (phase A, the
+           exchange, phase B) of each exchange wire (allgather, halo, hier
+           in 2 groups) too (it fails if one synchronises);
+  timed    each delivery at 8x8 (12.8 M synapses), H=1, 500 steps after a
+           warm-up that captures the graph, as the captured graph's run
+           and as the eager loop (the same bits): ms/step, launches (the
+           eager loop's counted by the wrappers; the graph run's replays
+           from what the capture recorded), peak
+           memory, the paper's normalised metric
+           (`bench.timing.norm_seconds`), synaptic events/s, the phase A /
+           exchange / B split from `StepProgram.time_phases` (the
+           synchronised pass), the sync-debug steps of each exchange wire
+           at H=1, rate, raster signature, and for the event run `sat`
+           (must be 0) and whether its raster equals the dense one;
   profile  device time by kernel, device busy and idle share, and device
-           operations (kernels and copies) per step of the 8x8 path over
-           steps 0-19 (nearly silent) and over the timed run's 500 steps
-           (activity comes in bursts);
+           operations (kernels and copies) per step: the dense path over
+           steps 0-19 (nearly silent), and each delivery, graph and eager,
+           over the timed run's 500 steps (activity comes in bursts);
   bench    the ported suites (`repro_torch.bench`) on the card, one line
            per report (its env, config, deterministic and wall keys):
            `table1` quick (1x1, 4x4, 150 steps; the 4x4 row's raster
@@ -74,9 +94,11 @@ every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
            1x1, 4x4, 8x4, 8x8 and 16x16 (51.2 M synapses), 300 steps, with
            each row's build seconds and peak memory, `table2` (2x2, H=1,
            halo, 200 steps) under `sync` and again under `pipelined`
-           (equal raster signatures), and `profile` (exchange x placement
+           (equal raster signatures), `profile` (exchange x placement
            at 2x2, H=4, 150 steps; it raises unless every cell gives the
-           same raster and totals).
+           same raster and totals), and `event_vs_dense` (2x2, 500
+           neurons a column, 200 steps, stim 1 and 0: both deliveries'
+           rasters must be equal).
 
 Then the LM serving path (`recurrentgemma-2b`, `repro_torch.serve`):
 
@@ -121,8 +143,9 @@ Then the LM serving path (`recurrentgemma-2b`, `repro_torch.serve`):
   lm_profile  device time by kernel and the device's idle share over a
               short serving run at full width.
 
-Then the `{"kernels": [...]}` line (launches from the timed SNN run, from
-the lm_serve run, and from attn_kernels' one call per shape) and, last,
+Then the `{"kernels": [...]}` line (launches from the timed eager run of
+the delivery whose path the kernel is on, counted by the wrappers, from the lm_serve run, and from
+attn_kernels' one call per shape) and, last,
 `{"ok": true, "device": {...}}`.  Any failed phase exits non-zero before
 that line.  Without a CUDA device, or without the rest of the repository
 beside it, it exits non-zero and prints no result.
@@ -159,6 +182,17 @@ STDP_REPLACES = {"stdp_phase_a": "src/repro/kernels/izhikevich.py:37, "
                  "stdp_arrival_current": "src/repro/kernels/stdp.py:57",
                  "stdp_arrival": "src/repro/kernels/stdp.py:57",
                  "stdp_ltp": "src/repro/kernels/stdp.py:81"}
+# the event delivery's ops: their sources, the JAX lines they replace
+# (plain jnp, no Pallas kernel) and the profiler's names of their kernels
+EVENT_SOURCES = {"event_arrival": "src/repro_torch/csrc/event.cu",
+                 "event_ltp": "src/repro_torch/csrc/stdp.cu",
+                 "event_emit": "src/repro_torch/csrc/event.cu"}
+EVENT_REPLACES = {"event_arrival": "src/repro/core/event_engine.py:150",
+                  "event_ltp": "src/repro/core/event_engine.py:199",
+                  "event_emit": "src/repro/core/event_engine.py:245"}
+EVENT_KERNEL_NAMES = {"event_arrival": "arrival_",
+                      "event_ltp": "event_ltp_kernel",
+                      "event_emit": "emit_"}
 # the profiler's names of the STDP kernels (row_kernel<true> is phase A)
 STDP_KERNEL_NAMES = {"stdp_phase_a": "row_kernel<true>",
                      "stdp_arrival_current": "row_kernel<false>",
@@ -804,7 +838,215 @@ def _arborize_rows(plan8, spec8):
     return rows, failed
 
 
-def phase_kernels(plan8, spec8):
+def _event_state(rng, plan_cpu, t: int, density: float, cap: int, D: int):
+    """numpy-seeded event state on a plan's arrays (CPU tensors): ring slot
+    t mod D listing `density` of each shard's valid synapses in random
+    order (the other slots a third of that, as lists phase B left), each
+    synapse at most once a slot; weights in [0, 10]; last spike and
+    arrival times within 200 steps or never; sat 0."""
+    valid = plan_cpu["valid"]
+    H, E = valid.shape
+    N = plan_cpu["row_ptr"].shape[1] - 1
+    f = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32))
+
+    def times(shape):
+        return f(np.where(rng.random(shape) < 0.7,
+                          rng.uniform(t - 200.0, t, shape), engine.NEG_TIME))
+    ring = np.full((H, D, cap), -1, np.int32)
+    count = np.zeros((H, D), np.int32)
+    for h in range(H):
+        nv = int(valid[h].sum())
+        for d in range(D):
+            k = min(cap, int((density if d == t % D else density / 3) * nv))
+            ring[h, d, :k] = rng.permutation(nv)[:k]
+            count[h, d] = k
+    return dict(ev_ring=torch.from_numpy(ring),
+                ev_count=torch.from_numpy(count), w=f(rng.uniform(
+                    0.0, 10.0, (H, E))), last_post=times((H, N)),
+                last_arr=times((H, E)),
+                sat=torch.zeros(H, dtype=torch.int32))
+
+
+def _event_rows(sp8e):
+    """The event ops on the 8x8 event plan's own tables (the plan's
+    targets, delays and CSR rows, the EventPlan's forward rows) with the
+    ring, spikes and sources drawn at the main path's density (2.15%) and
+    at 10x it: each bit-equal to its plain version on a CPU copy and on
+    the card in every output and updated state tensor, timed alone on
+    restored inputs beside its bound, its plain version and, for the
+    arrivals' sum, `index_add_` (atomics, not ordered).  The spike lists
+    are compacted with the timed run's capacities (`sp8e.caps`, c_post =
+    N and c_src = S, `event_engine.no_drop_caps`), so the main rows run
+    at the main path's sizes; a third row at 10x compacts with the
+    default caps (c_post N / 2, c_src S / 8), which the sources overflow,
+    so that `sat` counts the dropped spikes."""
+    spec, plan, eplan = sp8e.spec, sp8e.plan, sp8e.eplan
+    stdp = spec.stdp
+    H, E = plan.syn_valid.shape
+    N, S = plan.gid.shape[1], plan.src_gid.shape[1]
+    D = spec.cfg.n_delay_slots
+    cap = sp8e.cap_ev
+    caps = (sp8e.caps["c_post"], sp8e.caps["c_src"])
+    t = 1003
+    r = t % D
+    ltd_kw = dict(a_minus=stdp.a_minus, tau_minus=stdp.tau_minus,
+                  w_min=stdp.w_min, w_max=stdp.w_max,
+                  neg_time=engine.NEG_TIME)
+    ltp_kw = dict(a_plus=stdp.a_plus, tau_plus=stdp.tau_plus,
+                  w_min=stdp.w_min, w_max=stdp.w_max,
+                  neg_time=engine.NEG_TIME)
+    pg = dict(valid=plan.syn_valid, tgt=plan.syn_tgt,
+              plastic=plan.syn_plastic, row_ptr=plan.row_ptr,
+              delay=plan.syn_delay, fwd=eplan.fwd_rows)
+    pc = {k: v.cpu() for k, v in pg.items()}
+    rng = np.random.default_rng(2021)
+    half_neg = engine.NEG_TIME / 2
+    rows, failed = [], []
+    for label, density, (c_post, c_src) in (
+            ("main", STDP_DENSITY, caps),
+            ("10x", 10 * STDP_DENSITY, caps),
+            ("10x_default_caps", 10 * STDP_DENSITY,
+             event_engine.default_caps(spec))):
+        st = _event_state(rng, pc, t, density, cap, D)
+        st["spiked"] = torch.from_numpy(rng.random((H, N)) < density)
+        st["spiked_src"] = torch.from_numpy(rng.random((H, S)) < density)
+        ids, drop = aer.compact_indices(st["spiked"], c_post, fill=N)
+        st["post_ids"], st["post_drop"] = ids.contiguous(), drop
+        ids, drop = aer.compact_indices(st["spiked_src"], c_src, fill=S)
+        st["src_ids"], st["src_drop"] = ids.contiguous(), drop
+        saved = {k: v.cuda() for k, v in st.items()}
+        work = {k: v.clone() for k, v in saved.items()}
+
+        def restore(*names):
+            for k in names:
+                work[k].copy_(saved[k])
+
+        def arrival(impl, d, p):
+            if impl is kref:
+                i_syn, n = kref.event_arrival(
+                    d["ev_ring"], d["ev_count"], r, p["tgt"], p["plastic"],
+                    d["last_post"], d["w"], d["last_arr"], t, **ltd_kw)
+            else:
+                i_syn, n = kev.event_arrival(
+                    d["ev_ring"], d["ev_count"], p["tgt"], p["row_ptr"],
+                    p["plastic"],
+                    d["last_post"], d["w"], d["last_arr"], t, **ltd_kw)
+            return (i_syn, n, d["w"], d["last_arr"], d["ev_ring"],
+                    d["ev_count"])
+
+        def ltp(impl, d, p):
+            impl.event_ltp(d["post_ids"], d["post_drop"], d["spiked"],
+                           p["row_ptr"], p["plastic"], d["last_arr"], d["w"],
+                           d["last_post"], d["sat"], t, **ltp_kw)
+            return d["w"], d["last_post"], d["sat"]
+
+        def emit(impl, d, p):
+            impl.event_emit(d["src_ids"], d["src_drop"], p["fwd"],
+                            p["delay"], d["ev_ring"], d["ev_count"],
+                            d["sat"], t)
+            return d["ev_ring"], d["ev_count"], d["sat"]
+
+        # what each op must move on these inputs (csrc/event.cu's note)
+        n = lambda m: int(m.sum())
+        ev = st["ev_ring"][:, r]
+        listed = ev >= 0
+        eve = torch.clamp(ev, min=0).to(torch.int64)
+        tgt_ev = torch.gather(pc["tgt"], 1, eve)
+        plast_ev = torch.gather(pc["plastic"], 1, eve) & listed
+        ltd = plast_ev & (torch.gather(st["last_post"], 1, tgt_ev)
+                          > half_neg)
+        n_ev = n(listed)
+        # per event: its list entry in and cleared, its target, plastic,
+        # w in, last_arr out; per LTD w out; per neuron last_post in and
+        # i_syn out; the counts
+        a_bytes = (n_ev * (4 + 4 + 8 + 1 + 4 + 4) + n(ltd) * 4
+                   + H * N * (4 + 4) + H * D * 4 + H * 8)
+        post_ids = st["post_ids"]
+        listed_n = torch.zeros((H, N + 1), dtype=torch.bool).scatter_(
+            1, post_ids.to(torch.int64), True)[:, :N]
+        row = kref.rows_of_synapses(pc["row_ptr"], E)
+        post = torch.cat([listed_n, listed_n.new_zeros(H, 1)],
+                         1).gather(1, row)
+        post_pl = post & pc["plastic"]
+        ltp_n = post_pl & (st["last_arr"] > half_neg)
+        # per neuron its spike flag, per spiking one last_post out; the
+        # list; per listed neuron its row pointers; per synapse of a
+        # listed one plastic, per plastic one last_arr, per LTP w in / out
+        l_bytes = (H * N + n(st["spiked"]) * 4 + post_ids.numel() * 4
+                   + n(listed_n) * 8 + n(post) + n(post_pl) * 4
+                   + n(ltp_n) * 8 + H * 8)
+        src_ids = st["src_ids"]
+        ok = src_ids < S
+        fwd = torch.gather(pc["fwd"], 1, torch.clamp(
+            src_ids, max=S - 1).to(torch.int64)[:, :, None].expand(
+            -1, -1, pc["fwd"].shape[2]))
+        emitted = n((fwd >= 0) & ok[:, :, None])
+        # the list; per emitted event its row entry and delay in and its
+        # id out; the counts and sat
+        e_bytes = src_ids.numel() * 4 + emitted * (4 + 4 + 4) + H * D * 8
+        traffic = {"event_arrival": (a_bytes, n_ev + n(ltd) * 25),
+                   "event_ltp": (l_bytes, n(ltp_n) * 25),
+                   "event_emit": (e_bytes, 0)}
+        shape = dict(H=H, E=E, N=N, S=S, D=D, cap_ev=cap, t=t,
+                     c_post=c_post, c_src=c_src,
+                     events=n_ev, ltd=n(ltd), spiking=n(st["spiked"]),
+                     listed_neurons=n(listed_n), ltp=n(ltp_n),
+                     spiking_sources=n(st["spiked_src"]),
+                     listed_sources=n(ok), emitted=emitted)
+        # index_add_'s operands: each event's flat target and weight
+        lib_tgt = (tgt_ev + torch.arange(H)[:, None] * N)[listed].cuda()
+        lib_w = torch.gather(st["w"], 1, eve)[listed].cuda()
+        library = lambda: torch.zeros(H * N, device="cuda").index_add_(
+            0, lib_tgt, lib_w)
+        for name, fn, state in (
+                ("event_arrival", arrival,
+                 ("ev_ring", "ev_count", "w", "last_arr")),
+                ("event_ltp", ltp, ("w", "last_post", "sat")),
+                ("event_emit", emit, ("ev_ring", "ev_count", "sat"))):
+            restore(*saved)
+            got = [x.clone() for x in fn(kev, work, pg)]
+            torch.cuda.synchronize()
+            cpu = {k: v.clone() for k, v in st.items()}
+            with kref.flush_denormal():
+                want = fn(kref, cpu, pc)
+            restore(*state)
+            want_gpu = fn(kref, work, pg)
+            equal = all(bit_equal(a, b) and bit_equal(a, c)
+                        for a, b, c in zip(got, want, want_gpu))
+            err = max(max(max_abs_err(a, b), max_abs_err(a, c))
+                      for a, b, c in zip(got, want, want_gpu))
+            if not equal:
+                failed.append(f"{name} ({label})")
+            again = lambda: restore(*state)
+            n_bytes, n_flops = traffic[name]
+            bms, by = bound(n_bytes, n_flops)
+            launch = lambda: fn(kev, work, pg)
+            rows.append(dict(
+                name=name, route="cuda", source=EVENT_SOURCES[name],
+                replaces=EVENT_REPLACES[name], launches=None,
+                max_abs_err=err, ms=in_place_ms(launch, again),
+                device_ms=device_ms(launch, restore=again,
+                                    kernel=EVENT_KERNEL_NAMES[name]),
+                device_ops=device_ops(launch, again),
+                plain_ms=in_place_ms(lambda: fn(kref, work, pg), again,
+                                     calls=3, warmup=1),
+                bound_ms=bms, bound_by=by,
+                library_ms=(cuda_ms(library) if name == "event_arrival"
+                            else None),
+                library_note=("index_add_ of the events' weights by target "
+                              "(atomics, not in list order)"
+                              if name == "event_arrival" else
+                              "no single PyTorch call does this"),
+                equal=equal,
+                tolerance="bit-equal (every output and updated state "
+                          "tensor, 0 ulp), to the plain version on a CPU "
+                          "copy and on the card",
+                density=label, bytes=n_bytes, flops=n_flops, shape=shape))
+        del saved, work
+    return rows, failed
+
+
+def phase_kernels(plan8, spec8, sp8e):
     """Each kernel against its plain version at the 8x8 shapes; returns the
     rows of the `kernels` line (the STDP passes at the main density)."""
     H, E = plan8.syn_valid.shape
@@ -881,11 +1123,15 @@ def phase_kernels(plan8, spec8):
     arb_rows, arb_failed = _arborize_rows(plan8, spec8)
     rows += arb_rows
     failed += arb_failed
+    ev_rows, ev_failed = _event_rows(sp8e)
+    rows += ev_rows
+    failed += ev_failed
     # registers, shared memory and spills of the STDP kernels (row_kernel<
     # true> is phase A, row_kernel<false> the fused arrival pass) and of
     # phase B's
     emit({"phase": "kernels", "stdp_ptxas": _build.inspect("stdp.cu")["ptxas"],
           "arborize_ptxas": _build.inspect("arborize.cu")["ptxas"],
+          "event_ptxas": _build.inspect("event.cu")["ptxas"],
           "rows": rows})
     if failed:
         raise PhaseFailed(f"kernels differ from their plain versions: "
@@ -899,21 +1145,76 @@ def _first_divergence(a: np.ndarray, b: np.ndarray):
 
 
 def _snn_counted() -> tuple:
-    """The SNN kernels whose launches `check` and `timed` read: the main
-    path's, and those it replaced (off the main path)."""
-    return ops.SNN_KERNELS + ops.PHASE_A_KERNELS + ops.PAIR_KERNELS
+    """The SNN kernels whose launches `check` and `timed` read: the dense
+    path's, those it replaced (off the dense path; `izhikevich_update` is
+    on the event path), and the event path's."""
+    return (ops.SNN_KERNELS + ops.PHASE_A_KERNELS + ops.PAIR_KERNELS
+            + ops.EVENT_KERNELS)
 
 
-def _main_path_counts(steps: int) -> dict:
-    """Each main-path kernel once a step; the kernels it replaced
-    (`ops.PHASE_A_KERNELS`) and the older pair never."""
+def _path_kernels(delivery: str) -> tuple:
+    """The kernels a step of `delivery` launches once each."""
+    return (ops.SNN_KERNELS if delivery == "dense"
+            else ops.EVENT_KERNELS + ("izhikevich_update",))
+
+
+def _main_path_counts(steps: int, delivery: str = "dense") -> dict:
+    """Each kernel of the delivery's path once a step, every other SNN
+    kernel never."""
     return dict(dict.fromkeys(_snn_counted(), 0),
-                **dict.fromkeys(ops.SNN_KERNELS, steps))
+                **dict.fromkeys(_path_kernels(delivery), steps))
+
+
+def _program(cfg, eng) -> "StepProgram":
+    """The program of (cfg, eng) on the card; under event delivery with
+    capacities that drop nothing (`event_engine.no_drop_caps`, a ring of
+    E events a slot), as the committed reference's event runs."""
+    sp = StepProgram(cfg, eng, device="cuda")
+    if eng.delivery == "event":
+        state0 = event_engine.init_event_state(
+            sp.spec, sp.init_state().base, sp.spec.e_cap)
+        sp = StepProgram.from_parts(sp.spec, sp.plan, state0, eplan=sp.eplan,
+                                    caps=event_engine.no_drop_caps(sp.spec))
+    return sp
+
+
+def _signatures(sp, state, raster) -> tuple:
+    raster_np = raster.cpu().numpy()
+    return (observables.raster_signature(
+        raster_np, sp.plan.gid.cpu().numpy()).hex(),
+        sp.weight_signature(state).hex(), raster_np)
+
+
+def _same_run(a, b) -> bool:
+    """Two runs' outputs (state, raster, timings) bit for bit."""
+    return (torch.equal(a[1], b[1])
+            and all(bit_equal(x, y) for x, y in zip(
+                engine.state_tensors(a[0]), engine.state_tensors(b[0])))
+            and all(torch.equal(x, y) for x, y in zip(a[2], b[2])))
+
+
+def _graph_replays_sync_debug(sp, state, t0: int, n_steps: int):
+    """A whole run of the captured graph's replays (state in, windows,
+    outputs, state out) under sync-debug "error", its stimulus drawn
+    before; None, or the error's text."""
+    index, amp = engine.stim_rows(sp.spec, sp.plan, t0, n_steps)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sp.runner.run(state, t0, n_steps, index, amp)
+        return None
+    except RuntimeError as e:
+        return str(e)[:300]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
 
 
 def phase_check():
-    """4x4 full width, 150 steps, three layouts, against the committed
-    AVX-pinned JAX reference."""
+    """4x4 full width, 150 steps, three layouts, dense and event delivery,
+    against the committed AVX-pinned JAX reference; the graph run again
+    (replays only) and the eager loop give the same bits; whole replays
+    and whole steps of every exchange raise nothing under sync-debug."""
     with open(os.path.join(HERE, "src", "repro_torch", "data",
                            "jax_reference.json")) as f:
         ref = json.load(f)
@@ -922,42 +1223,56 @@ def phase_check():
                      synapses_per_neuron=ref["synapses_per_neuron"])
     steps = ref["steps"]
     results, failed = {}, []
-    for name, r in ref["runs"].items():
-        eng = EngineConfig(n_shards=r["n_shards"], placement=r["placement"])
-        sp = StepProgram(cfg, eng, device="cuda")
-        ops.reset_launch_counts()
+    cases = [("dense", name, r) for name, r in ref["runs"].items()]
+    cases += [("event", name, r) for name, r in ref["event_runs"].items()]
+    for delivery, name, r in cases:
+        key = name if delivery == "dense" else f"event_{name}"
+        eng = EngineConfig(n_shards=r["n_shards"], placement=r["placement"],
+                           delivery=delivery)
+        sp = _program(cfg, eng)
+        state0 = sp.init_state()
         t0 = time.perf_counter()
-        state, raster, _ = sp.run(sp.init_state(), 0, steps)
-        torch.cuda.synchronize()
+        first, graph_counts = _counted_run(sp, state0, steps, True)
         wall = time.perf_counter() - t0
-        counts = {k: ops.launch_counts()[k] for k in _snn_counted()}
-        raster_np = raster.cpu().numpy()
-        rsig = observables.raster_signature(raster_np,
-                                            sp.plan.gid.cpu().numpy()).hex()
-        wsig = sp.weight_signature(state).hex()
+        rsig, wsig, raster_np = _signatures(sp, first[0], first[1])
         per_step = raster_np.sum(axis=(1, 2)).astype(int)
+        replayed = sp.run(state0, 0, steps)
+        eager, counts = _counted_run(sp, state0, steps, False)
+        same = _same_run(first, replayed) and _same_run(first, eager)
+        sat = (first[0].sat.cpu().tolist() if delivery == "event" else None)
+        want = _main_path_counts(steps, delivery)
         ok = (rsig == r["raster_signature"] and wsig == r["weight_signature"]
-              and counts == _main_path_counts(steps))
+              and counts["counted"] == want and graph_counts["total"] == want
+              and same
+              and (sat is None or (sat == r["sat"] and not any(sat))))
         res = dict(raster_equal=rsig == r["raster_signature"],
                    weights_equal=wsig == r["weight_signature"],
-                   spikes=int(per_step.sum()), launches=counts,
-                   wall_s=wall)
+                   graph_equal_to_replays_and_eager=same, sat=sat,
+                   spikes=int(per_step.sum()), launches=counts["counted"],
+                   graph_launches=graph_counts, wall_s=wall,
+                   window=engine.RUN_WINDOW)
         if not ok:
-            failed.append(name)
+            failed.append(key)
             res["first_step_spike_count_differs"] = _first_divergence(
                 per_step, np.asarray(r["spikes_per_step"]))
-            cpu = StepProgram(cfg, eng, device="cpu")
+            cpu = StepProgram(cfg, eng, device="cpu", caps=sp.caps)
             _, raster_cpu, _ = cpu.run(cpu.init_state(), 0, steps)
             res["first_step_gpu_differs_from_cpu_port"] = _first_divergence(
                 raster_np, raster_cpu.numpy())
+        err = _graph_replays_sync_debug(sp, state0, 0, steps)
+        res["graph_replays_sync_debug_error"] = err
+        if err is not None:
+            failed.append(f"{key} (graph replays, sync-debug)")
         if r["n_shards"] > 1:
             # the exchange wires across several shards and at group stride
-            errs = _whole_steps_sync_debug(sp.spec, sp.plan, state, steps,
-                                           hier_groups=2)
+            errs = _whole_steps_sync_debug(sp.spec, sp.plan, first[0], steps,
+                                           hier_groups=2, eplan=sp.eplan,
+                                           caps=sp.caps)
             res["whole_steps_sync_debug_errors"] = errs
             if any(e is not None for e in errs.values()):
-                failed.append(f"{name} (sync-debug)")
-        results[name] = res
+                failed.append(f"{key} (sync-debug)")
+        results[key] = res
+        del sp, first, replayed, eager
     emit({"phase": "check", "grid": "4x4", "steps": steps,
           "runs": results})
     if failed:
@@ -965,7 +1280,8 @@ def phase_check():
                           f"{failed}")
 
 
-def _whole_steps_sync_debug(spec, plan, s, t0: int, hier_groups) -> dict:
+def _whole_steps_sync_debug(spec, plan, s, t0: int, hier_groups,
+                            eplan=None, caps=None) -> dict:
     """No step may synchronise with the host: a few whole steps (phase A,
     the exchange, phase B) through the phase handles of each exchange
     wire under sync-debug "error" (a pageable copy or a read of a device
@@ -975,7 +1291,7 @@ def _whole_steps_sync_debug(spec, plan, s, t0: int, hier_groups) -> dict:
     for ex in EXCHANGES:
         sp = StepProgram.from_parts(
             spec._replace(eng=dataclasses.replace(spec.eng, exchange=ex)),
-            plan, s, hier_groups=hier_groups)
+            plan, s, eplan=eplan, caps=caps, hier_groups=hier_groups)
         pp = sp.phase_fns()
         # one step outside: it draws the stimulus window of t0
         s, spiked, _ = pp.phase_a(s, t0)
@@ -998,81 +1314,140 @@ def _whole_steps_sync_debug(spec, plan, s, t0: int, hier_groups) -> dict:
     return errors
 
 
-def phase_timed(sp8):
-    spec, plan = sp8.spec, sp8.plan
-    cfg = spec.cfg
-    state0 = sp8.init_state()
-    sp8.run(state0, 0, 20)                          # warm-up
+def _counted_run(sp, state0, steps: int, graph: bool):
+    """`sp.run` with its launches -> (outputs, {"counted": the SNN
+    kernels' launches the wrappers counted (the eager steps'), "replayed":
+    the replays' (`CapturedRun.replayed_launches`), "total": their sum})."""
+    ops.reset_launch_counts()
+    out = sp.run(state0, 0, steps, graph=graph)
+    torch.cuda.synchronize()
+    counted = {k: ops.launch_counts()[k] for k in _snn_counted()}
+    replayed = sp.runner.replayed_launches()
+    total = {k: n + replayed.get(k, 0) for k, n in counted.items()}
+    return out, dict(counted=counted, replayed=replayed, total=total)
+
+
+def _timed_run(sp, state0, graph: bool) -> dict:
+    """MAIN_STEPS steps of `sp.run` after a warm-up run that captures the
+    graph: the run's outputs, wall, launches and peak memory."""
+    sp.run(state0, 0, 2 * engine.RUN_WINDOW, graph=graph)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
     t0 = time.perf_counter()
-    state, raster, tm = sp8.run(state0, 0, MAIN_STEPS)
-    torch.cuda.synchronize()
+    out, counts = _counted_run(sp, state0, MAIN_STEPS, graph)
     wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    launches = {k: counts[k] for k in _snn_counted()}
-    peak = torch.cuda.max_memory_allocated()
-    raster_np = raster.cpu().numpy()
-    rate = observables.mean_rate_hz(raster_np, cfg.n_neurons)
-    events = int(tm.arrivals.sum())
-    norm = timing.norm_seconds(wall, cfg.n_synapses, MAIN_STEPS, rate)
-
-    # separate synchronised pass: the per-phase split (paper Table 2),
-    # through StepProgram.time_phases under EngineConfig's default 'sync'
-    # schedule; it works on a copy of state0 and returns the state after
-    n_split = 100
-    s, split, _, _ = sp8.time_phases(state0, 0, n_split)
-    split_ms = {k.replace("_s", "_ms_per_step"): v / n_split * 1e3
-                for k, v in split.items()}
-    sync_errors = _whole_steps_sync_debug(spec, plan, s, n_split,
-                                          hier_groups=1)
-
-    emit({"phase": "timed", "grid": f"{cfg.grid_x}x{cfg.grid_y}",
-          "neurons": cfg.n_neurons, "synapses": cfg.n_synapses,
-          "shards": spec.eng.n_shards, "steps": MAIN_STEPS,
-          "wall_s": wall, "ms_per_step": wall / MAIN_STEPS * 1e3,
-          "split_sync_pass": split_ms, "rate_hz": rate,
-          "s_per_synapse_per_sim_s_per_hz": norm,
-          "synaptic_events": events, "synaptic_events_per_s": events / wall,
-          "max_memory_allocated_bytes": peak, "launches": launches,
-          "raster_signature": observables.raster_signature(
-              raster_np, plan.gid.cpu().numpy()).hex(),
-          "whole_steps_sync_debug_steps": SYNC_DEBUG_STEPS,
-          "whole_steps_sync_debug_errors": sync_errors})
-    if any(e is not None for e in sync_errors.values()):
-        raise PhaseFailed(f"a step synchronised with the host under "
-                          f"sync-debug 'error': {sync_errors}")
-    if launches != _main_path_counts(MAIN_STEPS):
-        raise PhaseFailed(f"kernels not launched once per step on the "
-                          f"main path (or a replaced one launched): "
-                          f"{launches}")
-    return counts
+    return dict(out=out, wall=wall, counts=counts,
+                peak=torch.cuda.max_memory_allocated())
 
 
-def phase_profile(sp8, n_steps: int = 20):
-    """Device time by kernel over two windows (torch.profiler): the first
-    `n_steps` steps from the initial state, where the network is still
-    nearly silent, and the timed run's whole range, whose activity comes
-    in bursts: the STDP kernels' work follows the arrivals and spikes, so
-    only the whole run gives their mean."""
+def phase_timed(sp8, sp8e):
+    """The 8x8 main path, H=1, MAIN_STEPS steps, for each delivery: the
+    captured graph's run and the eager loop's (the same bits), ms/step,
+    the synchronised phase split, the sync-debug steps of each exchange.
+    Returns the launches of each delivery's path kernels in its eager run,
+    as the wrappers counted them."""
+    cfg = sp8.spec.cfg
+    launches, dense_raster = {}, None
+    for delivery, sp in (("dense", sp8), ("event", sp8e)):
+        state0 = sp.init_state()
+        runs = {"graph": _timed_run(sp, state0, True),
+                "eager": _timed_run(sp, state0, False)}
+        g = runs["graph"]["out"]
+        same = _same_run(g, runs["eager"]["out"])
+        raster_np = g[1].cpu().numpy()
+        rate = observables.mean_rate_hz(raster_np, cfg.n_neurons)
+        events = int(g[2].arrivals.sum())
+        line = dict(phase="timed", delivery=delivery,
+                    grid=f"{cfg.grid_x}x{cfg.grid_y}",
+                    neurons=cfg.n_neurons, synapses=cfg.n_synapses,
+                    shards=sp.spec.eng.n_shards, steps=MAIN_STEPS,
+                    window=engine.RUN_WINDOW, caps=sp.caps,
+                    graph_equal_to_eager=same, rate_hz=rate,
+                    synaptic_events=events,
+                    raster_signature=observables.raster_signature(
+                        raster_np, sp.plan.gid.cpu().numpy()).hex(),
+                    weight_signature=sp.weight_signature(g[0]).hex())
+        want = _main_path_counts(MAIN_STEPS, delivery)
+        for mode, r in runs.items():
+            counts = r["counts"]
+            line[mode] = dict(
+                wall_s=r["wall"], ms_per_step=r["wall"] / MAIN_STEPS * 1e3,
+                s_per_synapse_per_sim_s_per_hz=timing.norm_seconds(
+                    r["wall"], cfg.n_synapses, MAIN_STEPS, rate),
+                synaptic_events_per_s=events / r["wall"],
+                max_memory_allocated_bytes=r["peak"],
+                launches=counts["counted"],
+                replayed_launches=counts["replayed"],
+                launches_once_a_step=counts["total"] == want)
+        # the eager loop's launches, each counted where it was made
+        line["eager"]["launches_once_a_step"] &= (
+            runs["eager"]["counts"]["counted"] == want)
+        if delivery == "event":
+            line["sat"] = g[0].sat.cpu().tolist()
+            line["raster_equal_to_dense"] = bool(np.array_equal(
+                raster_np, dense_raster))
+        else:
+            dense_raster = raster_np
+        # separate synchronised pass: the per-phase split (paper Table 2),
+        # through StepProgram.time_phases under the 'sync' schedule; it
+        # works on a copy of state0 and returns the state after
+        n_split = 100
+        s, split, _, _ = sp.time_phases(state0, 0, n_split)
+        line["split_sync_pass"] = {
+            k.replace("_s", "_ms_per_step"): v / n_split * 1e3
+            for k, v in split.items()}
+        errs = _whole_steps_sync_debug(sp.spec, sp.plan, s, n_split,
+                                       hier_groups=1, eplan=sp.eplan,
+                                       caps=sp.caps)
+        line["whole_steps_sync_debug_steps"] = SYNC_DEBUG_STEPS
+        line["whole_steps_sync_debug_errors"] = errs
+        emit(line)
+        if any(e is not None for e in errs.values()):
+            raise PhaseFailed(f"a {delivery} step synchronised with the "
+                              f"host under sync-debug 'error': {errs}")
+        if not same:
+            raise PhaseFailed(f"the {delivery} graph run differs from the "
+                              f"eager loop")
+        if not all(line[m]["launches_once_a_step"] for m in runs):
+            raise PhaseFailed(f"{delivery}: kernels not launched once per "
+                              f"step (or another SNN kernel launched): "
+                              f"{line['graph']}, {line['eager']}")
+        if delivery == "event" and any(line["sat"]):
+            raise PhaseFailed(f"the event run dropped events: {line['sat']}")
+        launches.update({k: runs["eager"]["counts"]["counted"][k]
+                         for k in _path_kernels(delivery)})
+        del runs, g
+    return launches
+
+
+def phase_profile(sp8, sp8e, n_steps: int = 20):
+    """Device time by kernel (torch.profiler), device busy and idle share,
+    and device operations per step: the dense path over its first
+    `n_steps` steps from the initial state (nearly silent), and each
+    delivery over the timed run's MAIN_STEPS steps (activity comes in
+    bursts, so only the whole run gives the kernels' mean), as the
+    captured graph's replays and as the eager loop."""
     from torch.profiler import ProfilerActivity, profile
-    state0 = sp8.init_state()
     windows = {}
-    for label, steps in (("first", n_steps), ("run", MAIN_STEPS)):
-        sp8.run(state0, 0, steps)
+    cases = [("dense_first", sp8, n_steps, True)]
+    cases += [(f"{d}_{m}", sp, MAIN_STEPS, m == "graph")
+              for d, sp in (("dense", sp8), ("event", sp8e))
+              for m in ("graph", "eager")]
+    for label, sp, steps, graph in cases:
+        state0 = sp.init_state()
+        sp.run(state0, 0, steps, graph=graph)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             c0 = time.perf_counter()
-            _, _, tm = sp8.run(state0, 0, steps)
+            _, _, tm = sp.run(state0, 0, steps, graph=graph)
             torch.cuda.synchronize()
             wall = time.perf_counter() - c0
         rows = sorted(((us, k, c) for k, us, c in device_kernel_events(prof)),
                       reverse=True)
         busy_us = sum(r[0] for r in rows)
         windows[label] = dict(
-            steps=steps, wall_s=wall,
+            steps=steps, graph=graph, wall_s=wall,
             arrivals_per_step=int(tm.arrivals.sum()) / steps,
             spikes_per_step=int(tm.spikes.sum()) / steps,
             device_busy_s=busy_us * 1e-6 if rows else None,
@@ -1125,6 +1500,8 @@ def phase_bench():
                  schedules_equal=same)
     prof = bench_profile.run_profile(device="cuda")
     _report_line("profile", prof, cells=prof["extra"]["cells"])
+    evd = event_vs_dense.run_suite(device="cuda")
+    _report_line("event_vs_dense", evd, rows=evd["extra"]["rows"])
     if not quick_ok:
         raise PhaseFailed(f"table1's 4x4 row differs from the JAX "
                           f"reference: {det}")
@@ -1526,15 +1903,23 @@ def main() -> int:
         phase_build()
         phase_attn_sass()
         t0 = time.perf_counter()
-        sp8 = StepProgram(GridConfig(grid_x=8, grid_y=8), EngineConfig(),
-                          device="cuda")
+        # one connectivity build for both deliveries: the event program's
+        # plan and initial state are the dense program's
+        sp8e = _program(GridConfig(grid_x=8, grid_y=8),
+                        EngineConfig(delivery="event"))
+        sp8 = StepProgram.from_parts(
+            sp8e.spec._replace(eng=EngineConfig()), sp8e.plan,
+            sp8e.init_state().base)
         emit({"phase": "build_8x8", "seconds": time.perf_counter() - t0,
-              "synapses": int(sp8.plan.row_ptr[:, -1].sum())})
-        rows = phase_kernels(sp8.plan, sp8.spec)
+              "synapses": int(sp8.plan.row_ptr[:, -1].sum()),
+              "cap_ev": sp8e.cap_ev,
+              "fwd_rows": list(sp8e.eplan.fwd_rows.shape),
+              "in_rows": list(sp8e.eplan.in_rows.shape)})
+        rows = phase_kernels(sp8.plan, sp8.spec, sp8e)
         phase_check()
-        launches = phase_timed(sp8)
-        phase_profile(sp8)
-        del sp8                  # so that the later peaks are their own
+        launches = phase_timed(sp8, sp8e)
+        phase_profile(sp8, sp8e)
+        del sp8, sp8e            # so that the later peaks are their own
         torch.cuda.empty_cache()
         phase_bench()
         torch.cuda.empty_cache()
@@ -1547,7 +1932,9 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        # the timed eager runs launched every other SNN kernel 0 times
+        # (phase_timed checks it)
+        r["launches"] = launches.get(r["name"], 0)
     rows.append(dict(lm_rows[0], launches=lm_launches))   # prefill shape
     rows.append(dict(attn_rows[0], launches=attn_launches))  # rg_local_prefill
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
@@ -1573,12 +1960,14 @@ if __name__ == "__main__":
     import torch
     from repro_torch.bench import profile as bench_profile
     from repro_torch.bench import timing
-    from repro_torch.bench.suites import table1, table2
+    from repro_torch.bench.suites import event_vs_dense, table1, table2
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import (EngineConfig, GridConfig, StepProgram,
-                                  engine, observables, stimulus)
+                                  aer, engine, event_engine, observables,
+                                  stimulus)
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import arborize as karb
+    from repro_torch.kernels import event as kev
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import izhikevich as kizh
     from repro_torch.kernels import ref as kref

@@ -23,6 +23,11 @@ def _profile(quick, device):
     return profile.run_profile(quick, device)
 
 
+def _event_vs_dense(quick, device):
+    from .suites import event_vs_dense
+    return event_vs_dense.run_suite(quick, device)
+
+
 def _table1(quick, device):
     from .suites import table1
     return table1.run_suite(quick, device)
@@ -34,6 +39,9 @@ def _table2(quick, device):
 
 
 BENCHES: Dict[str, Entry] = {e.name: e for e in [
+    Entry("event_vs_dense", _event_vs_dense,
+          "dense O(E) vs event O(spikes x fan) delivery, single device "
+          "(the distributed cells: ROADMAP queue 1, item 8)"),
     Entry("profile", _profile,
           "per-phase compute/exchange/arborization split, "
           "{allgather,halo} x {block,scatter} (paper Table 2)"),
@@ -46,7 +54,6 @@ BENCHES: Dict[str, Entry] = {e.name: e for e in [
 #: The JAX package's suites that the port does not run yet, and the
 #: ROADMAP item (queue 1) that ports each.
 NOT_PORTED: Dict[str, str] = {
-    "event_vs_dense": "item 6 (event delivery)",
     "weak_scaling": "item 7 (streamed connectivity)",
     "comm_overlap": "item 8 (multi-device exchange)",
     "scaling": "item 8 (multi-device exchange)",

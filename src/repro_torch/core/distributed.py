@@ -15,15 +15,18 @@ shards stacked on one device (`StepProgram.phase_fns`):
       owns), sent at whole-group stride along `hier_offsets`.
 
 A mesh of devices (one shard per device, real collectives) is ROADMAP
-queue 1 item 8.  These are host-side numpy functions of the plan's tables.
+queue 1 item 8.  The offsets and groups are host-side numpy functions of
+the plan's tables; `delivery_step_fns` dispatches the phase callables on
+EngineConfig.delivery, as the JAX package's `_delivery_phases` does, so
+every phase handle runs either backend.
 """
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 
-from . import topology
+from . import engine, event_engine, topology
 from .engine import ShardPlan, SimSpec
 
 
@@ -97,3 +100,20 @@ class PhasePrograms(NamedTuple):
     phase_b: Callable
     phase_a_dynamics: Callable
     phase_a_plasticity: Callable
+
+
+def delivery_step_fns(spec: SimSpec, plan: ShardPlan, t0: int, n_steps: int,
+                      eplan=None, caps: Optional[dict] = None
+                      ) -> engine.StepFns:
+    """The phase callables of a window of steps for the plan's delivery:
+    `engine.make_step_fn` (dense) or `event_engine.make_step_fn` (event,
+    with the EventPlan and the optional `caps` c_post / c_src).  Both share
+    the exchange and the signatures of `engine.StepFns`."""
+    if spec.eng.delivery == "event":
+        if eplan is None:
+            raise ValueError("delivery='event' needs the EventPlan")
+        caps = caps or {}
+        return event_engine.make_step_fn(spec, plan, eplan, t0, n_steps,
+                                         c_post=caps.get("c_post"),
+                                         c_src=caps.get("c_src"))
+    return engine.make_step_fn(spec, plan, t0, n_steps)

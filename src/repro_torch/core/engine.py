@@ -26,7 +26,10 @@ would wrap, so every pad is masked explicitly.  Index tables are int64
 (what torch indexing takes).
 
 `run` leaves the state it is given untouched: it copies it once and then
-updates the copy in place each step.  The phase functions of
+updates the copy in place each step.  On the card it is the counterpart
+of the JAX package's `lax.scan` over a traced t: the kernels read t from
+a device step counter, and a window of steps is captured once as a CUDA
+graph and replayed (`CapturedRun`).  The phase functions of
 `make_step_fn` update the state they are given: phase A its `v`, `u`,
 `w`, `last_arr`, `last_post` and `arr_ring` (one kernel on the card,
 `kernels.ops.stdp_phase_a`, gathering by target itself), phase B its
@@ -44,6 +47,7 @@ import torch
 from . import connectivity, stimulus, topology
 from .params import (DEFAULT_IZH, DEFAULT_STDP, EngineConfig, GridConfig,
                      IzhikevichParams, StdpParams)
+from ..kernels import _build as kbuild
 from ..kernels import ops as kops
 from ..kernels import ref as kref
 
@@ -243,8 +247,25 @@ def init_state(spec: SimSpec, plan: ShardPlan) -> ShardState:
                              device=dev))
 
 
-def clone_state(state: ShardState) -> ShardState:
-    return ShardState(*(x.clone() for x in state))
+def map_state(fn: Callable, state):
+    """The state (a NamedTuple of tensors, possibly nested) with fn applied
+    to each tensor."""
+    return type(state)(*(map_state(fn, x) if isinstance(x, tuple) else fn(x)
+                         for x in state))
+
+
+def state_tensors(state) -> list:
+    """The state's tensors, depth first in field order."""
+    out = []
+    for x in state:
+        out.extend(state_tensors(x) if isinstance(x, tuple) else [x])
+    return out
+
+
+def clone_state(state):
+    """A copy of a state (a ShardState, or any NamedTuple of them and of
+    tensors, such as the event backend's EventState)."""
+    return map_state(torch.clone, state)
 
 
 # ----------------------------------------------------------------------------
@@ -430,6 +451,24 @@ class StepFns(NamedTuple):
     stim: StimWindow
 
 
+def make_exchange(spec: SimSpec, plan: ShardPlan) -> Callable:
+    """The run's exchange, spiked [H, N] -> spiked_src [H, S]: the global
+    spike mask gathered by each shard's source table (its tables derived
+    from the plan once; three device operations a call)."""
+    dev = plan.gid.device
+    flat_gid = plan.gid.reshape(-1)
+    owned = torch.nonzero(flat_gid >= 0).reshape(-1)
+    gid_pos = torch.zeros(spec.n_total, dtype=torch.int64, device=dev)
+    gid_pos[flat_gid[owned]] = owned
+    src_ok = plan.src_gid >= 0
+    src_safe = torch.where(src_ok, plan.src_gid, 0)
+
+    def exchange(spiked):
+        glob = _global_spike_mask(spiked, gid_pos)
+        return glob[src_safe] & src_ok
+    return exchange
+
+
 def make_step_fn(spec: SimSpec, plan: ShardPlan, t0: int,
                  n_steps: int) -> StepFns:
     """Step callables for steps t0 .. t0 + n_steps - 1.
@@ -445,13 +484,7 @@ def make_step_fn(spec: SimSpec, plan: ShardPlan, t0: int,
     # kernel takes them as launch arguments)
     coeffs = (None if dev.type == "cuda"
               else kref.izh_coefficients(plan.exc_mask, spec.izh))
-
-    flat_gid = plan.gid.reshape(-1)
-    owned = torch.nonzero(flat_gid >= 0).reshape(-1)
-    gid_pos = torch.zeros(spec.n_total, dtype=torch.int64, device=dev)
-    gid_pos[flat_gid[owned]] = owned
-    src_ok = plan.src_gid >= 0
-    src_safe = torch.where(src_ok, plan.src_gid, 0)
+    exchange = make_exchange(spec, plan)
 
     def pa(state, t):
         return phase_a(spec, plan, state, t, stim.row(t), seg, coeffs)
@@ -462,10 +495,6 @@ def make_step_fn(spec: SimSpec, plan: ShardPlan, t0: int,
 
     def pa_plast(state, spiked, t):
         return phase_a_plasticity(spec, plan, state, spiked, t)
-
-    def exchange(spiked):
-        glob = _global_spike_mask(spiked, gid_pos)
-        return glob[src_safe] & src_ok
 
     def pb(state, spiked_src, t):
         return phase_b(spec, plan, state, spiked_src, t)
@@ -480,22 +509,194 @@ def make_step_fn(spec: SimSpec, plan: ShardPlan, t0: int,
                    stim=stim)
 
 
+def run_loop(step: Callable, state, t0: int, n_steps: int):
+    """The CPU's run: step(state, t) -> (state, spiked, tm) for t = t0 ..
+    t0 + n_steps - 1 with Python ints, on a copy of `state` -> (state,
+    raster [T, H, N], timings [T, H])."""
+    state = clone_state(state)
+    v = state_tensors(state)[0]                  # [H, N]
+    raster = torch.empty((n_steps,) + v.shape, dtype=torch.bool,
+                         device=v.device)
+    spikes = torch.empty((n_steps, v.shape[0]), dtype=torch.int64,
+                         device=v.device)
+    arrivals = torch.empty_like(spikes)
+    for i in range(n_steps):
+        state, spiked, tm = step(state, t0 + i)
+        raster[i] = spiked
+        spikes[i] = tm.spikes
+        arrivals[i] = tm.arrivals
+    return state, raster, StepTimings(spikes=spikes, arrivals=arrivals)
+
+
+#: Steps of one captured CUDA graph (`CapturedRun`).
+RUN_WINDOW = 50
+
+
+class CapturedRun:
+    """`run` on the card: the counterpart of the JAX package's `lax.scan`
+    over a traced t.
+
+    The run's state lives in static buffers, copied in before and out
+    after.  The step t, and the row of the stimulus window, come from a
+    device step counter `ctr` (int64 [2]) that each step advances; the
+    kernels read it (`kernels._build.step_counter`), and the step's
+    stimulus, spikes and counters are read and written at its row of
+    static window buffers, so a step has no launch argument that changes
+    with t.  Everything runs on the runner's own stream, and every kernel's
+    integer scratch is the runner's own (`kernels._build.Scratch`), kept
+    as long as its graph.  The first full window of RUN_WINDOW steps runs
+    eagerly (the scratch and every buffer the steps use are made there),
+    and then the same steps are captured as one CUDA graph; every later
+    full window replays it, and a remainder shorter than a window runs the
+    same steps eagerly.  `graph=False` runs every step eagerly, through
+    the same operations.  A failed capture raises: nothing falls back.
+    The kernels' launch counts (`kernels.ops.launch_counts`) hold the
+    eager steps' launches only: the capture launches nothing, and a
+    replay passes through no wrapper; `replayed_launches` says what the
+    last run's replays launched, from what the capture recorded.
+
+    `step(state, ctr, stim_index, stim_amp) -> (spiked [H, N], timings)`
+    updates the static state in place; stim_index / stim_amp are the
+    window buffers [RUN_WINDOW, H, K], made by the first run."""
+
+    def __init__(self, step: Callable, state):
+        self.step = step
+        v = state_tensors(state)[0]                  # [H, N]
+        H = v.shape[0]
+        self.device = v.device
+        self.stream = torch.cuda.Stream(self.device)
+        self.state = map_state(torch.empty_like, state)
+        self.ctr = torch.zeros(2, dtype=torch.int64, device=self.device)
+        self.stim_index = self.stim_amp = None
+        self.raster = torch.zeros((RUN_WINDOW,) + v.shape, dtype=torch.bool,
+                                  device=self.device)
+        self.spikes = torch.zeros((RUN_WINDOW, H), dtype=torch.int64,
+                                  device=self.device)
+        self.arrivals = torch.zeros_like(self.spikes)
+        self.scratch = kbuild.Scratch(self.device)
+        self.graph = None
+        self.recorded = {}      # kernel -> launches a window's graph holds
+        self.replays = 0        # of the last run
+
+    def _one_step(self) -> None:
+        spiked, tm = self.step(self.state, self.ctr, self.stim_index,
+                               self.stim_amp)
+        row = self.ctr[1:]
+        self.raster.index_copy_(0, row, spiked[None])
+        self.spikes.index_copy_(0, row, tm.spikes[None])
+        self.arrivals.index_copy_(0, row, tm.arrivals[None])
+        self.ctr.add_(1)
+
+    def _set_window(self, stim_index, stim_amp, t: int, m: int) -> None:
+        self.stim_index[:m].copy_(stim_index)
+        self.stim_amp[:m].copy_(stim_amp)
+        self.ctr[0].fill_(t)
+        self.ctr[1].fill_(0)
+
+    def _capture(self) -> None:
+        before = dict(kbuild.recorded)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=self.stream):
+            for _ in range(RUN_WINDOW):
+                self._one_step()
+        self.recorded = {k: n - before.get(k, 0)
+                         for k, n in kbuild.recorded.items()
+                         if n != before.get(k, 0)}
+        self.graph = graph
+
+    def replayed_launches(self) -> dict:
+        """Launches of each kernel by the last run's replays: the replays
+        times what the capture recorded."""
+        return {k: self.replays * n for k, n in self.recorded.items()}
+
+    def run(self, state, t0: int, n_steps: int, stim_index, stim_amp, *,
+            graph: bool = True):
+        """Steps t0 .. t0 + n_steps - 1 from `state` (not modified), with
+        the run's stimulus rows stim_index / stim_amp [n_steps, H, K] on
+        the card -> (state, raster [T, H, N], timings [T, H]).  Nothing is
+        read back; only the capture waits for the card."""
+        W = RUN_WINDOW
+        H, N = self.raster.shape[1:]
+        if self.stim_index is None:
+            self.stim_index = stim_index.new_zeros((W,) + stim_index.shape[1:])
+            self.stim_amp = stim_amp.new_zeros((W,) + stim_amp.shape[1:])
+        cur = torch.cuda.current_stream(self.device)
+        raster = torch.empty((n_steps, H, N), dtype=torch.bool,
+                             device=self.device)
+        spikes = torch.empty((n_steps, H), dtype=torch.int64,
+                             device=self.device)
+        arrivals = torch.empty_like(spikes)
+        static = state_tensors(self.state)
+        self.replays = 0
+        self.stream.wait_stream(cur)
+        with (torch.cuda.stream(self.stream),
+              kbuild.own_scratch(self.scratch)):
+            for dst, src in zip(static, state_tensors(state)):
+                dst.copy_(src)
+            for w0 in range(0, n_steps, W):
+                m = min(W, n_steps - w0)
+                self._set_window(stim_index[w0:w0 + m],
+                                 stim_amp[w0:w0 + m], t0 + w0, m)
+                if graph and m == W and self.graph is not None:
+                    self.graph.replay()
+                    self.replays += 1
+                else:
+                    for _ in range(m):
+                        self._one_step()
+                    if graph and m == W:
+                        self._capture()     # the stream is warm now
+                raster[w0:w0 + m].copy_(self.raster[:m])
+                spikes[w0:w0 + m].copy_(self.spikes[:m])
+                arrivals[w0:w0 + m].copy_(self.arrivals[:m])
+        cur.wait_stream(self.stream)
+        out = clone_state(self.state)
+        return out, raster, StepTimings(spikes=spikes, arrivals=arrivals)
+
+
+def stim_rows(spec: SimSpec, plan: ShardPlan, t0: int, n_steps: int):
+    """The stimulus (index, amp) rows [n_steps, H, C*K] of steps t0 ..
+    t0 + n_steps - 1 on the plan's device."""
+    w = StimWindow(spec, plan, t0, n_steps)
+    return w.index, w.amp
+
+
+def make_runner(spec: SimSpec, plan: ShardPlan,
+                state: ShardState) -> CapturedRun:
+    """The dense run on the card (`CapturedRun`): each step is the phase-A
+    kernel and phase B's, both reading the step counter, with the run's
+    exchange between them."""
+    seg = kref.make_segments(plan.row_ptr, plan.syn_valid.shape[1],
+                             with_index=False)
+    exchange = make_exchange(spec, plan)
+
+    def step(state, ctr, stim_index, stim_amp):
+        spiked, n_arrived, n_spikes = kops.stdp_phase_a(
+            state.arr_ring, None, seg, plan.syn_valid, plan.syn_tgt,
+            plan.syn_plastic, plan.exc_mask, plan.neuron_valid, stim_index,
+            stim_amp, state.v, state.u, state.last_post, state.w,
+            state.last_arr, ctr, izh=spec.izh, stdp=spec.stdp,
+            neg_time=NEG_TIME, with_ltp=True)
+        kops.arborize(state.arr_ring, exchange(spiked), plan.syn_src,
+                      plan.syn_delay, plan.syn_valid, ctr)
+        return spiked, StepTimings(spikes=n_spikes, arrivals=n_arrived)
+
+    return CapturedRun(step, state)
+
+
 def run(spec: SimSpec, plan: ShardPlan, state: ShardState, t0: int,
-        n_steps: int):
+        n_steps: int, *, graph: bool = True, runner: CapturedRun = None):
     """Run steps t0 .. t0 + n_steps - 1; returns (state, raster [T, H, N]
     bool, timings with [T, H] counters), all on the plan's device.  The
-    input state is not modified."""
+    input state is not modified.
+
+    On the card the steps run through `runner` (made here when None): one
+    captured CUDA graph a window of steps, or with `graph=False` the same
+    steps eagerly.  The CPU runs the steps as a Python loop."""
     dev = plan.gid.device
-    H, N = plan.gid.shape
+    if dev.type == "cuda":
+        runner = runner or make_runner(spec, plan, state)
+        return runner.run(state, t0, n_steps,
+                          *stim_rows(spec, plan, t0, n_steps), graph=graph)
     with _numerics(dev):
         fns = make_step_fn(spec, plan, t0, n_steps)
-        state = clone_state(state)
-        raster = torch.empty((n_steps, H, N), dtype=torch.bool, device=dev)
-        spikes = torch.empty((n_steps, H), dtype=torch.int64, device=dev)
-        arrivals = torch.empty((n_steps, H), dtype=torch.int64, device=dev)
-        for i in range(n_steps):
-            state, spiked, tm = fns.step(state, t0 + i)
-            raster[i] = spiked
-            spikes[i] = tm.spikes
-            arrivals[i] = tm.arrivals
-    return state, raster, StepTimings(spikes=spikes, arrivals=arrivals)
+        return run_loop(fns.step, state, t0, n_steps)

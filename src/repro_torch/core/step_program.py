@@ -7,9 +7,11 @@
     state, times, rasters, counts = sp.time_phases(state, 0, 100)
 
 This is the single-process subset of `repro.core.step_program.StepProgram`
-(`mesh=None`, dense delivery, materialized connectivity), with the shards
-stacked on a leading [H] axis of one device.  `run` is the reference
-driver that defines the physics (global-mask exchange); the phase
+(`mesh=None`, dense or event delivery, materialized connectivity), with
+the shards stacked on a leading [H] axis of one device.  `run` is the
+reference driver that defines the physics (global-mask exchange); on the
+card it replays one captured CUDA graph a window of steps, kept per
+StepProgram (`engine.CapturedRun`).  The phase
 handles emulate each exchange wire over the stacked shards ('allgather':
 the global mask; 'halo': `aer.pack` per shard and `torch.roll` over the
 shard axis by each halo offset; 'hier': one AER buffer per group of
@@ -31,8 +33,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import aer, distributed, engine
-from .engine import ShardPlan, ShardState, SimSpec
+from . import aer, distributed, engine, event_engine
+from .engine import ShardPlan, SimSpec
 from .params import (DEFAULT_IZH, DEFAULT_STDP, EngineConfig, GridConfig,
                      IzhikevichParams, StdpParams)
 
@@ -42,11 +44,11 @@ PHASE_WINDOW = 100
 
 
 def check_supported(eng: EngineConfig, mesh=None) -> None:
-    """Raise NotImplementedError for what this port does not run yet."""
-    if eng.delivery != "dense":
-        raise NotImplementedError(
-            f"delivery={eng.delivery!r}: event delivery is not ported yet "
-            f"(ROADMAP queue 1, item 6)")
+    """Raise NotImplementedError for what this port does not run yet (and
+    ValueError for a delivery that does not exist)."""
+    if eng.delivery not in ("dense", "event"):
+        raise ValueError(f"unknown delivery {eng.delivery!r}: expected "
+                         f"'dense' or 'event'")
     if eng.connectivity != "materialized":
         raise NotImplementedError(
             f"connectivity={eng.connectivity!r}: streamed connectivity is "
@@ -75,54 +77,98 @@ class StepProgram:
     `device=None` means the card; without one it raises.  Pass
     `device="cpu"` for the plain PyTorch path (what the tests do).
     `hier_groups` (a group count, or a list of equal-sized contiguous
-    blocks of shards) sets the shard groups of `exchange='hier'`."""
+    blocks of shards) sets the shard groups of `exchange='hier'`.  With
+    `delivery='event'` the state is an `event_engine.EventState` and
+    `caps` may set the spike compactions' c_post / c_src."""
 
     def __init__(self, cfg: GridConfig, eng: EngineConfig, *,
                  device=None, mesh=None,
                  izh: Optional[IzhikevichParams] = None,
-                 stdp: Optional[StdpParams] = None, hier_groups=None):
+                 stdp: Optional[StdpParams] = None,
+                 caps: Optional[dict] = None, hier_groups=None):
         check_supported(eng, mesh)
         dev = engine.resolve_device(device)
-        spec, plan, state = engine.build(cfg, eng, izh or DEFAULT_IZH,
-                                         stdp or DEFAULT_STDP, device=dev)
-        self._init(spec, plan, state, hier_groups)
+        izh, stdp = izh or DEFAULT_IZH, stdp or DEFAULT_STDP
+        eplan = None
+        if eng.delivery == "event":
+            spec, plan, eplan, state = event_engine.build(
+                cfg, eng, izh, stdp, device=dev)
+        else:
+            spec, plan, state = engine.build(cfg, eng, izh, stdp,
+                                             device=dev)
+        self._init(spec, plan, state, eplan, caps, hier_groups)
 
     @classmethod
-    def from_parts(cls, spec: SimSpec, plan: ShardPlan,
-                   state0: Optional[ShardState] = None, *,
+    def from_parts(cls, spec: SimSpec, plan: ShardPlan, state0=None, *,
+                   eplan: Optional[event_engine.EventPlan] = None,
+                   caps: Optional[dict] = None,
                    hier_groups=None) -> "StepProgram":
-        """Wrap an already-built (spec, plan[, state]) without re-running
-        connectivity construction (e.g. a plan from `convert.from_jax`)."""
+        """Wrap an already-built (spec, plan[, state][, eplan]) without
+        re-running connectivity construction (e.g. a plan from
+        `convert.from_jax`); delivery='event' needs the EventPlan."""
         check_supported(spec.eng)
         sp = cls.__new__(cls)
-        sp._init(spec, plan, state0, hier_groups)
+        sp._init(spec, plan, state0, eplan, caps, hier_groups)
         return sp
 
-    def _init(self, spec, plan, state0, hier_groups):
+    def _init(self, spec, plan, state0, eplan, caps, hier_groups):
+        if spec.eng.delivery == "event" and eplan is None:
+            raise ValueError("delivery='event' needs an EventPlan")
         self.spec: SimSpec = spec
         self.plan: ShardPlan = plan
+        self.eplan = eplan
+        self.caps = caps or {}
         self.device = plan.gid.device
         self.hier_groups = hier_groups
         self._state0 = state0
         self._fns = None
         self._phases = None
+        # the card's run loop (`engine.CapturedRun`), made by the first run
+        self.runner = None
 
-    def init_state(self) -> ShardState:
+    @property
+    def cap_ev(self) -> Optional[int]:
+        """Events a delay slot of the event ring holds; None for the dense
+        backend (or without an initial state)."""
+        if self._state0 is not None and self.eplan is not None:
+            return int(self._state0.ev_ring.shape[-1])
+        return None
+
+    def init_state(self):
         """The freshly-built initial state."""
         if self._state0 is None:
             raise ValueError("no initial state: this StepProgram wraps "
                              "prebuilt parts without state0")
         return self._state0
 
-    def run(self, state: ShardState, t0: int, n_steps: int):
+    def run(self, state, t0: int, n_steps: int, *, graph: bool = True):
         """(state, raster [T, H, N] bool, timings) on this device; the
-        input state is not modified."""
-        return engine.run(self.spec, self.plan, state, t0, n_steps)
+        input state is not modified.  On the card the steps replay this
+        program's CUDA graph of `engine.RUN_WINDOW` steps (its first full
+        window runs eagerly and is then captured; `self.runner`);
+        `graph=False` runs the same steps eagerly."""
+        spec, plan = self.spec, self.plan
+        if self.device.type == "cuda" and self.runner is None:
+            if self.eplan is not None:
+                self.runner = event_engine.make_runner(
+                    spec, plan, self.eplan, state, self.caps.get("c_post"),
+                    self.caps.get("c_src"))
+            else:
+                self.runner = engine.make_runner(spec, plan, state)
+        if self.eplan is not None:
+            return event_engine.run(spec, plan, self.eplan, state, t0,
+                                    n_steps, self.caps.get("c_post"),
+                                    self.caps.get("c_src"), graph=graph,
+                                    runner=self.runner)
+        return engine.run(spec, plan, state, t0, n_steps, graph=graph,
+                          runner=self.runner)
 
-    def weight_signature(self, state: ShardState) -> bytes:
+    def weight_signature(self, state) -> bytes:
         """sha256 over the valid synapse weights in canonical per-shard
         order (the plastic-state counterpart of the raster signature),
-        byte-compatible with the JAX package's."""
+        byte-compatible with the JAX package's (of either delivery)."""
+        if isinstance(state, event_engine.EventState):
+            state = state.base
         w = state.w.detach().cpu().numpy()
         valid = self.plan.syn_valid.cpu().numpy()
         h = hashlib.sha256()
@@ -144,7 +190,8 @@ class StepProgram:
         the stimulus window its t falls in when t leaves the current one
         (`engine.StimWindow`)."""
         if self._phases is None:
-            fns = engine.make_step_fn(self.spec, self.plan, 0, PHASE_WINDOW)
+            fns = distributed.delivery_step_fns(
+                self.spec, self.plan, 0, PHASE_WINDOW, self.eplan, self.caps)
             num = self._with_numerics
             self._fns = fns
             self._phases = distributed.PhasePrograms(
@@ -211,7 +258,7 @@ class StepProgram:
 
     # -- timing handle (per-phase wall-clock attribution) ----------------
 
-    def time_phases(self, state: ShardState, t0: int, n_steps: int,
+    def time_phases(self, state, t0: int, n_steps: int,
                     collect_rasters: bool = False):
         """Per-step wall-clock attribution: the paper's Table 2 split.
 

@@ -25,7 +25,9 @@
 // at the 8x8 grid (E = 12.8 M), 0.035 ms at 3.35 TB/s.  The delays of
 // silent sources are never read.  The spike flags (64 KB at 8x8) stay in
 // L1/L2.  The ring slot is the floor modulo of `jnp.mod`, computed from
-// t mod D (given by the host) and delay mod D in 32 bits.
+// t mod D and delay mod D in 32 bits; t mod D is given by the host, or
+// read from the device step counter `ctr[0]` when one is given (so that a
+// captured CUDA graph advances it).
 //
 // Bits: the ring holds bools that are only ever set, so the result is
 // exact and does not depend on the order of the writes; no two synapses
@@ -43,8 +45,10 @@ __global__ void arborize_kernel(uint8_t* __restrict__ ring,
                                 const int64_t* __restrict__ syn_src,
                                 const int32_t* __restrict__ syn_delay,
                                 const uint8_t* __restrict__ syn_valid,
-                                int64_t D, int64_t E, int64_t S, int t_mod) {
+                                int64_t D, int64_t E, int64_t S, int t_mod,
+                                const int64_t* __restrict__ ctr) {
   const int64_t h = blockIdx.y;
+  if (ctr != nullptr) t_mod = (int)(((ctr[0] % D) + D) % D);
   const int64_t base = (int64_t)blockIdx.x * (kThreads * kPer) + threadIdx.x;
   const uint8_t* valid = syn_valid + h * E;
   const int64_t* src = syn_src + h * E;
@@ -78,7 +82,8 @@ __global__ void arborize_kernel(uint8_t* __restrict__ ring,
 extern "C" int repro_arborize(void* ring, const void* spiked_src,
                               const void* syn_src, const void* syn_delay,
                               const void* syn_valid, int64_t H, int64_t D,
-                              int64_t E, int64_t S, int64_t t, void* stream) {
+                              int64_t E, int64_t S, int64_t t,
+                              const void* ctr, void* stream) {
   const int64_t per_block = (int64_t)kThreads * kPer;
   const int64_t blocks = (E + per_block - 1) / per_block;
   int64_t t_mod = t % D;
@@ -87,6 +92,6 @@ extern "C" int repro_arborize(void* ring, const void* spiked_src,
                     (cudaStream_t)stream>>>(
       (uint8_t*)ring, (const uint8_t*)spiked_src, (const int64_t*)syn_src,
       (const int32_t*)syn_delay, (const uint8_t*)syn_valid, D, E, S,
-      (int)t_mod);
+      (int)t_mod, (const int64_t*)ctr);
   return (int)cudaGetLastError();
 }

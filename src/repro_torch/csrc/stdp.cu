@@ -323,6 +323,9 @@ struct RowConsts {
   float a_exc, a_inh, b_exc, b_inh, c_exc, c_inh, d_exc, d_inh, v_peak, h,
       dt;
   int substeps, with_ltp;
+  // step counter (t, stimulus row) on the device, or nullptr: then t and
+  // r above, and the stimulus list is the step's own [H, n_stim] row
+  const int64_t* ctr;
 };
 
 template <bool kPhaseA>
@@ -343,13 +346,19 @@ __global__ void __launch_bounds__(kRowThreads, 2) row_kernel(
   __shared__ unsigned spiking[kPhaseA ? kMaxTilesPerBlock : 1];
   const int64_t h = blockIdx.y;
   const int64_t N = p.N;
+  // the step from the device counter (t, row of the stimulus window) when
+  // given, else from the launch arguments
+  const int64_t tt = p.ctr != nullptr ? p.ctr[0] : 0;
+  const int64_t r = p.ctr != nullptr ? ((tt % p.D) + p.D) % p.D : p.r;
+  const float t = p.ctr != nullptr ? (float)tt : p.t;
+  const int64_t srow = p.ctr != nullptr ? p.ctr[1] : 0;
   const int lane = threadIdx.x & 31, g = threadIdx.x & (kGroup - 1);
   const int slot = threadIdx.x / kGroup;  // the group's row of each tile
   const int32_t* rp = row_ptr + h * (N + 1);
   const float* lps = last_post + h * N;
   const uint64_t* words =
-      reinterpret_cast<const uint64_t*>(ring + (h * p.D + p.r) * p.E);
-  uint8_t* flag = ring + (h * p.D + p.r) * p.E;
+      reinterpret_cast<const uint64_t*>(ring + (h * p.D + r) * p.E);
+  uint8_t* flag = ring + (h * p.D + r) * p.E;
   const int64_t base = h * p.E;
   float* list = pre[slot];
   if (kPhaseA && threadIdx.x < kMaxTilesPerBlock) spiking[threadIdx.x] = 0;
@@ -402,12 +411,13 @@ __global__ void __launch_bounds__(kRowThreads, 2) row_kernel(
       nv = neuron_valid[h * N + n] != 0;
     }
     if (kPhaseA)
-      ext = stim_sum(stim_idx + h * p.n_stim, stim_amp + h * p.n_stim,
+      ext = stim_sum(stim_idx + (srow * gridDim.y + h) * p.n_stim,
+                     stim_amp + (srow * gridDim.y + h) * p.n_stim,
                      p.n_stim, n, g);
 
     const bool ltd_on = lp > p.half_neg_time;
     const float ltd =
-        ltd_on ? p.a_minus * xla_exp((lp - p.t) * p.inv_tau_minus) : 0.0f;
+        ltd_on ? p.a_minus * xla_exp((lp - t) * p.inv_tau_minus) : 0.0f;
     const int words_in_row =
         end > beg ? (int)(((end - 1) >> 3) - (beg >> 3)) + 1 : 0;
     const int rounds = __reduce_max_sync(
@@ -418,7 +428,7 @@ __global__ void __launch_bounds__(kRowThreads, 2) row_kernel(
           (beg >> 3) + (int64_t)round * kRoundWords + g * kLaneWords;
       if (round > 0) load_flags(w0, end, cur);  // rows past 256 synapses
       count += row_round(cur, w0, beg, end, g, list, flag, plastic, w,
-                         last_arr, base, p.t, ltd_on, ltd, p.w_min,
+                         last_arr, base, t, ltd_on, ltd, p.w_min,
                          p.w_max, acc);
     }
     if (kPhaseA) {
@@ -474,9 +484,9 @@ __global__ void __launch_bounds__(kRowThreads, 2) row_kernel(
         if ((i & (kRowThreads / 32 - 1)) != warp) continue;
         const int64_t n =
             (blockIdx.x + k * stride) * kRowsPerBlock + __ffs(bits) - 1;
-        if (lane == 0) last_post[h * N + n] = p.t;
+        if (lane == 0) last_post[h * N + n] = t;
         ltp_walk(base + rp[n], base + rp[n + 1], lane, 32, plastic,
-                 last_arr, w, p.t, p.a_plus, p.inv_tau_plus, p.w_min,
+                 last_arr, w, t, p.a_plus, p.inv_tau_plus, p.w_min,
                  p.w_max, p.half_neg_time);
       }
     }
@@ -578,7 +588,64 @@ __global__ void __launch_bounds__(kLtpThreads) ltp_kernel(
            w_min, w_max, half_neg_time);
 }
 
+// The event backend's LTP (`repro/core/event_engine.py::
+// phase_a_plasticity`): a warp per entry of ids [H, C] (the first C
+// spiking neurons of each shard, ascending, then the fill N) walks the
+// neuron's CSR row as ltp_kernel does (row n is the JAX plan's in_rows[n]:
+// valid synapses first, sorted by target); every thread also sets
+// last_post = t of the spiking neurons of a stride of the shard (listed
+// or not), and the first thread adds the compaction's overflow to sat.
+__global__ void __launch_bounds__(kLtpThreads) event_ltp_kernel(
+    const int32_t* __restrict__ ids, const int32_t* __restrict__ n_dropped,
+    const uint8_t* __restrict__ spiked, const int32_t* __restrict__ row_ptr,
+    const uint8_t* __restrict__ plastic, const float* __restrict__ last_arr,
+    float* __restrict__ w, float* __restrict__ last_post,
+    int32_t* __restrict__ sat, const int64_t* __restrict__ ctr, int64_t t_arg,
+    int64_t N, int64_t E, int64_t C, float a_plus, float inv_tau_plus,
+    float w_min, float w_max, float half_neg_time) {
+  const int64_t h = blockIdx.y;
+  const float t = (float)(ctr != nullptr ? ctr[0] : t_arg);
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t threads = (int64_t)gridDim.x * blockDim.x;
+  if (tid == 0) sat[h] += n_dropped[h];
+  for (int64_t n = tid; n < N; n += threads)
+    if (spiked[h * N + n] != 0) last_post[h * N + n] = t;
+  const int lane = threadIdx.x & 31;
+  const int32_t* rp = row_ptr + h * (N + 1);
+  for (int64_t k = tid >> 5; k < C; k += threads >> 5) {
+    const int32_t n = ids[h * C + k];
+    if (n >= N) break;  // the fill follows the listed neurons
+    ltp_walk(h * E + rp[n], h * E + rp[n + 1], lane, 32, plastic, last_arr,
+             w, t, a_plus, inv_tau_plus, w_min, w_max, half_neg_time);
+  }
+}
+
 }  // namespace
+
+extern "C" int repro_event_ltp(
+    const void* ids, const void* n_dropped, const void* spiked,
+    const void* row_ptr, const void* plastic, const void* last_arr, void* w,
+    void* last_post, void* sat, const void* ctr, int64_t t, int64_t H,
+    int64_t N, int64_t E, int64_t C, float a_plus, float inv_tau_plus,
+    float w_min, float w_max, float half_neg_time, void* stream) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // a warp per listed neuron, up to two blocks an SM across the shards
+  const int64_t per_block = kLtpThreads / 32;
+  int64_t blocks = (C + per_block - 1) / per_block;
+  int64_t most = 2 * (int64_t)(sms > 0 ? sms : 132) / (H > 0 ? H : 1);
+  most = most < 1 ? 1 : most;
+  blocks = blocks > most ? most : blocks < 1 ? 1 : blocks;
+  event_ltp_kernel<<<dim3((unsigned)blocks, (unsigned)H), kLtpThreads, 0,
+                     (cudaStream_t)stream>>>(
+      (const int32_t*)ids, (const int32_t*)n_dropped, (const uint8_t*)spiked,
+      (const int32_t*)row_ptr, (const uint8_t*)plastic,
+      (const float*)last_arr, (float*)w, (float*)last_post, (int32_t*)sat,
+      (const int64_t*)ctr, t, N, E, C, a_plus, inv_tau_plus, w_min, w_max,
+      half_neg_time);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int repro_stdp_arrival(
     void* ring, const void* valid, const void* tgt, const void* plastic,
@@ -696,7 +763,10 @@ extern "C" int repro_stdp_arrival_current(
 }
 
 // ptrs: ring, row_ptr, plastic, exc, neuron_valid, stim_idx, stim_amp, v,
-// u, last_post, w, last_arr, spiked, n_arrived, n_spikes, scratch.
+// u, last_post, w, last_arr, spiked, n_arrived, n_spikes, scratch, ctr (the
+// step counter, or null: then t and r are the launch arguments and the
+// stimulus is the step's row; else the stimulus is a window [W, H, n_stim]
+// read at row ctr[1]).
 // ints: H, D, E, N, r, n_stim, substeps, with_ltp.
 // floats: t, a_minus, inv_tau_minus, a_plus, inv_tau_plus, w_min, w_max,
 // half_neg_time, a_exc, a_inh, b_exc, b_inh, c_exc, c_inh, d_exc, d_inh,
@@ -721,6 +791,7 @@ extern "C" int repro_stdp_phase_a(void* const* ptrs, const int64_t* ints,
   a.n_spikes = (int64_t*)ptrs[14];
   a.scratch = (unsigned long long*)ptrs[15];
   RowConsts c = {};
+  c.ctr = (const int64_t*)ptrs[16];
   const int64_t H = ints[0];
   c.D = ints[1];
   c.E = ints[2];

@@ -21,6 +21,8 @@ A failed build raises; nothing falls back to the plain versions.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -28,6 +30,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -44,13 +48,18 @@ _I64 = ctypes.c_int64
 _F = ctypes.c_float
 # C entry point -> argument types; every one returns cudaGetLastError().
 SIGNATURES = {
-    "repro_arborize": [_P] * 5 + [_I64] * 5 + [_P],
+    "repro_arborize": [_P] * 5 + [_I64] * 5 + [_P, _P],
+    # (pointers [14], int64 [6], float [5], stream): csrc/event.cu
+    "repro_event_arrival": [_P] * 4,
+    # (pointers [9], int64 [8], stream): csrc/event.cu
+    "repro_event_emit": [_P] * 3,
+    "repro_event_ltp": [_P] * 10 + [_I64] * 5 + [_F] * 5 + [_P],
     "repro_izhikevich_update": [_P] * 10 + [_I64, _F, _F, _F, ctypes.c_int,
                                             _P],
     "repro_stdp_arrival": [_P] * 10 + [_I64] * 5 + [_F] * 6 + [_P],
     "repro_stdp_ltp": [_P] * 6 + [_I64] * 3 + [_F] * 6 + [_P],
     "repro_stdp_arrival_current": [_P] * 9 + [_I64] * 5 + [_F] * 6 + [_P],
-    # (pointers [16], int64 [8], float [19], stream): csrc/stdp.cu
+    # (pointers [17], int64 [8], float [19], stream): csrc/stdp.cu
     "repro_stdp_phase_a": [_P] * 4,
     "repro_segment_sum_ordered": [_P] * 3 + [_I64] * 3 + [_P],
     "repro_rg_lru_scan": [_P] * 4 + [_I64] * 3 + [_P],
@@ -63,6 +72,86 @@ SIGNATURES = {
 }
 
 _lib = None
+
+#: Launches of each kernel since the last reset, by name: the one registry
+#: that every wrapper adds to (`counted`) where it launches its kernel,
+#: and that `ops.launch_counts` reads.
+launches = collections.Counter()
+#: Launches recorded into a CUDA graph under capture since the last reset.
+#: A capture launches nothing, and a replay launches what its capture
+#: recorded without passing through any wrapper, so neither is counted in
+#: `launches` (`core.engine.CapturedRun` keeps its replays).
+recorded = collections.Counter()
+
+
+def capturing() -> bool:
+    """True while the current CUDA stream is being captured into a graph."""
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
+def counted(name: str) -> None:
+    """One launch of kernel `name`, or one recorded under capture."""
+    (recorded if capturing() else launches)[name] += 1
+
+
+class Scratch:
+    """The kernels' zeroed integer scratch on one device, by name: fill
+    counts, totals and tickets that every launch leaves zero again.
+
+    A captured CUDA graph replays the addresses it recorded, so a graph
+    owns its Scratch for as long as the graph lives
+    (`core.engine.CapturedRun` holds one and enters it with
+    `own_scratch`), and no buffer is replaced under capture.  Launches
+    outside such a scope share one Scratch a device, in stream order:
+    they are the eager calls, all on the current stream."""
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+        self.buffers = {}
+
+    def get(self, name: str, n: int, dtype) -> torch.Tensor:
+        buf = self.buffers.get(name)
+        if buf is None or buf.numel() < n or buf.dtype != dtype:
+            if capturing():
+                raise RuntimeError(
+                    f"scratch {name!r} of {n} elements first asked for under "
+                    f"capture: run the captured steps once before capturing "
+                    f"them")
+            buf = torch.zeros(max(n, 1), dtype=dtype, device=self.device)
+            self.buffers[name] = buf
+        return buf
+
+
+_owned = []         # the Scratch scopes entered, innermost last
+_shared = {}        # device -> the Scratch of launches outside any scope
+
+
+@contextlib.contextmanager
+def own_scratch(scratch: Scratch):
+    """Launches on scratch's device inside the block use `scratch`."""
+    _owned.append(scratch)
+    try:
+        yield scratch
+    finally:
+        _owned.pop()
+
+
+def scratch(device: torch.device, name: str, n: int,
+            dtype=torch.int32) -> torch.Tensor:
+    """A zeroed buffer of at least n elements for a launch on `device`:
+    from the innermost `own_scratch` scope on that device, else the shared
+    one.  A capture outside such a scope raises: its graph would keep
+    buffers that any later launch may replace."""
+    device = torch.device(device)
+    for s in reversed(_owned):
+        if s.device == device:
+            return s.get(name, n, dtype)
+    if capturing():
+        raise RuntimeError(f"scratch {name!r} asked for under capture "
+                           f"outside `own_scratch`: a captured graph must "
+                           f"own its scratch")
+    return _shared.setdefault(device, Scratch(device)).get(name, n, dtype)
 
 
 def nvcc() -> str:
@@ -220,3 +309,18 @@ def one_device(name: str, *tensors) -> None:
     devices = {x.device for x in tensors}
     if len(devices) > 1:
         raise ValueError(f"{name}: tensors on several devices {devices}")
+
+
+def step_counter(name: str, t, device: torch.device):
+    """(pointer, int) of a kernel's step argument: a device step counter
+    (int64 [2] on `device`: t, and the row of the stimulus window; what a
+    captured CUDA graph advances) gives its address and 0, a number gives
+    None and int(t)."""
+    if isinstance(t, torch.Tensor):
+        if (t.device != device or t.dtype != torch.int64
+                or tuple(t.shape) != (2,) or not t.is_contiguous()):
+            raise ValueError(f"{name}: the step counter must be a contiguous "
+                             f"int64 [2] tensor on {device}, got "
+                             f"{t.dtype}{tuple(t.shape)} on {t.device}")
+        return t.data_ptr(), 0
+    return None, int(t)

@@ -15,17 +15,14 @@ import torch
 
 from . import _build
 
-#: Kernel launches since the last reset (`ops.reset_launch_counts`).
-launches = 0
 
-
-def arborize(arr_ring, spiked_src, syn_src, syn_delay, syn_valid, t: int):
+def arborize(arr_ring, spiked_src, syn_src, syn_delay, syn_valid, t):
     """arr_ring [H, D, E] bool, spiked_src [H, S] bool, syn_src [H, E]
     int64 (indices into spiked_src's rows, each in [0, S) where valid),
     syn_delay [H, E] int32, syn_valid [H, E] bool, all contiguous CUDA
-    tensors on one device; t an int.  Sets the flags in place and returns
-    arr_ring."""
-    global launches
+    tensors on one device; t an int, or the device step counter (int64
+    [2], `_build.step_counter`), read by the kernel.  Sets the flags in
+    place and returns arr_ring."""
     name = "arborize"
     H, D, E = arr_ring.shape
     S = spiked_src.shape[1]
@@ -38,13 +35,14 @@ def arborize(arr_ring, spiked_src, syn_src, syn_delay, syn_valid, t: int):
                       syn_valid)
     if H * E == 0 or D == 0:
         return arr_ring
+    ctr, t_int = _build.step_counter(name, t, arr_ring.device)
     lib = _build.library()
     with torch.cuda.device(arr_ring.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_arborize(
             arr_ring.data_ptr(), spiked_src.data_ptr(), syn_src.data_ptr(),
-            syn_delay.data_ptr(), syn_valid.data_ptr(), H, D, E, S, int(t),
-            stream)
+            syn_delay.data_ptr(), syn_valid.data_ptr(), H, D, E, S, t_int,
+            ctr, stream)
     _build.check(err, name)
-    launches += 1
+    _build.counted("arborize")
     return arr_ring

@@ -24,10 +24,9 @@ import torch
 
 from . import _build
 
-#: Kernel launches since the last reset (`ops.reset_launch_counts`): one
-#: per call, whichever kernel ran.
-launches = 0
-#: The same calls by kernel (`variant`).
+#: The calls since the last reset (`ops.reset_launch_counts`) by kernel
+#: (`variant`); each also counts one `flash_attention` launch, whichever
+#: kernel ran.
 variant_launches = {"wgmma": 0, "splitkv": 0, "simt": 0}
 
 #: The dtypes the kernels take, with their code in the C interface.
@@ -62,7 +61,6 @@ def flash_attention(q, k, v, *, causal: bool, window, softcap, scale: float):
     """q [BH, T, D] and k, v [BH, S, D]: contiguous CUDA tensors of one
     dtype (fp32 or bf16) -> o [BH, T, D] in that dtype.  `window` None or
     >= 1, `softcap` None or > 0."""
-    global launches
     BH, T, D = q.shape
     S = k.shape[1]
     aligned = all(x.data_ptr() % 16 == 0 for x in (q, k, v))
@@ -99,6 +97,6 @@ def flash_attention(q, k, v, *, causal: bool, window, softcap, scale: float):
                 *ptrs, BH, T, S, D, DTYPES[q.dtype], int(causal), window,
                 softcap, float(scale), stream)
     _build.check(err, f"flash_attention ({kind})")
-    launches += 1
+    _build.counted("flash_attention")
     variant_launches[kind] += 1
     return o

@@ -14,14 +14,10 @@ import torch
 
 from . import _build
 
-#: Kernel launches since the last reset (`ops.reset_launch_counts`).
-launches = 0
-
 
 def izhikevich_update(v, u, current, a, b, c, d, *, v_peak: float,
                       dt: float = 1.0, substeps: int = 2):
     """Same-shape contiguous fp32 CUDA tensors -> (v', u', spiked bool)."""
-    global launches
     _build.require("izhikevich_update", torch.float32, v.shape, v=v, u=u,
                    current=current, a=a, b=b, c=c, d=d)
     v_out, u_out = torch.empty_like(v), torch.empty_like(u)
@@ -39,5 +35,5 @@ def izhikevich_update(v, u, current, a, b, c, d, *, v_peak: float,
             float(np.float32(dt / substeps)), float(dt), int(substeps),
             stream)
     _build.check(err, "izhikevich_update")
-    launches += 1
+    _build.counted("izhikevich_update")
     return v_out, u_out, spiked

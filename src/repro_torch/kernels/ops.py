@@ -5,15 +5,17 @@ fp32 denormals flushed as XLA-CPU does.  A CUDA tensor goes to the
 hand-written kernel, which launches or raises: no CUDA tensor ever falls
 back to the plain version, and any other device raises.
 
-Each kernel counts its launches (a plain int in its wrapper module);
-`launch_counts` reads them and `reset_launch_counts` sets them to 0, so a
-run can show that it went through the kernels.
+Each wrapper counts its kernel's launches in one registry
+(`_build.counted`); `launch_counts` reads it and `reset_launch_counts`
+sets it to 0, so a run can show that it went through the kernels.
 """
 from __future__ import annotations
 
 import torch
 
+from . import _build
 from . import arborize as _arb
+from . import event as _ev
 from . import flash_attention as _fa
 from . import izhikevich as _izh
 from . import ref
@@ -29,13 +31,17 @@ from . import stdp as _stdp
 #: its yardstick and for the paths that split phase A; so does the pair
 #: that `stdp_arrival_current` replaced (`PAIR_KERNELS`), as its
 #: yardstick.
+#: The event backend (`core.event_engine`) runs its own three ops each
+#: step (`EVENT_KERNELS`) and `izhikevich_update`, which is also the
+#: yardstick of the dense phase A.
 SNN_KERNELS = ("stdp_phase_a", "arborize")
 PHASE_A_KERNELS = ("izhikevich_update", "stdp_arrival_current", "stdp_ltp")
 PAIR_KERNELS = ("stdp_arrival", "segment_sum_ordered")
+EVENT_KERNELS = ("event_arrival", "event_ltp", "event_emit")
 LM_KERNELS = ("rg_lru_scan",)
 ATTN_KERNELS = ("flash_attention",)
-KERNELS = (SNN_KERNELS + PHASE_A_KERNELS + PAIR_KERNELS + LM_KERNELS
-           + ATTN_KERNELS)
+KERNELS = (SNN_KERNELS + PHASE_A_KERNELS + PAIR_KERNELS + EVENT_KERNELS
+           + LM_KERNELS + ATTN_KERNELS)
 
 
 def _route(x: torch.Tensor, name: str) -> bool:
@@ -57,6 +63,15 @@ def izhikevich_update(v, u, current, a, b, c, d, *, v_peak, dt=1.0,
         return ref.izhikevich_update(v, u, current, a, b, c, d, **kw)
 
 
+def _plain_step(t, name: str) -> int:
+    """A plain version's step: an int (the device step counter is the
+    kernels' alone)."""
+    if isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: the plain version takes the step as an "
+                        f"int, not a step counter")
+    return t
+
+
 def stdp_phase_a(arr_ring, r, seg: ref.Segments, syn_valid, syn_tgt,
                  syn_plastic, exc_mask, neuron_valid, stim_idx, stim_amp, v,
                  u, last_post, w, last_arr, t, *, izh, stdp, neg_time,
@@ -71,7 +86,9 @@ def stdp_phase_a(arr_ring, r, seg: ref.Segments, syn_valid, syn_tgt,
 
     `coeffs`, the plain version's (a, b, c, d) built once by the caller
     (`ref.izh_coefficients`), is used on the CPU only: the kernel takes the
-    constants as launch arguments (`kernels.stdp.stdp_phase_a`)."""
+    constants as launch arguments (`kernels.stdp.stdp_phase_a`).  On the
+    card `t` may be the device step counter, with r None and the stimulus
+    a window [W, H, C*K] read at the counter's row."""
     kw = dict(izh=izh, stdp=stdp, neg_time=neg_time, with_ltp=with_ltp)
     if _route(w, "stdp_phase_a"):
         return _stdp.stdp_phase_a(arr_ring, r, seg, syn_plastic, exc_mask,
@@ -81,7 +98,8 @@ def stdp_phase_a(arr_ring, r, seg: ref.Segments, syn_valid, syn_tgt,
         return ref.stdp_phase_a(arr_ring, r, seg, syn_valid, syn_tgt,
                                 syn_plastic, exc_mask, neuron_valid,
                                 stim_idx, stim_amp, v, u, last_post, w,
-                                last_arr, t, coeffs=coeffs, **kw)
+                                last_arr, _plain_step(t, "stdp_phase_a"),
+                                coeffs=coeffs, **kw)
 
 
 def stdp_arrival_current(arr_ring, r, seg: ref.Segments, syn_valid,
@@ -142,12 +160,68 @@ def arborize(arr_ring, spiked_src, syn_src, syn_delay, syn_valid, t):
     """Phase B: for every valid synapse whose source spiked, set its flag
     at ring slot (t + delay) mod D.  arr_ring [H, D, E] bool (updated in
     place and returned), spiked_src [H, S] bool, the plan's syn_src [H, E]
-    int64, syn_delay [H, E] int32 and syn_valid [H, E] bool; t an int
-    (`kernels.arborize.arborize`)."""
-    args = (arr_ring, spiked_src, syn_src, syn_delay, syn_valid, t)
+    int64, syn_delay [H, E] int32 and syn_valid [H, E] bool; t an int, or
+    on the card the device step counter (`kernels.arborize.arborize`)."""
+    args = (arr_ring, spiked_src, syn_src, syn_delay, syn_valid)
     if _route(arr_ring, "arborize"):
-        return _arb.arborize(*args)
-    return ref.arborize(*args)
+        return _arb.arborize(*args, t)
+    return ref.arborize(*args, _plain_step(t, "arborize"))
+
+
+def event_arrival(ev_ring, ev_count, syn_tgt, row_ptr, syn_plastic,
+                  last_post, w, last_arr, t, *, a_minus, tau_minus, w_min,
+                  w_max, neg_time):
+    """The event backend's arrivals at step t: slot t mod D of ev_ring
+    [H, D, cap] int32 (its events in [0, ev_count[:, slot]), -1 after),
+    each target's current the in-list-order sum of its events' pre-LTD
+    weights from +0.0, LTD where plastic, last_arr = t; the slot's entries
+    and count are cleared.  The plan's syn_tgt [H, E] int64, row_ptr
+    [H, N + 1] int32 (the kernel's buckets; the plain version needs none)
+    and syn_plastic [H, E] bool, last_post [H, N], w / last_arr [H, E] ->
+    (i_syn [H, N], n_arrived [H] int64), in place
+    (`kernels.event.event_arrival`)."""
+    kw = dict(a_minus=a_minus, tau_minus=tau_minus, w_min=w_min,
+              w_max=w_max, neg_time=neg_time)
+    state = (syn_plastic, last_post, w, last_arr)
+    if _route(w, "event_arrival"):
+        return _ev.event_arrival(ev_ring, ev_count, syn_tgt, row_ptr,
+                                 *state, t, **kw)
+    t = _plain_step(t, "event_arrival")
+    with ref.flush_denormal():
+        return ref.event_arrival(ev_ring, ev_count, t % ev_ring.shape[1],
+                                 syn_tgt, *state, t, **kw)
+
+
+def event_ltp(spk_ids, n_dropped, spiked, row_ptr, syn_plastic, last_arr,
+              w, last_post, sat, t, *, a_plus, tau_plus, w_min, w_max,
+              neg_time) -> None:
+    """The event backend's LTP at step t: LTP on the CSR rows (row_ptr
+    [H, N + 1]) of the neurons listed in spk_ids [H, C] int32 (the first C
+    spiking neurons, then the fill N; `core.aer.compact_indices`),
+    last_post = t where spiked [H, N], and sat [H] += n_dropped [H]; in
+    place (`kernels.event.event_ltp`)."""
+    kw = dict(a_plus=a_plus, tau_plus=tau_plus, w_min=w_min, w_max=w_max,
+              neg_time=neg_time)
+    args = (spk_ids, n_dropped, spiked, row_ptr, syn_plastic, last_arr, w,
+            last_post, sat)
+    if _route(w, "event_ltp"):
+        return _ev.event_ltp(*args, t, **kw)
+    with ref.flush_denormal():
+        return ref.event_ltp(*args, _plain_step(t, "event_ltp"), **kw)
+
+
+def event_emit(src_ids, n_dropped, fwd_rows, syn_delay, ev_ring, ev_count,
+               sat, t) -> None:
+    """The event backend's phase B at step t: the forward rows (fwd_rows
+    [H, S, Kf] int32, -1 pad) of the sources listed in src_ids [H, C] int32
+    (the first C spiking sources, then the fill S) appended to slot
+    (t + delay) mod D of ev_ring [H, D, cap] in (source rank, row
+    position) order, ev_count [H, D] updated, sat [H] += n_dropped + the
+    events past cap; in place (`kernels.event.event_emit`)."""
+    args = (src_ids, n_dropped, fwd_rows, syn_delay, ev_ring, ev_count, sat)
+    if _route(ev_ring, "event_emit"):
+        return _ev.event_emit(*args, t)
+    return ref.event_emit(*args, _plain_step(t, "event_emit"))
 
 
 def segment_sum_ordered(contrib, seg: ref.Segments):
@@ -210,25 +284,15 @@ def attention(q, k, v, *, causal=True, window=None, softcap=None,
 
 
 def launch_counts() -> dict:
-    """Launches of each kernel since the last reset."""
-    return {"stdp_phase_a": _stdp.launches["stdp_phase_a"],
-            "arborize": _arb.launches,
-            "izhikevich_update": _izh.launches,
-            "stdp_arrival_current": _stdp.launches["stdp_arrival_current"],
-            "stdp_arrival": _stdp.launches["stdp_arrival"],
-            "stdp_ltp": _stdp.launches["stdp_ltp"],
-            "segment_sum_ordered": _seg.launches,
-            "rg_lru_scan": _rg.launches,
-            "flash_attention": _fa.launches}
+    """Launches of each kernel since the last reset (`_build.counted`).  A
+    replayed CUDA graph launches its kernels without passing through a
+    wrapper, so its launches are not in these counts
+    (`core.engine.CapturedRun.replayed_launches`)."""
+    return {name: _build.launches[name] for name in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    _arb.launches = 0
-    _izh.launches = 0
-    for name in _stdp.launches:
-        _stdp.launches[name] = 0
-    _seg.launches = 0
-    _rg.launches = 0
-    _fa.launches = 0
+    _build.launches.clear()
+    _build.recorded.clear()
     for kind in _fa.variant_launches:
         _fa.variant_launches[kind] = 0

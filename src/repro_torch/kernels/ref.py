@@ -307,6 +307,135 @@ def arborize(arr_ring, spiked_src, syn_src, syn_delay, syn_valid, t: int):
     return arr_ring
 
 
+def ordered_sum(index: torch.Tensor, values: torch.Tensor,
+                n: int) -> torch.Tensor:
+    """[n] fp32: out[j] = ((+0.0 + values[i0]) + values[i1]) + ... over the
+    positions i0 < i1 < ... with index[i] == j, in list order, on any
+    device.  Each round adds, for every place, its first remaining value
+    (the position found by a `scatter_reduce` "amin", which no order
+    changes), so a round adds at most once to a place and no two adds
+    race; rounds = the most values of one place."""
+    out = torch.zeros(n, dtype=F32, device=values.device)
+    pos = torch.arange(index.shape[0], device=index.device)
+    while pos.numel():
+        idx = index[pos]
+        first = torch.full((n,), index.shape[0], dtype=torch.int64,
+                           device=index.device).scatter_reduce_(
+            0, idx, pos, "amin")
+        take = first[idx] == pos
+        out.index_add_(0, idx[take], values[pos[take]])
+        pos = pos[~take]
+    return out
+
+
+def event_arrival(ev_ring, ev_count, r: int, syn_tgt, syn_plastic,
+                  last_post, w, last_arr, t: int, *, a_minus, tau_minus,
+                  w_min, w_max, neg_time):
+    """Plain version of kernels.event.event_arrival: the event backend's
+    arrivals (`repro.core.event_engine.phase_a_dynamics`, its first half)
+    with the [H] axis.
+
+    ev_ring [H, D, cap] int32 synapse ids (-1 pad), ev_count [H, D] int32,
+    slot r, the plan's syn_tgt [H, E] int64 and syn_plastic [H, E] bool,
+    last_post [H, N] fp32, w / last_arr [H, E] fp32.  Every entry of slot r
+    that is >= 0 arrives: each target's current is the sum of its events'
+    pre-LTD weights in list order from +0.0 (`ordered_sum`: what XLA-CPU's
+    scatter-add computes, walking its updates in order; the reference's
+    pads add +0.0 to synapse 0's target, which changes no sum), LTD
+    against the target's last spike where the synapse is plastic, and
+    last_arr = t.  Updates w, last_arr, ev_ring[:, r] (all -1) and
+    ev_count[:, r] (0) in place; returns (i_syn [H, N] fp32, n_arrived [H]
+    int64)."""
+    H, N = last_post.shape
+    tf = f32(t, w.device)
+    ev = ev_ring[:, r].to(torch.int64)                           # [H, cap]
+    listed = ev >= 0
+    h, k = torch.nonzero(listed, as_tuple=True)   # by shard, in list order
+    e = ev[h, k]
+    w_ev = w[h, e]
+    tgt = syn_tgt[h, e]
+    i_syn = ordered_sum(h * N + tgt, w_ev, H * N)
+    lp = last_post[h, tgt]
+    apply = syn_plastic[h, e] & (lp > f32(neg_time / 2, w.device))
+    # each synapse is in a slot at most once: no two writes meet
+    w[h, e] = _stdp_update(w_ev, apply, lp, tf, a_minus, tau_minus, -1,
+                           w_min, w_max)
+    last_arr[h, e] = tf
+    ev_ring[:, r] = -1
+    ev_count[:, r] = 0
+    return i_syn.view(H, N), listed.sum(1)
+
+
+def event_ltp(spk_ids, n_dropped, spiked, row_ptr, syn_plastic, last_arr,
+              w, last_post, sat, t: int, *, a_plus, tau_plus, w_min, w_max,
+              neg_time) -> None:
+    """Plain version of kernels.event.event_ltp: the event backend's LTP
+    (`repro.core.event_engine.phase_a_plasticity`) with the [H] axis.
+
+    spk_ids [H, C] int32, the first C spiking neurons ascending and then
+    the fill N (`core.aer.compact_indices(spiked, C, fill=N)`), n_dropped
+    [H] int32 its overflow, spiked [H, N] bool, row_ptr [H, N + 1] int32
+    (the per-target CSR: row n is the JAX plan's `in_rows[n]`), syn_plastic
+    [H, E] bool, last_arr / w [H, E] fp32, last_post [H, N] fp32, sat [H]
+    int32.  LTP on the rows of the listed neurons, last_post = t where
+    spiked (every spiking neuron, listed or not), sat += n_dropped; all in
+    place."""
+    H, N = spiked.shape
+    listed = torch.zeros((H, N + 1), dtype=torch.bool, device=w.device)
+    listed.scatter_(1, spk_ids.to(torch.int64), True)
+    row = rows_of_synapses(row_ptr, w.shape[1])
+    post = listed.gather(1, row)          # column N: pads and the fill
+    tf = f32(t, w.device)
+    w.copy_(_ltp(post, w, last_arr, syn_plastic, row < N, tf, a_plus=a_plus,
+                 tau_plus=tau_plus, w_min=w_min, w_max=w_max,
+                 neg_time=neg_time))
+    last_post.copy_(torch.where(spiked, tf, last_post))
+    sat += n_dropped.to(sat.dtype)
+
+
+def event_emit(src_ids, n_dropped, fwd_rows, syn_delay, ev_ring, ev_count,
+               sat, t: int) -> None:
+    """Plain version of kernels.event.event_emit: the event backend's phase
+    B (`repro.core.event_engine.phase_b`) with the [H] axis, literally.
+
+    src_ids [H, C] int32, the first C spiking sources ascending and then
+    the fill S (`core.aer.compact_indices(spiked_src, C, fill=S)`),
+    n_dropped [H] int32 its overflow, fwd_rows [H, S, Kf] int32 (-1 pad),
+    the plan's syn_delay [H, E] int32, ev_ring [H, D, cap] int32, ev_count
+    [H, D] int32, sat [H] int32.  The listed sources' rows, flattened in
+    (source rank, row position) order, go to slot (t + delay) mod D (floor
+    mod), each after the slot's events so far (a cumsum over the [D, L]
+    one-hot by slot); events past cap are dropped and counted.  Updates
+    ev_ring, ev_count and sat in place."""
+    H, D, cap = ev_ring.shape
+    S = fwd_rows.shape[1]
+    dev = ev_ring.device
+    src = src_ids.to(torch.int64)
+    rows = torch.gather(fwd_rows, 1, torch.clamp(src, max=S - 1)[:, :, None]
+                        .expand(-1, -1, fwd_rows.shape[2]))     # [H, C, Kf]
+    ids = torch.where((src < S)[:, :, None], rows, -1).reshape(H, -1)
+    valid = ids >= 0
+    idc = torch.clamp(ids, min=0).to(torch.int64)
+    slot = torch.remainder(torch.gather(syn_delay, 1, idc) + t,
+                           D).to(torch.int64)                   # [H, L]
+    onehot = valid[:, None, :] & (
+        slot[:, None, :] == torch.arange(D, device=dev)[None, :, None])
+    ranks = torch.cumsum(onehot, 2) - 1                          # [H, D, L]
+    rank = torch.gather(ranks, 1, slot[:, None, :])[:, 0]        # [H, L]
+    per_slot = onehot.sum(2, dtype=torch.int32)                  # [H, D]
+    pos = torch.gather(ev_count, 1, slot).to(torch.int64) + rank
+    ok = valid & (pos < cap)
+    flat = torch.where(ok, slot * cap + pos, D * cap)            # spare slot
+    ring = torch.cat([ev_ring.reshape(H, -1),
+                      ev_ring.new_full((H, 1), -1)], 1)
+    ring.scatter_(1, flat, ids)
+    ev_ring.copy_(ring[:, :D * cap].view(H, D, cap))
+    total = ev_count + per_slot
+    overflow = torch.clamp(total - cap, min=0).sum(1, dtype=torch.int32)
+    ev_count.copy_(torch.clamp(total, max=cap))
+    sat += (n_dropped + overflow).to(sat.dtype)
+
+
 class Segments(NamedTuple):
     """The per-target CSR of the synapses, derived once from a plan.
 

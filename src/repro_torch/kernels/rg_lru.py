@@ -14,14 +14,10 @@ import torch
 
 from . import _build
 
-#: Kernel launches since the last reset (`ops.reset_launch_counts`).
-launches = 0
-
 
 def rg_lru_scan(a, b, h0):
     """a, b [B, T, D] and h0 [B, D]: contiguous fp32 CUDA tensors ->
     h [B, T, D]."""
-    global launches
     B, T, D = a.shape
     _build.require("rg_lru_scan", torch.float32, (B, T, D), a=a, b=b)
     _build.require("rg_lru_scan", torch.float32, (B, D), h0=h0)
@@ -37,5 +33,5 @@ def rg_lru_scan(a, b, h0):
                                     h0.data_ptr(), h.data_ptr(), B, T, D,
                                     stream)
     _build.check(err, "rg_lru_scan")
-    launches += 1
+    _build.counted("rg_lru_scan")
     return h

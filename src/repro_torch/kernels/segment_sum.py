@@ -15,15 +15,11 @@ import torch
 from . import _build
 from .ref import Segments
 
-#: Kernel launches since the last reset (`ops.reset_launch_counts`).
-launches = 0
-
 
 def segment_sum_ordered(contrib: torch.Tensor,
                         seg: Segments) -> torch.Tensor:
     """contrib [H, E] fp32 -> [H, N] fp32 per-target sums over the CSR
     `seg.row_ptr` [H, N + 1] int32 (per shard, valid synapses only)."""
-    global launches
     row_ptr = seg.row_ptr
     H, E = contrib.shape
     N = row_ptr.shape[1] - 1
@@ -40,5 +36,5 @@ def segment_sum_ordered(contrib: torch.Tensor,
             contrib.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), H, N, E,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "segment_sum_ordered")
-    launches += 1
+    _build.counted("segment_sum_ordered")
     return out

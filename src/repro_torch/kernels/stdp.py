@@ -43,26 +43,15 @@ import torch
 from . import _build
 from .ref import Segments, reciprocal_f32
 
-#: Kernel launches since the last reset (`ops.reset_launch_counts`).
-launches = {"stdp_phase_a": 0, "stdp_arrival_current": 0,
-            "stdp_arrival": 0, "stdp_ltp": 0}
-
-# (device, stream) -> uint64 [3 * H] (arrivals, spikes, ticket per shard) of
-# the kernels' counts; every launch leaves it zero.
-_count_scratch = {}
-
 
 def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def _scratch(device: torch.device, stream: int, H: int) -> torch.Tensor:
-    key = (device, stream)
-    buf = _count_scratch.get(key)
-    if buf is None or buf.numel() < 3 * H:
-        buf = torch.zeros(3 * H, dtype=torch.int64, device=device)
-        _count_scratch[key] = buf
-    return buf
+def _scratch(device: torch.device, H: int) -> torch.Tensor:
+    """uint64 [3 * H] (arrivals, spikes, ticket per shard) of the kernels'
+    counts; every launch leaves it zero."""
+    return _build.scratch(device, "stdp_counts", 3 * H, torch.int64)
 
 
 def _check_ring(name: str, arr_ring, r: int) -> None:
@@ -110,17 +99,17 @@ def stdp_arrival_current(arr_ring, r: int, seg: Segments, syn_plastic,
             arr_ring.data_ptr(), row_ptr.data_ptr(), syn_plastic.data_ptr(),
             last_post.data_ptr(), w.data_ptr(), last_arr.data_ptr(),
             i_syn.data_ptr(), n_arrived.data_ptr(),
-            _scratch(w.device, stream, H).data_ptr(), H, D, E, N, int(r),
+            _scratch(w.device, H).data_ptr(), H, D, E, N, int(r),
             float(t), float(a_minus), float(reciprocal_f32(tau_minus)),
             float(w_min), float(w_max), float(neg_time / 2), stream)
     _build.check(err, name)
-    launches[name] += 1
+    _build.counted(name)
     return i_syn, n_arrived
 
 
-def stdp_phase_a(arr_ring, r: int, seg: Segments, syn_plastic, exc_mask,
+def stdp_phase_a(arr_ring, r, seg: Segments, syn_plastic, exc_mask,
                  neuron_valid, stim_idx, stim_amp, v, u, last_post, w,
-                 last_arr, t: float, *, izh, stdp, neg_time: float,
+                 last_arr, t, *, izh, stdp, neg_time: float,
                  with_ltp: bool):
     """Phase A of a step in one launch: `stdp_arrival_current`'s pass, then
     in each row's own lanes the stimulus, the Izhikevich update and the
@@ -134,19 +123,38 @@ def stdp_phase_a(arr_ring, r: int, seg: Segments, syn_plastic, exc_mask,
     8-byte aligned; `izh` and `stdp` the `core.params` constants, passed
     as launch arguments -> (spiked [H, N] bool, n_arrived [H] int64, spike
     count [H] int64).  Updates v, u, w, last_arr, arr_ring[:, r] and (with
-    LTP) last_post in place.  No flag of a pad may be set."""
+    LTP) last_post in place.  No flag of a pad may be set.
+
+    With `t` the device step counter (int64 [2]: t, and the row of the
+    stimulus window; `_build.step_counter`) and r None, the kernel reads t,
+    r = t mod D and the row itself: stim_idx / stim_amp are then a window
+    [W, H, C*K], and nothing of the step is a launch argument (what a
+    captured CUDA graph needs)."""
     name = "stdp_phase_a"
     H, D, E = arr_ring.shape
     row_ptr = seg.row_ptr
     N = row_ptr.shape[1] - 1
+    counted = isinstance(t, torch.Tensor)
+    if counted != (r is None):
+        raise ValueError(f"{name}: give r with a step t, or r=None with the "
+                         f"step counter")
+    if counted:
+        window, _, k = stim_idx.shape
+        stim_idx = stim_idx.view(window * H, k)
+        stim_amp = stim_amp.view(window * H, k)
     K = stim_idx.shape[1]
-    _check_ring(name, arr_ring, r)
+    # every slot is aligned when slot 0 is (E % 8 == 0)
+    _check_ring(name, arr_ring, 0 if counted else r)
     _build.require(name, torch.int32, (H, N + 1), row_ptr=row_ptr)
     _build.require(name, torch.bool, (H, E), syn_plastic=syn_plastic)
     _build.require(name, torch.bool, (H, N), exc_mask=exc_mask,
                    neuron_valid=neuron_valid)
-    _build.require(name, torch.int64, (H, K), stim_idx=stim_idx)
-    _build.require(name, torch.float32, (H, K), stim_amp=stim_amp)
+    rows = stim_idx.shape[0]
+    if rows % H:
+        raise ValueError(f"{name}: stimulus rows {rows} are not a multiple "
+                         f"of H = {H}")
+    _build.require(name, torch.int64, (rows, K), stim_idx=stim_idx)
+    _build.require(name, torch.float32, (rows, K), stim_amp=stim_amp)
     _build.require(name, torch.float32, (H, N), v=v, u=u,
                    last_post=last_post)
     _build.require(name, torch.float32, (H, E), w=w, last_arr=last_arr)
@@ -156,27 +164,28 @@ def stdp_phase_a(arr_ring, r: int, seg: Segments, syn_plastic, exc_mask,
     counts = torch.empty((2, H), dtype=torch.int64, device=w.device)
     if H * N == 0:
         return spiked, counts[0].zero_(), counts[1].zero_()
+    ctr, t_int = _build.step_counter(name, t, w.device)
     lib = _build.library()
     with torch.cuda.device(w.device):
         stream = _stream()
-        ptrs = (ctypes.c_void_p * 16)(
+        ptrs = (ctypes.c_void_p * 17)(
             arr_ring.data_ptr(), row_ptr.data_ptr(), syn_plastic.data_ptr(),
             exc_mask.data_ptr(), neuron_valid.data_ptr(), stim_idx.data_ptr(),
             stim_amp.data_ptr(), v.data_ptr(), u.data_ptr(),
             last_post.data_ptr(), w.data_ptr(), last_arr.data_ptr(),
             spiked.data_ptr(), counts[0].data_ptr(), counts[1].data_ptr(),
-            _scratch(w.device, stream, H).data_ptr())
-        ints = (ctypes.c_int64 * 8)(H, D, E, N, int(r), K,
+            _scratch(w.device, H).data_ptr(), ctr)
+        ints = (ctypes.c_int64 * 8)(H, D, E, N, 0 if counted else int(r), K,
                                     int(izh.v_substeps), int(with_ltp))
         floats = (ctypes.c_float * 19)(
-            float(t), stdp.a_minus, reciprocal_f32(stdp.tau_minus),
+            float(t_int if counted else t), stdp.a_minus, reciprocal_f32(stdp.tau_minus),
             stdp.a_plus, reciprocal_f32(stdp.tau_plus), stdp.w_min,
             stdp.w_max, neg_time / 2, izh.a_exc, izh.a_inh, izh.b_exc,
             izh.b_inh, izh.c_exc, izh.c_inh, izh.d_exc, izh.d_inh,
             izh.v_peak, np.float32(izh.dt / izh.v_substeps), izh.dt)
         err = lib.repro_stdp_phase_a(ptrs, ints, floats, stream)
     _build.check(err, name)
-    launches[name] += 1
+    _build.counted(name)
     return spiked, counts[0], counts[1]
 
 
@@ -216,11 +225,11 @@ def stdp_arrival(arr_ring, r: int, syn_valid, syn_tgt, syn_plastic,
             arr_ring.data_ptr(), syn_valid.data_ptr(), syn_tgt.data_ptr(),
             syn_plastic.data_ptr(), last_post.data_ptr(), w.data_ptr(),
             last_arr.data_ptr(), contrib.data_ptr(), n_arrived.data_ptr(),
-            _scratch(w.device, stream, H).data_ptr(), H, D, E, N, int(r),
+            _scratch(w.device, H).data_ptr(), H, D, E, N, int(r),
             float(t), float(a_minus), float(reciprocal_f32(tau_minus)),
             float(w_min), float(w_max), float(neg_time / 2), stream)
     _build.check(err, "stdp_arrival")
-    launches["stdp_arrival"] += 1
+    _build.counted("stdp_arrival")
     return contrib, n_arrived
 
 
@@ -249,4 +258,4 @@ def stdp_ltp(spiked, row_ptr, syn_plastic, last_arr, w, last_post,
             float(t), float(a_plus), float(reciprocal_f32(tau_plus)),
             float(w_min), float(w_max), float(neg_time / 2), _stream())
     _build.check(err, "stdp_ltp")
-    launches["stdp_ltp"] += 1
+    _build.counted("stdp_ltp")

@@ -3,11 +3,13 @@
   python -m repro_torch.launch.snn --grid 8x8 --steps 500 [--shards H]
       [--placement block|scatter] [--profile ring3|gaussian:sigma=1.5|...]
       [--exchange allgather|halo|hier [--hier-groups G]]
-      [--exchange-schedule sync|pipelined] [--device cuda|cpu]
+      [--exchange-schedule sync|pipelined] [--delivery dense|event]
+      [--device cuda|cpu]
 
-Runs the dense DPSNN-STDP step through the hand-written CUDA kernels on the
-card (`--device cuda`, the default) or through their plain PyTorch versions
-on the CPU.  `--shards H` stacks H logical shards on the one device; the
+Runs the DPSNN-STDP step through the hand-written CUDA kernels on the
+card (`--device cuda`, the default; `run` replays a captured CUDA graph)
+or through their plain PyTorch versions on the CPU, with dense (O(E)
+arrival flags) or event (O(spikes x fan-out) event lists) delivery.  `--shards H` stacks H logical shards on the one device; the
 raster is identical for every H and placement (paper Table 1).  Prints the
 same `[snn]` lines as `python -m repro.launch.snn`.  With `--exchange` or
 `--exchange-schedule` it also runs the same steps through
@@ -16,8 +18,8 @@ wire and schedule) and prints its per-phase walls; the shards of 'hier'
 are `--hier-groups` groups (no mesh: one device).
 
 Not ported yet, and refused with the ROADMAP item that ports it:
-`--delivery event` (queue 1, item 6), `--connectivity-mode streamed:...`
-(item 7) and `--ckpt-dir` (item 9).
+`--connectivity-mode streamed:...` (queue 1, item 7) and `--ckpt-dir`
+(item 9).
 """
 from __future__ import annotations
 
@@ -54,7 +56,8 @@ def main(argv=None):
     ap.add_argument("--hier-groups", type=int, default=None,
                     help="shard groups of --exchange hier")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    ap.add_argument("--delivery", default="dense")
+    ap.add_argument("--delivery", default="dense",
+                    choices=["dense", "event"])
     ap.add_argument("--connectivity-mode", default="materialized")
     ap.add_argument("--ckpt-dir", default=None)
     args = ap.parse_args(argv)
@@ -80,6 +83,7 @@ def main(argv=None):
     prof = profiles.from_config(cfg)       # fail fast on a bad spec
     print(f"[snn] {cfg.n_neurons} neurons / {cfg.n_synapses} synapses "
           f"on {args.shards} shards ({eng.exchange}, {args.placement}, "
+          f"{eng.delivery} delivery, "
           f"{prof.spec()} reach={prof.reach()}, {args.device})")
 
     sp = StepProgram(cfg, eng, device=args.device,
@@ -89,7 +93,7 @@ def main(argv=None):
             sp.phase_fns()              # fail fast on the hier groups
         except ValueError as e:
             ap.error(str(e))
-    state, raster, _ = sp.run(sp.init_state(), 0, args.steps)
+    state, raster, tm = sp.run(sp.init_state(), 0, args.steps)
     raster = raster.cpu().numpy()
     rate = observables.mean_rate_hz(raster, cfg.n_neurons)
     if split:
@@ -105,6 +109,9 @@ def main(argv=None):
         if not same:
             raise SystemExit("[snn] the phase split's raster differs from "
                              "the fused run's")
+    if args.delivery == "event":
+        print(f"[snn] event delivery: {int(tm.arrivals.sum())} arrivals, "
+              f"{int(state.sat.sum())} events dropped (sat)")
     print(f"[snn] final-window rate {rate:.1f} Hz; done at t={args.steps} ms")
     return rate
 

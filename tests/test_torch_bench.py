@@ -288,7 +288,9 @@ def test_profile_cell_equals_jax(jax_suites, key):
 
 
 def test_registry_ports_three_suites():
-    assert sorted(registry.BENCHES) == ["profile", "table1", "table2"]
+    # (since event delivery: a fourth, event_vs_dense's single-device rows)
+    assert sorted(registry.BENCHES) == ["event_vs_dense", "profile",
+                                        "table1", "table2"]
     for name in registry.NOT_PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             registry.get(name)

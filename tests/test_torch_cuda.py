@@ -2,8 +2,9 @@
 
 Each kernel is held bit for bit against its plain PyTorch version on a CPU
 copy of the same inputs (attention within 2e-5 fp32 / one bf16 ulp of its
-plain version on the card), and a short main-path run on the card against
-the CPU port.  Run on a machine with an NVIDIA GPU and nvcc:
+plain version on the card), and short runs of both deliveries on the card
+against the CPU port, the captured graph's run against the eager loop.
+Run on a machine with an NVIDIA GPU and nvcc:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -12,10 +13,11 @@ script, this file computes `chip_smoke.py`'s `softcap` attention row (the
 kernel's output, and the plain version's on the card, on the CPU and on
 the CPU on one thread) in N separate processes and prints, as JSON, how
 many distinct bit patterns each output took and each process's largest
-error against each plain version; `--softcap-isa` does the same once
-under each CPU instruction-set setting of `SOFTCAP_ISA_ENVS`:
+error against each plain version, all processes under one setting of
+`SOFTCAP_ISA_ENVS` (by default the one `chip_smoke.py` pins);
+`--softcap-isa` does the same once under each setting:
 
-    python tests/test_torch_cuda.py --softcap-processes N
+    python tests/test_torch_cuda.py --softcap-processes N [SETTING]
     python tests/test_torch_cuda.py --softcap-isa
 """
 import os
@@ -34,8 +36,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))     # run as a script
 from repro_torch.core import (DEFAULT_IZH, DEFAULT_STDP,  # noqa: E402
-                              EngineConfig, GridConfig, StepProgram, engine,
-                              observables)
+                              EngineConfig, GridConfig, StepProgram, aer,
+                              engine, event_engine, observables)
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
@@ -514,6 +516,241 @@ def test_time_phases_on_card_equals_run(cuda, schedule):
     assert set(times) == {"phase_a_s", "exchange_s", "phase_b_s"}
 
 
+# -- event delivery and the captured run ----------------------------------
+
+
+def _event_inputs(H, density, t, seed, cap=None):
+    """A 2x2 event plan at H shards and a numpy-seeded event state on the
+    CPU: weights, last spike and arrival times, ring slot t mod D listing
+    `density` of each shard's valid synapses in random order (the other
+    slots a third of that, at most `cap`), and `density` of the neurons
+    and of the sources spiking."""
+    sp = StepProgram(SMALL, EngineConfig(n_shards=H, delivery="event"),
+                     device="cpu")
+    st = sp.init_state()
+    rng = np.random.default_rng(seed)
+    H, E = sp.plan.syn_valid.shape
+    N, S = sp.plan.gid.shape[1], sp.plan.src_gid.shape[1]
+    D = SMALL.n_delay_slots
+    cap = cap or st.ev_ring.shape[2]
+    f = lambda x: torch.from_numpy(np.asarray(x, np.float32))
+    times = lambda shape: f(np.where(rng.random(shape) < 0.7,
+                                     rng.uniform(t - 200.0, t, shape),
+                                     -1.0e9))
+    ring = np.full((H, D, cap), -1, np.int32)
+    count = np.zeros((H, D), np.int32)
+    for h in range(H):
+        nv = int(sp.plan.syn_valid[h].sum())
+        for d in range(D):
+            k = min(cap, int((density if d == t % D else density / 3) * nv))
+            ring[h, d, :k] = rng.permutation(nv)[:k]
+            count[h, d] = k
+    base = st.base._replace(w=f(rng.uniform(0.0, 10.0, (H, E))),
+                            last_post=times((H, N)), last_arr=times((H, E)))
+    state = event_engine.EventState(
+        base=base, ev_ring=torch.from_numpy(ring),
+        ev_count=torch.from_numpy(count),
+        sat=torch.from_numpy(rng.integers(0, 3, H).astype(np.int32)))
+    return sp, state, torch.from_numpy(rng.random((H, N)) < density), \
+        torch.from_numpy(rng.random((H, S)) < density)
+
+
+def _event_ops(sp, st, spiked, spiked_src, t, c_post=None, c_src=None,
+               plain=False):
+    """The three event ops in a step's order, on `st` in place -> the
+    outputs and every state tensor.  `plain` calls the plain versions
+    (`kernels.ref`) on whatever device the tensors are on."""
+    stdp = sp.spec.stdp
+    b = st.base
+    N, S = spiked.shape[1], spiked_src.shape[1]
+    ltd = dict(a_minus=stdp.a_minus, tau_minus=stdp.tau_minus,
+               w_min=stdp.w_min, w_max=stdp.w_max, neg_time=engine.NEG_TIME)
+    ltp = dict(a_plus=stdp.a_plus, tau_plus=stdp.tau_plus, w_min=stdp.w_min,
+               w_max=stdp.w_max, neg_time=engine.NEG_TIME)
+    if plain:
+        i_syn, n_arr = ref.event_arrival(
+            st.ev_ring, st.ev_count, t % st.ev_ring.shape[1],
+            sp.plan.syn_tgt, sp.plan.syn_plastic, b.last_post, b.w,
+            b.last_arr, t, **ltd)
+    else:
+        i_syn, n_arr = ops.event_arrival(
+            st.ev_ring, st.ev_count, sp.plan.syn_tgt, sp.plan.row_ptr,
+            sp.plan.syn_plastic, b.last_post, b.w, b.last_arr, t, **ltd)
+    ltp_op, emit_op = ((ref.event_ltp, ref.event_emit) if plain
+                       else (ops.event_ltp, ops.event_emit))
+    ids, drop = aer.compact_indices(spiked, c_post or N, fill=N)
+    ltp_op(ids.contiguous(), drop, spiked, sp.plan.row_ptr,
+           sp.plan.syn_plastic, b.last_arr, b.w, b.last_post, st.sat, t,
+           **ltp)
+    ids, drop = aer.compact_indices(spiked_src, c_src or S, fill=S)
+    emit_op(ids.contiguous(), drop, sp.eplan.fwd_rows, sp.plan.syn_delay,
+            st.ev_ring, st.ev_count, st.sat, t)
+    return [i_syn, n_arr] + engine.state_tensors(st)
+
+
+@pytest.mark.parametrize("H", [1, 4])
+@pytest.mark.parametrize("density", [0.0, 0.0215, 0.215, 0.6])
+def test_event_kernels_equal_plain_versions(cuda, H, density):
+    """event_arrival, event_ltp and event_emit, in a step's order, bit-equal
+    to their plain versions on a CPU copy and on the card: at a wrapping
+    t, at t = -1, with c_post / c_src overflowing and with a ring that
+    overflows; each op launched once a call."""
+    n = 0
+    ops.reset_launch_counts()
+    for t, caps, cap in ((1003, {}, None), (-1, {}, None),
+                         (17, dict(c_post=5, c_src=7), None),
+                         (4, {}, 256)):
+        sp, st, spk, src = _event_inputs(H, density, t, seed=t + 11,
+                                         cap=cap)
+        to = lambda x: x.to(cuda)
+        gp = sp.plan._replace(**{k: to(v) for k, v in sp.plan._asdict()
+                                 .items()})
+        gsp = StepProgram.from_parts(sp.spec, gp, eplan=event_engine
+                                     .EventPlan(*map(to, sp.eplan)))
+        g, g_plain = engine.map_state(to, st), engine.map_state(to, st)
+        got = _event_ops(gsp, g, to(spk), to(src), t, **caps)
+        torch.cuda.synchronize()
+        n += 1
+        want_gpu = _event_ops(gsp, g_plain, to(spk), to(src), t, **caps,
+                              plain=True)
+        with ref.flush_denormal():
+            want = _event_ops(sp, st, spk, src, t, **caps, plain=True)
+        for a, b, c in zip(got, want, want_gpu):
+            assert _bits_equal(a, b) and _bits_equal(a, c)
+    assert ops.launch_counts() == dict(dict.fromkeys(ops.KERNELS, 0),
+                                       event_arrival=n, event_ltp=n,
+                                       event_emit=n)
+
+
+@pytest.mark.parametrize("delivery", ["dense", "event"])
+def test_graph_run_equals_eager_run_and_cpu(cuda, delivery):
+    """`run` on the card replays a captured graph of `engine.RUN_WINDOW`
+    steps: the same raster, weights and state as the eager loop on the card
+    and as the CPU port, each kernel of the path launched once a step
+    (the wrappers count the eager steps' launches, the capture records
+    one a step for its replays), and the input state untouched."""
+    W = engine.RUN_WINDOW
+    tail = 17
+    steps = 2 * W + tail
+    eng = EngineConfig(n_shards=2, placement="scatter", delivery=delivery)
+    cpu = StepProgram(SMALL, eng, device="cpu")
+    s_c, r_c, _ = cpu.run(cpu.init_state(), 0, steps)
+    sp = StepProgram(SMALL, eng, device="cuda")
+    s0 = sp.init_state()
+    before = [x.clone() for x in engine.state_tensors(s0)]
+    runs = []
+    for graph in (True, True, False):
+        ops.reset_launch_counts()
+        s, r, tm = sp.run(s0, 0, steps, graph=graph)
+        torch.cuda.synchronize()
+        runs.append((s, r, tm, ops.launch_counts(),
+                     sp.runner.replayed_launches()))
+    assert sp.runner.graph is not None
+    path = (("stdp_phase_a", "arborize") if delivery == "dense" else
+            ops.EVENT_KERNELS + ("izhikevich_update",))
+    assert sp.runner.recorded == dict.fromkeys(path, W)
+    # first run: a window eager, one replay, the tail eager; second run:
+    # two replays, the tail; the eager loop: every step
+    eager_steps = (W + tail, tail, steps)
+    for (s, r, tm, counts, replayed), n in zip(runs, eager_steps):
+        assert torch.equal(r.cpu(), r_c)
+        for a, b in zip(engine.state_tensors(s), engine.state_tensors(s_c)):
+            assert _bits_equal(a, b)
+        assert counts == dict(dict.fromkeys(ops.KERNELS, 0),
+                              **dict.fromkeys(path, n))
+        assert replayed == dict.fromkeys(path, steps - n)
+    assert all(torch.equal(a, b)
+               for a, b in zip(before, engine.state_tensors(s0)))
+
+
+@pytest.mark.parametrize("delivery", ["dense", "event"])
+def test_graph_keeps_its_scratch(cuda, delivery):
+    """A replay writes the kernels' scratch at the addresses its capture
+    recorded, so each runner owns its scratch: with more runners than
+    PyTorch's pool of stream handles (32 a device) made, captured and
+    dropped after it, and the shared scratch of eager calls grown by a
+    larger plan, its replays still give the eager loop's bits."""
+    eng = EngineConfig(n_shards=2, delivery=delivery)
+    sp = StepProgram(SMALL, eng, device="cuda")
+    s0 = sp.init_state()
+    W = engine.RUN_WINDOW
+    want = sp.run(s0, 0, 2 * W, graph=False)
+    sp.run(s0, 0, W)                          # captures
+    for _ in range(40):
+        other = StepProgram.from_parts(sp.spec, sp.plan, s0, eplan=sp.eplan)
+        other.run(s0, 0, W)
+        del other
+    wide = StepProgram(GridConfig(grid_x=3, grid_y=2, neurons_per_column=120,
+                                  synapses_per_neuron=24), eng, device="cuda")
+    pp = wide.phase_fns()
+    s, spiked, _ = pp.phase_a(engine.clone_state(wide.init_state()), 0)
+    pp.phase_b(s, pp.exchange(spiked), 0)
+    ops.reset_launch_counts()
+    got = sp.run(s0, 0, 2 * W)
+    torch.cuda.synchronize()
+    assert sp.runner.replays == 2
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+    assert torch.equal(got[1], want[1])
+    assert all(_bits_equal(a, b) for a, b in zip(
+        engine.state_tensors(got[0]), engine.state_tensors(want[0])))
+
+
+@pytest.mark.parametrize("delivery", ["dense", "event"])
+def test_graph_replays_never_synchronise(cuda, delivery):
+    """Whole runs of replays (state in, windows, outputs, state out) under
+    sync-debug "error", once the graph is captured and the stimulus
+    drawn."""
+    sp = StepProgram(SMALL, EngineConfig(n_shards=4, delivery=delivery),
+                     device="cuda")
+    s0 = sp.init_state()
+    W = engine.RUN_WINDOW
+    sp.run(s0, 0, 2 * W)                      # captures
+    index, amp = engine.stim_rows(sp.spec, sp.plan, 0, 3 * W + 5)
+    want = sp.run(s0, 0, 3 * W + 5, graph=False)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sp.runner.run(s0, 0, 3 * W + 5, index, amp)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    assert all(_bits_equal(a, b) for a, b in zip(
+        engine.state_tensors(got[0]), engine.state_tensors(want[0])))
+
+
+@pytest.mark.parametrize("exchange", ["allgather", "halo", "hier"])
+def test_event_whole_steps_never_synchronise(cuda, exchange):
+    """The event phase handles on the card under sync-debug "error", in
+    the sync and the pipelined order: each event op once a phase."""
+    sp = StepProgram(SMALL, EngineConfig(n_shards=4, exchange=exchange,
+                                         delivery="event"),
+                     device="cuda", hier_groups=2)
+    pp = sp.phase_fns()
+    state = engine.clone_state(sp.init_state())
+    state, spiked, _ = pp.phase_a(state, 0)
+    state = pp.phase_b(state, pp.exchange(spiked), 0)
+    ss = pp.exchange(spiked)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(1, 4):
+            state, spiked, _ = pp.phase_a(state, t)
+            state = pp.phase_b(state, pp.exchange(spiked), t)
+        for t in range(4, 7):
+            state = pp.phase_b(state, ss, t - 1)
+            state, spiked, _ = pp.phase_a_dynamics(state, t)
+            ss = pp.exchange(spiked)
+            state = pp.phase_a_plasticity(state, spiked, t)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == dict(dict.fromkeys(ops.KERNELS, 0),
+                                       event_arrival=6, event_ltp=6,
+                                       event_emit=6, izhikevich_update=6)
+
+
 def _scan_inputs(shape):
     rng = np.random.default_rng(sum(shape))
     B, T, D = shape
@@ -691,10 +928,17 @@ def softcap_report(runs: list) -> dict:
     return {"processes": len(runs), "distinct": distinct, "errors": errors}
 
 
+#: The CPU setting `chip_smoke.py` runs its plain versions under (it sets
+#: these before torch starts).
+SOFTCAP_PINNED = "aten_default_mkl_compatible"
+
+
 def test_softcap_row_same_bits_in_two_processes(cuda):
     """The `softcap` row's kernel and plain outputs, computed in two
-    separate processes, bit for bit the same."""
-    report = softcap_report(softcap_runs(2))
+    separate processes under the CPU setting `chip_smoke.py` pins, bit for
+    bit the same."""
+    pin = SOFTCAP_ISA_ENVS[SOFTCAP_PINNED]
+    report = softcap_report(softcap_runs(2, [pin, pin]))
     assert report["distinct"] == dict.fromkeys(report["distinct"], 1), report
 
 
@@ -712,5 +956,12 @@ if __name__ == "__main__":
             for r in runs]
         print(json.dumps(report))
     else:
+        # --softcap-processes N [SETTING]: N processes under one setting of
+        # SOFTCAP_ISA_ENVS (chip_smoke.py's pinned one by default)
         assert sys.argv[1] == "--softcap-processes"
-        print(json.dumps(softcap_report(softcap_runs(int(sys.argv[2])))))
+        n = int(sys.argv[2])
+        setting = sys.argv[3] if len(sys.argv) > 3 else SOFTCAP_PINNED
+        report = softcap_report(softcap_runs(
+            n, [SOFTCAP_ISA_ENVS[setting]] * n))
+        report["setting"] = setting
+        print(json.dumps(report))

@@ -8,6 +8,12 @@ block and H=4 scatter.  The reference is jitted on the CPU with
 `XLA_FLAGS=--xla_cpu_max_isa=AVX` (no FMA contraction), which is the
 setting under which the port's plain PyTorch path equals it bit for bit.
 
+`event_runs` holds the same three layouts under event delivery
+(`repro.core.event_engine`) with capacities that drop nothing (spike
+compactions of c_post = the shard's neurons and c_src = its sources, a
+ring of cap_ev = E; `caps_note` says why): raster and weight signatures,
+spike counts and the saturation counter.
+
 The test below regenerates the file in AVX subprocesses and asserts it
 equals the committed one, so it cannot go stale.  To rewrite it:
 
@@ -17,6 +23,7 @@ This module also holds the AVX-subprocess helpers the other
 `test_torch_*` files use: the flag must be set before jax starts, and the
 test workers have started jax already.
 """
+import hashlib
 import json
 import os
 import subprocess
@@ -95,18 +102,55 @@ def jax_run_summary(cfg_kw: dict, eng_kw: dict, steps: int) -> dict:
         spikes_per_step=raster.sum(axis=(1, 2)).astype(int).tolist())
 
 
+def jax_event_summary(cfg_kw: dict, eng_kw: dict, steps: int) -> dict:
+    """The JAX package's event backend (call inside an AVX subprocess) with
+    capacities that drop nothing: signatures, spike counts, sat."""
+    import jax
+    from repro.core import EngineConfig, GridConfig, observables
+    from repro.core import event_engine as EV
+    spec, plan, eplan, state = EV.build(
+        GridConfig(**cfg_kw), EngineConfig(delivery="event", **eng_kw))
+    state = EV.init_event_state(spec, state.base, spec.e_cap)
+    state, raster, _ = jax.jit(lambda s: EV.run(
+        spec, plan, eplan, s, 0, steps, c_post=spec.n_local,
+        c_src=spec.s_cap))(state)
+    raster = np.asarray(raster)
+    w, valid = np.asarray(state.base.w), np.asarray(plan.syn_valid)
+    h = hashlib.sha256()
+    for hh in range(w.shape[0]):
+        h.update(np.ascontiguousarray(w[hh][valid[hh]]).tobytes())
+    return dict(
+        raster_signature=observables.raster_signature(
+            raster, np.asarray(plan.gid)).hex(),
+        weight_signature=h.hexdigest(), spikes=int(raster.sum()),
+        spikes_per_step=raster.sum(axis=(1, 2)).astype(int).tolist(),
+        sat=np.asarray(state.sat).astype(int).tolist())
+
+
 def build_reference() -> dict:
     """The reference file's content, from fresh AVX subprocesses (one per
-    layout, run in parallel)."""
-    outs = run_avx(__file__, [["--layout", name] for name in LAYOUTS])
-    runs = {}
-    for name, out in zip(LAYOUTS, outs):
-        runs[name] = json.loads(out.strip().splitlines()[-1])
+    layout and delivery, run in parallel)."""
+    outs = run_avx(__file__, [[flag, name] for flag in ("--layout",
+                                                        "--event-layout")
+                              for name in LAYOUTS])
+    lines = [json.loads(out.strip().splitlines()[-1]) for out in outs]
+    runs = dict(zip(LAYOUTS, lines[:len(LAYOUTS)]))
+    event_runs = dict(zip(LAYOUTS, lines[len(LAYOUTS):]))
     return dict(
         source="JAX package (repro.core.StepProgram), jitted on the CPU "
                f"with XLA_FLAGS={AVX_FLAG}",
         grid=GRID, neurons_per_column=1000, synapses_per_neuron=200,
-        steps=STEPS, runs=runs)
+        steps=STEPS, runs=runs,
+        event_source="JAX package (repro.core.event_engine.run with "
+                     "c_post = spec.n_local, c_src = spec.s_cap, from "
+                     "init_event_state(spec, base, cap_ev=spec.e_cap)), "
+                     f"jitted on the CPU with XLA_FLAGS={AVX_FLAG}",
+        caps_note="the default capacities drop events of this grid's "
+                  "bursts (up to ~6,900 spikes a step: c_src = a shard's "
+                  "sources / 8 overflows, and without it a ring of E / 4 "
+                  "does), so these runs list every spike and hold E events "
+                  "a slot (each synapse is in a slot at most once): sat 0",
+        event_runs=event_runs)
 
 
 def test_committed_reference_is_current():
@@ -121,12 +165,18 @@ def _main(argv):
         summary = jax_run_summary(GRID, dict(n_shards=h, placement=placement),
                                   STEPS)
         print(json.dumps(dict(n_shards=h, placement=placement, **summary)))
+    elif argv[:1] == ["--event-layout"]:
+        h, placement = LAYOUTS[argv[1]]
+        summary = jax_event_summary(GRID, dict(n_shards=h,
+                                               placement=placement), STEPS)
+        print(json.dumps(dict(n_shards=h, placement=placement, **summary)))
     elif argv[:1] == ["--write"]:
         REF_PATH.parent.mkdir(parents=True, exist_ok=True)
         REF_PATH.write_text(json.dumps(build_reference(), indent=1) + "\n")
         print(f"wrote {REF_PATH}")
     else:
-        raise SystemExit(f"usage: {sys.argv[0]} --write | --layout NAME")
+        raise SystemExit(f"usage: {sys.argv[0]} --write | --layout NAME | "
+                         f"--event-layout NAME")
 
 
 if __name__ == "__main__":
