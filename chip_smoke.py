@@ -11,7 +11,9 @@ every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
   card     the card's name and power limit (nvidia-smi), torch's name, the
            CPU kernels' instruction set;
   build    nvcc builds the kernels from `src/repro_torch/csrc` (one nvcc
-           per source, all at once);
+           per source, all at once), and beside them `event.cu` alone
+           with the arrivals' other target lookup (REPRO_ARRIVAL_TARGET
+           flipped), the yardstick of the lookup the library keeps;
   attn_sass  `-Xptxas -v` of the bf16 prefill and the decode attention
            sources (registers, spills) and the count of wgmma (HGMMA) and
            TMA load (UTMALDG) instructions in the prefill kernel's SASS
@@ -50,8 +52,14 @@ every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
            N, c_src = S), and at 21.5% with the default ones (which drop
            sources), each bit-equal to its plain version on a CPU copy
            and on the card, timed beside its bound, its plain version
-           and, for the arrivals' sum, `index_add_`.  The phase also prints
-           ptxas's registers and spills of `stdp.cu`, `arborize.cu` and
+           and, for the arrivals, `index_add_`, the same op built with
+           the other target lookup (syn_tgt or a search of row_ptr; the
+           same bits) at the main density and 10x, each one's place
+           kernel alone, and the op's accesses at its events'
+           synapses alone (w and plastic gathered, last_arr written, as
+           PyTorch indexing calls); for the emission, its delay loads
+           alone (one indexing call).  The phase also prints ptxas's
+           registers and spills of `stdp.cu`, `arborize.cu` and
            `event.cu`;
   check    both deliveries (`StepProgram(..., device="cuda").run`; the
            event one with capacities that drop nothing,
@@ -152,9 +160,12 @@ beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -190,9 +201,12 @@ EVENT_SOURCES = {"event_arrival": "src/repro_torch/csrc/event.cu",
 EVENT_REPLACES = {"event_arrival": "src/repro/core/event_engine.py:150",
                   "event_ltp": "src/repro/core/event_engine.py:199",
                   "event_emit": "src/repro/core/event_engine.py:245"}
-EVENT_KERNEL_NAMES = {"event_arrival": "arrival_",
+# csrc/event.cu's REPRO_ARRIVAL_TARGET: how the arrivals' place pass finds
+# an event's target
+ARRIVAL_TARGETS = {0: "syn_tgt", 1: "row_ptr search"}
+EVENT_KERNEL_NAMES = {"event_arrival": ("arrival_place", "arrival_sum"),
                       "event_ltp": "event_ltp_kernel",
-                      "event_emit": "emit_"}
+                      "event_emit": "emit_scan"}
 # the profiler's names of the STDP kernels (row_kernel<true> is phase A)
 STDP_KERNEL_NAMES = {"stdp_phase_a": "row_kernel<true>",
                      "stdp_arrival_current": "row_kernel<false>",
@@ -355,11 +369,52 @@ def phase_card():
 
 
 def phase_build():
+    """Build the library, and `event.cu` alone with the arrivals' other
+    target lookup beside it; returns the latter's (kept lookup, other
+    lookup, loaded library)."""
     t0 = time.perf_counter()
+    src = _build.CSRC / "event.cu"
+    kept = int(re.search(r"#define REPRO_ARRIVAL_TARGET (\d)",
+                         src.read_text()).group(1))
+    other = 1 - kept
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj = _build.BUILD_DIR / f"event_target{other}.o"
+    proc = subprocess.Popen(
+        [_build.nvcc(), *_build.flags(src), f"-DREPRO_ARRIVAL_TARGET={other}",
+         "-c", str(src), "-o", str(obj)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     path = _build.build()
     _build.library()
+    log, rc = proc.communicate()[0], proc.returncode
+    so = obj.with_suffix(".so")
+    if rc == 0:
+        link = subprocess.run(
+            [_build.nvcc(), *_build.ARCH, "-shared", "-o", str(so), str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log, rc = log + link.stdout, link.returncode
+    if rc != 0:
+        raise PhaseFailed(f"event.cu with REPRO_ARRIVAL_TARGET={other} did "
+                          f"not build:\n{log}")
+    lib = ctypes.CDLL(str(so))
+    lib.repro_event_arrival.argtypes = _build.SIGNATURES[
+        "repro_event_arrival"]
+    lib.repro_event_arrival.restype = ctypes.c_int
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": os.path.relpath(path, HERE)})
+          "library": os.path.relpath(path, HERE),
+          "arrival_target": ARRIVAL_TARGETS[kept],
+          "yardstick": os.path.relpath(so, HERE)})
+    return kept, other, lib
+
+
+@contextlib.contextmanager
+def _kernel_library(lib):
+    """The wrappers' launches inside the block go to `lib` (a library
+    that holds the entry points they call there)."""
+    saved, _build._lib = _build._lib, lib
+    try:
+        yield
+    finally:
+        _build._lib = saved
 
 
 def phase_attn_sass():
@@ -867,7 +922,7 @@ def _event_state(rng, plan_cpu, t: int, density: float, cap: int, D: int):
                 sat=torch.zeros(H, dtype=torch.int32))
 
 
-def _event_rows(sp8e):
+def _event_rows(sp8e, lookup):
     """The event ops on the 8x8 event plan's own tables (the plan's
     targets, delays and CSR rows, the EventPlan's forward rows) with the
     ring, spikes and sources drawn at the main path's density (2.15%) and
@@ -879,7 +934,9 @@ def _event_rows(sp8e):
     N and c_src = S, `event_engine.no_drop_caps`), so the main rows run
     at the main path's sizes; a third row at 10x compacts with the
     default caps (c_post N / 2, c_src S / 8), which the sources overflow,
-    so that `sat` counts the dropped spikes."""
+    so that `sat` counts the dropped spikes.  `lookup` is `phase_build`'s
+    (kept, other, library): the arrivals built with the other target
+    lookup are held to the same bits and timed in the first two rows."""
     spec, plan, eplan = sp8e.spec, sp8e.plan, sp8e.eplan
     stdp = spec.stdp
     H, E = plan.syn_valid.shape
@@ -929,8 +986,8 @@ def _event_rows(sp8e):
             else:
                 i_syn, n = kev.event_arrival(
                     d["ev_ring"], d["ev_count"], p["tgt"], p["row_ptr"],
-                    p["plastic"],
-                    d["last_post"], d["w"], d["last_arr"], t, **ltd_kw)
+                    p["plastic"], d["last_post"], d["w"], d["last_arr"], t,
+                    **ltd_kw)
             return (i_syn, n, d["w"], d["last_arr"], d["ev_ring"],
                     d["ev_count"])
 
@@ -956,11 +1013,13 @@ def _event_rows(sp8e):
         ltd = plast_ev & (torch.gather(st["last_post"], 1, tgt_ev)
                           > half_neg)
         n_ev = n(listed)
-        # per event: its list entry in and cleared, its target, plastic,
-        # w in, last_arr out; per LTD w out; per neuron last_post in and
-        # i_syn out; the counts
-        a_bytes = (n_ev * (4 + 4 + 8 + 1 + 4 + 4) + n(ltd) * 4
-                   + H * N * (4 + 4) + H * D * 4 + H * 8)
+        # per event: its list entry in and cleared, its target (syn_tgt's
+        # 8 B where the kernel reads it), plastic, w in, last_arr out; per
+        # LTD w out; per neuron last_post in, row pointers in and i_syn
+        # out; the counts
+        tgt_bytes = 8 if lookup[0] == 0 else 0
+        a_bytes = (n_ev * (4 + 4 + tgt_bytes + 1 + 4 + 4) + n(ltd) * 4
+                   + H * N * (4 + 4) + H * (N + 1) * 4 + H * D * 4 + H * 8)
         post_ids = st["post_ids"]
         listed_n = torch.zeros((H, N + 1), dtype=torch.bool).scatter_(
             1, post_ids.to(torch.int64), True)[:, :N]
@@ -1042,13 +1101,56 @@ def _event_rows(sp8e):
                           "tensor, 0 ulp), to the plain version on a CPU "
                           "copy and on the card",
                 density=label, bytes=n_bytes, flops=n_flops, shape=shape))
+            if name == "event_arrival":
+                # the op's accesses at its events' random synapses alone
+                # (w and plastic gathered, last_arr written), as PyTorch
+                # indexing calls on the same restored inputs
+                syn = (eve + torch.arange(H)[:, None] * E)[listed].cuda()
+
+                def touch():
+                    work["w"].view(-1).index_select(0, syn)
+                    pg["plastic"].view(-1).index_select(0, syn)
+                    work["last_arr"].view(-1).index_fill_(0, syn, float(t))
+                rows[-1].update(
+                    target_lookup=ARRIVAL_TARGETS[lookup[0]],
+                    place_device_ms=device_ms(
+                        launch, restore=again, kernel="arrival_place"),
+                    synapse_access_device_ms=device_ms(touch, restore=again))
+            if name == "event_arrival" and label != "10x_default_caps":
+                # the op built with the other target lookup: the same bits,
+                # timed on the same restored inputs
+                def alt():
+                    with _kernel_library(lookup[2]):
+                        return launch()
+                restore(*state)
+                alt_equal = all(bit_equal(a, b) for a, b in zip(alt(), got))
+                if not alt_equal:
+                    failed.append(f"{name} target from "
+                                  f"{ARRIVAL_TARGETS[lookup[1]]} ({label})")
+                rows[-1].update(
+                    other_lookup=ARRIVAL_TARGETS[lookup[1]],
+                    other_lookup_equal=alt_equal,
+                    other_lookup_device_ms=device_ms(
+                        alt, restore=again, kernel=EVENT_KERNEL_NAMES[name]),
+                    other_lookup_place_device_ms=device_ms(
+                        alt, restore=again, kernel="arrival_place"))
+            if name == "event_emit":
+                # its loads at random synapses alone: each emitted event's
+                # delay, as one PyTorch indexing call on restored inputs
+                hh = torch.arange(H)[:, None, None].expand_as(fwd)
+                dsyn = (fwd.to(torch.int64) + hh * E)[
+                    (fwd >= 0) & ok[:, :, None]].cuda()
+                rows[-1]["delay_access_device_ms"] = device_ms(
+                    lambda: pg["delay"].view(-1).index_select(0, dsyn),
+                    restore=again)
         del saved, work
     return rows, failed
 
 
-def phase_kernels(plan8, spec8, sp8e):
-    """Each kernel against its plain version at the 8x8 shapes; returns the
-    rows of the `kernels` line (the STDP passes at the main density)."""
+def phase_kernels(plan8, spec8, sp8e, lookup):
+    """Each kernel against its plain version at the 8x8 shapes (`lookup`:
+    `phase_build`'s arrivals yardstick); returns the rows of the `kernels`
+    line (the STDP passes at the main density)."""
     H, E = plan8.syn_valid.shape
     N = plan8.gid.shape[1]
     rng = np.random.default_rng(2013)
@@ -1123,7 +1225,7 @@ def phase_kernels(plan8, spec8, sp8e):
     arb_rows, arb_failed = _arborize_rows(plan8, spec8)
     rows += arb_rows
     failed += arb_failed
-    ev_rows, ev_failed = _event_rows(sp8e)
+    ev_rows, ev_failed = _event_rows(sp8e, lookup)
     rows += ev_rows
     failed += ev_failed
     # registers, shared memory and spills of the STDP kernels (row_kernel<
@@ -1900,7 +2002,7 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         phase_card()
-        phase_build()
+        lookup = phase_build()
         phase_attn_sass()
         t0 = time.perf_counter()
         # one connectivity build for both deliveries: the event program's
@@ -1915,7 +2017,7 @@ def main() -> int:
               "cap_ev": sp8e.cap_ev,
               "fwd_rows": list(sp8e.eplan.fwd_rows.shape),
               "in_rows": list(sp8e.eplan.in_rows.shape)})
-        rows = phase_kernels(sp8.plan, sp8.spec, sp8e)
+        rows = phase_kernels(sp8.plan, sp8.spec, sp8e, lookup)
         phase_check()
         launches = phase_timed(sp8, sp8e)
         phase_profile(sp8, sp8e)

@@ -16,55 +16,90 @@
 // argument `t`.  Slots are the floor modulo of `jnp.mod`, also for the
 // pipelined prologue's t = -1.
 //
-// Arrival (`repro_event_arrival`), two launches on the stream:
-//   place  a thread per event (grid-stride over the slot's list): an int
-//          atomic on its target's fill count gives it a place in the
-//          target's bucket, where it writes its list index.  Target n's
-//          bucket is its CSR row [row_ptr[n], row_ptr[n + 1]) of an [E]
-//          scratch: its events are distinct synapses of that row, so the
-//          bucket never overflows and needs no count or scan first.  The
-//          places within a bucket depend on timing; the arrivals per shard
-//          are added up by int atomics;
-//   sum    a thread per target: it orders its bucket by list index
-//          (insertion sort, in a local array up to 32 entries: ~4 events a
-//          target at the main density, ~43 at 10x), then in that order
-//          adds each event's pre-LTD weight to
-//          the current from +0.0, applies LTD against the target's last
-//          spike (loaded once) where the synapse is plastic, sets last_arr
-//          = t, and writes -1 over the list entry; it writes i_syn[h, n]
-//          and leaves its fill count zero for the next launch.
+// Arrival (`repro_event_arrival`), two launches on the stream.
+//   What bounds it: each event's scattered loads and stores at a random
+//   synapse (w in and out, plastic, last_arr out: a 32-B sector each of
+//   arrays far larger than L2, and a partial-sector write costs a read
+//   too); the sum of a target's events must follow list order, which the
+//   places (atomics) do not.
+//   place  a thread per list entry (grid-stride, coalesced along the
+//          list) does every per-event job that does not depend on order:
+//          it reads the synapse e, w[e], plastic[e], its target n and
+//          last_post[n]; writes LTD into w[e] where plastic and n has
+//          spiked (the same xla_exp factor per event, so the same bits),
+//          last_arr[e] = t and -1 over the entry; then takes a place in
+//          n's bucket with an int atomic and writes one 8-byte pair there:
+//          the list index and the PRE-LTD weight's bits.  The target is
+//          found as REPRO_ARRIVAL_TARGET says: 0 reads syn_tgt[e] (8 B at
+//          the random synapse), 1 searches row_ptr (which stays in L2) for
+//          the CSR row holding e; the row invariant of stdp.cu makes them
+//          equal for a valid synapse.  `chip_smoke.py` builds the other
+//          one and times the two on the same inputs.  Target n's
+//          bucket is its CSR row [row_ptr[n], row_ptr[n + 1]) of an
+//          [H, E] scratch of pairs (8 B a synapse: 102 MB at 8x8, twice
+//          what list indices alone would take): its events are distinct
+//          synapses of that row, so the bucket never overflows and needs
+//          no count or scan first.  Each synapse is in a slot at most once
+//          (a source spikes once a step, each synapse has one delay), so
+//          the weight read here is the one the reference sums, and no two
+//          events write the same w or last_arr.  The arrivals per shard
+//          are added up by int atomics.
+//   sum    a group of kLanes = 8 lanes a target (4 targets a warp: most
+//          buckets hold a few events; a warp a target was 4-20% slower)
+//          reads its bucket's pairs in one coalesced pass (kChunk = 64
+//          pairs in registers) and loads nothing else per event.  The
+//          keys (list indices) are distinct, so a pair's rank in list
+//          order is the count of smaller keys, found by shuffles.  The
+//          weights go to the group's staging row in shared memory at
+//          their rank, and one lane adds them in rank order from +0.0,
+//          one fp32 add at a time, writes i_syn[h, n] and leaves the fill
+//          count zero.  A bucket longer than kChunk is ranked chunk
+//          against chunk (every read contiguous), and one longer than the
+//          staging row (kStage = 128 weights) is summed a window of ranks
+//          at a time: any row length works, with no global-memory sort
+//          and no limit.
 // So each target's sum runs in list order, as XLA-CPU's scatter-add
-// walks its updates, with no float atomic and no sort of the list: the
-// bits do not depend on the schedule.  Each synapse is in a slot at most
-// once (a source spikes once a step, each synapse has one delay), so the
-// LTD and last_arr writes never meet.  Work: O(events + N).
+// walks its updates, with no float atomic: the bits do not depend on the
+// schedule.  Work: O(events) loads, O(sum of bucket^2 / kLanes)
+// comparisons.
 //
-// Emission (`repro_event_emit`), two launches; block b owns the listed
-// sources [64 b, 64 b + 64) (src_ids: the first C spiking sources
-// ascending, then the fill S), each of its 8 warps 8 of them in order, and
-// a warp walks a source's row 256 entries at a time (every entry's id
-// loaded, then every delay, then the slots counted or written):
-//   count  each warp's events per slot go to warp_sum[h, b, w, :];
-//   write  a warp's first position in each slot is the slot's old count
-//          plus the warp sums before it (the blocks before: added up by
-//          the block's threads; then the warps before in the block); each
-//          source starts after the sources before it, and each row entry
-//          after the entries of its slot before it in the row and the
-//          lanes below it in its round (a ballot); entries at or past cap
-//          are dropped.  A block with no listed source does no work.  The
-//          last block of a shard to finish (a ticket) writes ev_count =
-//          min(old + added, cap) and sat[h] += n_dropped[h] + the events
-//          past cap.
+// Emission (`repro_event_emit`), one launch: a single-pass scan with
+// decoupled look-back (Merrill & Garland, "Single-pass Parallel Prefix
+// Scan with Decoupled Look-back", 2016) over tiles of kEmitWarps listed
+// sources (src_ids: the first C spiking sources ascending, then the
+// fill S), in source-rank order.
+//   What bounds it: each event's delay, loaded at a random synapse (a
+//   sector an event), and the order: an event's place in its slot is the
+//   count of the slot's events of every source before it.
+//   grid   persistent, a few blocks an SM (not sized to C); a block takes
+//          its tiles in order from an atomic tile counter, so a tile waits
+//          only on tiles that are already running, and leaves at the first
+//          tile whose first row is the fill.  Work follows the listed
+//          sources: at c_src = S the fill's tiles are never walked.
+//   row    a warp a listed source: it loads the row's ids and their delays
+//          once into registers (kRowRegs rounds of 32: 256 entries; a
+//          longer row is read again for the writes), counts them per slot
+//          with ballots, and keeps each entry's place among its row's
+//          entries of its slot.
+//   tile   the warps' counts add up to the tile's per-slot aggregate; the
+//          tile reads the old counts, publishes the aggregate (per slot a
+//          status and the value in one 64-bit word), looks back a warp of
+//          32 tiles at a time for its exclusive prefix, and publishes its
+//          inclusive prefix.  Each entry's place is then old count +
+//          prefix + the warps before it in the tile + its place in the
+//          row, from the same registers; entries at or past cap are
+//          dropped.
+//   end    the tile that holds the last listed source (tile 0 when none
+//          is listed) writes ev_count = min(old + total, cap) and sat +=
+//          n_dropped + the events past cap, after its look-back has seen
+//          every earlier tile publish: each tile reads the old counts
+//          before it publishes, so none reads a rewritten count.  The
+//          last block to leave clears the tile words and counters, so the
+//          tile state is zero between launches (graph replays, repeated
+//          calls at one t).  A look-back that waits ~10 s of clock on a
+//          tile that never publishes traps rather than hang the card.
 // Ranks follow (source rank, row position), the order of the reference's
 // flattened [C, Kf] list, so the ring is the reference's bit for bit.
-//
-// Bound: memory.  Arrival must read the slot's list (4 B an event),
-// each event's target (8 B), plastic (1 B) and w (4 B), write last_arr
-// and the cleared entry (8 B) and w where LTD applies (4 B), and read
-// last_post and write i_syn (8 B a neuron).  Emission must read the spike
-// list's rows (4 B an entry of the listed sources' rows), each event's
-// delay (4 B) and write its id (4 B).  The scratch (fill counts,
-// buckets, block sums) is what this design adds on top.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -73,10 +108,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxSlots = 16;     // D the emission kernels take at most
-constexpr int kLocalSort = 32;    // bucket entries arrival_sum sorts in L1
-// loads issued together: arrival_sum's events, emit_*'s 32-entry rounds
-constexpr int kBatch = 8;
+constexpr int kMaxSlots = 16;     // D the emission kernel takes at most
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int64_t step_t(const int64_t* ctr, int64_t t) {
@@ -100,10 +132,19 @@ __device__ __forceinline__ int64_t list_len(const int32_t* count, int64_t h,
 // arrival
 // ---------------------------------------------------------------------------
 
+// The place pass's target: 0 reads syn_tgt, 1 searches row_ptr.
+#ifndef REPRO_ARRIVAL_TARGET
+#define REPRO_ARRIVAL_TARGET 1
+#endif
+
+constexpr int kLanes = 8;    // lanes of the sum a target
+constexpr int kChunk = 64;   // pairs a group of the sum holds in registers
+constexpr int kStage = 128;  // weights a group stages in shared memory
+
 struct ArrivalArgs {
   int32_t* ring;               // [H, D, cap]
   int32_t* count;              // [H, D]
-  const int64_t* tgt;          // [H, E]
+  const int64_t* syn_tgt;      // [H, E]
   const int32_t* row_ptr;      // [H, N + 1] the per-target CSR
   const uint8_t* plastic;      // [H, E]
   const float* last_post;      // [H, N]
@@ -112,7 +153,7 @@ struct ArrivalArgs {
   float* i_syn;                // [H, N]
   int64_t* n_arrived;          // [H]
   int32_t* fill;               // [H, N] scratch, zero between launches
-  int32_t* bucket;             // [H, E] scratch: row n's bucket is its CSR row
+  int2* pairs;                 // [H, E] scratch: (list index, weight bits)
   unsigned long long* total;   // [H] scratch, zero between launches
   const int64_t* ctr;          // step counter or nullptr
   int64_t t, D, cap, E, N;
@@ -121,20 +162,45 @@ struct ArrivalArgs {
 
 __global__ void __launch_bounds__(kThreads) arrival_place(ArrivalArgs a) {
   const int64_t h = blockIdx.y;
-  const int64_t r = floor_mod(step_t(a.ctr, a.t), a.D);
+  const int64_t tt = step_t(a.ctr, a.t);
+  const int64_t r = floor_mod(tt, a.D);
+  const float t = (float)tt;
   const int64_t n_ev = list_len(a.count, h, a.D, r, a.cap);
-  const int32_t* list = a.ring + (h * a.D + r) * a.cap;
+  int32_t* list = a.ring + (h * a.D + r) * a.cap;
   const int32_t* rp = a.row_ptr + h * (a.N + 1);
   int placed = 0;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_ev;
        i += (int64_t)gridDim.x * blockDim.x) {
     const int32_t e = list[i];
     if (e < 0) continue;
-    const int64_t n = a.tgt[h * a.E + e];
+    const int64_t se = h * a.E + e;
+    const float wv = a.w[se];
+#if REPRO_ARRIVAL_TARGET
+    // the CSR row holding e (rp[n] <= e < rp[n + 1])
+    int32_t n = 0, end = (int32_t)a.N;
+    while (end - n > 1) {
+      const int32_t mid = (n + end) >> 1;
+      if (rp[mid] <= e)
+        n = mid;
+      else
+        end = mid;
+    }
+#else
+    const int32_t n = (int32_t)a.syn_tgt[se];
+#endif
+    const uint8_t pl = a.plastic[se];
+    const float lp = a.last_post[h * a.N + n];
+    const int32_t lo = rp[n], hi = rp[n + 1];
+    if (pl != 0 && lp > a.half_neg_time) {
+      const float ltd = a.a_minus * xla_exp((lp - t) * a.inv_tau_minus);
+      a.w[se] = fminf(fmaxf(wv - ltd, a.w_min), a.w_max);
+    }
+    a.last_arr[se] = t;
+    list[i] = -1;
     const int p = atomicAdd(a.fill + h * a.N + n, 1);
     // a target's events are distinct synapses of its row: p < its length
-    if (rp[n] + p < rp[n + 1]) {
-      a.bucket[h * a.E + rp[n] + p] = (int32_t)i;
+    if (lo + p < hi) {
+      a.pairs[h * a.E + lo + p] = make_int2((int)i, __float_as_int(wv));
       ++placed;
     }
   }
@@ -143,78 +209,91 @@ __global__ void __launch_bounds__(kThreads) arrival_place(ArrivalArgs a) {
     atomicAdd(a.total + h, (unsigned long long)placed);
 }
 
+// kLanes lanes (a group) a target; the loops run to the longest bucket of
+// the warp, so every shuffle is warp-wide.  A lane holds kR pairs of a
+// chunk: pair a0 + g + kLanes * q.
 __global__ void __launch_bounds__(kThreads) arrival_sum(ArrivalArgs a) {
+  constexpr int kR = kChunk / kLanes;
+  constexpr int kGroups = kThreads / kLanes;
+  __shared__ float stage[kGroups][kStage];
   const int64_t h = blockIdx.y;
-  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t tt = step_t(a.ctr, a.t);
-  const int64_t r = floor_mod(tt, a.D);
-  if (n == 0) {  // the place kernel has ended: its count is complete
+  const int grp = threadIdx.x / kLanes, g = threadIdx.x % kLanes;
+  const int64_t n = (int64_t)blockIdx.x * kGroups + grp;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    // the place kernel has ended: its count is complete
     a.n_arrived[h] = (int64_t)a.total[h];
     a.total[h] = 0;
-    a.count[h * a.D + r] = 0;
+    a.count[h * a.D + floor_mod(step_t(a.ctr, a.t), a.D)] = 0;
   }
-  if (n >= a.N) return;
-  const float t = (float)tt;
-  int32_t* list = a.ring + (h * a.D + r) * a.cap;
-  int32_t* b = a.bucket + h * a.E + a.row_ptr[h * (a.N + 1) + n];
   const int32_t* rp = a.row_ptr + h * (a.N + 1);
-  const int k_n = min(a.fill[h * a.N + n], rp[n + 1] - rp[n]);
-  // the bucket in list order (its places came from atomics): a bucket of
-  // up to kLocalSort entries is sorted in a local array (L1), a longer one
-  // where it lies
-  int32_t local[kLocalSort];
-  int32_t* v = k_n <= kLocalSort ? local : b;
-  if (k_n <= kLocalSort)
-    for (int k = 0; k < k_n; ++k) local[k] = b[k];
-  for (int k = 1; k < k_n; ++k) {
-    const int32_t x = v[k];
-    int j = k - 1;
-    while (j >= 0 && v[j] > x) {
-      v[j + 1] = v[j];
-      --j;
-    }
-    v[j + 1] = x;
+  int k = 0;
+  const int2* b = a.pairs + h * a.E;
+  if (n < a.N) {
+    const int32_t lo = rp[n];
+    k = min(a.fill[h * a.N + n], rp[n + 1] - lo);
+    b += lo;
   }
-  const float lp = a.last_post[h * a.N + n];
-  const bool ltd_on = lp > a.half_neg_time;
-  const float ltd =
-      ltd_on ? a.a_minus * xla_exp((lp - t) * a.inv_tau_minus) : 0.0f;
+  const int kmax = __reduce_max_sync(kFull, k);
   float acc = 0.0f;
-  // kBatch events at a time: their synapse ids, then their weights and
-  // plastic flags, are loaded together before the ordered adds and writes
-  for (int k0 = 0; k0 < k_n; k0 += kBatch) {
-    int64_t e[kBatch];
-    float wv[kBatch];
-    uint8_t pl[kBatch];
+  for (int ws = 0; ws < kmax; ws += kStage) {      // a window of ranks
+    for (int a0 = 0; a0 < kmax; a0 += kChunk) {    // the chunk ranked
+      int key[kR], rank[kR];
+      float wv[kR];
 #pragma unroll
-    for (int q = 0; q < kBatch; ++q)
-      e[q] = k0 + q < k_n ? h * a.E + list[v[k0 + q]] : -1;
+      for (int q = 0; q < kR; ++q) {
+        const int j = a0 + g + kLanes * q;
+        const int2 p = j < k ? b[j] : make_int2(INT32_MAX, 0);
+        key[q] = p.x;
+        wv[q] = __int_as_float(p.y);
+        rank[q] = 0;
+      }
+      for (int b0 = 0; b0 < kmax; b0 += kChunk) {  // against every chunk
+        int other[kR];
 #pragma unroll
-    for (int q = 0; q < kBatch; ++q) {
-      wv[q] = e[q] >= 0 ? a.w[e[q]] : 0.0f;
-      pl[q] = e[q] >= 0 ? a.plastic[e[q]] : 0;
+        for (int q = 0; q < kR; ++q) {
+          const int j = b0 + g + kLanes * q;
+          other[q] = b0 == a0 ? key[q] : j < k ? b[j].x : INT32_MAX;
+        }
+#pragma unroll
+        for (int q2 = 0; q2 < kR; ++q2) {
+          if (b0 + kLanes * q2 >= kmax) break;
+#pragma unroll
+          for (int s = 0; s < kLanes; ++s) {
+            const int o = __shfl_sync(kFull, other[q2], s, kLanes);
+#pragma unroll
+            for (int q = 0; q < kR; ++q) rank[q] += o < key[q];
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kR; ++q)
+        if (key[q] != INT32_MAX && rank[q] >= ws && rank[q] < ws + kStage)
+          stage[grp][rank[q] - ws] = wv[q];
     }
-#pragma unroll
-    for (int q = 0; q < kBatch; ++q) {
-      if (e[q] < 0) break;
-      acc = acc + wv[q];
-      if (ltd_on && pl[q] != 0)
-        a.w[e[q]] = fminf(fmaxf(wv[q] - ltd, a.w_min), a.w_max);
-      a.last_arr[e[q]] = t;
-      list[v[k0 + q]] = -1;
+    __syncwarp();
+    if (g == 0) {
+      const int m = min(kStage, k - ws);
+      for (int i = 0; i < m; ++i) acc = acc + stage[grp][i];
     }
+    __syncwarp();
   }
-  a.i_syn[h * a.N + n] = acc;
-  a.fill[h * a.N + n] = 0;
+  if (n < a.N && g == 0) {
+    a.i_syn[h * a.N + n] = acc;
+    a.fill[h * a.N + n] = 0;
+  }
 }
 
 // ---------------------------------------------------------------------------
 // emission
 // ---------------------------------------------------------------------------
 
-constexpr int kRowsPerWarp = 8;  // listed sources a warp of emit_* owns
-constexpr int kEmitWarps = kThreads / 32;
-constexpr int kEmitRows = kEmitWarps * kRowsPerWarp;  // a block's
+constexpr int kEmitThreads = 256;
+constexpr int kEmitWarps = kEmitThreads / 32;  // listed sources (rows) a tile
+constexpr int kEmitBlocksPerSM = 4;
+constexpr int kRowRegs = 8;  // 32-entry rounds of a row kept in registers
+constexpr unsigned long long kAggregate = 1ull << 32;  // tile word status
+constexpr unsigned long long kPrefix = 2ull << 32;
+constexpr long long kLookBackCycles = 1ll << 34;
 
 struct EmitArgs {
   const int32_t* src_ids;      // [H, C] ascending, then the fill S
@@ -224,176 +303,246 @@ struct EmitArgs {
   int32_t* ring;               // [H, D, cap]
   int32_t* count;              // [H, D]
   int32_t* sat;                // [H]
-  int32_t* warp_sum;           // [H, blocks, kEmitWarps, D] scratch
-  unsigned int* ticket;        // [H] scratch, zero between launches
+  // [H, tiles, D] scratch: status << 32 | value per tile and slot
+  unsigned long long* words;
+  unsigned int* ctrl;          // [H, 2] scratch: tile counter, blocks out
   const int64_t* ctr;          // step counter or nullptr
-  int64_t t, D, cap, E, S, Kf, C;
+  int64_t t, D, cap, E, S, Kf, C, tiles;
 };
 
-// kBatch rounds of a row from entry j0 on: every entry first, then every
-// delay (a pad's slot is -1 and its delay is not read), so the row's loads
-// are in flight together.
-__device__ __forceinline__ void load_rounds(const EmitArgs& a, int64_t h,
-                                            const int32_t* row, int64_t j0,
-                                            int64_t t, int lane,
-                                            int32_t (&id)[kBatch],
-                                            int (&slot)[kBatch]) {
+// The source listed at rank k of shard h, or -1 (past C, or the fill).
+__device__ __forceinline__ int32_t listed(const EmitArgs& a, int64_t h,
+                                          int64_t k) {
+  if (k >= a.C) return -1;
+  const int32_t s = a.src_ids[h * a.C + k];
+  return s < a.S ? s : -1;
+}
+
+// kRowRegs rounds of a row from entry j0 on, into registers: the ids, then
+// their slots (every delay load in flight together; a pad's slot is -1),
+// then each entry's place among the entries of its slot from j0 on, added
+// to the running per-slot counts `cnt` (the same in every lane).
+__device__ __forceinline__ void row_slots(const EmitArgs& a, int64_t h,
+                                          const int32_t* row, int64_t j0,
+                                          int64_t t, int lane,
+                                          int32_t (&id)[kRowRegs],
+                                          int (&slot)[kRowRegs],
+                                          int (&off)[kRowRegs],
+                                          int (&cnt)[kMaxSlots]) {
+  const unsigned below = (1u << lane) - 1;
 #pragma unroll
-  for (int q = 0; q < kBatch; ++q) {
+  for (int q = 0; q < kRowRegs; ++q) {
     const int64_t j = j0 + 32 * q + lane;
     id[q] = j < a.Kf ? row[j] : -1;
   }
 #pragma unroll
-  for (int q = 0; q < kBatch; ++q)
+  for (int q = 0; q < kRowRegs; ++q)
     slot[q] = id[q] < 0 ? -1
                         : (int)floor_mod(t + a.delay[h * a.E + id[q]], a.D);
-}
-
-// The listed source of warp `warp`'s r-th row in block b, or -1.
-__device__ __forceinline__ int32_t row_source(const EmitArgs& a, int64_t h,
-                                              int warp, int r) {
-  const int64_t k =
-      (int64_t)blockIdx.x * kEmitRows + warp * kRowsPerWarp + r;
-  if (k >= a.C) return -1;
-  const int32_t s = a.src_ids[h * a.C + k];
-  return s < a.S ? s : -1;  // the fill follows the listed sources
-}
-
-// Block b owns the listed sources [b * kEmitRows, (b + 1) * kEmitRows),
-// warp w of it kRowsPerWarp of them in order: each warp's events in each
-// slot go to warp_sum[h, b, w, :].
-__global__ void __launch_bounds__(kThreads) emit_count(EmitArgs a) {
-  const int64_t h = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t t = step_t(a.ctr, a.t);
-  int tot[kMaxSlots];
 #pragma unroll
-  for (int d = 0; d < kMaxSlots; ++d) tot[d] = 0;
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int32_t s = row_source(a, h, warp, r);
-    if (s < 0) break;
-    const int32_t* row = a.fwd + (h * a.S + s) * a.Kf;
-    bool done = false;
-    for (int64_t j0 = 0; j0 < a.Kf && !done; j0 += 32 * kBatch) {
-      int32_t id[kBatch];
-      int slot[kBatch];
-      load_rounds(a, h, row, j0, t, lane, id, slot);
-#pragma unroll
-      for (int q = 0; q < kBatch; ++q) {
-#pragma unroll
-        for (int d = 0; d < kMaxSlots; ++d)
-          if (d < a.D) tot[d] += __popc(__ballot_sync(kFull, slot[q] == d));
-      }
-      done = __ballot_sync(kFull, id[kBatch - 1] < 0) != 0;  // pads follow
-    }
-  }
-  if (lane == 0) {
-    int* out = a.warp_sum + ((h * gridDim.x + blockIdx.x) * kEmitWarps +
-                             warp) * a.D;
-    for (int d = 0; d < a.D; ++d) out[d] = tot[d];
-  }
-}
-
-// The sums of warps [0, n) of `sums` ([n, D], L2-coherent loads), a slot
-// at a time in one pass: each thread adds a stride of the warps, then each
-// warp of the block reduces its lanes into part[warp][d].
-__device__ __forceinline__ void warp_sums_before(
-    const int* sums, int64_t n, int64_t D, int lane, int warp,
-    int (&part)[kEmitWarps][kMaxSlots]) {
-  int acc[kMaxSlots];
-#pragma unroll
-  for (int d = 0; d < kMaxSlots; ++d) acc[d] = 0;
-  for (int64_t w = threadIdx.x; w < n; w += kThreads) {
-#pragma unroll
-    for (int d = 0; d < kMaxSlots; ++d)
-      if (d < D) acc[d] += __ldcg(sums + w * D + d);
-  }
-#pragma unroll
-  for (int d = 0; d < kMaxSlots; ++d) {
-    if (d >= D) break;
-    const int sum = __reduce_add_sync(kFull, acc[d]);
-    if (lane == 0) part[warp][d] = sum;
-  }
-}
-
-// Each warp starts its slots at the old count plus the events of every
-// warp before it (in the blocks before, then in its block), each source
-// after the sources before it, and each row entry after the entries of
-// its slot in the rounds before and the lanes below it; the last block to
-// finish writes the new counts and sat.
-__global__ void __launch_bounds__(kThreads) emit_write(EmitArgs a) {
-  __shared__ int part[kEmitWarps][kMaxSlots];
-  __shared__ bool last;
-  const int64_t h = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned below = (1u << lane) - 1;
-  const int64_t t = step_t(a.ctr, a.t);
-  const int* sums = a.warp_sum + h * gridDim.x * kEmitWarps * a.D;
-  const bool active = row_source(a, h, 0, 0) >= 0;  // the block has rows
-  if (active)  // the warps of the blocks before this one
-    warp_sums_before(sums, (int64_t)blockIdx.x * kEmitWarps, a.D, lane,
-                     warp, part);
-  __syncthreads();
-  if (active) {
-    int next[kMaxSlots];
+  for (int q = 0; q < kRowRegs; ++q) {
+    off[q] = 0;
+    if (j0 + 32 * q >= a.Kf) continue;  // the same in every lane
 #pragma unroll
     for (int d = 0; d < kMaxSlots; ++d) {
       if (d >= a.D) break;
-      int base = a.count[h * a.D + d];
-      for (int w = 0; w < kEmitWarps; ++w) base += part[w][d];
-      const int* mine = sums + (int64_t)blockIdx.x * kEmitWarps * a.D + d;
-      for (int w = 0; w < warp; ++w) base += mine[w * a.D];
-      next[d] = base;
-    }
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int32_t s = row_source(a, h, warp, r);
-      if (s < 0) break;
-      const int32_t* row = a.fwd + (h * a.S + s) * a.Kf;
-      bool done = false;
-      for (int64_t j0 = 0; j0 < a.Kf && !done; j0 += 32 * kBatch) {
-        int32_t id[kBatch];
-        int slot[kBatch];
-        load_rounds(a, h, row, j0, t, lane, id, slot);
-#pragma unroll
-        for (int q = 0; q < kBatch; ++q) {
-          int at = 0;
-#pragma unroll
-          for (int d = 0; d < kMaxSlots; ++d) {
-            if (d >= a.D) break;
-            const unsigned in_d = __ballot_sync(kFull, slot[q] == d);
-            if (slot[q] == d) at = next[d] + __popc(in_d & below);
-            next[d] += __popc(in_d);
-          }
-          if (slot[q] >= 0 && at < a.cap)
-            a.ring[(h * a.D + slot[q]) * a.cap + at] = id[q];
-        }
-        done = __ballot_sync(kFull, id[kBatch - 1] < 0) != 0;
-      }
+      const unsigned in_d = __ballot_sync(kFull, slot[q] == d);
+      if (slot[q] == d) off[q] = cnt[d] + __popc(in_d & below);
+      cnt[d] += __popc(in_d);
     }
   }
-  // the last block of the shard: every block has read the old counts
-  __syncthreads();
+}
+
+// The ring writes of a row's rounds: entry at place base[slot] + off,
+// dropped at or past cap.
+__device__ __forceinline__ void row_write(const EmitArgs& a, int64_t h,
+                                          const int64_t* base,
+                                          const int32_t (&id)[kRowRegs],
+                                          const int (&slot)[kRowRegs],
+                                          const int (&off)[kRowRegs]) {
+#pragma unroll
+  for (int q = 0; q < kRowRegs; ++q) {
+    if (slot[q] < 0) continue;
+    const int64_t at = base[slot[q]] + off[q];
+    if (at < a.cap) a.ring[(h * a.D + slot[q]) * a.cap + at] = id[q];
+  }
+}
+
+__device__ __forceinline__ unsigned long long peek(
+    const unsigned long long* p) {
+  return *(const volatile unsigned long long*)p;
+}
+
+__device__ __forceinline__ void publish(unsigned long long* p,
+                                        unsigned long long status,
+                                        unsigned value) {
+  __threadfence();  // what the tile read or wrote before, then the word
+  *(volatile unsigned long long*)p = status | value;
+}
+
+// Warp-wide look-back of tile `tile` (> 0): lane j reads the words of
+// tile p - j, 32 tiles a round from p = tile - 1; per slot, the events of
+// the tiles up to the nearest one that has published its inclusive
+// prefix.  Lane d returns slot d's exclusive prefix.
+__device__ __forceinline__ unsigned look_back(
+    const unsigned long long* words, int64_t D, int64_t tile, int lane) {
+  const long long start = clock64();
+  unsigned excl = 0;
+  unsigned open = (1u << D) - 1;  // slots still looking back
+  for (int64_t p = tile - 1; open != 0; p -= 32) {
+    const int64_t j = p - lane;  // before tile 0: a prefix of 0
+    unsigned long long v[kMaxSlots];
+#pragma unroll
+    for (int d = 0; d < kMaxSlots; ++d)
+      v[d] = d < D && (open >> d & 1) && j >= 0 ? peek(words + j * D + d)
+                                                : kPrefix;
+#pragma unroll
+    for (int d = 0; d < kMaxSlots; ++d)
+      while ((v[d] >> 32) == 0) {
+        // every tile before this one was taken by a running block; one
+        // that has not published after ~10 s of clock is a fault: trap
+        // rather than hang the card
+        if (clock64() - start > kLookBackCycles) __trap();
+        v[d] = peek(words + j * D + d);
+      }
+#pragma unroll
+    for (int d = 0; d < kMaxSlots; ++d) {
+      if (d >= D) break;
+      if (!(open >> d & 1)) continue;
+      const unsigned pre = __ballot_sync(kFull, (v[d] >> 32) == 2);
+      const int stop = pre != 0 ? __ffs(pre) - 1 : 31;
+      const unsigned sum =
+          __reduce_add_sync(kFull, lane <= stop ? (unsigned)v[d] : 0u);
+      if (lane == d) excl += sum;
+      if (pre != 0) open &= ~(1u << d);
+    }
+  }
+  __threadfence();  // the words seen, then what the tile does next
+  return excl;
+}
+
+// The last listed source's tile (warp 0; lane d: slot d's old count plus
+// its events): ev_count = min(total, cap), sat += n_dropped + the events
+// past cap.
+__device__ __forceinline__ void finish(const EmitArgs& a, int64_t h,
+                                       int lane, long long total) {
+  long long over = 0;
+  if (lane < a.D) {
+    a.count[h * a.D + lane] = (int32_t)(total < a.cap ? total : a.cap);
+    over = total > a.cap ? total - a.cap : 0;
+  }
+  over = __reduce_add_sync(kFull, (unsigned)over);
+  if (lane == 0) a.sat[h] += a.n_dropped[h] + (int32_t)over;
+}
+
+__global__ void __launch_bounds__(kEmitThreads) emit_scan(EmitArgs a) {
+  __shared__ int warp_cnt[kEmitWarps][kMaxSlots];
+  __shared__ int64_t base[kEmitWarps][kMaxSlots];
+  __shared__ int64_t tile_s;
+  __shared__ bool empty, last;
+  const int64_t h = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t t = step_t(a.ctr, a.t);
+  unsigned long long* words = a.words + h * a.tiles * a.D;
+  unsigned int* ctrl = a.ctrl + 2 * h;
+  for (;;) {
+    // a block takes a tile only when it can walk it: a tile taken early
+    // would keep the tiles after it waiting in their look-back
+    if (threadIdx.x == 0) tile_s = atomicAdd(ctrl, 1u);
+    __syncthreads();
+    const int64_t tile = tile_s;
+    const int64_t row0 = tile * kEmitWarps;
+    // the warp's row; warp 0 also loads the old counts (read before the
+    // tile publishes) and whether this tile holds the last listed source
+    const int32_t s = listed(a, h, row0 + warp);
+    long long old = 0;
+    bool ends = false;
+    if (warp == 0) {
+      if (lane < a.D) old = a.count[h * a.D + lane];
+      ends = listed(a, h, row0 + kEmitWarps) < 0;
+      if (lane == 0) empty = s < 0;  // the fill: no tile from here on
+    }
+    // a row a warp: counts per slot and each entry's place in its row
+    const int32_t* row = a.fwd + (h * a.S + (s < 0 ? 0 : s)) * a.Kf;
+    int32_t id[kRowRegs];
+    int slot[kRowRegs], off[kRowRegs];
+    int cnt[kMaxSlots];
+#pragma unroll
+    for (int d = 0; d < kMaxSlots; ++d) cnt[d] = 0;
+#pragma unroll
+    for (int q = 0; q < kRowRegs; ++q) slot[q] = -1;
+    if (s >= 0) {
+      row_slots(a, h, row, 0, t, lane, id, slot, off, cnt);
+      for (int64_t j0 = 32 * kRowRegs; j0 < a.Kf; j0 += 32 * kRowRegs) {
+        int32_t id2[kRowRegs];
+        int slot2[kRowRegs], off2[kRowRegs];
+        row_slots(a, h, row, j0, t, lane, id2, slot2, off2, cnt);
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int d = 0; d < kMaxSlots; ++d)
+        if (d < a.D) warp_cnt[warp][d] = cnt[d];
+    }
+    __syncthreads();
+    if (empty) {
+      // no source listed at all: the counts as they are, the drops
+      if (tile == 0 && warp == 0) finish(a, h, lane, old);
+      break;
+    }
+    if (warp == 0) {
+      // lane d: slot d's aggregate
+      unsigned agg = 0;
+      if (lane < a.D)
+        for (int w = 0; w < kEmitWarps; ++w) agg += warp_cnt[w][lane];
+      unsigned long long* mine = words + tile * a.D;
+      if (lane < a.D) publish(mine + lane, tile == 0 ? kPrefix : kAggregate,
+                              agg);
+      unsigned excl = 0;
+      if (tile > 0) {
+        excl = look_back(words, a.D, tile, lane);
+        if (lane < a.D) publish(mine + lane, kPrefix, excl + agg);
+      }
+      long long b0 = old + excl;
+      for (int w = 0; w < kEmitWarps; ++w) {
+        if (lane < a.D) base[w][lane] = b0;
+        if (lane < a.D) b0 += warp_cnt[w][lane];
+      }
+      // the last listed source's tile: every earlier tile has published,
+      // so every one has read the old counts
+      if (ends) finish(a, h, lane, old + excl + agg);
+    }
+    __syncthreads();
+    if (s >= 0) {
+      if (a.Kf <= 32 * kRowRegs) {
+        row_write(a, h, base[warp], id, slot, off);
+      } else {  // a long row: read again, a segment at a time
+#pragma unroll
+        for (int d = 0; d < kMaxSlots; ++d) cnt[d] = 0;
+        for (int64_t j0 = 0; j0 < a.Kf; j0 += 32 * kRowRegs) {
+          row_slots(a, h, row, j0, t, lane, id, slot, off, cnt);
+          row_write(a, h, base[warp], id, slot, off);
+        }
+      }
+    }
+    __syncthreads();  // before the next tile's shared state
+  }
+  // the last block of the shard to leave clears the tile state: every
+  // tile of the launch has ended, and the counter ends at the tiles with
+  // work + one empty tile a block
   if (threadIdx.x == 0) {
     __threadfence();
-    last = atomicAdd(a.ticket + h, 1u) == gridDim.x - 1;
+    last = atomicAdd(ctrl + 1, 1u) == gridDim.x - 1;
   }
   __syncthreads();
   if (!last) return;
   __threadfence();
-  // every warp's sums, by all the block's threads
-  warp_sums_before(sums, (int64_t)gridDim.x * kEmitWarps, a.D, lane, warp,
-                   part);
-  __syncthreads();
+  const int64_t used = (int64_t)*(volatile unsigned int*)ctrl - gridDim.x;
+  for (int64_t i = threadIdx.x; i < used * a.D; i += kEmitThreads)
+    words[i] = 0;
   if (threadIdx.x == 0) {
-    long long overflow = 0;
-    for (int d = 0; d < a.D; ++d) {
-      long long total = a.count[h * a.D + d];
-      for (int w = 0; w < kEmitWarps; ++w) total += part[w][d];
-      a.count[h * a.D + d] = (int32_t)(total < a.cap ? total : a.cap);
-      if (total > a.cap) overflow += total - a.cap;
-    }
-    a.sat[h] += a.n_dropped[h] + (int32_t)overflow;
-    a.ticket[h] = 0;
+    ctrl[0] = 0;
+    ctrl[1] = 0;
   }
 }
 
@@ -416,8 +565,8 @@ int64_t stride_blocks(int64_t items, int64_t per_block, int64_t H) {
 
 }  // namespace
 
-// ptrs: ring, count, tgt, row_ptr, plastic, last_post, w, last_arr,
-// i_syn, n_arrived, fill, bucket, total, ctr (or null).
+// ptrs: ring, count, syn_tgt, row_ptr, plastic, last_post, w, last_arr,
+// i_syn, n_arrived, fill, pairs, total, ctr (or null).
 // ints: H, D, cap, E, N, t.
 // floats: a_minus, inv_tau_minus, w_min, w_max, half_neg_time.
 extern "C" int repro_event_arrival(void* const* ptrs, const int64_t* ints,
@@ -425,7 +574,7 @@ extern "C" int repro_event_arrival(void* const* ptrs, const int64_t* ints,
   ArrivalArgs a;
   a.ring = (int32_t*)ptrs[0];
   a.count = (int32_t*)ptrs[1];
-  a.tgt = (const int64_t*)ptrs[2];
+  a.syn_tgt = (const int64_t*)ptrs[2];
   a.row_ptr = (const int32_t*)ptrs[3];
   a.plastic = (const uint8_t*)ptrs[4];
   a.last_post = (const float*)ptrs[5];
@@ -434,7 +583,7 @@ extern "C" int repro_event_arrival(void* const* ptrs, const int64_t* ints,
   a.i_syn = (float*)ptrs[8];
   a.n_arrived = (int64_t*)ptrs[9];
   a.fill = (int32_t*)ptrs[10];
-  a.bucket = (int32_t*)ptrs[11];
+  a.pairs = (int2*)ptrs[11];
   a.total = (unsigned long long*)ptrs[12];
   a.ctr = (const int64_t*)ptrs[13];
   const int64_t H = ints[0];
@@ -449,15 +598,41 @@ extern "C" int repro_event_arrival(void* const* ptrs, const int64_t* ints,
   a.w_max = floats[3];
   a.half_neg_time = floats[4];
   cudaStream_t s = (cudaStream_t)stream;
+  const int64_t groups = kThreads / kLanes;
   const dim3 events((unsigned)stride_blocks(a.cap, kThreads, H), (unsigned)H);
-  const dim3 targets((unsigned)((a.N + kThreads - 1) / kThreads), (unsigned)H);
+  const dim3 targets((unsigned)((a.N + groups - 1) / groups), (unsigned)H);
   arrival_place<<<events, kThreads, 0, s>>>(a);
   arrival_sum<<<targets, kThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
-// ptrs: src_ids, n_dropped, fwd, delay, ring, count, sat, warp_sum,
-// ticket, ctr (or null).  ints: H, D, cap, E, S, Kf, C, t.
+// Blocks of emit_scan a shard: a few an SM across the H shards, at most
+// one a tile; returns a cudaError_t.
+static int emit_blocks(int64_t H, int64_t tiles, int64_t* out) {
+  static int cache[64] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int resident = dev < 64 ? cache[dev] : 0;
+  if (resident == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, emit_scan,
+                                                          kEmitThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    resident = sms * (per_sm < kEmitBlocksPerSM ? per_sm : kEmitBlocksPerSM);
+    if (dev < 64) cache[dev] = resident;
+  }
+  int64_t blocks = resident / (H > 0 ? H : 1);
+  blocks = blocks > tiles ? tiles : blocks;
+  *out = blocks < 1 ? 1 : blocks;
+  return 0;
+}
+
+// ptrs: src_ids, n_dropped, fwd, delay, ring, count, sat, words, ctrl,
+// ctr (or null).  ints: H, D, cap, E, S, Kf, C, t, tiles (the words'
+// tiles a shard: ceil(C / 8), at least 1).
 extern "C" int repro_event_emit(void* const* ptrs, const int64_t* ints,
                                 void* stream) {
   EmitArgs a;
@@ -468,8 +643,8 @@ extern "C" int repro_event_emit(void* const* ptrs, const int64_t* ints,
   a.ring = (int32_t*)ptrs[4];
   a.count = (int32_t*)ptrs[5];
   a.sat = (int32_t*)ptrs[6];
-  a.warp_sum = (int32_t*)ptrs[7];
-  a.ticket = (unsigned int*)ptrs[8];
+  a.words = (unsigned long long*)ptrs[7];
+  a.ctrl = (unsigned int*)ptrs[8];
   a.ctr = (const int64_t*)ptrs[9];
   const int64_t H = ints[0];
   a.D = ints[1];
@@ -479,12 +654,13 @@ extern "C" int repro_event_emit(void* const* ptrs, const int64_t* ints,
   a.Kf = ints[5];
   a.C = ints[6];
   a.t = ints[7];
-  if (a.D > kMaxSlots) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  // kEmitRows listed sources a block (kernels/event.py sizes warp_sum)
-  const dim3 grid((unsigned)(a.C > 0 ? (a.C + kEmitRows - 1) / kEmitRows : 1),
-                  (unsigned)H);
-  emit_count<<<grid, kThreads, 0, s>>>(a);
-  emit_write<<<grid, kThreads, 0, s>>>(a);
+  a.tiles = ints[8];
+  if (a.D > kMaxSlots || a.tiles * kEmitWarps < a.C || a.tiles < 1)
+    return (int)cudaErrorInvalidValue;
+  int64_t blocks = 0;
+  const int err = emit_blocks(H, a.tiles, &blocks);
+  if (err != 0) return err;
+  emit_scan<<<dim3((unsigned)blocks, (unsigned)H), kEmitThreads, 0,
+              (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -51,7 +51,7 @@ SIGNATURES = {
     "repro_arborize": [_P] * 5 + [_I64] * 5 + [_P, _P],
     # (pointers [14], int64 [6], float [5], stream): csrc/event.cu
     "repro_event_arrival": [_P] * 4,
-    # (pointers [9], int64 [8], stream): csrc/event.cu
+    # (pointers [10], int64 [9], stream): csrc/event.cu
     "repro_event_emit": [_P] * 3,
     "repro_event_ltp": [_P] * 10 + [_I64] * 5 + [_F] * 5 + [_P],
     "repro_izhikevich_update": [_P] * 10 + [_I64, _F, _F, _F, ctypes.c_int,

@@ -8,10 +8,10 @@ plasticity` (`event_ltp`) and `phase_b` (`event_emit`).  Each updates the
 event state in place and reads nothing back, so the step never waits on
 the card; the step t is an int, or the device step counter (int64 [2],
 `_build.step_counter`) that a captured CUDA graph advances.  Each call
-counts one launch of its op (`event_arrival` and `event_emit` each run
-two kernels on the stream; `csrc/event.cu`'s note); their integer scratch
-is `_build.scratch`'s.  Ids are read
-one element at a time, so no alignment is required.  The plain versions,
+counts one launch of its op (`event_arrival` runs two kernels on the
+stream, `event_emit` one; `csrc/event.cu`'s note); their integer scratch
+is `_build.scratch`'s, zero between launches.  Ids are read one element
+at a time, so no alignment is required.  The plain versions,
 with the same in-place contract, are `kernels.ref.event_arrival`,
 `kernels.ref.event_ltp` and `kernels.ref.event_emit`.
 """
@@ -26,9 +26,10 @@ from .ref import reciprocal_f32
 
 #: The most delay slots `event_emit` takes (`csrc/event.cu::kMaxSlots`).
 MAX_SLOTS = 16
-#: Listed sources a block of the emission kernels owns, and its warps
-#: (`csrc/event.cu::kEmitRows`, `kEmitWarps`).
-EMIT_ROWS, EMIT_WARPS = 64, 8
+#: Listed sources a tile of the emission scan holds, a row a warp
+#: (`csrc/event.cu::kEmitWarps`); a row of more than EMIT_ROW_REGS entries
+#: is read twice (`kRowRegs` rounds of 32 in registers).
+EMIT_ROWS, EMIT_ROW_REGS = 8, 256
 
 
 def _stream():
@@ -45,7 +46,10 @@ def event_arrival(ev_ring, ev_count, syn_tgt, row_ptr, syn_plastic,
     tensors on one device; t an int or the step counter -> (i_syn [H, N]
     fp32, n_arrived [H] int64).  Slot t mod D holds its events in
     [0, ev_count) and -1 after them, each synapse at most once; updates w,
-    last_arr, that slot's entries (-1) and its count (0) in place."""
+    last_arr, that slot's entries (-1) and its count (0) in place.  The
+    kernel finds each event's target as `csrc/event.cu`'s
+    REPRO_ARRIVAL_TARGET says (the CSR row of row_ptr holding the synapse,
+    or syn_tgt): the same target for every valid synapse."""
     name = "event_arrival"
     H, D, cap = ev_ring.shape
     N = last_post.shape[1]
@@ -68,11 +72,12 @@ def event_arrival(ev_ring, ev_count, syn_tgt, row_ptr, syn_plastic,
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = _stream()
-        # fill counts, buckets (a target's is its CSR row), and the
-        # arrivals per shard as uint64
-        scratch = [_build.scratch(dev, k, n) for k, n in (
-            ("arrival_fill", H * N), ("arrival_bucket", H * E),
-            ("arrival_total", 2 * H))]
+        # fill counts, buckets of (list index, weight bits) pairs (a
+        # target's is its CSR row), and the arrivals per shard as uint64
+        scratch = [_build.scratch(dev, k, n, dtype) for k, n, dtype in (
+            ("arrival_fill", H * N, torch.int32),
+            ("arrival_pairs", H * E, torch.int64),
+            ("arrival_total", 2 * H, torch.int32))]
         ptrs = (ctypes.c_void_p * 14)(
             ev_ring.data_ptr(), ev_count.data_ptr(), syn_tgt.data_ptr(),
             row_ptr.data_ptr(), syn_plastic.data_ptr(), last_post.data_ptr(),
@@ -158,15 +163,17 @@ def event_emit(src_ids, n_dropped, fwd_rows, syn_delay, ev_ring, ev_count,
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = _stream()
-        blocks = max(1, -(-C // EMIT_ROWS))
-        warp_sum = _build.scratch(dev, "emit_warp_sum",
-                                  H * blocks * EMIT_WARPS * D)
-        ticket = _build.scratch(dev, "emit_ticket", H)
+        # per tile and slot a status and value word; per shard the tile
+        # counter and the blocks that have left
+        tiles = max(1, -(-C // EMIT_ROWS))
+        words = _build.scratch(dev, "emit_words", H * tiles * D,
+                               torch.int64)
+        ctrl = _build.scratch(dev, "emit_ctrl", 2 * H)
         ptrs = (ctypes.c_void_p * 10)(
             src_ids.data_ptr(), n_dropped.data_ptr(), fwd_rows.data_ptr(),
             syn_delay.data_ptr(), ev_ring.data_ptr(), ev_count.data_ptr(),
-            sat.data_ptr(), warp_sum.data_ptr(), ticket.data_ptr(), ctr)
-        ints = (ctypes.c_int64 * 8)(H, D, cap, E, S, Kf, C, t_int)
+            sat.data_ptr(), words.data_ptr(), ctrl.data_ptr(), ctr)
+        ints = (ctypes.c_int64 * 9)(H, D, cap, E, S, Kf, C, t_int, tiles)
         err = lib.repro_event_emit(ptrs, ints, stream)
     _build.check(err, name)
     _build.counted(name)

@@ -38,6 +38,7 @@ sys.path.insert(0, str(ROOT / "src"))     # run as a script
 from repro_torch.core import (DEFAULT_IZH, DEFAULT_STDP,  # noqa: E402
                               EngineConfig, GridConfig, StepProgram, aer,
                               engine, event_engine, observables)
+from repro_torch.kernels import event as kev  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
@@ -519,20 +520,23 @@ def test_time_phases_on_card_equals_run(cuda, schedule):
 # -- event delivery and the captured run ----------------------------------
 
 
-def _event_inputs(H, density, t, seed, cap=None):
-    """A 2x2 event plan at H shards and a numpy-seeded event state on the
-    CPU: weights, last spike and arrival times, ring slot t mod D listing
-    `density` of each shard's valid synapses in random order (the other
-    slots a third of that, at most `cap`), and `density` of the neurons
-    and of the sources spiking."""
-    sp = StepProgram(SMALL, EngineConfig(n_shards=H, delivery="event"),
+def _event_inputs(H, density, t, seed, cap=None, cfg=SMALL,
+                  src_density=None):
+    """An event plan of `cfg` (a 2x2 grid by default) at H shards and a
+    numpy-seeded event state on the CPU: weights, last spike and arrival
+    times, ring slot t mod D listing `density` of each shard's valid
+    synapses in random order (the other slots a third of that, at most
+    `cap` entries a slot: the plan's cap_ev by default, "E" for E), and
+    `density` of the neurons and `src_density` (`density` by default) of
+    the sources spiking."""
+    sp = StepProgram(cfg, EngineConfig(n_shards=H, delivery="event"),
                      device="cpu")
     st = sp.init_state()
     rng = np.random.default_rng(seed)
     H, E = sp.plan.syn_valid.shape
     N, S = sp.plan.gid.shape[1], sp.plan.src_gid.shape[1]
-    D = SMALL.n_delay_slots
-    cap = cap or st.ev_ring.shape[2]
+    D = cfg.n_delay_slots
+    cap = E if cap == "E" else cap or st.ev_ring.shape[2]
     f = lambda x: torch.from_numpy(np.asarray(x, np.float32))
     times = lambda shape: f(np.where(rng.random(shape) < 0.7,
                                      rng.uniform(t - 200.0, t, shape),
@@ -551,8 +555,9 @@ def _event_inputs(H, density, t, seed, cap=None):
         base=base, ev_ring=torch.from_numpy(ring),
         ev_count=torch.from_numpy(count),
         sat=torch.from_numpy(rng.integers(0, 3, H).astype(np.int32)))
+    src_density = density if src_density is None else src_density
     return sp, state, torch.from_numpy(rng.random((H, N)) < density), \
-        torch.from_numpy(rng.random((H, S)) < density)
+        torch.from_numpy(rng.random((H, S)) < src_density)
 
 
 def _event_ops(sp, st, spiked, spiked_src, t, c_post=None, c_src=None,
@@ -620,6 +625,92 @@ def test_event_kernels_equal_plain_versions(cuda, H, density):
     assert ops.launch_counts() == dict(dict.fromkeys(ops.KERNELS, 0),
                                        event_arrival=n, event_ltp=n,
                                        event_emit=n)
+
+
+# Plans whose targets' buckets outgrow the arrivals' sum: its registers
+# (64 pairs a target), its shared staging (128 weights a target: in-degree
+# up to 248 in LONG, 370 in WIDE) and, in WIDE, the emission's registers
+# (256 entries of a forward row: its rows have 300).
+LONG = GridConfig(grid_x=1, grid_y=1, neurons_per_column=300,
+                  synapses_per_neuron=200, seed=5)
+WIDE = GridConfig(grid_x=1, grid_y=1, neurons_per_column=400,
+                  synapses_per_neuron=300, seed=6)
+# (cfg, t, share of the valid synapses listed in slot t mod D, share of
+# the sources spiking, ring cap)
+LONG_CASES = {"slot_0.6": (LONG, 1003, 0.6, 0.6, "E"),
+              "all_listed_t-1": (LONG, -1, 1.0, 0.6, "E"),
+              "overflow": (LONG, 17, 0.01, 1.0, 2000),
+              "wide_rows": (WIDE, 5, 1.0, 1.0, "E")}
+
+
+def _first_overflow_tile(sp, st, src_ids, t):
+    """The emission tile (`kernels.event.EMIT_ROWS` listed sources) of
+    shard 0 whose events first fill a ring slot past cap, or None."""
+    D, cap = st.ev_ring.shape[1:]
+    fill = st.ev_count[0].clone().to(torch.int64)
+    S = sp.eplan.fwd_rows.shape[1]
+    for k, s in enumerate(src_ids[0].tolist()):
+        if s >= S:
+            return None
+        ids = sp.eplan.fwd_rows[0, s]
+        ids = ids[ids >= 0].to(torch.int64)
+        fill += torch.bincount((sp.plan.syn_delay[0, ids] + t) % D,
+                               minlength=D)
+        if bool((fill > cap).any()):
+            return k // kev.EMIT_ROWS
+    return None
+
+
+@pytest.mark.parametrize("case", list(LONG_CASES))
+def test_event_kernels_on_long_buckets_and_rows(cuda, case):
+    """event_arrival and event_emit (with event_ltp between them, a step's
+    order) bit-equal to their plain versions on a CPU copy and on the card
+    where buckets outgrow the sum's registers and staging (every valid
+    synapse listed; up to 248 and 370 events a target), rows outgrow the
+    emission's registers, sources span many emission tiles, and the ring
+    overflows in a tile before the last; at t = -1 too.  Each case is
+    called twice at the same t on restored inputs: the scratch and the
+    emission's tile state are zero again after a call."""
+    cfg, t, density, src_density, cap = LONG_CASES[case]
+    sp, st, spk, src = _event_inputs(1, density, t, seed=len(case),
+                                     cap=cap, cfg=cfg,
+                                     src_density=src_density)
+    S = src.shape[1]
+    r = t % cfg.n_delay_slots
+    ev = st.ev_ring[0, r]
+    tgt = sp.plan.syn_tgt[0, ev[ev >= 0].to(torch.int64)]
+    longest = int(torch.bincount(tgt).max()) if tgt.numel() else 0
+    src_ids, _ = aer.compact_indices(src, S, fill=S)
+    tiles = -(-int((src_ids < S).sum()) // kev.EMIT_ROWS)
+    if case == "overflow":
+        at = _first_overflow_tile(sp, st, src_ids, t)
+        assert at is not None and at < tiles - 1
+    else:
+        assert longest > 128 and tiles > 16
+    if case == "wide_rows":
+        assert sp.eplan.fwd_rows.shape[2] > kev.EMIT_ROW_REGS
+    to = lambda x: x.to(cuda, copy=True)
+    gp = sp.plan._replace(**{k: to(v) for k, v in sp.plan._asdict()
+                             .items()})
+    gsp = StepProgram.from_parts(sp.spec, gp, eplan=event_engine
+                                 .EventPlan(*map(to, sp.eplan)))
+    with ref.flush_denormal():
+        want = _event_ops(sp, engine.clone_state(st), spk, src, t, c_src=S,
+                          plain=True)
+    want_gpu = _event_ops(gsp, engine.map_state(to, st), to(spk), to(src),
+                          t, c_src=S, plain=True)
+    ops.reset_launch_counts()
+    for _ in range(2):
+        got = _event_ops(gsp, engine.map_state(to, st), to(spk), to(src), t,
+                         c_src=S)
+        torch.cuda.synchronize()
+        for a, b, c in zip(got, want, want_gpu):
+            assert _bits_equal(a, b) and _bits_equal(a, c)
+    if case == "overflow":                    # sat is the last tensor
+        assert int(want[-1][0]) > int(st.sat[0])
+    assert ops.launch_counts() == dict(dict.fromkeys(ops.KERNELS, 0),
+                                       event_arrival=2, event_ltp=2,
+                                       event_emit=2)
 
 
 @pytest.mark.parametrize("delivery", ["dense", "event"])

@@ -14,6 +14,11 @@ says otherwise:
   and the current alone against XLA-CPU's scatter-add), LTP (with and
   without an overflowing c_post), emission (t = -1, a wrapping t, an
   overflowing ring and c_src);
+* `kernels.ref.event_arrival` and `kernels.ref.event_emit` on LONG (1x1,
+  300 neurons, M = 200: in-degree up to ~250, the long buckets the card
+  kernels are held on): 60% and every valid synapse listed, -1 holes
+  inside the list, and rings that fill past cap between listed rows, also
+  at t = -1;
 * 120-step runs at H=1 block, H=4 block and H=4 scatter: raster, weight
   signature, v, u, ev_ring, ev_count and sat;
 * each saturation path of `tests/test_event_engine.py` (cap_ev = 8,
@@ -52,6 +57,16 @@ SMALL = dict(grid_x=2, grid_y=2, neurons_per_column=100,
              synapses_per_neuron=40, seed=7)
 SAT_CFG = dict(grid_x=1, grid_y=1, neurons_per_column=100,
                synapses_per_neuron=40, seed=3)
+LONG = dict(grid_x=1, grid_y=1, neurons_per_column=300,
+            synapses_per_neuron=200, seed=5)
+# arrivals on LONG: (t, share of the valid synapses listed in slot t mod D,
+# share of the listed entries then set to -1)
+LONG_ARRIVAL = {"slot_0.6": (1003, 0.6, 0.0), "all_listed": (-1, 1.0, 0.0),
+                "holes": (1004, 1.0, 0.1)}
+# emission on LONG: (t, share of the sources spiking, ring cap), every
+# spiking source listed; the ring fills past cap between listed rows
+LONG_EMIT = {"overflow": (1005, 1.0, 2000),
+             "overflow_prologue": (-1, 0.7, 1500)}
 STEPS = 120
 SAT_STEPS = 80
 CARRY_AT, CARRY_TO = 50, 100
@@ -247,6 +262,72 @@ def _jax_kernel_cases(path: str) -> dict:
     return {}
 
 
+def _jax_long_cases(path: str) -> dict:
+    """The plain arrivals and emission of LONG_ARRIVAL and LONG_EMIT on
+    numpy-seeded states of LONG's H=1 plan (the plan's tables, inputs and
+    outputs saved to `path`)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core import event_engine as EV
+    from repro.core import stimulus as JS
+    spec, plan, eplan, state = _jax_build(LONG, dict(n_shards=1))
+    one = lambda tree: jax.tree.map(lambda x: x[0], tree)
+    p1, ep1, s1 = one(plan), one(eplan), one(state)
+    valid = np.asarray(p1.syn_valid)
+    E, D = valid.shape[0], spec.cfg.n_delay_slots
+    S = np.asarray(p1.src_gid).shape[0]
+    stim_k = JS.stim_key(spec.cfg)
+    rng = np.random.default_rng(23)
+    arrays = {f"plan.{k}": np.asarray(getattr(p1, k))
+              for k in ("syn_tgt", "syn_plastic", "syn_delay")}
+    arrays["plan.fwd_rows"] = np.asarray(ep1.fwd_rows)
+
+    def run(prefix, d, fn, t):
+        for k, x in d.items():
+            arrays[f"{prefix}.in.{k}"] = np.asarray(x)
+        base = s1.base._replace(**{k: jnp.asarray(d[k]) for k in (
+            "w", "last_post", "last_arr", "v", "u")})
+        st = s1._replace(base=base, ev_ring=jnp.asarray(d["ev_ring"]),
+                         ev_count=jnp.asarray(d["ev_count"]))
+        return jax.jit(fn)(st, jnp.int32(t))
+
+    def out_state(prefix, st):
+        for k, x in dict(w=st.base.w, last_arr=st.base.last_arr,
+                         ev_ring=st.ev_ring, ev_count=st.ev_count,
+                         sat=st.sat).items():
+            arrays[f"{prefix}.out.{k}"] = np.asarray(x)
+
+    for label, (t, density, holes) in LONG_ARRIVAL.items():
+        d = _seeded_event_state(rng, s1, valid, t, density, D, E)
+        d.pop("exc")
+        r, k = t % D, d["ev_count"][t % D]
+        d["ev_ring"][r, :k][rng.random(k) < holes] = -1
+        new, _, tm = run(f"arrival.{label}", d, lambda s, t: (
+            EV.phase_a_dynamics(spec, p1, ep1, s, t, stim_k)), t)
+        out_state(f"arrival.{label}", new)
+        arrays[f"arrival.{label}.arrivals"] = np.asarray(tm.arrivals)
+
+        # the current: event_engine.py's lines, XLA-CPU's scatter-add
+        def current(s, t):
+            ev = s.ev_ring[jnp.mod(t, D)]
+            eve = jnp.maximum(ev, 0)
+            return jnp.zeros((spec.n_local,), jnp.float32).at[
+                p1.syn_tgt[eve]].add(jnp.where(ev >= 0, s.base.w[eve], 0.0))
+        arrays[f"arrival.{label}.i_syn"] = np.asarray(run(
+            f"arrival.{label}", d, current, t))
+
+    for label, (t, share, cap) in LONG_EMIT.items():
+        d = _seeded_event_state(rng, s1, valid, t + 1, 0.02, D, cap)
+        d.pop("exc")
+        src = rng.random(S) < share
+        arrays[f"emit.{label}.spiked_src"] = src
+        out = run(f"emit.{label}", d, lambda s, t: EV.phase_b(
+            spec, p1, ep1, s, jnp.asarray(src), t, c_src=S), t)
+        out_state(f"emit.{label}", out)
+    np.savez(path, **arrays)
+    return {}
+
+
 def _jax_runs(path: str) -> dict:
     """RUN_LAYOUTS' runs and the carried-state case (plan and state at
     CARRY_AT, the uninterrupted run to CARRY_TO, saved to `path`)."""
@@ -289,9 +370,10 @@ def _avx_jobs(tmp_path_factory):
     them."""
     tmp = tmp_path_factory.mktemp("event")
     kernels, carry = tmp / "kernels.npz", tmp / "carry.npz"
+    long = tmp / "long.npz"
     procs = start_avx(__file__, [["--kernels", kernels], ["--runs", carry],
-                                 ["--saturation"]])
-    yield procs, kernels, carry
+                                 ["--saturation"], ["--long", long]])
+    yield procs, kernels, carry, long
     for p in procs:
         if p.poll() is None:
             p.kill()
@@ -300,12 +382,13 @@ def _avx_jobs(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def jax_ref(_avx_jobs):
-    procs, kernels, carry = _avx_jobs
+    procs, kernels, carry, long = _avx_jobs
     ref_ = {}
     for out in wait_avx(procs, timeout=900):
         ref_.update(json.loads(out.strip().splitlines()[-1]))
     ref_["kernels"] = dict(np.load(kernels))
     ref_["carry_arrays"] = dict(np.load(carry))
+    ref_["long"] = dict(np.load(long))
     return ref_
 
 
@@ -440,6 +523,81 @@ def test_event_emit_plain_equals_jax(jax_ref, label):
                               c_src=c["c_src"])
     assert_state(st, z, f"emit.{label}.out", ("ev_ring", "ev_count", "sat"))
     assert (int(st.sat[0]) > 0) == (label in ("overflow", "c_src"))
+
+
+_long = {}
+
+
+def long_program() -> StepProgram:
+    """The port's H=1 event program at LONG (built once)."""
+    if not _long:
+        _long["sp"] = port_program(LONG, dict(n_shards=1))
+    return _long["sp"]
+
+
+def test_long_plan_equals_jax(jax_ref):
+    z, sp = jax_ref["long"], long_program()
+    for k in ("syn_tgt", "syn_plastic", "syn_delay"):
+        assert np.array_equal(getattr(sp.plan, k)[0].numpy(),
+                              z[f"plan.{k}"]), k
+    assert np.array_equal(sp.eplan.fwd_rows[0].numpy(), z["plan.fwd_rows"])
+
+
+@pytest.mark.parametrize("label", list(LONG_ARRIVAL))
+def test_event_arrival_long_buckets_equal_jax(jax_ref, label):
+    """`kernels.ref.event_arrival` on LONG's buckets (over 128 events a
+    target) and -1 holes: the current, the arrivals, w, last_arr and the
+    cleared slot are the JAX event backend's bits."""
+    z, sp = jax_ref["long"], long_program()
+    t, _, holes = LONG_ARRIVAL[label]
+    st = port_state(sp, z, f"arrival.{label}.in")
+    r = t % st.ev_ring.shape[1]
+    ev = st.ev_ring[0, r, :int(st.ev_count[0, r])]
+    tgt = sp.plan.syn_tgt[0, ev[ev >= 0].to(torch.int64)]
+    assert int(torch.bincount(tgt).max()) > 128
+    assert bool((ev < 0).any()) == (holes > 0)
+    stdp = sp.spec.stdp
+    with ref.flush_denormal():
+        i_syn, n_arrived = ref.event_arrival(
+            st.ev_ring, st.ev_count, r, sp.plan.syn_tgt,
+            sp.plan.syn_plastic, st.base.last_post, st.base.w,
+            st.base.last_arr, t, a_minus=stdp.a_minus,
+            tau_minus=stdp.tau_minus, w_min=stdp.w_min, w_max=stdp.w_max,
+            neg_time=NEG_TIME)
+    assert i_syn[0].numpy().tobytes() == z[f"arrival.{label}.i_syn"].tobytes()
+    assert int(n_arrived[0]) == int(z[f"arrival.{label}.arrivals"])
+    assert_state(st, z, f"arrival.{label}.out",
+                 ("w", "last_arr", "ev_ring", "ev_count"))
+
+
+@pytest.mark.parametrize("label", list(LONG_EMIT))
+def test_event_emit_long_rows_equal_jax(jax_ref, label):
+    """`kernels.ref.event_emit` of LONG's spiking sources, all listed, into
+    a ring that fills past cap between listed rows: the ring, the counts
+    and sat are the JAX event backend's bits."""
+    z, sp = jax_ref["long"], long_program()
+    t = LONG_EMIT[label][0]
+    st = port_state(sp, z, f"emit.{label}.in")
+    src = torch.from_numpy(z[f"emit.{label}.spiked_src"])[None]
+    S = src.shape[1]
+    ids, drop = aer.compact_indices(src, S, fill=S)
+    # the first listed source whose row fills a slot past cap
+    D, cap = st.ev_ring.shape[1:]
+    fill = st.ev_count[0].to(torch.int64).clone()
+    listed = ids[0][ids[0] < S].tolist()
+    first = None
+    for k, s in enumerate(listed):
+        row = sp.eplan.fwd_rows[0, s]
+        row = row[row >= 0].to(torch.int64)
+        fill += torch.bincount((sp.plan.syn_delay[0, row] + t) % D,
+                               minlength=D)
+        if first is None and bool((fill > cap).any()):
+            first = k
+    assert first is not None and 0 < first < len(listed) - 1
+    ref.event_emit(ids.contiguous(), drop, sp.eplan.fwd_rows,
+                   sp.plan.syn_delay, st.ev_ring, st.ev_count, st.sat, t)
+    assert_state(st, z, f"emit.{label}.out", ("ev_ring", "ev_count", "sat"))
+    assert int(st.sat[0]) > 0
 
 
 @pytest.mark.parametrize("name", list(RUN_LAYOUTS))
@@ -614,6 +772,8 @@ if __name__ == "__main__":
     sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
     if sys.argv[1] == "--kernels":
         print(json.dumps(_jax_kernel_cases(sys.argv[2])))
+    elif sys.argv[1] == "--long":
+        print(json.dumps(_jax_long_cases(sys.argv[2])))
     elif sys.argv[1] == "--runs":
         print(json.dumps(_jax_runs(sys.argv[2])))
     else:
