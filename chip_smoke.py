@@ -39,12 +39,18 @@ every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
            fused arrival row against the pair it replaced (`stdp_arrival`
            then `segment_sum_ordered`), each bit-equal to what it
            replaced, on the same restored inputs: no PyTorch call does
-           either.  Phase B's kernel (`arborize`) runs on the 8x8 plan's
-           own synapse tables with 2.15% and 21.5% of the sources spiking,
-           bit-equal to its plain version (the reference's
-           broadcast-compare) on a CPU copy and on the card and to the
-           sequence it replaced (gather, `nonzero`, index put), which is
-           timed beside it; an all-False mask at t = -1 must set nothing.
+           either.  Phase B's kernel (`arborize`, source-major over the
+           plan's forward CSR; element-major where a sample of the spike
+           flags shows 18% or more spiking) runs on the 8x8 plan's own
+           tables with 2.15%, 10.75%, 21.5% and 43% of the sources
+           spiking, bit-equal to its plain
+           version (the reference's broadcast-compare) on a CPU copy and
+           on the card, to the element-major kernel it replaced
+           (`arborize_elements`) and to the sequence before that (gather,
+           `nonzero`, index put), both timed beside it, its bound from the
+           bytes the work needs (and counted by 32-B sectors, and the
+           element-major design's); an all-False mask at t = -1 must set
+           nothing.
            The event delivery's three ops (`event_arrival`, `event_ltp`,
            `event_emit`) run on the 8x8 event plan's own tables with the
            ring's list, the spikes and the sources drawn at 2.15% and
@@ -58,7 +64,11 @@ every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
            kernel alone, and the op's accesses at its events'
            synapses alone (w and plastic gathered, last_arr written, as
            PyTorch indexing calls); for the emission, its delay loads
-           alone (one indexing call).  The phase also prints ptxas's
+           alone (one indexing call).  `event_emit` also runs on rings of
+           21 and 40 slots (a 2x2 event plan at full width, delay_max 20
+           and 39: the kernel scans 16 slots a pass), bit-equal to its
+           plain version on a CPU copy and on the card, timed beside it
+           (rows `d21`, `d40`).  The phase also prints ptxas's
            registers and spills of `stdp.cu`, `arborize.cu` and
            `event.cu`;
   check    both deliveries (`StepProgram(..., device="cuda").run`; the
@@ -820,75 +830,106 @@ def _replaced_phase_b(ring, spiked_src, syn_src, syn_delay, syn_valid, t):
 
 
 def _arborize_rows(plan8, spec8):
-    """Phase B's kernel on plan8's own synapse tables, with the sources
-    spiking at the main path's share (2.15%) and at 10x it, at a t whose
-    slots wrap: bit-equal to its plain version (the reference's
-    broadcast-compare) on a CPU copy and on the card, and to the sequence
-    it replaced; an all-False spike mask at t = -1 (the pipelined
-    schedule's prologue) sets nothing.  Timed beside its bound and the
-    replaced sequence.  Setting flags that are set changes nothing, so the
-    calls need no restore between them."""
+    """Phase B's kernel (`arborize`, source-major over the plan's forward
+    CSR, element-major where a sample shows 18% or more of the sources
+    spiking: `walk`) on plan8's own tables, with the sources spiking at
+    the main path's share (2.15%) and at 5x, 10x and 20x it, at a t whose
+    slots wrap:
+    bit-equal to its plain version (the reference's broadcast-compare) on
+    a CPU copy and on the card, to the element-major kernel it replaced
+    (`arborize_elements`) and to the sequence before that; an all-False
+    spike mask at t = -1 (the pipelined schedule's prologue) sets nothing.
+    Timed beside its bound, the element-major kernel and the replaced
+    sequence, on the same inputs.  Setting flags that are set changes
+    nothing, so the calls need no restore between them."""
     H, E = plan8.syn_valid.shape
     S = plan8.src_gid.shape[1]
     D = spec8.cfg.n_delay_slots
     t = 1003                           # t mod D = 5: most slots wrap
     tables = (plan8.syn_src, plan8.syn_delay, plan8.syn_valid)
+    csr = (plan8.fwd_ptr, plan8.fwd_ids, plan8.fwd_delay)
     tables_cpu = tuple(x.cpu() for x in tables)
     n_valid = int(plan8.syn_valid.sum())
     rng = np.random.default_rng(2019)
     ring0 = torch.from_numpy(rng.random((H, D, E), dtype=np.float32)
                              < STDP_DENSITY) & tables_cpu[2][:, None]
     rows, failed = [], []
-    for label, density in (("main", STDP_DENSITY), ("10x", 10 * STDP_DENSITY)):
+    for label, density in (("main", STDP_DENSITY), ("5x", 5 * STDP_DENSITY),
+                           ("10x", 10 * STDP_DENSITY),
+                           ("20x", 20 * STDP_DENSITY)):
         spiked_cpu = torch.from_numpy(rng.random((H, S)) < density)
         spiked = spiked_cpu.cuda()
         ring = ring0.cuda()
-        got = karb.arborize(ring, spiked, *tables, t).clone()
+        got = karb.arborize(ring, spiked, *tables, *csr, t).clone()
         torch.cuda.synchronize()
         want = kref.arborize(ring0.clone(), spiked_cpu, *tables_cpu, t)
         want_gpu = kref.arborize(ring0.cuda(), spiked, *tables, t)
+        elements = karb.arborize_elements(ring0.cuda(), spiked, *tables, t)
         replaced = _replaced_phase_b(ring0.cuda(), spiked, *tables, t)
         silent = karb.arborize(ring0.cuda(), torch.zeros_like(spiked),
-                               *tables, -1)
+                               *tables, *csr, -1)
         equal = (bit_equal(got, want) and bit_equal(got, want_gpu)
-                 and bit_equal(got, replaced) and bit_equal(silent, ring0))
+                 and bit_equal(got, elements) and bit_equal(got, replaced)
+                 and bit_equal(silent, ring0))
         if not equal:
             failed.append(f"arborize ({label})")
         err = max(max_abs_err(got, want), max_abs_err(got, want_gpu))
-        del want, want_gpu, replaced, silent
+        del want, want_gpu, elements, replaced, silent
         n_active = int((torch.gather(spiked, 1, plan8.syn_src)
                         & plan8.syn_valid).sum())
-        # valid flags, the source index of each valid synapse, the spike
-        # flags once, and per active synapse its delay in and flag out
-        n_bytes = H * E + n_valid * 8 + H * S + n_active * (4 + 1)
+        n_spiking = int(spiked_cpu.sum())
+        # what the work needs: the spike flags once, the two row pointers
+        # of each spiking source, and per synapse it sets its id and delay
+        # in (int32 each) and its flag out
+        n_bytes = H * S + n_spiking * 8 + n_active * (4 + 4 + 1)
         bms, by = bound(n_bytes, 0)
-        launch = lambda: karb.arborize(ring, spiked, *tables, t)
-        old = lambda: _replaced_phase_b(ring, spiked, *tables, t)
+        # the same with each flag's store counted as the 32-B sector it
+        # lands in; and the element-major design's bound (every valid flag
+        # and int64 source, the spike flags, the active delays and flags)
+        sector_bytes = H * S + n_spiking * 8 + n_active * (4 + 4 + 32)
+        element_bytes = H * E + n_valid * 8 + H * S + n_active * (4 + 1)
+        launch = lambda: karb.arborize(ring, spiked, *tables, *csr, t)
+        old = lambda: karb.arborize_elements(ring, spiked, *tables, t)
+        seq = lambda: _replaced_phase_b(ring, spiked, *tables, t)
         rows.append(dict(
             name="arborize", route="cuda",
             source="src/repro_torch/csrc/arborize.cu",
             replaces="src/repro/core/engine.py:315", launches=None,
             max_abs_err=err, ms=cuda_ms(launch),
-            device_ms=device_ms(launch, kernel="arborize_kernel"),
+            device_ms=device_ms(launch, kernel="arborize_rows"),
             plain_ms=cuda_ms(lambda: kref.arborize(ring, spiked, *tables, t),
                              calls=3),
-            bound_ms=bms, bound_by=by, library_ms=None,
+            bound_ms=bms, bound_by=by,
+            bound_note="the bytes the work needs: spike flags, two row "
+                       "pointers a spiking source, 4 + 4 B in and a 1-B "
+                       "flag out a synapse set",
+            sector_bound_ms=bound(sector_bytes, 0)[0],
+            element_major_bound_ms=bound(element_bytes, 0)[0],
+            element_major_ms=cuda_ms(old),
+            element_major_device_ms=device_ms(old,
+                                              kernel="arborize_elements"),
+            device_ms_again=device_ms(launch, kernel="arborize_rows"),
+            library_ms=None,
             library_note="no single PyTorch call does phase B; the "
-                         "sequence it replaced is in replaced_*",
+                         "sequence the element-major kernel replaced is in "
+                         "replaced_*",
             replaced="gather by syn_src, & syn_valid, torch.nonzero (a host "
                      "synchronisation), the slots, an index put",
-            replaced_ms=cuda_ms(old, calls=5),
-            replaced_device_ms=device_ms(old),
-            replaced_device_ops=device_ops(old, lambda: None),
+            replaced_ms=cuda_ms(seq, calls=5),
+            replaced_device_ms=device_ms(seq),
+            replaced_device_ops=device_ops(seq, lambda: None),
             equal=equal,
             tolerance="bit-equal (every flag of the ring), to the plain "
-                      "version on a CPU copy and on the card and to the "
-                      "sequence it replaced; an all-False mask at t = -1 "
-                      "sets nothing",
-            density=label, bytes=n_bytes, flops=0,
+                      "version on a CPU copy and on the card, to the "
+                      "element-major kernel and to the sequence before it; "
+                      "an all-False mask at t = -1 sets nothing",
+            walk=("element-major" if karb.walks_elements(spiked_cpu)[0]
+                  else "source-major"),
+            density=label, bytes=n_bytes, sector_bytes=sector_bytes,
+            element_major_bytes=element_bytes, flops=0,
             shape={"H": H, "E": E, "D": D, "S": S, "t": t,
                    "valid": n_valid, "active": n_active,
-                   "spiking_sources": int(spiked_cpu.sum())}))
+                   "spiking_sources": n_spiking}))
         del ring, spiked
     return rows, failed
 
@@ -1147,6 +1188,85 @@ def _event_rows(sp8e, lookup):
     return rows, failed
 
 
+def _event_emit_long_rings():
+    """`event_emit` on rings of 21 and 40 slots (delay_max 20 and 39; the
+    kernel scans 16 slots a pass): a 2x2 event plan at full width (800,000
+    synapses), ring slots listing a share of the valid synapses as phase B
+    left them, 2.15% of the sources spiking, all listed (c_src = S):
+    bit-equal to its plain version on a CPU copy and on the card in ring,
+    counts and sat, timed beside its bound and its plain version."""
+    rows, failed = [], []
+    rng = np.random.default_rng(2023)
+    for label, delay_max in (("d21", 20), ("d40", 39)):
+        sp = StepProgram(GridConfig(grid_x=2, grid_y=2, delay_max=delay_max),
+                         EngineConfig(delivery="event"), device="cuda")
+        plan, eplan = sp.plan, sp.eplan
+        H, E = plan.syn_valid.shape
+        S = plan.src_gid.shape[1]
+        D, cap, t = sp.spec.cfg.n_delay_slots, sp.cap_ev, 1003
+        pg = dict(fwd=eplan.fwd_rows, delay=plan.syn_delay)
+        pc = {k: v.cpu() for k, v in pg.items()}
+        st = _event_state(rng, dict(valid=plan.syn_valid.cpu(),
+                                    row_ptr=plan.row_ptr.cpu()),
+                          t + 1, STDP_DENSITY, cap, D)
+        spiked_src = torch.from_numpy(rng.random((H, S)) < STDP_DENSITY)
+        ids, drop = aer.compact_indices(spiked_src, S, fill=S)
+        ins = dict(src_ids=ids.contiguous(), src_drop=drop,
+                   ev_ring=st["ev_ring"], ev_count=st["ev_count"],
+                   sat=st["sat"])
+        saved = {k: v.cuda() for k, v in ins.items()}
+        work = {k: v.clone() for k, v in saved.items()}
+
+        def restore():
+            for k in ("ev_ring", "ev_count", "sat"):
+                work[k].copy_(saved[k])
+
+        def emit_op(impl, d, p):
+            impl.event_emit(d["src_ids"], d["src_drop"], p["fwd"],
+                            p["delay"], d["ev_ring"], d["ev_count"],
+                            d["sat"], t)
+            return d["ev_ring"], d["ev_count"], d["sat"]
+
+        got = [x.clone() for x in emit_op(kev, work, pg)]
+        torch.cuda.synchronize()
+        want = emit_op(kref, {k: v.clone() for k, v in ins.items()}, pc)
+        restore()
+        want_gpu = emit_op(kref, work, pg)
+        equal = all(bit_equal(a, b) and bit_equal(a, c)
+                    for a, b, c in zip(got, want, want_gpu))
+        if not equal:
+            failed.append(f"event_emit ({label})")
+        err = max(max(max_abs_err(a, b), max_abs_err(a, c))
+                  for a, b, c in zip(got, want, want_gpu))
+        listed = ids < S
+        fwd = torch.gather(pc["fwd"], 1, torch.clamp(ids, max=S - 1).to(
+            torch.int64)[:, :, None].expand(-1, -1, pc["fwd"].shape[2]))
+        emitted = int(((fwd >= 0) & listed[:, :, None]).sum())
+        # the list; per emitted event its row entry and delay in and its
+        # id out; the counts and sat
+        n_bytes = ids.numel() * 4 + emitted * (4 + 4 + 4) + H * D * 8
+        bms, by = bound(n_bytes, 0)
+        launch = lambda: emit_op(kev, work, pg)
+        rows.append(dict(
+            name="event_emit", route="cuda", source=EVENT_SOURCES["event_emit"],
+            replaces=EVENT_REPLACES["event_emit"], launches=None,
+            max_abs_err=err, ms=in_place_ms(launch, restore),
+            device_ms=device_ms(launch, restore=restore, kernel="emit_scan"),
+            plain_ms=in_place_ms(lambda: emit_op(kref, work, pg), restore,
+                                 calls=3, warmup=1),
+            bound_ms=bms, bound_by=by, library_ms=None,
+            library_note="no single PyTorch call does this", equal=equal,
+            tolerance="bit-equal (ring, counts, sat), to the plain version "
+                      "on a CPU copy and on the card",
+            density=label, bytes=n_bytes, flops=0,
+            shape=dict(H=H, E=E, S=S, D=D, cap_ev=cap, t=t,
+                       max_delay=int(plan.syn_delay.max()),
+                       listed_sources=int(listed.sum()), emitted=emitted,
+                       sat=int(got[2].sum()))))
+        del sp, plan, eplan, pg, saved, work
+    return rows, failed
+
+
 def phase_kernels(plan8, spec8, sp8e, lookup):
     """Each kernel against its plain version at the 8x8 shapes (`lookup`:
     `phase_build`'s arrivals yardstick); returns the rows of the `kernels`
@@ -1228,6 +1348,9 @@ def phase_kernels(plan8, spec8, sp8e, lookup):
     ev_rows, ev_failed = _event_rows(sp8e, lookup)
     rows += ev_rows
     failed += ev_failed
+    long_rows, long_failed = _event_emit_long_rings()
+    rows += long_rows
+    failed += long_failed
     # registers, shared memory and spills of the STDP kernels (row_kernel<
     # true> is phase A, row_kernel<false> the fused arrival pass) and of
     # phase B's
@@ -1249,9 +1372,10 @@ def _first_divergence(a: np.ndarray, b: np.ndarray):
 def _snn_counted() -> tuple:
     """The SNN kernels whose launches `check` and `timed` read: the dense
     path's, those it replaced (off the dense path; `izhikevich_update` is
-    on the event path), and the event path's."""
+    on the event path; `arborize_elements`, the element-major phase B),
+    and the event path's."""
     return (ops.SNN_KERNELS + ops.PHASE_A_KERNELS + ops.PAIR_KERNELS
-            + ops.EVENT_KERNELS)
+            + ops.PHASE_B_KERNELS + ops.EVENT_KERNELS)
 
 
 def _path_kernels(delivery: str) -> tuple:

@@ -69,6 +69,10 @@ class ShardPlan(NamedTuple):
     columns: torch.Tensor      # [H, C] int64 columns owned (padded -1)
     shard_id: torch.Tensor     # [H] int64
     row_ptr: torch.Tensor      # [H, N + 1] int32 CSR of valid synapses
+    # the forward CSR (by source) of the valid synapses, for phase B's walk
+    fwd_ptr: torch.Tensor      # [H, S + 1] int32 row pointers into fwd_ids
+    fwd_ids: torch.Tensor      # [H, E] int32 synapse ids by source (-1 pad)
+    fwd_delay: torch.Tensor    # [H, E] int32 syn_delay in fwd_ids' order
 
 
 class ShardState(NamedTuple):
@@ -162,13 +166,60 @@ def make_row_ptr(syn_tgt: np.ndarray, syn_valid: np.ndarray,
     return out
 
 
+def _stable_argsort(keys: np.ndarray) -> np.ndarray:
+    """np.argsort(keys, kind="stable") for keys in [0, 2^32): two passes
+    of numpy's radix sort over 16-bit digits (a few times faster than its
+    merge sort over the 12.8 M synapses of an 8x8 grid)."""
+    lo = np.argsort((keys & 0xFFFF).astype(np.uint16), kind="stable")
+    hi = np.argsort((keys[lo] >> 16).astype(np.uint16), kind="stable")
+    return lo[hi]
+
+
+def make_fwd_csr(syn_src: np.ndarray, syn_valid: np.ndarray,
+                 syn_delay: np.ndarray, n_src: int):
+    """(fwd_ptr [H, S + 1], fwd_ids [H, E], fwd_delay [H, E]), all int32:
+    each shard's valid synapses grouped by source, ascending within a
+    source, then -1 (fwd_delay 0 there); fwd_delay is syn_delay in the
+    same order, so a walk of a row reads its delays beside its ids.
+
+    Checks that every valid synapse is listed exactly once, in the row of
+    its syn_src (what phase B's kernel relies on)."""
+    H, E = syn_src.shape
+    ptr = np.zeros((H, n_src + 1), dtype=np.int32)
+    ids = np.full((H, E), -1, dtype=np.int32)
+    delay = np.zeros((H, E), dtype=np.int32)
+    for h in range(H):
+        e = np.flatnonzero(syn_valid[h])
+        src = syn_src[h, e].astype(np.int64)
+        if src.size and (src.min() < 0 or src.max() >= n_src):
+            raise ValueError("a valid synapse's source lies outside the "
+                             "source table")
+        counts = np.bincount(src, minlength=n_src)
+        ptr[h, 1:] = np.cumsum(counts)
+        listed = e[_stable_argsort(src)]
+        ids[h, :e.size] = listed
+        delay[h, :e.size] = syn_delay[h, listed]
+        once = np.bincount(listed, minlength=E)
+        rows = np.repeat(np.arange(n_src), counts)
+        ascending = np.diff(listed)[np.diff(rows) == 0]
+        if (not np.array_equal(once > 0, syn_valid[h]) or once.max(
+                initial=0) > 1 or not np.array_equal(
+                syn_src[h, listed], rows) or np.any(ascending <= 0)):
+            raise ValueError("the forward CSR must list every valid synapse "
+                             "once, ascending, in the row of its source")
+    return ptr, ids, delay
+
+
 def plan_from_arrays(arrays: dict, device) -> ShardPlan:
     """ShardPlan tensors on `device` from the stacked numpy arrays of the
-    JAX package's ShardPlan fields (the CSR `row_ptr` is derived)."""
+    JAX package's ShardPlan fields (the CSRs `row_ptr` and `fwd_*` are
+    derived)."""
     a = {k: np.asarray(v) for k, v in arrays.items()}
     n_local = a["exc_mask"].shape[1]
     idx = lambda k: torch.from_numpy(a[k].astype(np.int64)).to(device)
     as_t = lambda k, dt: torch.from_numpy(a[k].astype(dt)).to(device)
+    fwd = make_fwd_csr(a["syn_src"], a["syn_valid"].astype(bool),
+                       a["syn_delay"], a["src_gid"].shape[1])
     return ShardPlan(
         src_gid=idx("src_gid"), syn_src=idx("syn_src"),
         syn_tgt=idx("syn_tgt"), syn_delay=as_t("syn_delay", np.int32),
@@ -179,7 +230,9 @@ def plan_from_arrays(arrays: dict, device) -> ShardPlan:
         shard_id=torch.from_numpy(
             np.asarray(a["shard_id"]).reshape(-1).astype(np.int64)).to(device),
         row_ptr=torch.from_numpy(make_row_ptr(
-            a["syn_tgt"], a["syn_valid"], n_local)).to(device))
+            a["syn_tgt"], a["syn_valid"], n_local)).to(device),
+        **{k: torch.from_numpy(x).to(device) for k, x in zip(
+            ("fwd_ptr", "fwd_ids", "fwd_delay"), fwd)})
 
 
 def build(cfg: GridConfig, eng: EngineConfig,
@@ -383,11 +436,19 @@ def phase_b(spec: SimSpec, plan: ShardPlan, state: ShardState,
             spiked_src: torch.Tensor, t: int) -> ShardState:
     """Deferred axonal arborization: set arrival flags at slot
     (t + delay) mod D, in place, for the valid synapses whose source
-    spiked (`kernels.ops.arborize`: one launch on the card, which reads
+    spiked (`kernels.ops.arborize`: one launch on the card, which walks
+    the plan's forward CSR rows of the sources that spiked and reads
     nothing back).  An all-False `spiked_src` sets nothing."""
-    kops.arborize(state.arr_ring, spiked_src, plan.syn_src, plan.syn_delay,
-                  plan.syn_valid, t)
+    kops.arborize(state.arr_ring, spiked_src, *arborize_tables(plan), t)
     return state
+
+
+def arborize_tables(plan: ShardPlan) -> tuple:
+    """Phase B's tables, as `kernels.ops.arborize` takes them: the plain
+    version's (syn_src, syn_delay, syn_valid) and the kernel's forward
+    CSR (fwd_ptr, fwd_ids, fwd_delay)."""
+    return (plan.syn_src, plan.syn_delay, plan.syn_valid, plan.fwd_ptr,
+            plan.fwd_ids, plan.fwd_delay)
 
 
 # ----------------------------------------------------------------------------
@@ -676,8 +737,8 @@ def make_runner(spec: SimSpec, plan: ShardPlan,
             stim_amp, state.v, state.u, state.last_post, state.w,
             state.last_arr, ctr, izh=spec.izh, stdp=spec.stdp,
             neg_time=NEG_TIME, with_ltp=True)
-        kops.arborize(state.arr_ring, exchange(spiked), plan.syn_src,
-                      plan.syn_delay, plan.syn_valid, ctr)
+        kops.arborize(state.arr_ring, exchange(spiked),
+                      *arborize_tables(plan), ctr)
         return spiked, StepTimings(spikes=n_spikes, arrivals=n_arrived)
 
     return CapturedRun(step, state)

@@ -81,6 +81,11 @@
 //          longer row is read again for the writes), counts them per slot
 //          with ballots, and keeps each entry's place among its row's
 //          entries of its slot.
+//   groups the per-slot work (counts, tile words, look-back, writes) runs
+//          kSlotGroup = 16 slots at a time, a lane a slot, in registers;
+//          a slot's scan depends on no other slot, so any D >= 1 runs in
+//          ceil(D / 16) passes over the tile (one at the default D = 6;
+//          a longer row is then read again each pass).
 //   tile   the warps' counts add up to the tile's per-slot aggregate; the
 //          tile reads the old counts, publishes the aggregate (per slot a
 //          status and the value in one 64-bit word), looks back a warp of
@@ -108,7 +113,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxSlots = 16;     // D the emission kernel takes at most
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int64_t step_t(const int64_t* ctr, int64_t t) {
@@ -291,6 +295,7 @@ constexpr int kEmitThreads = 256;
 constexpr int kEmitWarps = kEmitThreads / 32;  // listed sources (rows) a tile
 constexpr int kEmitBlocksPerSM = 4;
 constexpr int kRowRegs = 8;  // 32-entry rounds of a row kept in registers
+constexpr int kSlotGroup = 16;  // slots a pass of the tile scans at once
 constexpr unsigned long long kAggregate = 1ull << 32;  // tile word status
 constexpr unsigned long long kPrefix = 2ull << 32;
 constexpr long long kLookBackCycles = 1ll << 34;
@@ -319,17 +324,12 @@ __device__ __forceinline__ int32_t listed(const EmitArgs& a, int64_t h,
 }
 
 // kRowRegs rounds of a row from entry j0 on, into registers: the ids, then
-// their slots (every delay load in flight together; a pad's slot is -1),
-// then each entry's place among the entries of its slot from j0 on, added
-// to the running per-slot counts `cnt` (the same in every lane).
-__device__ __forceinline__ void row_slots(const EmitArgs& a, int64_t h,
-                                          const int32_t* row, int64_t j0,
-                                          int64_t t, int lane,
-                                          int32_t (&id)[kRowRegs],
-                                          int (&slot)[kRowRegs],
-                                          int (&off)[kRowRegs],
-                                          int (&cnt)[kMaxSlots]) {
-  const unsigned below = (1u << lane) - 1;
+// their slots (every delay load in flight together; a pad's slot is -1).
+__device__ __forceinline__ void row_load(const EmitArgs& a, int64_t h,
+                                         const int32_t* row, int64_t j0,
+                                         int64_t t, int lane,
+                                         int32_t (&id)[kRowRegs],
+                                         int (&slot)[kRowRegs]) {
 #pragma unroll
   for (int q = 0; q < kRowRegs; ++q) {
     const int64_t j = j0 + 32 * q + lane;
@@ -339,31 +339,46 @@ __device__ __forceinline__ void row_slots(const EmitArgs& a, int64_t h,
   for (int q = 0; q < kRowRegs; ++q)
     slot[q] = id[q] < 0 ? -1
                         : (int)floor_mod(t + a.delay[h * a.E + id[q]], a.D);
+}
+
+// For the G slots g0, g0 + 1, ... of a slot group: each loaded entry's
+// place among the row's entries of its slot from j0 on, added to the
+// running per-slot counts `cnt` (slot g0 + d in cnt[d], the same in every
+// lane).  An entry of another group gets no place.
+__device__ __forceinline__ void row_count(int64_t Kf, int64_t j0, int64_t g0,
+                                          int G, int lane,
+                                          const int (&slot)[kRowRegs],
+                                          int (&off)[kRowRegs],
+                                          int (&cnt)[kSlotGroup]) {
+  const unsigned below = (1u << lane) - 1;
 #pragma unroll
   for (int q = 0; q < kRowRegs; ++q) {
     off[q] = 0;
-    if (j0 + 32 * q >= a.Kf) continue;  // the same in every lane
+    if (j0 + 32 * q >= Kf) continue;  // the same in every lane
+    const int rel = slot[q] - (int)g0;
 #pragma unroll
-    for (int d = 0; d < kMaxSlots; ++d) {
-      if (d >= a.D) break;
-      const unsigned in_d = __ballot_sync(kFull, slot[q] == d);
-      if (slot[q] == d) off[q] = cnt[d] + __popc(in_d & below);
+    for (int d = 0; d < kSlotGroup; ++d) {
+      if (d >= G) break;
+      const unsigned in_d = __ballot_sync(kFull, rel == d);
+      if (rel == d) off[q] = cnt[d] + __popc(in_d & below);
       cnt[d] += __popc(in_d);
     }
   }
 }
 
-// The ring writes of a row's rounds: entry at place base[slot] + off,
-// dropped at or past cap.
+// The ring writes of a row's rounds whose slot lies in the group: entry at
+// place base[slot - g0] + off, dropped at or past cap.
 __device__ __forceinline__ void row_write(const EmitArgs& a, int64_t h,
+                                          int64_t g0, int G,
                                           const int64_t* base,
                                           const int32_t (&id)[kRowRegs],
                                           const int (&slot)[kRowRegs],
                                           const int (&off)[kRowRegs]) {
 #pragma unroll
   for (int q = 0; q < kRowRegs; ++q) {
-    if (slot[q] < 0) continue;
-    const int64_t at = base[slot[q]] + off[q];
+    const int rel = slot[q] - (int)g0;  // a pad's is < 0
+    if (rel < 0 || rel >= G) continue;
+    const int64_t at = base[rel] + off[q];
     if (at < a.cap) a.ring[(h * a.D + slot[q]) * a.cap + at] = id[q];
   }
 }
@@ -380,34 +395,35 @@ __device__ __forceinline__ void publish(unsigned long long* p,
   *(volatile unsigned long long*)p = status | value;
 }
 
-// Warp-wide look-back of tile `tile` (> 0): lane j reads the words of
-// tile p - j, 32 tiles a round from p = tile - 1; per slot, the events of
-// the tiles up to the nearest one that has published its inclusive
-// prefix.  Lane d returns slot d's exclusive prefix.
+// Warp-wide look-back of tile `tile` (> 0) over the G slots from g0: lane
+// j reads the words of tile p - j, 32 tiles a round from p = tile - 1; per
+// slot, the events of the tiles up to the nearest one that has published
+// its inclusive prefix.  Lane d returns slot g0 + d's exclusive prefix.
 __device__ __forceinline__ unsigned look_back(
-    const unsigned long long* words, int64_t D, int64_t tile, int lane) {
+    const unsigned long long* words, int64_t D, int64_t g0, int G,
+    int64_t tile, int lane) {
   const long long start = clock64();
   unsigned excl = 0;
-  unsigned open = (1u << D) - 1;  // slots still looking back
+  unsigned open = (1u << G) - 1;  // slots still looking back
   for (int64_t p = tile - 1; open != 0; p -= 32) {
     const int64_t j = p - lane;  // before tile 0: a prefix of 0
-    unsigned long long v[kMaxSlots];
+    const unsigned long long* w = words + j * D + g0;
+    unsigned long long v[kSlotGroup];
 #pragma unroll
-    for (int d = 0; d < kMaxSlots; ++d)
-      v[d] = d < D && (open >> d & 1) && j >= 0 ? peek(words + j * D + d)
-                                                : kPrefix;
+    for (int d = 0; d < kSlotGroup; ++d)
+      v[d] = d < G && (open >> d & 1) && j >= 0 ? peek(w + d) : kPrefix;
 #pragma unroll
-    for (int d = 0; d < kMaxSlots; ++d)
+    for (int d = 0; d < kSlotGroup; ++d)
       while ((v[d] >> 32) == 0) {
         // every tile before this one was taken by a running block; one
         // that has not published after ~10 s of clock is a fault: trap
         // rather than hang the card
         if (clock64() - start > kLookBackCycles) __trap();
-        v[d] = peek(words + j * D + d);
+        v[d] = peek(w + d);
       }
 #pragma unroll
-    for (int d = 0; d < kMaxSlots; ++d) {
-      if (d >= D) break;
+    for (int d = 0; d < kSlotGroup; ++d) {
+      if (d >= G) break;
       if (!(open >> d & 1)) continue;
       const unsigned pre = __ballot_sync(kFull, (v[d] >> 32) == 2);
       const int stop = pre != 0 ? __ffs(pre) - 1 : 31;
@@ -421,25 +437,35 @@ __device__ __forceinline__ unsigned look_back(
   return excl;
 }
 
-// The last listed source's tile (warp 0; lane d: slot d's old count plus
-// its events): ev_count = min(total, cap), sat += n_dropped + the events
-// past cap.
+// The last listed source's tile, for the G slots from g0 (warp 0; lane d:
+// slot g0 + d's old count plus its events): ev_count = min(total, cap),
+// sat += the events past cap, and n_dropped with the first group.
 __device__ __forceinline__ void finish(const EmitArgs& a, int64_t h,
-                                       int lane, long long total) {
+                                       int64_t g0, int G, int lane,
+                                       long long total) {
   long long over = 0;
-  if (lane < a.D) {
-    a.count[h * a.D + lane] = (int32_t)(total < a.cap ? total : a.cap);
+  if (lane < G) {
+    a.count[h * a.D + g0 + lane] = (int32_t)(total < a.cap ? total : a.cap);
     over = total > a.cap ? total - a.cap : 0;
   }
   over = __reduce_add_sync(kFull, (unsigned)over);
-  if (lane == 0) a.sat[h] += a.n_dropped[h] + (int32_t)over;
+  if (lane == 0)
+    a.sat[h] += (g0 == 0 ? a.n_dropped[h] : 0) + (int32_t)over;
 }
 
+__device__ __forceinline__ int group_size(int64_t D, int64_t g0) {
+  return (int)(D - g0 < kSlotGroup ? D - g0 : kSlotGroup);
+}
+
+// kGroups: D may exceed kSlotGroup, so the slots run a group at a time;
+// without it (D <= kSlotGroup) the one pass is compiled alone, with the
+// registers of a single group.
+template <bool kGroups>
 __global__ void __launch_bounds__(kEmitThreads) emit_scan(EmitArgs a) {
-  __shared__ int warp_cnt[kEmitWarps][kMaxSlots];
-  __shared__ int64_t base[kEmitWarps][kMaxSlots];
+  __shared__ int warp_cnt[kEmitWarps][kSlotGroup];
+  __shared__ int64_t base[kEmitWarps][kSlotGroup];
   __shared__ int64_t tile_s;
-  __shared__ bool empty, last;
+  __shared__ bool last;
   const int64_t h = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t t = step_t(a.ctr, a.t);
@@ -452,80 +478,93 @@ __global__ void __launch_bounds__(kEmitThreads) emit_scan(EmitArgs a) {
     __syncthreads();
     const int64_t tile = tile_s;
     const int64_t row0 = tile * kEmitWarps;
-    // the warp's row; warp 0 also loads the old counts (read before the
-    // tile publishes) and whether this tile holds the last listed source
-    const int32_t s = listed(a, h, row0 + warp);
-    long long old = 0;
-    bool ends = false;
-    if (warp == 0) {
-      if (lane < a.D) old = a.count[h * a.D + lane];
-      ends = listed(a, h, row0 + kEmitWarps) < 0;
-      if (lane == 0) empty = s < 0;  // the fill: no tile from here on
-    }
-    // a row a warp: counts per slot and each entry's place in its row
-    const int32_t* row = a.fwd + (h * a.S + (s < 0 ? 0 : s)) * a.Kf;
-    int32_t id[kRowRegs];
-    int slot[kRowRegs], off[kRowRegs];
-    int cnt[kMaxSlots];
-#pragma unroll
-    for (int d = 0; d < kMaxSlots; ++d) cnt[d] = 0;
-#pragma unroll
-    for (int q = 0; q < kRowRegs; ++q) slot[q] = -1;
-    if (s >= 0) {
-      row_slots(a, h, row, 0, t, lane, id, slot, off, cnt);
-      for (int64_t j0 = 32 * kRowRegs; j0 < a.Kf; j0 += 32 * kRowRegs) {
-        int32_t id2[kRowRegs];
-        int slot2[kRowRegs], off2[kRowRegs];
-        row_slots(a, h, row, j0, t, lane, id2, slot2, off2, cnt);
-      }
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int d = 0; d < kMaxSlots; ++d)
-        if (d < a.D) warp_cnt[warp][d] = cnt[d];
-    }
-    __syncthreads();
-    if (empty) {
-      // no source listed at all: the counts as they are, the drops
-      if (tile == 0 && warp == 0) finish(a, h, lane, old);
+    if (listed(a, h, row0) < 0) {
+      // the fill: no tile from here on.  No source listed at all: the
+      // counts as they are, the drops
+      if (tile == 0 && warp == 0)
+        for (int64_t g0 = 0; g0 < a.D; g0 += kSlotGroup) {
+          const int G = group_size(a.D, g0);
+          finish(a, h, g0, G, lane,
+                 lane < G ? a.count[h * a.D + g0 + lane] : 0);
+        }
       break;
     }
-    if (warp == 0) {
-      // lane d: slot d's aggregate
-      unsigned agg = 0;
-      if (lane < a.D)
-        for (int w = 0; w < kEmitWarps; ++w) agg += warp_cnt[w][lane];
-      unsigned long long* mine = words + tile * a.D;
-      if (lane < a.D) publish(mine + lane, tile == 0 ? kPrefix : kAggregate,
-                              agg);
-      unsigned excl = 0;
-      if (tile > 0) {
-        excl = look_back(words, a.D, tile, lane);
-        if (lane < a.D) publish(mine + lane, kPrefix, excl + agg);
-      }
-      long long b0 = old + excl;
-      for (int w = 0; w < kEmitWarps; ++w) {
-        if (lane < a.D) base[w][lane] = b0;
-        if (lane < a.D) b0 += warp_cnt[w][lane];
-      }
-      // the last listed source's tile: every earlier tile has published,
-      // so every one has read the old counts
-      if (ends) finish(a, h, lane, old + excl + agg);
-    }
-    __syncthreads();
-    if (s >= 0) {
-      if (a.Kf <= 32 * kRowRegs) {
-        row_write(a, h, base[warp], id, slot, off);
-      } else {  // a long row: read again, a segment at a time
+    // the warp's row, and whether this tile holds the last listed source
+    const int32_t s = listed(a, h, row0 + warp);
+    const bool ends = listed(a, h, row0 + kEmitWarps) < 0;
+    const int32_t* row = a.fwd + (h * a.S + (s < 0 ? 0 : s)) * a.Kf;
+    // the row's first kRowRegs rounds in registers, kept for every group
+    int32_t id[kRowRegs];
+    int slot[kRowRegs], off[kRowRegs];
 #pragma unroll
-        for (int d = 0; d < kMaxSlots; ++d) cnt[d] = 0;
-        for (int64_t j0 = 0; j0 < a.Kf; j0 += 32 * kRowRegs) {
-          row_slots(a, h, row, j0, t, lane, id, slot, off, cnt);
-          row_write(a, h, base[warp], id, slot, off);
+    for (int q = 0; q < kRowRegs; ++q) slot[q] = -1;
+    if (s >= 0) row_load(a, h, row, 0, t, lane, id, slot);
+    // the slots a group at a time: each group's counts, scan and writes
+    // depend on no other group's
+    for (int64_t g0 = 0; g0 < (kGroups ? a.D : 1); g0 += kSlotGroup) {
+      const int G = group_size(a.D, g0);
+      // warp 0 reads the group's old counts before the tile publishes it
+      long long old = 0;
+      if (warp == 0 && lane < G) old = a.count[h * a.D + g0 + lane];
+      // a row a warp: counts per slot and each entry's place in its row
+      int cnt[kSlotGroup];
+#pragma unroll
+      for (int d = 0; d < kSlotGroup; ++d) cnt[d] = 0;
+      if (s >= 0) {
+        row_count(a.Kf, 0, g0, G, lane, slot, off, cnt);
+        for (int64_t j0 = 32 * kRowRegs; j0 < a.Kf; j0 += 32 * kRowRegs) {
+          int32_t id2[kRowRegs];
+          int slot2[kRowRegs], off2[kRowRegs];
+          row_load(a, h, row, j0, t, lane, id2, slot2);
+          row_count(a.Kf, j0, g0, G, lane, slot2, off2, cnt);
         }
       }
+      if (lane == 0) {
+#pragma unroll
+        for (int d = 0; d < kSlotGroup; ++d)
+          if (d < G) warp_cnt[warp][d] = cnt[d];
+      }
+      __syncthreads();
+      if (warp == 0) {
+        // lane d: slot g0 + d's aggregate
+        unsigned agg = 0;
+        if (lane < G)
+          for (int w = 0; w < kEmitWarps; ++w) agg += warp_cnt[w][lane];
+        unsigned long long* mine = words + tile * a.D + g0;
+        if (lane < G) publish(mine + lane, tile == 0 ? kPrefix : kAggregate,
+                              agg);
+        unsigned excl = 0;
+        if (tile > 0) {
+          excl = look_back(words, a.D, g0, G, tile, lane);
+          if (lane < G) publish(mine + lane, kPrefix, excl + agg);
+        }
+        long long b0 = old + excl;
+        for (int w = 0; w < kEmitWarps; ++w) {
+          if (lane < G) base[w][lane] = b0;
+          if (lane < G) b0 += warp_cnt[w][lane];
+        }
+        // the last listed source's tile: every earlier tile has published
+        // the group, so every one has read its old counts
+        if (ends) finish(a, h, g0, G, lane, old + excl + agg);
+      }
+      __syncthreads();
+      if (s >= 0) {
+        if (a.Kf <= 32 * kRowRegs) {
+          row_write(a, h, g0, G, base[warp], id, slot, off);
+        } else {  // a long row: read again, a segment at a time
+#pragma unroll
+          for (int d = 0; d < kSlotGroup; ++d) cnt[d] = 0;
+          for (int64_t j0 = 0; j0 < a.Kf; j0 += 32 * kRowRegs) {
+            int32_t id2[kRowRegs];
+            int slot2[kRowRegs], off2[kRowRegs];
+            row_load(a, h, row, j0, t, lane, id2, slot2);
+            row_count(a.Kf, j0, g0, G, lane, slot2, off2, cnt);
+            row_write(a, h, g0, G, base[warp], id2, slot2, off2);
+          }
+        }
+      }
+      __syncthreads();  // before the next group's or tile's shared state
     }
-    __syncthreads();  // before the next tile's shared state
   }
   // the last block of the shard to leave clears the tile state: every
   // tile of the launch has ended, and the counter ends at the tiles with
@@ -606,8 +645,9 @@ extern "C" int repro_event_arrival(void* const* ptrs, const int64_t* ints,
   return (int)cudaGetLastError();
 }
 
-// Blocks of emit_scan a shard: a few an SM across the H shards, at most
-// one a tile; returns a cudaError_t.
+// Blocks of emit_scan<kGroups> a shard: a few an SM across the H shards,
+// at most one a tile; returns a cudaError_t.
+template <bool kGroups>
 static int emit_blocks(int64_t H, int64_t tiles, int64_t* out) {
   static int cache[64] = {0};
   int dev = 0;
@@ -618,8 +658,8 @@ static int emit_blocks(int64_t H, int64_t tiles, int64_t* out) {
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, emit_scan,
-                                                          kEmitThreads, 0);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, emit_scan<kGroups>, kEmitThreads, 0);
     if (err != cudaSuccess) return (int)err;
     resident = sms * (per_sm < kEmitBlocksPerSM ? per_sm : kEmitBlocksPerSM);
     if (dev < 64) cache[dev] = resident;
@@ -655,12 +695,17 @@ extern "C" int repro_event_emit(void* const* ptrs, const int64_t* ints,
   a.C = ints[6];
   a.t = ints[7];
   a.tiles = ints[8];
-  if (a.D > kMaxSlots || a.tiles * kEmitWarps < a.C || a.tiles < 1)
+  if (a.D < 1 || a.tiles * kEmitWarps < a.C || a.tiles < 1)
     return (int)cudaErrorInvalidValue;
+  const bool groups = a.D > kSlotGroup;
   int64_t blocks = 0;
-  const int err = emit_blocks(H, a.tiles, &blocks);
+  const int err = groups ? emit_blocks<true>(H, a.tiles, &blocks)
+                         : emit_blocks<false>(H, a.tiles, &blocks);
   if (err != 0) return err;
-  emit_scan<<<dim3((unsigned)blocks, (unsigned)H), kEmitThreads, 0,
-              (cudaStream_t)stream>>>(a);
+  const dim3 grid((unsigned)blocks, (unsigned)H);
+  if (groups)
+    emit_scan<true><<<grid, kEmitThreads, 0, (cudaStream_t)stream>>>(a);
+  else
+    emit_scan<false><<<grid, kEmitThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

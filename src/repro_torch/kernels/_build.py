@@ -48,7 +48,8 @@ _I64 = ctypes.c_int64
 _F = ctypes.c_float
 # C entry point -> argument types; every one returns cudaGetLastError().
 SIGNATURES = {
-    "repro_arborize": [_P] * 5 + [_I64] * 5 + [_P, _P],
+    "repro_arborize": [_P] * 8 + [_I64] * 5 + [_P, _P],
+    "repro_arborize_elements": [_P] * 5 + [_I64] * 5 + [_P, _P],
     # (pointers [14], int64 [6], float [5], stream): csrc/event.cu
     "repro_event_arrival": [_P] * 4,
     # (pointers [10], int64 [9], stream): csrc/event.cu

@@ -24,8 +24,6 @@ import torch
 from . import _build
 from .ref import reciprocal_f32
 
-#: The most delay slots `event_emit` takes (`csrc/event.cu::kMaxSlots`).
-MAX_SLOTS = 16
 #: Listed sources a tile of the emission scan holds, a row a warp
 #: (`csrc/event.cu::kEmitWarps`); a row of more than EMIT_ROW_REGS entries
 #: is read twice (`kRowRegs` rounds of 32 in registers).
@@ -135,20 +133,17 @@ def event_emit(src_ids, n_dropped, fwd_rows, syn_delay, ev_ring, ev_count,
     """src_ids [H, C] int32 (the first C spiking sources ascending, then
     the fill S), n_dropped [H] int32, fwd_rows [H, S, Kf] int32 (-1 pad),
     syn_delay [H, E] int32, ev_ring [H, D, cap] int32, ev_count [H, D]
-    int32, sat [H] int32, all contiguous CUDA tensors on one device, D <=
-    16; t an int or the step counter.  Appends the listed sources' rows to
-    slot (t + delay) mod D in (source rank, row position) order; updates
-    ev_ring, ev_count and sat (+ n_dropped + the events past cap) in
-    place."""
+    int32, sat [H] int32, all contiguous CUDA tensors on one device, any
+    D >= 1 (the kernel scans 16 slots a pass); t an int or the step
+    counter.  Appends the listed sources' rows to slot (t + delay) mod D
+    in (source rank, row position) order; updates ev_ring, ev_count and
+    sat (+ n_dropped + the events past cap) in place."""
     name = "event_emit"
     H, D, cap = ev_ring.shape
     C = src_ids.shape[1]
     S, Kf = fwd_rows.shape[1:]
     E = syn_delay.shape[1]
     dev = ev_ring.device
-    if D > MAX_SLOTS:
-        raise ValueError(f"{name}: D = {D} delay slots, at most "
-                         f"{MAX_SLOTS}")
     _build.require(name, torch.int32, (H, C), src_ids=src_ids)
     _build.require(name, torch.int32, (H,), n_dropped=n_dropped, sat=sat)
     _build.require(name, torch.int32, (H, S, Kf), fwd_rows=fwd_rows)

@@ -26,22 +26,24 @@ from . import stdp as _stdp
 #: The kernels of the DPSNN-STDP step, of the LM's RG-LRU layers, and of
 #: the `attention` entry point (which no model of the port calls).  The
 #: main path runs phase A as one kernel (`stdp_phase_a`) and phase B as
-#: another (`arborize`), each once a step.  The three kernels that
-#: `stdp_phase_a` replaced stay off the main path (`PHASE_A_KERNELS`), as
-#: its yardstick and for the paths that split phase A; so does the pair
-#: that `stdp_arrival_current` replaced (`PAIR_KERNELS`), as its
-#: yardstick.
+#: another (`arborize`, source-major over the plan's forward CSR), each
+#: once a step.  The three kernels that `stdp_phase_a` replaced stay off
+#: the main path (`PHASE_A_KERNELS`), as its yardstick and for the paths
+#: that split phase A; so do the pair that `stdp_arrival_current`
+#: replaced (`PAIR_KERNELS`) and the element-major phase B that
+#: `arborize` replaced (`PHASE_B_KERNELS`), as their yardsticks.
 #: The event backend (`core.event_engine`) runs its own three ops each
 #: step (`EVENT_KERNELS`) and `izhikevich_update`, which is also the
 #: yardstick of the dense phase A.
 SNN_KERNELS = ("stdp_phase_a", "arborize")
 PHASE_A_KERNELS = ("izhikevich_update", "stdp_arrival_current", "stdp_ltp")
 PAIR_KERNELS = ("stdp_arrival", "segment_sum_ordered")
+PHASE_B_KERNELS = ("arborize_elements",)
 EVENT_KERNELS = ("event_arrival", "event_ltp", "event_emit")
 LM_KERNELS = ("rg_lru_scan",)
 ATTN_KERNELS = ("flash_attention",)
-KERNELS = (SNN_KERNELS + PHASE_A_KERNELS + PAIR_KERNELS + EVENT_KERNELS
-           + LM_KERNELS + ATTN_KERNELS)
+KERNELS = (SNN_KERNELS + PHASE_A_KERNELS + PAIR_KERNELS + PHASE_B_KERNELS
+           + EVENT_KERNELS + LM_KERNELS + ATTN_KERNELS)
 
 
 def _route(x: torch.Tensor, name: str) -> bool:
@@ -156,15 +158,19 @@ def stdp_ltp(spiked, row_ptr, syn_plastic, last_arr, w, last_post, t, *,
         return ref.stdp_ltp(*args, **kw)
 
 
-def arborize(arr_ring, spiked_src, syn_src, syn_delay, syn_valid, t):
+def arborize(arr_ring, spiked_src, syn_src, syn_delay, syn_valid, fwd_ptr,
+             fwd_ids, fwd_delay, t):
     """Phase B: for every valid synapse whose source spiked, set its flag
     at ring slot (t + delay) mod D.  arr_ring [H, D, E] bool (updated in
     place and returned), spiked_src [H, S] bool, the plan's syn_src [H, E]
-    int64, syn_delay [H, E] int32 and syn_valid [H, E] bool; t an int, or
-    on the card the device step counter (`kernels.arborize.arborize`)."""
+    int64, syn_delay [H, E] int32 and syn_valid [H, E] bool (what the
+    plain version reads, and the kernel where most sources spiked) and its
+    forward CSR fwd_ptr [H, S + 1], fwd_ids [H, E] and fwd_delay [H, E]
+    int32 (what the kernel walks: `core.engine.make_fwd_csr`); t an int,
+    or on the card the device step counter (`kernels.arborize.arborize`)."""
     args = (arr_ring, spiked_src, syn_src, syn_delay, syn_valid)
     if _route(arr_ring, "arborize"):
-        return _arb.arborize(*args, t)
+        return _arb.arborize(*args, fwd_ptr, fwd_ids, fwd_delay, t)
     return ref.arborize(*args, _plain_step(t, "arborize"))
 
 

@@ -20,6 +20,7 @@ error against each plain version, all processes under one setting of
     python tests/test_torch_cuda.py --softcap-processes N [SETTING]
     python tests/test_torch_cuda.py --softcap-isa
 """
+import dataclasses
 import os
 import hashlib
 import importlib.util
@@ -38,6 +39,7 @@ sys.path.insert(0, str(ROOT / "src"))     # run as a script
 from repro_torch.core import (DEFAULT_IZH, DEFAULT_STDP,  # noqa: E402
                               EngineConfig, GridConfig, StepProgram, aer,
                               engine, event_engine, observables)
+from repro_torch.kernels import arborize as kab  # noqa: E402
 from repro_torch.kernels import event as kev  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -399,65 +401,92 @@ SMALL = GridConfig(grid_x=2, grid_y=2, neurons_per_column=60,
                    synapses_per_neuron=24, seed=9)
 
 
-def _arborize_inputs(H, density, seed):
-    """A 2x2 plan's own synapse tables at H shards (pads in every shard at
-    H=4), an empty ring with a few flags already set, and `density` of
-    the sources spiking (CPU tensors)."""
-    _, plan, _ = engine.build(SMALL, EngineConfig(n_shards=H),
-                              device="cpu")
+# SMALL with a ring of D = 21 slots (delays 1..20)
+SMALL_D21 = GridConfig(grid_x=2, grid_y=2, neurons_per_column=60,
+                       synapses_per_neuron=24, delay_max=20, seed=9)
+ARBORIZE_TABLES = ("src", "delay", "valid", "fwd_ptr", "fwd_ids",
+                   "fwd_delay")
+
+
+def _arborize_inputs(H, density, seed, cfg=SMALL):
+    """A 2x2 plan's own synapse tables and forward CSR at H shards (pads in
+    every shard at H=4), an empty ring with a few flags already set, and
+    `density` of the sources spiking (CPU tensors)."""
+    _, plan, _ = engine.build(cfg, EngineConfig(n_shards=H), device="cpu")
     rng = np.random.default_rng(seed)
     H, E = plan.syn_valid.shape
     S = plan.src_gid.shape[1]
-    D = SMALL.n_delay_slots
+    D = cfg.n_delay_slots
     ring = torch.from_numpy(rng.random((H, D, E)) < 0.01) & plan.syn_valid[
         :, None]
-    return dict(ring=ring, spiked=torch.from_numpy(rng.random((H, S))
-                                                   < density),
-                src=plan.syn_src, delay=plan.syn_delay, valid=plan.syn_valid)
+    return dict(zip(ARBORIZE_TABLES, engine.arborize_tables(plan)),
+                ring=ring, spiked=torch.from_numpy(rng.random((H, S))
+                                                   < density))
+
+
+def _arborize(op, d, t):
+    return op(d["ring"], d["spiked"], *(d[k] for k in ARBORIZE_TABLES), t)
+
+
+def _arborize_elements(d, t):
+    return kab.arborize_elements(d["ring"], d["spiked"], d["src"],
+                                 d["delay"], d["valid"], t)
 
 
 @pytest.mark.parametrize("H", [1, 4])
 def test_arborize_equals_plain_version(cuda, H):
-    """Bit-equal to the reference's broadcast-compare on a CPU copy and on
-    the card, at no, the main path's few, many and all sources spiking,
-    at t near the ring's wrap, and at t0 - 1 = -1."""
-    arb = lambda d, t: ops.arborize(d["ring"], d["spiked"], d["src"],
-                                    d["delay"], d["valid"], t)
+    """The path's kernel (source-major over the plan's forward CSR, or
+    element-major where its sample shows 18% or more spiking: both walks
+    run here) and the element-major one it replaced, each bit-equal to
+    the reference's broadcast-compare on a CPU copy and on the card, at
+    no, the main path's (2.15%), 5x, 10x its, and all sources spiking, at
+    t near the ring's wrap and at t0 - 1 = -1 (an all-False mask there
+    sets nothing), on rings of 6 and of 21 slots; each launched once a
+    call."""
     plain = lambda d, t: ref.arborize(d["ring"], d["spiked"], d["src"],
                                       d["delay"], d["valid"], t)
     ops.reset_launch_counts()
-    n = 0
-    for density in (0.0, 0.02, 0.2, 1.0):
-        for t in (-1, 0, 4, 5, 6, 11, 1003):
-            z = _arborize_inputs(H, density, seed=t + 7)
-            g = {k: v.to(cuda) for k, v in z.items()}
-            got = arb(g, t)
-            want_gpu = plain({**g, "ring": g["ring"].clone()}, t)
-            want = plain(z, t)
-            n += 1
-            assert got.data_ptr() == g["ring"].data_ptr()     # in place
-            assert torch.equal(got.cpu(), want)
-            assert torch.equal(got, want_gpu)
-            if density == 0.0:
-                assert torch.equal(want, z["ring"])           # a no-op
+    n, walks = 0, set()
+    for cfg in (SMALL, SMALL_D21):
+        for density in (0.0, 0.0215, 0.1075, 0.215, 1.0):
+            for t in (-1, 0, 4, 5, 6, 11, 20, 1003):
+                z = _arborize_inputs(H, density, seed=t + 7, cfg=cfg)
+                g = {k: v.to(cuda) for k, v in z.items()}
+                ring0 = g["ring"].clone()
+                got = _arborize(ops.arborize, g, t)
+                old = _arborize_elements({**g, "ring": ring0.clone()}, t)
+                want_gpu = plain({**g, "ring": ring0.clone()}, t)
+                want = plain(z, t)
+                n += 1
+                walks.update(kab.walks_elements(z["spiked"]))
+                assert got.data_ptr() == g["ring"].data_ptr()   # in place
+                assert torch.equal(got.cpu(), want)
+                assert torch.equal(got, want_gpu)
+                assert torch.equal(old, want_gpu)
+                if density == 0.0:
+                    assert torch.equal(want, z["ring"])         # a no-op
     torch.cuda.synchronize()
+    assert walks == {True, False}
     assert ops.launch_counts() == dict(dict.fromkeys(ops.KERNELS, 0),
-                                       arborize=n)
+                                       arborize=n, arborize_elements=n)
 
 
 def test_arborize_runs_on_offset_views(cuda):
-    """The kernel reads every tensor an element at a time, so it needs no
-    alignment beyond its dtype's: views one element past an aligned
-    address run and give the plain version's bits."""
-    z = _arborize_inputs(1, 0.2, seed=3)
-    views = {k: _misaligned(v.to(cuda), v.element_size())
-             for k, v in z.items()}
-    got = ops.arborize(views["ring"], views["spiked"], views["src"],
-                       views["delay"], views["valid"], 17)
-    torch.cuda.synchronize()
-    want = ref.arborize(z["ring"], z["spiked"], z["src"], z["delay"],
-                        z["valid"], 17)
-    assert torch.equal(got.cpu(), want)
+    """The kernels read every tensor an element at a time, so they need no
+    alignment beyond their dtypes': views one element past an aligned
+    address run and give the plain version's bits (both walks)."""
+    for cfg, density in ((SMALL, 0.05), (SMALL, 0.3), (SMALL_D21, 0.05)):
+        z = _arborize_inputs(1, density, seed=3, cfg=cfg)
+        views = {k: _misaligned(v.to(cuda), v.element_size())
+                 for k, v in z.items()}
+        old = {**views, "ring": _misaligned(z["ring"].to(cuda), 1)}
+        got = _arborize(ops.arborize, views, 17)
+        got_old = _arborize_elements(old, 17)
+        torch.cuda.synchronize()
+        want = ref.arborize(z["ring"], z["spiked"], z["src"], z["delay"],
+                            z["valid"], 17)
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(got_old.cpu(), want)
 
 
 @pytest.mark.parametrize("exchange", ["allgather", "halo", "hier"])
@@ -711,6 +740,69 @@ def test_event_kernels_on_long_buckets_and_rows(cuda, case):
     assert ops.launch_counts() == dict(dict.fromkeys(ops.KERNELS, 0),
                                        event_arrival=2, event_ltp=2,
                                        event_emit=2)
+
+
+# SMALL with rings of more slots than the emission kernel scans a pass
+# (16): D = 21, and D = 40, past a warp's 32 lanes
+LONG_RINGS = {"d21": dataclasses.replace(SMALL, delay_max=20),
+              "d40": dataclasses.replace(SMALL, delay_max=39)}
+
+
+@pytest.mark.parametrize("H", [1, 4])
+@pytest.mark.parametrize("ring", list(LONG_RINGS))
+def test_event_emit_past_16_slots(cuda, ring, H):
+    """The three event ops in a step's order, bit-equal to their plain
+    versions on a CPU copy and on the card, on rings of 21 and 40 slots:
+    at a wrapping t, at t = -1, with c_post / c_src overflowing and with a
+    ring that overflows (sat counts the drops)."""
+    cfg = LONG_RINGS[ring]
+    n = 0
+    ops.reset_launch_counts()
+    for t, caps, cap in ((1003, {}, None), (-1, {}, None),
+                         (17, dict(c_post=5, c_src=7), None), (4, {}, 64)):
+        sp, st, spk, src = _event_inputs(H, 0.3, t, seed=t + 13, cap=cap,
+                                         cfg=cfg)
+        assert int(sp.plan.syn_delay.max()) > 16
+        to = lambda x: x.to(cuda)
+        gp = sp.plan._replace(**{k: to(v) for k, v in sp.plan._asdict()
+                                 .items()})
+        gsp = StepProgram.from_parts(sp.spec, gp, eplan=event_engine
+                                     .EventPlan(*map(to, sp.eplan)))
+        g, g_plain = engine.map_state(to, st), engine.map_state(to, st)
+        got = _event_ops(gsp, g, to(spk), to(src), t, **caps)
+        torch.cuda.synchronize()
+        n += 1
+        want_gpu = _event_ops(gsp, g_plain, to(spk), to(src), t, **caps,
+                              plain=True)
+        with ref.flush_denormal():
+            want = _event_ops(sp, st, spk, src, t, **caps, plain=True)
+        for a, b, c in zip(got, want, want_gpu):
+            assert _bits_equal(a, b) and _bits_equal(a, c)
+        if cap is not None or caps:
+            assert bool((want[-1] > 0).all())      # sat, the last tensor
+    assert ops.launch_counts() == dict(dict.fromkeys(ops.KERNELS, 0),
+                                       event_arrival=n, event_ltp=n,
+                                       event_emit=n)
+
+
+@pytest.mark.parametrize("delivery", ["event", "dense"])
+def test_run_at_21_slots_equals_cpu_port(cuda, delivery):
+    """A run at delay_max = 20 (D = 21) on the card, the captured graph's
+    and the eager loop's, gives the CPU port's raster, weights and (event)
+    drops: the emission's slot groups and phase B's kernel at any D."""
+    cfg = LONG_RINGS["d21"]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        sp = StepProgram(cfg, EngineConfig(n_shards=2, delivery=delivery),
+                         device=dev)
+        for graph in ((True, False) if dev == "cuda" else (True,)):
+            state, raster, _ = sp.run(sp.init_state(), 0, 120, graph=graph)
+            sat = (state.sat.tolist() if delivery == "event" else None)
+            runs[dev, graph] = (observables.raster_signature(
+                raster.cpu().numpy(), sp.plan.gid.cpu().numpy()),
+                sp.weight_signature(state), sat, int(raster.sum()))
+    assert runs["cuda", True] == runs["cpu", True] == runs["cuda", False]
+    assert runs["cpu", True][3] > 0
 
 
 @pytest.mark.parametrize("delivery", ["dense", "event"])
