@@ -39,7 +39,9 @@ every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
            fused arrival row against the pair it replaced (`stdp_arrival`
            then `segment_sum_ordered`), each bit-equal to what it
            replaced, on the same restored inputs: no PyTorch call does
-           either.  Phase B's kernel (`arborize`, source-major over the
+           either; the phase-A kernel is also timed with t read from the
+           step counter (as the path runs it) and with t a launch
+           argument, in turns, twice each (the same bits).  Phase B's kernel (`arborize`, source-major over the
            plan's forward CSR; element-major where a sample of the spike
            flags shows 18% or more spiking) runs on the 8x8 plan's own
            tables with 2.15%, 10.75%, 21.5% and 43% of the sources
@@ -51,26 +53,38 @@ every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
            bytes the work needs (and counted by 32-B sectors, and the
            element-major design's); an all-False mask at t = -1 must set
            nothing.
-           The event delivery's three ops (`event_arrival`, `event_ltp`,
-           `event_emit`) run on the 8x8 event plan's own tables with the
-           ring's list, the spikes and the sources drawn at 2.15% and
-           21.5% and compacted with the timed run's capacities (c_post =
-           N, c_src = S), and at 21.5% with the default ones (which drop
-           sources), each bit-equal to its plain version on a CPU copy
-           and on the card, timed beside its bound, its plain version
+           The event delivery's four ops (`event_arrival`,
+           `event_neurons`, `event_ltp`, `event_emit`) run on the 8x8
+           event plan's own tables with the ring's list, the neurons, the
+           spikes and the sources drawn at 2.15% and 21.5% and compacted
+           with the timed run's capacities (c_post = N, c_src = S), and at
+           21.5% with c_post = 1,024 and the default c_src (both cut: sat
+           counts the rest), each bit-equal to its plain version on a CPU
+           copy and on the card, timed beside its bound, its plain version
            and, for the arrivals, `index_add_`, the same op built with
            the other target lookup (syn_tgt or a search of row_ptr; the
            same bits) at the main density and 10x, each one's place
            kernel alone, and the op's accesses at its events'
            synapses alone (w and plastic gathered, last_arr written, as
-           PyTorch indexing calls); for the emission, its delay loads
-           alone (one indexing call).  `event_emit` also runs on rings of
+           PyTorch indexing calls); for the neuron pass (t and the
+           stimulus row from the step counter, as the path calls it), the
+           sequence it replaced (the window's rows, the stimulus,
+           `izhikevich_update`, the copies, mask, sum and
+           `compact_indices`) and, from i_syn to the end of LTP, the pass
+           with `event_ltp` against that sequence with the LTP kernel
+           they replaced (`event_ltp_rows`), each bit-equal, with device time
+           and operations; for LTP, `event_compact` then `event_ltp` on a
+           spike mask (the list, count, w, last_post and sat bit-equal to
+           the plain versions on a CPU copy and on the card) beside
+           `event_ltp_rows` on the same mask; for
+           the emission, its delay loads alone (one indexing call).
+           `event_emit` also runs on rings of
            21 and 40 slots (a 2x2 event plan at full width, delay_max 20
            and 39: the kernel scans 16 slots a pass), bit-equal to its
            plain version on a CPU copy and on the card, timed beside it
            (rows `d21`, `d40`).  The phase also prints ptxas's
-           registers and spills of `stdp.cu`, `arborize.cu` and
-           `event.cu`;
+           registers and spills of `stdp.cu`, `arborize.cu`, `event.cu`
+           and `event_phase_a.cu`;
   check    both deliveries (`StepProgram(..., device="cuda").run`; the
            event one with capacities that drop nothing,
            `event_engine.no_drop_caps` and a ring of E events a slot) at
@@ -79,7 +93,7 @@ every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
            AVX-pinned JAX reference (`src/repro_torch/data/
            jax_reference.json`, `runs` and `event_runs`), `sat` 0, every
            kernel of the delivery's path (dense: `ops.SNN_KERNELS`; event:
-           `ops.EVENT_KERNELS` and `izhikevich_update`) launched once per
+           `ops.EVENT_KERNELS`) launched once per
            step by the eager loop (`graph=False`) and every other SNN
            kernel never.  Each run is the first of its program (an eager
            window, then the capture, then replays), and a second run
@@ -197,6 +211,9 @@ TABLE1_ROWS = [(1, 1), (4, 4), (8, 4), (8, 8), (16, 16)]
 # synapses and spike this share of the neurons (the 8x8 timed run's mean:
 # 275,342 arrivals a step among 12.8 M synapses, 21.52 Hz), and 10x it
 STDP_DENSITY = 0.0215
+# kernels phase: the event neurons' and LTP's c_post in the third event row
+# (21.5% of 64,000 neurons spike: the list is cut and sat counts the rest)
+SMALL_C_POST = 1024
 STDP_REPLACES = {"stdp_phase_a": "src/repro/kernels/izhikevich.py:37, "
                                  "src/repro/kernels/stdp.py:57, "
                                  "src/repro/kernels/stdp.py:81",
@@ -206,16 +223,22 @@ STDP_REPLACES = {"stdp_phase_a": "src/repro/kernels/izhikevich.py:37, "
 # the event delivery's ops: their sources, the JAX lines they replace
 # (plain jnp, no Pallas kernel) and the profiler's names of their kernels
 EVENT_SOURCES = {"event_arrival": "src/repro_torch/csrc/event.cu",
-                 "event_ltp": "src/repro_torch/csrc/stdp.cu",
+                 "event_neurons": "src/repro_torch/csrc/event_phase_a.cu",
+                 "event_ltp": "src/repro_torch/csrc/event_phase_a.cu",
                  "event_emit": "src/repro_torch/csrc/event.cu"}
+# event_neurons: the Pallas neuron update on the event path (with the
+# stimulus, mask and compaction of event_engine.py:141-228 around it)
 EVENT_REPLACES = {"event_arrival": "src/repro/core/event_engine.py:150",
+                  "event_neurons": "src/repro/kernels/izhikevich.py:37",
                   "event_ltp": "src/repro/core/event_engine.py:199",
                   "event_emit": "src/repro/core/event_engine.py:245"}
 # csrc/event.cu's REPRO_ARRIVAL_TARGET: how the arrivals' place pass finds
 # an event's target
 ARRIVAL_TARGETS = {0: "syn_tgt", 1: "row_ptr search"}
 EVENT_KERNEL_NAMES = {"event_arrival": ("arrival_place", "arrival_sum"),
-                      "event_ltp": "event_ltp_kernel",
+                      "event_neurons": "neuron_scan",
+                      "event_ltp": "ltp_synapses",
+                      "event_ltp_rows": "event_ltp_kernel",
                       "event_emit": "emit_scan"}
 # the profiler's names of the STDP kernels (row_kernel<true> is phase A)
 STDP_KERNEL_NAMES = {"stdp_phase_a": "row_kernel<true>",
@@ -768,6 +791,32 @@ def _stdp_rows(plan8, spec8):
                 again()
                 equal &= all(bit_equal(a, b) for a, b in
                              zip(got, split(work, pg)))
+                # t as the path reads it (the step counter, r = t mod D,
+                # the stimulus a window) against t and r as launch
+                # arguments, in turns: the same bits, and each form's
+                # device time twice
+                ctr = torch.tensor([int(t), 0], dtype=torch.int64,
+                                   device="cuda")
+                counter = lambda: kstdp.stdp_phase_a(
+                    work["ring"], None, pg["seg"], pg["plastic"], pg["exc"],
+                    pg["neuron_valid"], work["stim_idx"][None],
+                    work["stim_amp"][None], work["v"], work["u"],
+                    work["last_post"], work["w"], work["last_arr"], ctr,
+                    **pa_kw)
+                again()
+                equal &= all(bit_equal(a, b) for a, b in zip(
+                    got, (*counter(), work["v"], work["u"], work["w"],
+                          work["last_arr"], work["last_post"],
+                          work["ring"])))
+                args = lambda: phase_a(kstdp, work, pg)
+                forms = {"t_argument": [], "step_counter": []}
+                for _ in range(2):
+                    for form, call in (("t_argument", args),
+                                       ("step_counter", counter)):
+                        forms[form].append(device_ms(
+                            call, restore=again,
+                            kernel=STDP_KERNEL_NAMES[name]))
+                extra.update({f"{k}_device_ms": v for k, v in forms.items()})
             if name == "stdp_arrival_current":
                 again()
                 equal &= all(bit_equal(a, b) for a, b in
@@ -1000,18 +1049,39 @@ def _event_rows(sp8e, lookup):
     rng = np.random.default_rng(2021)
     half_neg = engine.NEG_TIME / 2
     rows, failed = [], []
+    izh = spec.izh
+    coeffs = kref.izh_coefficients(plan.exc_mask, izh)
+    window = engine.StimWindow(spec, plan, t, 1)        # [1, H, C*K]
+    ctr = torch.tensor([t, 0], dtype=torch.int64, device="cuda")
+    pg.update(exc=plan.exc_mask, neuron_valid=plan.neuron_valid)
+    pc.update(exc=pg["exc"].cpu(), neuron_valid=pg["neuron_valid"].cpu())
+    f = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32))
     for label, density, (c_post, c_src) in (
             ("main", STDP_DENSITY, caps),
             ("10x", 10 * STDP_DENSITY, caps),
-            ("10x_default_caps", 10 * STDP_DENSITY,
-             event_engine.default_caps(spec))):
+            ("10x_small_caps", 10 * STDP_DENSITY,
+             (SMALL_C_POST, event_engine.default_caps(spec)[1]))):
         st = _event_state(rng, pc, t, density, cap, D)
         st["spiked"] = torch.from_numpy(rng.random((H, N)) < density)
         st["spiked_src"] = torch.from_numpy(rng.random((H, S)) < density)
+        # the LTP's list, as event_compact lists the spikes
+        st["post_count"], st["post_ids"] = kref.event_compact(
+            st["spiked"], st["last_post"].clone(), st["sat"].clone(), t,
+            c_post=c_post)
         ids, drop = aer.compact_indices(st["spiked"], c_post, fill=N)
-        st["post_ids"], st["post_drop"] = ids.contiguous(), drop
+        st["rows_ids"], st["rows_drop"] = ids.contiguous(), drop
         ids, drop = aer.compact_indices(st["spiked_src"], c_src, fill=S)
         st["src_ids"], st["src_drop"] = ids.contiguous(), drop
+        # the neuron pass's: about `density` of the neurons at or past the
+        # threshold, the others at rest, the arrivals' current, the step's
+        # stimulus
+        st["i_syn"] = f(rng.uniform(-5.0, 20.0, (H, N)))
+        st["v"] = f(np.where(rng.random((H, N)) < density,
+                             rng.uniform(30.0, 40.0, (H, N)),
+                             rng.uniform(-80.0, -60.0, (H, N))))
+        st["u"] = f(rng.uniform(-20.0, 10.0, (H, N)))
+        st["stim_idx"], st["stim_amp"] = (window.index.cpu(),
+                                          window.amp.cpu())
         saved = {k: v.cuda() for k, v in st.items()}
         work = {k: v.clone() for k, v in saved.items()}
 
@@ -1032,11 +1102,20 @@ def _event_rows(sp8e, lookup):
             return (i_syn, n, d["w"], d["last_arr"], d["ev_ring"],
                     d["ev_count"])
 
+        def neurons(impl, d, p):
+            # the kernel as the path calls it: t and the stimulus row from
+            # the step counter, the stimulus a window
+            step, k = (ctr, slice(None)) if impl is kev else (t, 0)
+            out = impl.event_neurons(
+                d["i_syn"], d["stim_idx"][k], d["stim_amp"][k], p["exc"],
+                p["neuron_valid"], d["v"], d["u"], d["last_post"], d["sat"],
+                step, izh=izh, c_post=c_post)
+            return (*out, d["v"], d["u"], d["last_post"], d["sat"])
+
         def ltp(impl, d, p):
-            impl.event_ltp(d["post_ids"], d["post_drop"], d["spiked"],
-                           p["row_ptr"], p["plastic"], d["last_arr"], d["w"],
-                           d["last_post"], d["sat"], t, **ltp_kw)
-            return d["w"], d["last_post"], d["sat"]
+            impl.event_ltp(d["post_ids"], d["post_count"], p["row_ptr"],
+                           p["plastic"], d["last_arr"], d["w"], t, **ltp_kw)
+            return (d["w"],)
 
         def emit(impl, d, p):
             impl.event_emit(d["src_ids"], d["src_drop"], p["fwd"],
@@ -1069,11 +1148,10 @@ def _event_rows(sp8e, lookup):
                          1).gather(1, row)
         post_pl = post & pc["plastic"]
         ltp_n = post_pl & (st["last_arr"] > half_neg)
-        # per neuron its spike flag, per spiking one last_post out; the
-        # list; per listed neuron its row pointers; per synapse of a
-        # listed one plastic, per plastic one last_arr, per LTP w in / out
-        l_bytes = (H * N + n(st["spiked"]) * 4 + post_ids.numel() * 4
-                   + n(listed_n) * 8 + n(post) + n(post_pl) * 4
+        # per listed neuron its list entry and its row's two pointers;
+        # per synapse of a listed one plastic, per plastic one last_arr,
+        # per LTP w in / out; the counts
+        l_bytes = (n(listed_n) * (4 + 4 + 4) + n(post) + n(post_pl) * 4
                    + n(ltp_n) * 8 + H * 8)
         src_ids = st["src_ids"]
         ok = src_ids < S
@@ -1085,6 +1163,7 @@ def _event_rows(sp8e, lookup):
         # id out; the counts and sat
         e_bytes = src_ids.numel() * 4 + emitted * (4 + 4 + 4) + H * D * 8
         traffic = {"event_arrival": (a_bytes, n_ev + n(ltd) * 25),
+                   "event_neurons": None,       # from the plain output
                    "event_ltp": (l_bytes, n(ltp_n) * 25),
                    "event_emit": (e_bytes, 0)}
         shape = dict(H=H, E=E, N=N, S=S, D=D, cap_ev=cap, t=t,
@@ -1101,7 +1180,8 @@ def _event_rows(sp8e, lookup):
         for name, fn, state in (
                 ("event_arrival", arrival,
                  ("ev_ring", "ev_count", "w", "last_arr")),
-                ("event_ltp", ltp, ("w", "last_post", "sat")),
+                ("event_neurons", neurons, ("v", "u", "last_post", "sat")),
+                ("event_ltp", ltp, ("w",)),
                 ("event_emit", emit, ("ev_ring", "ev_count", "sat"))):
             restore(*saved)
             got = [x.clone() for x in fn(kev, work, pg)]
@@ -1118,6 +1198,20 @@ def _event_rows(sp8e, lookup):
             if not equal:
                 failed.append(f"{name} ({label})")
             again = lambda: restore(*state)
+            if name == "event_neurons":
+                # per neuron v and u in and out, i_syn, its two flags, the
+                # spike; per spiking one last_post; the list (the fill
+                # too), the stimulus list, the counts and sat
+                spiking = n(want[0])
+                traffic[name] = (
+                    H * N * (16 + 4 + 2 + 1) + spiking * 4
+                    + H * c_post * 4
+                    + nbytes(window.index[0], window.amp[0]) + H * 12,
+                    H * N * 20)
+                shape = dict(shape, neuron_spikes=spiking,
+                             neuron_listed=n(want[2] < N),
+                             neuron_sat=want[-1].tolist(),
+                             stim_entries=int(window.index[0].numel()))
             n_bytes, n_flops = traffic[name]
             bms, by = bound(n_bytes, n_flops)
             launch = lambda: fn(kev, work, pg)
@@ -1157,7 +1251,7 @@ def _event_rows(sp8e, lookup):
                     place_device_ms=device_ms(
                         launch, restore=again, kernel="arrival_place"),
                     synapse_access_device_ms=device_ms(touch, restore=again))
-            if name == "event_arrival" and label != "10x_default_caps":
+            if name == "event_arrival" and label != "10x_small_caps":
                 # the op built with the other target lookup: the same bits,
                 # timed on the same restored inputs
                 def alt():
@@ -1175,6 +1269,141 @@ def _event_rows(sp8e, lookup):
                         alt, restore=again, kernel=EVENT_KERNEL_NAMES[name]),
                     other_lookup_place_device_ms=device_ms(
                         alt, restore=again, kernel="arrival_place"))
+            if name == "event_neurons":
+                def sequence():
+                    # what the event path ran from i_syn to the list before
+                    # the neuron pass (`event_engine.phase_a`)
+                    row = ctr[1:]
+                    i_ext = kref.stim_current(
+                        work["stim_idx"].index_select(0, row)[0],
+                        work["stim_amp"].index_select(0, row)[0], N)
+                    v, u, spiked = kizh.izhikevich_update(
+                        work["v"], work["u"], work["i_syn"] + i_ext, *coeffs,
+                        v_peak=izh.v_peak, dt=izh.dt,
+                        substeps=izh.v_substeps)
+                    work["v"].copy_(v)
+                    work["u"].copy_(u)
+                    spiked = spiked & pg["neuron_valid"]
+                    count = spiked.sum(1)
+                    ids, drop = aer.compact_indices(spiked, c_post, fill=N)
+                    return spiked, count, ids.contiguous(), drop
+
+                def tail():
+                    # from i_syn to the end of LTP: the neuron pass, LTP
+                    out = neurons(kev, work, pg)
+                    kev.event_ltp(out[2], out[1], pg["row_ptr"],
+                                  pg["plastic"], work["last_arr"], work["w"],
+                                  ctr, **ltp_kw)
+                    return (out[0], work["v"], work["u"], work["w"],
+                            work["last_post"], work["sat"])
+
+                def replaced_tail():
+                    spiked, count, ids, drop = sequence()
+                    kev.event_ltp_rows(ids, drop, spiked, pg["row_ptr"],
+                                       pg["plastic"], work["last_arr"],
+                                       work["w"], work["last_post"],
+                                       work["sat"], ctr, **ltp_kw)
+                    return (spiked, work["v"], work["u"], work["w"],
+                            work["last_post"], work["sat"])
+                again()
+                seq = sequence()
+                seq_equal = all(bit_equal(a, b) for a, b in zip(
+                    seq[:3] + (work["v"], work["u"]),
+                    tuple(got[:3]) + (got[3], got[4])))
+                tail_state = state + ("w",)
+                again_tail = lambda: restore(*tail_state)
+                again_tail()
+                a = [x.clone() for x in tail()]
+                again_tail()
+                tail_equal = all(bit_equal(x, y)
+                                 for x, y in zip(a, replaced_tail()))
+                if not (seq_equal and tail_equal):
+                    failed.append(f"{name} against what it replaced "
+                                  f"({label})")
+                rows[-1].update(
+                    replaced="index_select x2 (the window's row), "
+                             "stim_current (zeros, scatter_add_), the add, "
+                             "izhikevich_update, copy_ x2, & neuron_valid, "
+                             "the spike sum, compact_indices, contiguous",
+                    replaced_equal=seq_equal,
+                    replaced_ms=in_place_ms(sequence, again),
+                    replaced_device_ms=device_ms(sequence, restore=again),
+                    replaced_device_ops=device_ops(sequence, again),
+                    tail="event_neurons then event_ltp: phase A from i_syn "
+                         "to the end of LTP",
+                    replaced_tail="the replaced sequence then "
+                                  "event_ltp_rows (last_post, sat, LTP)",
+                    tail_equal=tail_equal,
+                    tail_ms=in_place_ms(tail, again_tail),
+                    tail_device_ms=device_ms(tail, restore=again_tail),
+                    tail_device_ops=device_ops(tail, again_tail),
+                    replaced_tail_ms=in_place_ms(replaced_tail, again_tail),
+                    replaced_tail_device_ms=device_ms(replaced_tail,
+                                                      restore=again_tail),
+                    replaced_tail_device_ops=device_ops(replaced_tail,
+                                                        again_tail))
+            if name == "event_ltp":
+                # what does the LTP's work now (event_compact, then
+                # event_ltp) against its plain versions on a CPU copy and
+                # on the card, and the kernel it replaced (a warp a listed
+                # row; it also set last_post and sat), on the same inputs
+                rows_state = ("w", "last_post", "sat")
+                again_rows = lambda: restore(*rows_state)
+
+                def compact_ltp_with(impl, d, p):
+                    count, ids = impl.event_compact(
+                        d["spiked"], d["last_post"], d["sat"], t,
+                        c_post=c_post)
+                    impl.event_ltp(ids, count, p["row_ptr"], p["plastic"],
+                                   d["last_arr"], d["w"], t, **ltp_kw)
+                    return count, ids, d["w"], d["last_post"], d["sat"]
+
+                def rows_kernel():
+                    kev.event_ltp_rows(work["rows_ids"], work["rows_drop"],
+                                       work["spiked"], pg["row_ptr"],
+                                       pg["plastic"], work["last_arr"],
+                                       work["w"], work["last_post"],
+                                       work["sat"], t, **ltp_kw)
+                    return work["w"], work["last_post"], work["sat"]
+
+                compact_ltp = lambda: compact_ltp_with(kev, work, pg)
+                again_rows()
+                a = [x.clone() for x in rows_kernel()]
+                again_rows()
+                b = [x.clone() for x in compact_ltp()]
+                cpu = {k: v.clone() for k, v in st.items()}
+                with kref.flush_denormal():
+                    want_cl = compact_ltp_with(kref, cpu, pc)
+                again_rows()
+                want_cl_gpu = compact_ltp_with(kref, work, pg)
+                compact_equal = all(
+                    bit_equal(x, y) and bit_equal(x, z)
+                    for x, y, z in zip(b, want_cl, want_cl_gpu))
+                if not compact_equal:
+                    failed.append(f"{name} event_compact then event_ltp "
+                                  f"against the plain versions ({label})")
+                rows_equal = (all(bit_equal(x, y) for x, y in zip(a, b[2:]))
+                              and bit_equal(b[2], got[0]))
+                if not rows_equal:
+                    failed.append(f"{name} against event_ltp_rows ({label})")
+                rows[-1].update(
+                    compact_and_ltp_equal=compact_equal,
+                    compact_and_ltp_max_abs_err=max(
+                        max(max_abs_err(x, y), max_abs_err(x, z))
+                        for x, y, z in zip(b, want_cl, want_cl_gpu)),
+                    rows_kernel="event_ltp_rows (csrc/stdp.cu::"
+                                "event_ltp_kernel: a warp a "
+                                "listed row; last_post and sat)",
+                    rows_kernel_equal=rows_equal,
+                    rows_kernel_device_ms=device_ms(
+                        rows_kernel, restore=again_rows,
+                        kernel=EVENT_KERNEL_NAMES["event_ltp_rows"]),
+                    compact_and_ltp_device_ms=device_ms(
+                        compact_ltp, restore=again_rows,
+                        kernel=("neuron_scan", "ltp_synapses")),
+                    compact_device_ms=device_ms(
+                        compact_ltp, restore=again_rows,
+                        kernel="neuron_scan"))
             if name == "event_emit":
                 # its loads at random synapses alone: each emitted event's
                 # delay, as one PyTorch indexing call on restored inputs
@@ -1357,6 +1586,7 @@ def phase_kernels(plan8, spec8, sp8e, lookup):
     emit({"phase": "kernels", "stdp_ptxas": _build.inspect("stdp.cu")["ptxas"],
           "arborize_ptxas": _build.inspect("arborize.cu")["ptxas"],
           "event_ptxas": _build.inspect("event.cu")["ptxas"],
+          "event_phase_a_ptxas": _build.inspect("event_phase_a.cu")["ptxas"],
           "rows": rows})
     if failed:
         raise PhaseFailed(f"kernels differ from their plain versions: "
@@ -1371,17 +1601,17 @@ def _first_divergence(a: np.ndarray, b: np.ndarray):
 
 def _snn_counted() -> tuple:
     """The SNN kernels whose launches `check` and `timed` read: the dense
-    path's, those it replaced (off the dense path; `izhikevich_update` is
-    on the event path; `arborize_elements`, the element-major phase B),
-    and the event path's."""
+    path's, those it replaced (off the path: `izhikevich_update`, the
+    pair, `arborize_elements`), the event path's, the split schedule's
+    `event_compact` and the LTP kernel the event path's replaced."""
     return (ops.SNN_KERNELS + ops.PHASE_A_KERNELS + ops.PAIR_KERNELS
-            + ops.PHASE_B_KERNELS + ops.EVENT_KERNELS)
+            + ops.PHASE_B_KERNELS + ops.EVENT_KERNELS
+            + ops.EVENT_SPLIT_KERNELS + ops.EVENT_YARDSTICKS)
 
 
 def _path_kernels(delivery: str) -> tuple:
     """The kernels a step of `delivery` launches once each."""
-    return (ops.SNN_KERNELS if delivery == "dense"
-            else ops.EVENT_KERNELS + ("izhikevich_update",))
+    return ops.SNN_KERNELS if delivery == "dense" else ops.EVENT_KERNELS
 
 
 def _main_path_counts(steps: int, delivery: str = "dense") -> dict:

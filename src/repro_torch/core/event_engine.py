@@ -20,12 +20,15 @@ arrival ring; this backend keeps EVENT LISTS instead:
 Capacities are static (the AER trade): cap_ev bounds a slot's events,
 c_post and c_src the compacted spike lists; overflow counts in `sat`
 instead of corrupting.  Compaction is sort-free (`aer.compact_indices`:
-a cumsum ranks the selected entries), and so is every op of the step.
+a cumsum ranks the selected entries; on the card the neuron pass ranks
+the spiking neurons by a scan), and so is every op of the step.
 
-On the card each of the three is one op of hand-written kernels
-(`kernels.ops.event_arrival`, `event_ltp`, `event_emit`) and the neurons
-run through `kernels.ops.izhikevich_update`; on the CPU the plain
-versions give the JAX package's bits (its event backend, jitted under
+On the card a step is four ops of hand-written kernels
+(`kernels.ops.event_arrival`; `event_neurons`: the stimulus, the neurons,
+the spikes listed by a scan and their bookkeeping; `event_ltp`;
+`event_emit`), the split schedule's plasticity half listing the spikes
+apart (`event_compact`); on the CPU the plain versions give the JAX
+package's bits (its event backend, jitted under
 `XLA_FLAGS=--xla_cpu_max_isa=AVX`).  Against the dense backend the
 rasters are equal and the weights agree to ~1e-5: the sum orders differ
 (list order here, canonical synapse order there).
@@ -141,6 +144,38 @@ def init_event_state(spec: SimSpec, base: ShardState, cap_ev: int
 # ---------------------------------------------------------------------------
 
 
+def _arrivals(spec: SimSpec, plan: ShardPlan, st: EventState, t):
+    """This step's event list -> (i_syn, n_arrived): currents, LTD and the
+    last-arrival refresh, the slot's list and count cleared (in place)."""
+    stdp = spec.stdp
+    b = st.base
+    return kops.event_arrival(
+        st.ev_ring, st.ev_count, plan.syn_tgt, plan.row_ptr,
+        plan.syn_plastic, b.last_post, b.w, b.last_arr, t,
+        a_minus=stdp.a_minus, tau_minus=stdp.tau_minus, w_min=stdp.w_min,
+        w_max=stdp.w_max, neg_time=NEG_TIME)
+
+
+def _neurons(spec: SimSpec, plan: ShardPlan, st: EventState, i_syn, t, stim,
+             coeffs, c_post: Optional[int]):
+    """Stimulus -> neuron update -> spikes, and with c_post the list of the
+    first c_post spiking neurons, last_post and sat (in place)."""
+    b = st.base
+    return kops.event_neurons(
+        i_syn, *stim, plan.exc_mask, plan.neuron_valid, b.v, b.u,
+        b.last_post, st.sat, t, izh=spec.izh, c_post=c_post, coeffs=coeffs)
+
+
+def _ltp(spec: SimSpec, plan: ShardPlan, st: EventState, ids, count,
+         t) -> None:
+    """LTP on the incoming rows of the listed neurons (w in place)."""
+    stdp = spec.stdp
+    kops.event_ltp(ids, count, plan.row_ptr, plan.syn_plastic,
+                   st.base.last_arr, st.base.w, t, a_plus=stdp.a_plus,
+                   tau_plus=stdp.tau_plus, w_min=stdp.w_min,
+                   w_max=stdp.w_max, neg_time=NEG_TIME)
+
+
 def phase_a_dynamics(spec: SimSpec, plan: ShardPlan, eplan: EventPlan,
                      st: EventState, t, stim, coeffs
                      ) -> Tuple[EventState, torch.Tensor, StepTimings]:
@@ -148,26 +183,15 @@ def phase_a_dynamics(spec: SimSpec, plan: ShardPlan, eplan: EventPlan,
     last-arrival refresh -> stimulus -> neuron update.
 
     `t` is the step (an int; on the card also the device step counter),
-    `stim` the step's (index, amp) rows [H, C*K], `coeffs` the neurons'
-    (a, b, c, d) (`kernels.ref.izh_coefficients`, built once by the
-    caller).  Updates v, u, w, last_arr and the slot's list and count in
-    place; returns (state, spiked [H, N], timings)."""
-    stdp, izh = spec.stdp, spec.izh
-    base = st.base
-    i_syn, n_arrived = kops.event_arrival(
-        st.ev_ring, st.ev_count, plan.syn_tgt, plan.row_ptr,
-        plan.syn_plastic, base.last_post, base.w, base.last_arr, t,
-        a_minus=stdp.a_minus,
-        tau_minus=stdp.tau_minus, w_min=stdp.w_min, w_max=stdp.w_max,
-        neg_time=NEG_TIME)
-    i_ext = kref.stim_current(*stim, spec.n_local)
-    v, u, spiked = kops.izhikevich_update(
-        base.v, base.u, i_syn + i_ext, *coeffs, v_peak=izh.v_peak,
-        dt=izh.dt, substeps=izh.v_substeps)
-    base.v.copy_(v)
-    base.u.copy_(u)
-    spiked = spiked & plan.neuron_valid
-    return st, spiked, StepTimings(spikes=spiked.sum(1), arrivals=n_arrived)
+    `stim` the step's (index, amp) rows [H, C*K] (with the counter, the
+    window [W, H, C*K]), `coeffs` the neurons' (a, b, c, d)
+    (`kernels.ref.izh_coefficients`, built once by the caller).  Updates
+    v, u, w, last_arr and the slot's list and count in place; returns
+    (state, spiked [H, N], timings)."""
+    i_syn, n_arrived = _arrivals(spec, plan, st, t)
+    spiked, count, _ = _neurons(spec, plan, st, i_syn, t, stim, coeffs,
+                                None)
+    return st, spiked, StepTimings(spikes=count, arrivals=n_arrived)
 
 
 def phase_a_plasticity(spec: SimSpec, plan: ShardPlan, eplan: EventPlan,
@@ -178,26 +202,28 @@ def phase_a_plasticity(spec: SimSpec, plan: ShardPlan, eplan: EventPlan,
     compaction's overflow into `sat`.  Touches only {w, last_post, sat},
     disjoint from phase B's {ev_ring, ev_count}: what makes overlapping
     the exchange with it legal.  In place; returns `st`."""
-    stdp = spec.stdp
     if c_post is None:
         c_post = default_caps(spec)[0]
-    ids, dropped = aer.compact_indices(spiked, c_post, fill=spec.n_local)
-    kops.event_ltp(ids.contiguous(), dropped, spiked, plan.row_ptr, plan.syn_plastic,
-                   st.base.last_arr, st.base.w, st.base.last_post, st.sat, t,
-                   a_plus=stdp.a_plus, tau_plus=stdp.tau_plus,
-                   w_min=stdp.w_min, w_max=stdp.w_max, neg_time=NEG_TIME)
+    count, ids = kops.event_compact(spiked, st.base.last_post, st.sat, t,
+                                    c_post=c_post)
+    _ltp(spec, plan, st, ids, count, t)
     return st
 
 
 def phase_a(spec: SimSpec, plan: ShardPlan, eplan: EventPlan,
             st: EventState, t, stim, coeffs, c_post: Optional[int] = None
             ) -> Tuple[EventState, torch.Tensor, StepTimings]:
-    """`phase_a_dynamics` then `phase_a_plasticity`: (state, spiked, tm),
-    the contract of `engine.phase_a`."""
-    st, spiked, tm = phase_a_dynamics(spec, plan, eplan, st, t, stim,
-                                      coeffs)
-    st = phase_a_plasticity(spec, plan, eplan, st, spiked, t, c_post=c_post)
-    return st, spiked, tm
+    """`phase_a_dynamics` then `phase_a_plasticity`, in three ops: the
+    arrivals, the neurons with the spike list and its bookkeeping
+    (`kernels.ops.event_neurons`), LTP.  (state, spiked, tm), the contract
+    of `engine.phase_a`."""
+    if c_post is None:
+        c_post = default_caps(spec)[0]
+    i_syn, n_arrived = _arrivals(spec, plan, st, t)
+    spiked, count, ids = _neurons(spec, plan, st, i_syn, t, stim, coeffs,
+                                  c_post)
+    _ltp(spec, plan, st, ids, count, t)
+    return st, spiked, StepTimings(spikes=count, arrivals=n_arrived)
 
 
 def phase_b(spec: SimSpec, plan: ShardPlan, eplan: EventPlan,
@@ -278,18 +304,15 @@ def make_step_fn(spec: SimSpec, plan: ShardPlan, eplan: EventPlan, t0: int,
 def make_runner(spec: SimSpec, plan: ShardPlan, eplan: EventPlan,
                 state: EventState, c_post: Optional[int] = None,
                 c_src: Optional[int] = None) -> engine.CapturedRun:
-    """The event run on the card (`engine.CapturedRun`): each step's
-    stimulus rows are picked from the window by the step counter's row
-    (index_select), and every kernel reads t from the counter."""
-    coeffs = kref.izh_coefficients(plan.exc_mask, spec.izh)
+    """The event run on the card (`engine.CapturedRun`): every kernel reads
+    t from the step counter, and the neuron pass its stimulus row from the
+    window at the counter's row."""
     exchange = engine.make_exchange(spec, plan)
 
     def step(state, ctr, stim_index, stim_amp):
-        row = ctr[1:]
-        stim = (stim_index.index_select(0, row)[0],
-                stim_amp.index_select(0, row)[0])
-        state, spiked, tm = phase_a(spec, plan, eplan, state, ctr, stim,
-                                    coeffs, c_post=c_post)
+        state, spiked, tm = phase_a(spec, plan, eplan, state, ctr,
+                                    (stim_index, stim_amp), None,
+                                    c_post=c_post)
         phase_b(spec, plan, eplan, state, exchange(spiked), ctr, c_src=c_src)
         return spiked, tm
 

@@ -1,8 +1,8 @@
 // The event backend's delivery (`repro/core/event_engine.py`, plain jnp in
 // the JAX package, no Pallas kernel) over the stacked shards: the arrivals
 // of one ring slot, and the emission of the spiking sources' forward rows
-// into the ring.  LTP of the event backend is `event_ltp_kernel` in
-// stdp.cu, beside the LTP walk it shares with the dense path.
+// into the ring.  The rest of the event backend's phase A, the neurons
+// and LTP, is in event_phase_a.cu.
 //
 // The ring holds EVENT LISTS: ev_ring [H, D, cap] int32 synapse ids, -1
 // past the list, and ev_count [H, D] int32 the list lengths.  Invariant:

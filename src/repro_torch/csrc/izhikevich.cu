@@ -9,8 +9,9 @@
 // about 20 flops; at N = 64,000 (an 8x8 grid) that is 2.4 MB, under a
 // microsecond at 3.35 TB/s, so the launch latency is what it costs.  The
 // main path runs this update inside the phase-A kernel
-// (`stdp.cu::row_kernel<true>`), which has no such launch; this kernel is
-// its yardstick.
+// (`stdp.cu::row_kernel<true>`), and the event path inside its neuron pass
+// (`event_phase_a.cu::neuron_scan`), neither with a launch of its own;
+// this kernel is their yardstick.
 //
 // Bits: the reference order is kept literally, every literal is fp32 (a
 // bare 0.04 would make the sum double), and the library is built with

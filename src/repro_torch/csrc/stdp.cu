@@ -589,12 +589,15 @@ __global__ void __launch_bounds__(kLtpThreads) ltp_kernel(
 }
 
 // The event backend's LTP (`repro/core/event_engine.py::
-// phase_a_plasticity`): a warp per entry of ids [H, C] (the first C
-// spiking neurons of each shard, ascending, then the fill N) walks the
-// neuron's CSR row as ltp_kernel does (row n is the JAX plan's in_rows[n]:
-// valid synapses first, sorted by target); every thread also sets
-// last_post = t of the spiking neurons of a stride of the shard (listed
-// or not), and the first thread adds the compaction's overflow to sat.
+// phase_a_plasticity`) as the event path first ran it, off the path since
+// `event_phase_a.cu::ltp_synapses` replaced it and kept as its yardstick
+// (`kernels.event.event_ltp_rows`): a warp per entry of ids [H, C] (the
+// first C spiking neurons of each shard, ascending, then the fill N) walks
+// the neuron's CSR row as ltp_kernel does (row n is the JAX plan's
+// in_rows[n]: valid synapses first, sorted by target); every thread also
+// sets last_post = t of the spiking neurons of a stride of the shard
+// (listed or not), and the first thread adds the compaction's overflow to
+// sat.
 __global__ void __launch_bounds__(kLtpThreads) event_ltp_kernel(
     const int32_t* __restrict__ ids, const int32_t* __restrict__ n_dropped,
     const uint8_t* __restrict__ spiked, const int32_t* __restrict__ row_ptr,
@@ -622,7 +625,7 @@ __global__ void __launch_bounds__(kLtpThreads) event_ltp_kernel(
 
 }  // namespace
 
-extern "C" int repro_event_ltp(
+extern "C" int repro_event_ltp_rows(
     const void* ids, const void* n_dropped, const void* spiked,
     const void* row_ptr, const void* plastic, const void* last_arr, void* w,
     void* last_post, void* sat, const void* ctr, int64_t t, int64_t H,

@@ -54,7 +54,11 @@ SIGNATURES = {
     "repro_event_arrival": [_P] * 4,
     # (pointers [10], int64 [9], stream): csrc/event.cu
     "repro_event_emit": [_P] * 3,
-    "repro_event_ltp": [_P] * 10 + [_I64] * 5 + [_F] * 5 + [_P],
+    # (pointers [8], int64 [7], float [5], stream): csrc/event_phase_a.cu
+    "repro_event_ltp": [_P] * 4,
+    # (pointers [17], int64 [9], float [11], stream): csrc/event_phase_a.cu
+    "repro_event_neurons": [_P] * 4,
+    "repro_event_ltp_rows": [_P] * 10 + [_I64] * 5 + [_F] * 5 + [_P],
     "repro_izhikevich_update": [_P] * 10 + [_I64, _F, _F, _F, ctypes.c_int,
                                             _P],
     "repro_stdp_arrival": [_P] * 10 + [_I64] * 5 + [_F] * 6 + [_P],

@@ -1,24 +1,29 @@
-"""CUDA wrappers of the event backend's delivery: the arrivals of a ring
-slot and the emission into the ring (`csrc/event.cu`), and its LTP
-(`csrc/stdp.cu::event_ltp_kernel`, beside the LTP walk of the dense path).
+"""CUDA wrappers of the event backend's step: the arrivals of a ring slot
+and the emission into the ring (`csrc/event.cu`), and the rest of phase A,
+the neurons and LTP (`csrc/event_phase_a.cu`).
 
-Replace the plain jnp of `repro/core/event_engine.py` (no Pallas kernel
-there): `phase_a_dynamics`' arrivals (`event_arrival`), `phase_a_
-plasticity` (`event_ltp`) and `phase_b` (`event_emit`).  Each updates the
-event state in place and reads nothing back, so the step never waits on
-the card; the step t is an int, or the device step counter (int64 [2],
-`_build.step_counter`) that a captured CUDA graph advances.  Each call
-counts one launch of its op (`event_arrival` runs two kernels on the
-stream, `event_emit` one; `csrc/event.cu`'s note); their integer scratch
-is `_build.scratch`'s, zero between launches.  Ids are read one element
-at a time, so no alignment is required.  The plain versions,
-with the same in-place contract, are `kernels.ref.event_arrival`,
-`kernels.ref.event_ltp` and `kernels.ref.event_emit`.
+Replace `repro/core/event_engine.py` (plain jnp, whose neuron update is
+the Pallas kernel `repro/kernels/izhikevich.py::izhikevich_update`):
+`phase_a_dynamics`' arrivals (`event_arrival`) and its stimulus and
+neurons with, in the fused phase A, `phase_a_plasticity`'s compaction
+(`event_neurons`); that compaction alone for the split schedule
+(`event_compact`); the LTP (`event_ltp`); and `phase_b` (`event_emit`).
+Each updates the event state in place and reads nothing back, so the step
+never waits on the card; the step t is an int, or the device step counter
+(int64 [2], `_build.step_counter`) that a captured CUDA graph advances.
+Each call counts one launch of its op (`event_arrival` runs two kernels
+on the stream, the others one; the sources' notes); their integer scratch
+is `_build.scratch`'s, zero between launches.  Elements are read one at a
+time, so no alignment is required.  The plain versions, with the same
+in-place contract, are the functions of the same names in
+`kernels.ref`.  `event_ltp_rows`, the LTP kernel that `event_ltp`
+replaced (`csrc/stdp.cu::event_ltp_kernel`), stays as its yardstick.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
@@ -28,6 +33,9 @@ from .ref import reciprocal_f32
 #: (`csrc/event.cu::kEmitWarps`); a row of more than EMIT_ROW_REGS entries
 #: is read twice (`kRowRegs` rounds of 32 in registers).
 EMIT_ROWS, EMIT_ROW_REGS = 8, 256
+#: Neurons a tile of the neuron pass's scan holds
+#: (`csrc/event_phase_a.cu::kTile`: 256 threads, 4 neurons a thread).
+NEURON_TILE = 1024
 
 
 def _stream():
@@ -90,16 +98,171 @@ def event_arrival(ev_ring, ev_count, syn_tgt, row_ptr, syn_plastic,
     return i_syn, n_arrived
 
 
-def event_ltp(spk_ids, n_dropped, spiked, row_ptr, syn_plastic, last_arr,
-              w, last_post, sat, t, *, a_plus, tau_plus, w_min, w_max,
-              neg_time) -> None:
-    """spk_ids [H, C] int32 (the first C spiking neurons ascending, then
-    the fill N), n_dropped [H] int32, spiked [H, N] bool, row_ptr [H, N + 1]
-    int32, syn_plastic [H, E] bool, last_arr / w [H, E] fp32, last_post
-    [H, N] fp32, sat [H] int32, all contiguous CUDA tensors on one device;
-    t an int or the step counter.  LTP on the listed neurons' rows,
-    last_post = t where spiked, sat += n_dropped, in place."""
+def _scan(name, spiked, last_post, sat, t, c_post, neurons=None, blocks=0):
+    """Launch `csrc/event_phase_a.cu::neuron_scan` -> (count, ids):
+    with `neurons` = (i_syn, stim_idx, stim_amp, exc_mask, neuron_valid, v,
+    u, izh) the neuron pass writing `spiked`, else the scan of `spiked`
+    alone.  Without c_post nothing is listed and last_post and sat are not
+    touched.  `blocks` > 0 caps the grid's blocks a shard (each then walks
+    several tiles; for tests), 0 sizes it to the card."""
+    H, N = spiked.shape
+    C = 0 if c_post is None else int(c_post)
+    dev = spiked.device
+    if not 0 <= C <= N:
+        raise ValueError(f"{name}: c_post = {C} outside [0, N = {N}]")
+    count = torch.empty(H, dtype=torch.int64, device=dev)
+    ids = torch.empty((H, C), dtype=torch.int32, device=dev)
+    if H * N == 0:
+        return count.zero_(), ids.fill_(N)
+    ctr, t_int = _build.step_counter(name, t, dev)
+    book = (last_post.data_ptr(), sat.data_ptr()) if c_post is not None \
+        else (None, None)
+    if neurons is None:
+        ins, K, izh = (None,) * 7, 0, None
+        consts = (0.0,) * 11
+    else:
+        *ins, izh = neurons
+        ins = [x.data_ptr() for x in ins]
+        K = neurons[1].shape[1]
+        consts = (izh.a_exc, izh.a_inh, izh.b_exc, izh.b_inh, izh.c_exc,
+                  izh.c_inh, izh.d_exc, izh.d_inh, izh.v_peak,
+                  np.float32(izh.dt / izh.v_substeps), izh.dt)
+    i_syn, stim_idx, stim_amp, exc, valid, v, u = ins
+    tiles = -(-N // NEURON_TILE)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        stream = _stream()
+        # per tile the look-back word; per shard the tile counter and the
+        # blocks that have left
+        words = _build.scratch(dev, "neuron_words", H * tiles, torch.int64)
+        ctrl = _build.scratch(dev, "neuron_ctrl", 2 * H)
+        ptrs = (ctypes.c_void_p * 15)(
+            i_syn, stim_idx, stim_amp, exc, valid, v, u, spiked.data_ptr(),
+            *book, count.data_ptr(), ids.data_ptr(), words.data_ptr(),
+            ctrl.data_ptr(), ctr)
+        ints = (ctypes.c_int64 * 9)(
+            H, N, C, K, tiles, t_int,
+            0 if neurons is None else izh.v_substeps, neurons is not None,
+            blocks)
+        floats = (ctypes.c_float * 11)(*consts)
+        err = lib.repro_event_neurons(ptrs, ints, floats, stream)
+    _build.check(err, name)
+    _build.counted(name)
+    return count, ids
+
+
+def event_neurons(i_syn, stim_idx, stim_amp, exc_mask, neuron_valid, v, u,
+                  last_post, sat, t, *, izh, c_post, blocks=0):
+    """i_syn [H, N] fp32, the stimulus (index [H, C*K] int64, amp [H, C*K]
+    fp32: the step's row; with the step counter the window [W, H, C*K],
+    read at the counter's row), exc_mask / neuron_valid [H, N] bool,
+    v / u / last_post [H, N] fp32, sat [H] int32, all contiguous CUDA
+    tensors on one device; t an int or the step counter; `izh` the
+    `core.params` constants (launch arguments).  The Izhikevich update of
+    i_syn + the stimulus into v and u in place, the spikes masked by
+    neuron_valid, and with c_post the first c_post spiking neurons listed,
+    last_post = t where spiked and sat += the spikes past c_post ->
+    (spiked [H, N] bool, count [H] int64, ids [H, c_post] int32); without
+    c_post, ids [H, 0], and last_post and sat untouched.  `blocks`:
+    `_scan`'s."""
+    name = "event_neurons"
+    H, N = v.shape
+    if isinstance(t, torch.Tensor):
+        if stim_idx.dim() != 3 or stim_idx.shape[1] != H \
+                or stim_amp.shape != stim_idx.shape:
+            raise ValueError(
+                f"{name}: the stimulus window must be [W, H = {H}, K] for "
+                f"index and amp alike, got {tuple(stim_idx.shape)} and "
+                f"{tuple(stim_amp.shape)}")
+        window, _, k = stim_idx.shape
+        stim_idx = stim_idx.view(window * H, k)
+        stim_amp = stim_amp.view(window * H, k)
+    rows, K = stim_idx.shape
+    if H == 0 or rows % H:
+        raise ValueError(f"{name}: stimulus rows {rows} are not a multiple "
+                         f"of H = {H}")
+    _build.require(name, torch.int64, (rows, K), stim_idx=stim_idx)
+    _build.require(name, torch.float32, (rows, K), stim_amp=stim_amp)
+    _build.require(name, torch.float32, (H, N), i_syn=i_syn, v=v, u=u,
+                   last_post=last_post)
+    _build.require(name, torch.bool, (H, N), exc_mask=exc_mask,
+                   neuron_valid=neuron_valid)
+    _build.require(name, torch.int32, (H,), sat=sat)
+    _build.one_device(name, i_syn, stim_idx, stim_amp, exc_mask,
+                      neuron_valid, v, u, last_post, sat)
+    spiked = torch.empty((H, N), dtype=torch.bool, device=v.device)
+    return (spiked, *_scan(name, spiked, last_post, sat, t, c_post,
+                           (i_syn, stim_idx, stim_amp, exc_mask,
+                            neuron_valid, v, u, izh), blocks))
+
+
+def event_compact(spiked, last_post, sat, t, *, c_post, blocks=0):
+    """spiked [H, N] bool, last_post [H, N] fp32, sat [H] int32, all
+    contiguous CUDA tensors on one device; t an int or the step counter.
+    The first c_post spiking neurons listed, last_post = t where spiked,
+    sat += the spikes past c_post, in place -> (count [H] int64, ids
+    [H, c_post] int32), as `event_neurons` lists them; `blocks`:
+    `_scan`'s."""
+    name = "event_compact"
+    H, N = spiked.shape
+    _build.require(name, torch.bool, (H, N), spiked=spiked)
+    _build.require(name, torch.float32, (H, N), last_post=last_post)
+    _build.require(name, torch.int32, (H,), sat=sat)
+    _build.one_device(name, spiked, last_post, sat)
+    return _scan(name, spiked, last_post, sat, t, c_post, blocks=blocks)
+
+
+def event_ltp(ids, count, row_ptr, syn_plastic, last_arr, w, t, *, a_plus,
+              tau_plus, w_min, w_max, neg_time, blocks=0) -> None:
+    """ids [H, C] int32 (the first C spiking neurons ascending, then the
+    fill N) and count [H] int64 (`event_neurons`' or `event_compact`'s),
+    row_ptr [H, N + 1] int32, syn_plastic [H, E] bool, last_arr / w
+    [H, E] fp32, all contiguous CUDA tensors on one device; t an int or
+    the step counter.  LTP on the rows of the first min(count, C) listed
+    neurons, w in place (`csrc/event_phase_a.cu::ltp_synapses`: a warp a
+    row, the list's length read on the device); `blocks` > 0 sets the
+    blocks a shard instead of the card's resident count (for tests: each
+    warp then takes many rows)."""
     name = "event_ltp"
+    H, C = ids.shape
+    N = row_ptr.shape[1] - 1
+    E = w.shape[1]
+    dev = w.device
+    _build.require(name, torch.int32, (H, C), ids=ids)
+    _build.require(name, torch.int64, (H,), count=count)
+    _build.require(name, torch.int32, (H, N + 1), row_ptr=row_ptr)
+    _build.require(name, torch.bool, (H, E), syn_plastic=syn_plastic)
+    _build.require(name, torch.float32, (H, E), last_arr=last_arr, w=w)
+    _build.one_device(name, ids, count, row_ptr, syn_plastic, last_arr, w)
+    if H * C == 0:
+        return
+    ctr, t_int = _build.step_counter(name, t, dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        ptrs = (ctypes.c_void_p * 7)(
+            ids.data_ptr(), count.data_ptr(), row_ptr.data_ptr(),
+            syn_plastic.data_ptr(), last_arr.data_ptr(), w.data_ptr(), ctr)
+        ints = (ctypes.c_int64 * 6)(H, N, E, C, t_int, blocks)
+        floats = (ctypes.c_float * 5)(a_plus, reciprocal_f32(tau_plus), w_min,
+                                      w_max, neg_time / 2)
+        err = lib.repro_event_ltp(ptrs, ints, floats, _stream())
+    _build.check(err, name)
+    _build.counted(name)
+
+
+def event_ltp_rows(spk_ids, n_dropped, spiked, row_ptr, syn_plastic,
+                   last_arr, w, last_post, sat, t, *, a_plus, tau_plus,
+                   w_min, w_max, neg_time) -> None:
+    """The LTP kernel that `event_ltp` replaced, kept as its yardstick
+    (`csrc/stdp.cu::event_ltp_kernel`, a warp a listed neuron): spk_ids
+    [H, C] int32 (the first C spiking neurons ascending, then the fill N),
+    n_dropped [H] int32, spiked [H, N] bool, row_ptr [H, N + 1] int32,
+    syn_plastic [H, E] bool, last_arr / w [H, E] fp32, last_post [H, N]
+    fp32, sat [H] int32, all contiguous CUDA tensors on one device; t an
+    int or the step counter.  LTP on the listed neurons' rows, last_post =
+    t where spiked, sat += n_dropped, in place: what `event_compact` then
+    `event_ltp` do."""
+    name = "event_ltp_rows"
     H, N = spiked.shape
     C = spk_ids.shape[1]
     E = w.shape[1]
@@ -118,7 +281,7 @@ def event_ltp(spk_ids, n_dropped, spiked, row_ptr, syn_plastic, last_arr,
     ctr, t_int = _build.step_counter(name, t, dev)
     lib = _build.library()
     with torch.cuda.device(dev):
-        err = lib.repro_event_ltp(
+        err = lib.repro_event_ltp_rows(
             spk_ids.data_ptr(), n_dropped.data_ptr(), spiked.data_ptr(),
             row_ptr.data_ptr(), syn_plastic.data_ptr(), last_arr.data_ptr(),
             w.data_ptr(), last_post.data_ptr(), sat.data_ptr(), ctr, t_int,

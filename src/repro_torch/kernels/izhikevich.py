@@ -3,7 +3,8 @@
 Replaces the Pallas TPU kernel `repro/kernels/izhikevich.py::
 izhikevich_update`.  Memory-bound (37 B/neuron); at the 8x8 grid's
 N = 64,000 it is bound by launch latency.  The main path runs the same
-update inside the phase-A kernel (`stdp.stdp_phase_a`); this one is its
+update inside the phase-A kernel (`stdp.stdp_phase_a`) and the event path
+inside its neuron pass (`event.event_neurons`); this one is their
 yardstick and the neuron half of a phase A split into parts.  The plain
 version is `kernels.ref.izhikevich_update`.
 """

@@ -32,18 +32,24 @@ from . import stdp as _stdp
 #: that split phase A; so do the pair that `stdp_arrival_current`
 #: replaced (`PAIR_KERNELS`) and the element-major phase B that
 #: `arborize` replaced (`PHASE_B_KERNELS`), as their yardsticks.
-#: The event backend (`core.event_engine`) runs its own three ops each
-#: step (`EVENT_KERNELS`) and `izhikevich_update`, which is also the
-#: yardstick of the dense phase A.
+#: The event backend (`core.event_engine`) runs its own four ops each
+#: step (`EVENT_KERNELS`): the arrivals, the neurons with the spike list,
+#: LTP and the emission; the split schedule lists the spikes apart
+#: (`EVENT_SPLIT_KERNELS`), and the LTP kernel `event_ltp` replaced stays
+#: as its yardstick (`EVENT_YARDSTICKS`; `izhikevich_update` is the
+#: neuron pass's).
 SNN_KERNELS = ("stdp_phase_a", "arborize")
 PHASE_A_KERNELS = ("izhikevich_update", "stdp_arrival_current", "stdp_ltp")
 PAIR_KERNELS = ("stdp_arrival", "segment_sum_ordered")
 PHASE_B_KERNELS = ("arborize_elements",)
-EVENT_KERNELS = ("event_arrival", "event_ltp", "event_emit")
+EVENT_KERNELS = ("event_arrival", "event_neurons", "event_ltp", "event_emit")
+EVENT_SPLIT_KERNELS = ("event_compact",)
+EVENT_YARDSTICKS = ("event_ltp_rows",)
 LM_KERNELS = ("rg_lru_scan",)
 ATTN_KERNELS = ("flash_attention",)
 KERNELS = (SNN_KERNELS + PHASE_A_KERNELS + PAIR_KERNELS + PHASE_B_KERNELS
-           + EVENT_KERNELS + LM_KERNELS + ATTN_KERNELS)
+           + EVENT_KERNELS + EVENT_SPLIT_KERNELS + EVENT_YARDSTICKS
+           + LM_KERNELS + ATTN_KERNELS)
 
 
 def _route(x: torch.Tensor, name: str) -> bool:
@@ -198,18 +204,54 @@ def event_arrival(ev_ring, ev_count, syn_tgt, row_ptr, syn_plastic,
                                  syn_tgt, *state, t, **kw)
 
 
-def event_ltp(spk_ids, n_dropped, spiked, row_ptr, syn_plastic, last_arr,
-              w, last_post, sat, t, *, a_plus, tau_plus, w_min, w_max,
-              neg_time) -> None:
+def event_neurons(i_syn, stim_idx, stim_amp, exc_mask, neuron_valid, v, u,
+                  last_post, sat, t, *, izh, c_post, coeffs=None):
+    """The event backend's phase A after the arrivals, up to LTP: the
+    stimulus (its (index, amp) row [H, C*K]), i_syn [H, N] + it, the
+    Izhikevich update with a, b, c, d picked by exc_mask from `izh` (a
+    `core.params.IzhikevichParams`) into v and u in place, and the spikes
+    masked by neuron_valid.  With c_post (an int) the first c_post spiking
+    neurons are listed in index order, last_post = t where spiked and sat
+    += the spikes past c_post, in place -> (spiked [H, N] bool, count [H]
+    int64, ids [H, c_post] int32, then the fill N); with c_post None
+    nothing is listed (ids [H, 0]) and last_post and sat are untouched.
+
+    `coeffs`, the plain version's (a, b, c, d) built once by the caller
+    (`ref.izh_coefficients`), is used on the CPU only: the kernel takes the
+    constants as launch arguments (`kernels.event.event_neurons`).  On the
+    card `t` may be the device step counter, the stimulus then a window
+    [W, H, C*K] read at the counter's row."""
+    args = (i_syn, stim_idx, stim_amp, exc_mask, neuron_valid, v, u,
+            last_post, sat)
+    if _route(v, "event_neurons"):
+        return _ev.event_neurons(*args, t, izh=izh, c_post=c_post)
+    with ref.flush_denormal():
+        return ref.event_neurons(*args, _plain_step(t, "event_neurons"),
+                                 izh=izh, c_post=c_post, coeffs=coeffs)
+
+
+def event_compact(spiked, last_post, sat, t, *, c_post):
+    """The event backend's bookkeeping before LTP, from a spike mask
+    spiked [H, N] (the split schedule's plasticity half): the first c_post
+    spiking neurons listed as `event_neurons` lists them, last_post = t
+    where spiked and sat += the spikes past c_post, in place -> (count [H]
+    int64, ids [H, c_post] int32) (`kernels.event.event_compact`)."""
+    args = (spiked, last_post, sat)
+    if _route(spiked, "event_compact"):
+        return _ev.event_compact(*args, t, c_post=c_post)
+    return ref.event_compact(*args, _plain_step(t, "event_compact"),
+                             c_post=c_post)
+
+
+def event_ltp(ids, count, row_ptr, syn_plastic, last_arr, w, t, *, a_plus,
+              tau_plus, w_min, w_max, neg_time) -> None:
     """The event backend's LTP at step t: LTP on the CSR rows (row_ptr
-    [H, N + 1]) of the neurons listed in spk_ids [H, C] int32 (the first C
-    spiking neurons, then the fill N; `core.aer.compact_indices`),
-    last_post = t where spiked [H, N], and sat [H] += n_dropped [H]; in
-    place (`kernels.event.event_ltp`)."""
+    [H, N + 1]) of the neurons listed in ids [H, C] (with count as
+    `event_neurons` or `event_compact` gave it), w [H, E] in place
+    (`kernels.event.event_ltp`)."""
     kw = dict(a_plus=a_plus, tau_plus=tau_plus, w_min=w_min, w_max=w_max,
               neg_time=neg_time)
-    args = (spk_ids, n_dropped, spiked, row_ptr, syn_plastic, last_arr, w,
-            last_post, sat)
+    args = (ids, count, row_ptr, syn_plastic, last_arr, w)
     if _route(w, "event_ltp"):
         return _ev.event_ltp(*args, t, **kw)
     with ref.flush_denormal():

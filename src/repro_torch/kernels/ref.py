@@ -366,31 +366,77 @@ def event_arrival(ev_ring, ev_count, r: int, syn_tgt, syn_plastic,
     return i_syn.view(H, N), listed.sum(1)
 
 
-def event_ltp(spk_ids, n_dropped, spiked, row_ptr, syn_plastic, last_arr,
-              w, last_post, sat, t: int, *, a_plus, tau_plus, w_min, w_max,
-              neg_time) -> None:
-    """Plain version of kernels.event.event_ltp: the event backend's LTP
-    (`repro.core.event_engine.phase_a_plasticity`) with the [H] axis.
+def event_compact(spiked, last_post, sat, t: int, *, c_post: int):
+    """Plain version of kernels.event.event_compact: the bookkeeping of the
+    event backend's LTP (`repro.core.event_engine.phase_a_plasticity`,
+    before its LTP) with the [H] axis.
 
-    spk_ids [H, C] int32, the first C spiking neurons ascending and then
-    the fill N (`core.aer.compact_indices(spiked, C, fill=N)`), n_dropped
-    [H] int32 its overflow, spiked [H, N] bool, row_ptr [H, N + 1] int32
-    (the per-target CSR: row n is the JAX plan's `in_rows[n]`), syn_plastic
-    [H, E] bool, last_arr / w [H, E] fp32, last_post [H, N] fp32, sat [H]
-    int32.  LTP on the rows of the listed neurons, last_post = t where
-    spiked (every spiking neuron, listed or not), sat += n_dropped; all in
-    place."""
-    H, N = spiked.shape
+    spiked [H, N] bool, last_post [H, N] fp32, sat [H] int32.  The first
+    c_post spiking neurons are listed (`core.aer.compact_indices`: ids
+    [H, c_post] int32 ascending, then the fill N), last_post = t where
+    spiked (every spiking neuron, listed or not), sat += the spikes past
+    c_post; in place.  Returns (count [H] int64, ids)."""
+    from ..core.aer import compact_indices
+    N = spiked.shape[1]
+    ids, dropped = compact_indices(spiked, c_post, fill=N)
+    last_post.copy_(torch.where(spiked, f32(t, last_post.device), last_post))
+    sat += dropped.to(sat.dtype)
+    return spiked.sum(1), ids
+
+
+def event_neurons(i_syn, stim_idx, stim_amp, exc_mask, neuron_valid, v, u,
+                  last_post, sat, t: int, *, izh, c_post: Optional[int],
+                  coeffs=None):
+    """Plain version of kernels.event.event_neurons: the event backend's
+    phase A between the arrivals and LTP (`repro.core.event_engine.
+    phase_a_dynamics` from the stimulus on, and with c_post the
+    bookkeeping of `phase_a_plasticity`) with the [H] axis, as the port
+    ran it in PyTorch operations before the kernel.
+
+    i_tot = i_syn + `stim_current(stim_idx, stim_amp)` (the step's row
+    [H, C*K]), `izhikevich_update` with a, b, c, d = `coeffs` (built once
+    by the caller with `izh_coefficients`, or here) written into v and u,
+    spiked = spike & neuron_valid, and with c_post `event_compact`
+    (last_post, sat and the list); `izh` is a `core.params.
+    IzhikevichParams`.  Returns (spiked [H, N] bool, count [H] int64, ids
+    [H, c_post] int32); without c_post ids is empty ([H, 0]) and last_post
+    and sat are not touched."""
+    H, N = v.shape
+    i_tot = i_syn + stim_current(stim_idx, stim_amp, N)
+    a, b, c, d = coeffs if coeffs is not None else izh_coefficients(
+        exc_mask, izh)
+    v2, u2, spiked = izhikevich_update(v, u, i_tot, a, b, c, d,
+                                       v_peak=izh.v_peak, dt=izh.dt,
+                                       substeps=izh.v_substeps)
+    v.copy_(v2)
+    u.copy_(u2)
+    spiked = spiked & neuron_valid
+    if c_post is None:
+        return (spiked, spiked.sum(1),
+                torch.zeros((H, 0), dtype=torch.int32, device=v.device))
+    return (spiked, *event_compact(spiked, last_post, sat, t,
+                                   c_post=c_post))
+
+
+def event_ltp(ids, count, row_ptr, syn_plastic, last_arr, w, t: int, *,
+              a_plus, tau_plus, w_min, w_max, neg_time) -> None:
+    """Plain version of kernels.event.event_ltp: the event backend's LTP
+    (`repro.core.event_engine.phase_a_plasticity`'s) with the [H] axis.
+
+    ids [H, C] int32 (the first C spiking neurons ascending, then the fill
+    N; `event_compact`), row_ptr [H, N + 1] int32 (the per-target CSR: row
+    n is the JAX plan's `in_rows[n]`), syn_plastic [H, E] bool, last_arr /
+    w [H, E] fp32: LTP on the rows of the listed neurons, w in place.
+    count (`event_compact`'s) is how the kernel finds the list's length;
+    the plain version reads the list alone, whose fill N lists nothing."""
+    H, N = row_ptr.shape[0], row_ptr.shape[1] - 1
     listed = torch.zeros((H, N + 1), dtype=torch.bool, device=w.device)
-    listed.scatter_(1, spk_ids.to(torch.int64), True)
+    listed.scatter_(1, ids.to(torch.int64), True)
     row = rows_of_synapses(row_ptr, w.shape[1])
     post = listed.gather(1, row)          # column N: pads and the fill
-    tf = f32(t, w.device)
-    w.copy_(_ltp(post, w, last_arr, syn_plastic, row < N, tf, a_plus=a_plus,
-                 tau_plus=tau_plus, w_min=w_min, w_max=w_max,
+    w.copy_(_ltp(post, w, last_arr, syn_plastic, row < N, f32(t, w.device),
+                 a_plus=a_plus, tau_plus=tau_plus, w_min=w_min, w_max=w_max,
                  neg_time=neg_time))
-    last_post.copy_(torch.where(spiked, tf, last_post))
-    sat += n_dropped.to(sat.dtype)
 
 
 def event_emit(src_ids, n_dropped, fwd_rows, syn_delay, ev_ring, ev_count,

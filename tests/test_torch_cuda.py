@@ -591,9 +591,10 @@ def _event_inputs(H, density, t, seed, cap=None, cfg=SMALL,
 
 def _event_ops(sp, st, spiked, spiked_src, t, c_post=None, c_src=None,
                plain=False):
-    """The three event ops in a step's order, on `st` in place -> the
-    outputs and every state tensor.  `plain` calls the plain versions
-    (`kernels.ref`) on whatever device the tensors are on."""
+    """The event ops of a step in the split schedule's order (the arrivals,
+    the spike list and its bookkeeping, LTP, the emission), on `st` in
+    place -> the outputs and every state tensor.  `plain` calls the plain
+    versions (`kernels.ref`) on whatever device the tensors are on."""
     stdp = sp.spec.stdp
     b = st.base
     N, S = spiked.shape[1], spiked_src.shape[1]
@@ -610,25 +611,24 @@ def _event_ops(sp, st, spiked, spiked_src, t, c_post=None, c_src=None,
         i_syn, n_arr = ops.event_arrival(
             st.ev_ring, st.ev_count, sp.plan.syn_tgt, sp.plan.row_ptr,
             sp.plan.syn_plastic, b.last_post, b.w, b.last_arr, t, **ltd)
-    ltp_op, emit_op = ((ref.event_ltp, ref.event_emit) if plain
-                       else (ops.event_ltp, ops.event_emit))
-    ids, drop = aer.compact_indices(spiked, c_post or N, fill=N)
-    ltp_op(ids.contiguous(), drop, spiked, sp.plan.row_ptr,
-           sp.plan.syn_plastic, b.last_arr, b.w, b.last_post, st.sat, t,
-           **ltp)
+    lib = ref if plain else ops
+    listed = lib.event_compact(spiked, b.last_post, st.sat, t,
+                               c_post=c_post or N)
+    lib.event_ltp(*listed[1:], listed[0], sp.plan.row_ptr,
+                  sp.plan.syn_plastic, b.last_arr, b.w, t, **ltp)
     ids, drop = aer.compact_indices(spiked_src, c_src or S, fill=S)
-    emit_op(ids.contiguous(), drop, sp.eplan.fwd_rows, sp.plan.syn_delay,
-            st.ev_ring, st.ev_count, st.sat, t)
-    return [i_syn, n_arr] + engine.state_tensors(st)
+    lib.event_emit(ids.contiguous(), drop, sp.eplan.fwd_rows,
+                   sp.plan.syn_delay, st.ev_ring, st.ev_count, st.sat, t)
+    return [i_syn, n_arr, *listed] + engine.state_tensors(st)
 
 
 @pytest.mark.parametrize("H", [1, 4])
 @pytest.mark.parametrize("density", [0.0, 0.0215, 0.215, 0.6])
 def test_event_kernels_equal_plain_versions(cuda, H, density):
-    """event_arrival, event_ltp and event_emit, in a step's order, bit-equal
-    to their plain versions on a CPU copy and on the card: at a wrapping
-    t, at t = -1, with c_post / c_src overflowing and with a ring that
-    overflows; each op launched once a call."""
+    """event_arrival, event_compact, event_ltp and event_emit, in a step's
+    order, bit-equal to their plain versions on a CPU copy and on the
+    card: at a wrapping t, at t = -1, with c_post / c_src overflowing and
+    with a ring that overflows; each op launched once a call."""
     n = 0
     ops.reset_launch_counts()
     for t, caps, cap in ((1003, {}, None), (-1, {}, None),
@@ -652,8 +652,156 @@ def test_event_kernels_equal_plain_versions(cuda, H, density):
         for a, b, c in zip(got, want, want_gpu):
             assert _bits_equal(a, b) and _bits_equal(a, c)
     assert ops.launch_counts() == dict(dict.fromkeys(ops.KERNELS, 0),
-                                       event_arrival=n, event_ltp=n,
-                                       event_emit=n)
+                                       event_arrival=n, event_compact=n,
+                                       event_ltp=n, event_emit=n)
+
+
+# A plan of more neurons a shard than a tile of the neuron pass's scan
+# holds (`kernels.event.NEURON_TILE`, 1,024), and not a multiple of it:
+# 4,000 a shard at H=1, 1,000 at H=4.
+NEURONS = GridConfig(grid_x=2, grid_y=2, neurons_per_column=1000,
+                     synapses_per_neuron=40)
+# event_neurons' c_post: none (the split schedule's dynamics half), every
+# neuron of the shard, or fewer than the spikes at 21.5% (the cut and sat)
+CUTS = {"none": None, "all": "N", "cut": 256}
+
+
+def _neuron_inputs(H, density, t, seed):
+    """The NEURONS event program at H shards (CPU) and numpy-seeded inputs
+    of the neuron pass: `density` of the neurons at or past the threshold
+    and the others at rest, i_syn, the step's stimulus row, last spike
+    times and sat."""
+    sp = StepProgram(NEURONS, EngineConfig(n_shards=H, delivery="event"),
+                     device="cpu")
+    rng = np.random.default_rng(seed)
+    H, N = sp.plan.gid.shape
+    f = lambda x: torch.from_numpy(np.asarray(x, np.float32))
+    index, amp = engine.StimWindow(sp.spec, sp.plan, t, 1).row(t)
+    v = np.where(rng.random((H, N)) < density, rng.uniform(30.0, 40.0, (H, N)),
+                 rng.uniform(-80.0, -60.0, (H, N)))
+    return sp, dict(
+        i_syn=f(rng.uniform(-5.0, 20.0, (H, N))), v=f(v),
+        u=f(rng.uniform(-20.0, 10.0, (H, N))),
+        last_post=f(np.where(rng.random((H, N)) < 0.7,
+                             rng.uniform(t - 200.0, t, (H, N)), -1.0e9)),
+        sat=torch.from_numpy(rng.integers(0, 3, H).astype(np.int32)),
+        stim_idx=index.contiguous(), stim_amp=amp.contiguous())
+
+
+def _neurons(lib, plan, izh, d, t, c_post, **kw):
+    """`lib.event_neurons` on the inputs `d` (updated in place) -> its
+    outputs and the state it writes.  With the step counter as t the
+    stimulus goes as a window of one row."""
+    stim = (d["stim_idx"], d["stim_amp"])
+    if isinstance(t, torch.Tensor):
+        stim = tuple(x[None] for x in stim)
+    out = lib.event_neurons(d["i_syn"], *stim, plan.exc_mask,
+                            plan.neuron_valid, d["v"], d["u"],
+                            d["last_post"], d["sat"], t, izh=izh,
+                            c_post=c_post, **kw)
+    return [*out, d["v"], d["u"], d["last_post"], d["sat"]]
+
+
+@pytest.mark.parametrize("counter", [False, True], ids=["t", "counter"])
+@pytest.mark.parametrize("cut", list(CUTS))
+@pytest.mark.parametrize("density", [0.0, 0.0215, 0.215, 1.0])
+@pytest.mark.parametrize("H", [1, 4])
+def test_event_neurons_equal_plain_version(cuda, H, density, cut, counter):
+    """The neuron pass and its scan bit-equal to the plain version
+    (`ref.event_neurons`: the stimulus, the update, the mask,
+    `compact_indices`, last_post, sat, the count) on a CPU copy and on the
+    card, with t a launch argument or read from the step counter; called
+    twice at one t on fresh copies (the tile state is zero again after a
+    call), and once more with one block a shard walking every tile."""
+    t = 1003
+    sp, d = _neuron_inputs(H, density, t, seed=int(density * 1000) + H)
+    N = sp.plan.gid.shape[1]
+    c_post = N if CUTS[cut] == "N" else CUTS[cut]
+    izh = sp.spec.izh
+    to = lambda x: x.to(cuda, copy=True)
+    gplan = sp.plan._replace(**{k: to(v) for k, v in sp.plan._asdict()
+                                .items()})
+    with ref.flush_denormal():
+        want = _neurons(ref, sp.plan, izh, {k: v.clone() for k, v in
+                                             d.items()}, t, c_post)
+    want_gpu = _neurons(ref, gplan, izh, {k: to(v) for k, v in d.items()},
+                        t, c_post)
+    step = (torch.tensor([t, 0], dtype=torch.int64, device=cuda) if counter
+            else t)
+    ops.reset_launch_counts()
+    for blocks in (0, 0, 1):
+        got = _neurons(ops if not blocks else kev, gplan, izh,
+                       {k: to(v) for k, v in d.items()}, step, c_post,
+                       **({"blocks": blocks} if blocks else {}))
+        torch.cuda.synchronize()
+        for a, b, c in zip(got, want, want_gpu):
+            assert _bits_equal(a, b) and _bits_equal(a, c)
+    assert ops.launch_counts() == dict(dict.fromkeys(ops.KERNELS, 0),
+                                       event_neurons=3)
+    if density == 1.0 and cut == "cut":        # sat, the last tensor
+        assert bool((want[-1] > d["sat"]).all())
+    if density > 0.2:
+        assert int(want[1].sum()) > 0
+
+
+@pytest.mark.parametrize("rows", ["csr", "empty_rows"])
+@pytest.mark.parametrize("c_post", [None, 256])
+@pytest.mark.parametrize("density", [0.0215, 0.215])
+def test_event_ltp_equals_plain_and_the_kernel_it_replaced(cuda, density,
+                                                           c_post, rows):
+    """`event_compact` then `event_ltp` (a warp a listed row over a grid
+    sized to the card) bit-equal to their plain versions on a CPU copy and
+    on the card, and to the kernel they replaced (`event_ltp_rows`) on the
+    same inputs: the list, w, last_post, sat; with the card's grid and with
+    one block a shard (each warp then takes many rows, one after another).
+    `empty_rows` merges each pair of CSR rows into the second, so every
+    other listed neuron has an empty row."""
+    t = 1003
+    sp, st, spk, _ = _event_inputs(1, density, t, seed=int(density * 100),
+                                   cfg=NEURONS)
+    N = spk.shape[1]
+    rp = sp.plan.row_ptr
+    if rows == "empty_rows":
+        rp = rp[:, (torch.arange(N + 1) // 2) * 2].contiguous()
+        rp[:, -1] = sp.plan.row_ptr[:, -1]
+    c = c_post or N
+    stdp = sp.spec.stdp
+    ltp = dict(a_plus=stdp.a_plus, tau_plus=stdp.tau_plus, w_min=stdp.w_min,
+               w_max=stdp.w_max, neg_time=engine.NEG_TIME)
+    b = st.base
+
+    def run(lib, dev, **kw):
+        x = lambda v: v.to(dev, copy=True)
+        w, lp, sat = x(b.w), x(b.last_post), x(st.sat)
+        listed = lib.event_compact(x(spk), lp, sat, t, c_post=c, **kw)
+        lib.event_ltp(*listed[1:], listed[0], x(rp), x(sp.plan.syn_plastic),
+                      x(b.last_arr), w, t, **ltp, **kw)
+        return [*listed, w, lp, sat]
+
+    with ref.flush_denormal():
+        want = run(ref, "cpu")
+    want_gpu = run(ref, cuda)
+    ops.reset_launch_counts()
+    for kw in ({}, dict(blocks=1)):
+        got = run(kev if kw else ops, cuda, **kw)
+        torch.cuda.synchronize()
+        for a, bb, cc in zip(got, want, want_gpu):
+            assert _bits_equal(a, bb) and _bits_equal(a, cc)
+    # the kernel they replaced, on the same inputs
+    x = lambda v: v.to(cuda, copy=True)
+    w, lp, sat = x(b.w), x(b.last_post), x(st.sat)
+    ids, drop = aer.compact_indices(x(spk), c, fill=N)
+    kev.event_ltp_rows(ids.contiguous(), drop, x(spk), x(rp),
+                       x(sp.plan.syn_plastic), x(b.last_arr), w, lp, sat, t,
+                       **ltp)
+    for a, bb in zip((w, lp, sat), want[2:]):
+        assert _bits_equal(a, bb)
+    assert ops.launch_counts() == dict(dict.fromkeys(ops.KERNELS, 0),
+                                       event_compact=2, event_ltp=2,
+                                       event_ltp_rows=1)
+    if c_post is not None and density > 0.2:
+        assert bool((want[-1] > st.sat).all())
+    assert not torch.equal(want[2], b.w)
 
 
 # Plans whose targets' buckets outgrow the arrivals' sum: its registers
@@ -692,8 +840,8 @@ def _first_overflow_tile(sp, st, src_ids, t):
 
 @pytest.mark.parametrize("case", list(LONG_CASES))
 def test_event_kernels_on_long_buckets_and_rows(cuda, case):
-    """event_arrival and event_emit (with event_ltp between them, a step's
-    order) bit-equal to their plain versions on a CPU copy and on the card
+    """event_arrival and event_emit (with event_compact and event_ltp
+    between them, a step's order) bit-equal to their plain versions on a CPU copy and on the card
     where buckets outgrow the sum's registers and staging (every valid
     synapse listed; up to 248 and 370 events a target), rows outgrow the
     emission's registers, sources span many emission tiles, and the ring
@@ -738,8 +886,8 @@ def test_event_kernels_on_long_buckets_and_rows(cuda, case):
     if case == "overflow":                    # sat is the last tensor
         assert int(want[-1][0]) > int(st.sat[0])
     assert ops.launch_counts() == dict(dict.fromkeys(ops.KERNELS, 0),
-                                       event_arrival=2, event_ltp=2,
-                                       event_emit=2)
+                                       event_arrival=2, event_compact=2,
+                                       event_ltp=2, event_emit=2)
 
 
 # SMALL with rings of more slots than the emission kernel scans a pass
@@ -781,8 +929,8 @@ def test_event_emit_past_16_slots(cuda, ring, H):
         if cap is not None or caps:
             assert bool((want[-1] > 0).all())      # sat, the last tensor
     assert ops.launch_counts() == dict(dict.fromkeys(ops.KERNELS, 0),
-                                       event_arrival=n, event_ltp=n,
-                                       event_emit=n)
+                                       event_arrival=n, event_compact=n,
+                                       event_ltp=n, event_emit=n)
 
 
 @pytest.mark.parametrize("delivery", ["event", "dense"])
@@ -830,7 +978,7 @@ def test_graph_run_equals_eager_run_and_cpu(cuda, delivery):
                      sp.runner.replayed_launches()))
     assert sp.runner.graph is not None
     path = (("stdp_phase_a", "arborize") if delivery == "dense" else
-            ops.EVENT_KERNELS + ("izhikevich_update",))
+            ops.EVENT_KERNELS)
     assert sp.runner.recorded == dict.fromkeys(path, W)
     # first run: a window eager, one replay, the tail eager; second run:
     # two replays, the tail; the eager loop: every step
@@ -905,7 +1053,8 @@ def test_graph_replays_never_synchronise(cuda, delivery):
 @pytest.mark.parametrize("exchange", ["allgather", "halo", "hier"])
 def test_event_whole_steps_never_synchronise(cuda, exchange):
     """The event phase handles on the card under sync-debug "error", in
-    the sync and the pipelined order: each event op once a phase."""
+    the sync and the pipelined order: each event op once a phase (the
+    pipelined plasticity half lists the spikes with event_compact)."""
     sp = StepProgram(SMALL, EngineConfig(n_shards=4, exchange=exchange,
                                          delivery="event"),
                      device="cuda", hier_groups=2)
@@ -930,8 +1079,9 @@ def test_event_whole_steps_never_synchronise(cuda, exchange):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert ops.launch_counts() == dict(dict.fromkeys(ops.KERNELS, 0),
-                                       event_arrival=6, event_ltp=6,
-                                       event_emit=6, izhikevich_update=6)
+                                       event_arrival=6, event_neurons=6,
+                                       event_compact=3, event_ltp=6,
+                                       event_emit=6)
 
 
 def _scan_inputs(shape):
