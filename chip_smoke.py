@@ -119,6 +119,33 @@ every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
            operations (kernels and copies) per step: the dense path over
            steps 0-19 (nearly silent), and each delivery, graph and eager,
            over the timed run's 500 steps (activity comes in bursts);
+  stream_kernels  streamed connectivity's kernels: `chunk_tables` on the
+           8x8 streamed plan's (K = 1, built on the card) first, an
+           interior and the last chunk and on the ragged last chunk of a
+           4x4 K = 3 plan at H = 4, bit-equal (row pointers and every kept
+           entry) to the plain version on the card (and on a CPU copy for
+           the interior and the ragged chunk), its flag clear, timed beside
+           its plain version and its bound (operations: SPLITMIX_OPS
+           integer instructions a draw lane, counted from the source, at
+           the int32 issue rate); the chunk windows of the phase-A row
+           kernel (with LTP, t from the step counter), of LTP and of the
+           element walk on the interior chunk at the main density,
+           bit-equal to their plain versions on a CPU copy, timed on
+           restored inputs; ptxas's registers and spills of `stream.cu`;
+  stream_check  streamed connectivity at 4x4 full width, 150 steps, K = 1
+           and 3 (ragged at H = 4), three layouts: raster and weight
+           signatures equal to `jax_reference.json`'s runs (the modes are
+           bit-identical), graph = replays = eager, launches (chunk_tables
+           twice a chunk a step, the row kernel and the element walk once),
+           the flag clear, a run of replays under sync-debug; at K = 1,
+           H = 1 the reference's host builder, timed, equals the plan and
+           weights built on the card;
+  stream_timed  the streamed 8x8 program (K = 1, H = 1, 64 chunks)
+           STREAM_STEPS steps, graph and eager (the same bits, and the
+           materialized run's raster and weights): ms a step, the capture's
+           seconds, launches, device busy, operations a step and idle
+           share, and the program's device bytes beside the materialized
+           program's;
   bench    the ported suites (`repro_torch.bench`) on the card, one line
            per report (its env, config, deterministic and wall keys):
            `table1` quick (1x1, 4x4, 150 steps; the 4x4 row's raster
@@ -176,7 +203,8 @@ Then the LM serving path (`recurrentgemma-2b`, `repro_torch.serve`):
               short serving run at full width.
 
 Then the `{"kernels": [...]}` line (launches from the timed eager run of
-the delivery whose path the kernel is on, counted by the wrappers, from the lm_serve run, and from
+the delivery whose path the kernel is on, or the streamed timed eager
+run, counted by the wrappers, from the lm_serve run, and from
 attn_kernels' one call per shape) and, last,
 `{"ok": true, "device": {...}}`.  Any failed phase exits non-zero before
 that line.  Without a CUDA device, or without the rest of the repository
@@ -201,6 +229,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (data sheet)
 PEAK_FP32_PER_S = 67e12        # H100 SXM fp32, outside the tensor cores
 PEAK_BF16_PER_S = 989e12       # H100 SXM bf16, dense tensor cores
+PEAK_INT32_PER_S = 64 * 132 * 1.98e9   # H100 SXM int32: 64 lanes an SM
 MAIN_STEPS = 500
 SYNC_DEBUG_STEPS = 5     # timed: whole steps under sync-debug "error"
 EXCHANGES = ("allgather", "halo", "hier")   # (hier: one group at H=1)
@@ -240,9 +269,19 @@ EVENT_KERNEL_NAMES = {"event_arrival": ("arrival_place", "arrival_sum"),
                       "event_ltp": "ltp_synapses",
                       "event_ltp_rows": "event_ltp_kernel",
                       "event_emit": "emit_scan"}
-# the profiler's names of the STDP kernels (row_kernel<true> is phase A)
-STDP_KERNEL_NAMES = {"stdp_phase_a": "row_kernel<true>",
-                     "stdp_arrival_current": "row_kernel<false>",
+# streamed connectivity: the check's chunk sizes (K = 3 leaves a ragged
+# last chunk at H = 4, 4 columns a shard), the 8x8 timed run's steps (64
+# chunks, each regenerated twice a step: ~10 ms a step of hashing), and
+# the integer instructions of one splitmix64 draw lane in csrc/stream.cu
+# (the seed's xor 2, the add 2, three 64-bit shift-xors 4 each, two 64-bit
+# multiplies 4 each), counted from the source
+STREAM_CHECK_CHUNKS = (1, 3)
+STREAM_STEPS = 100
+SPLITMIX_OPS = 24
+# the profiler's names of the STDP kernels (row_kernel<true, false> is
+# phase A; <true, true> its chunk window on the streamed path)
+STDP_KERNEL_NAMES = {"stdp_phase_a": "row_kernel<true, false>",
+                     "stdp_arrival_current": "row_kernel<false, false>",
                      "stdp_arrival": "arrival_kernel",
                      "stdp_ltp": "ltp_kernel"}
 LM_ARCH = "recurrentgemma-2b"
@@ -1603,10 +1642,12 @@ def _snn_counted() -> tuple:
     """The SNN kernels whose launches `check` and `timed` read: the dense
     path's, those it replaced (off the path: `izhikevich_update`, the
     pair, `arborize_elements`), the event path's, the split schedule's
-    `event_compact` and the LTP kernel the event path's replaced."""
+    `event_compact`, the LTP kernel the event path's replaced, and the
+    streamed path's."""
     return (ops.SNN_KERNELS + ops.PHASE_A_KERNELS + ops.PAIR_KERNELS
             + ops.PHASE_B_KERNELS + ops.EVENT_KERNELS
-            + ops.EVENT_SPLIT_KERNELS + ops.EVENT_YARDSTICKS)
+            + ops.EVENT_SPLIT_KERNELS + ops.EVENT_YARDSTICKS
+            + ops.STREAM_KERNELS + ops.STREAM_SPLIT_KERNELS)
 
 
 def _path_kernels(delivery: str) -> tuple:
@@ -2349,6 +2390,499 @@ def phase_lm_profile(params):
                   for us, k, c in rows[:15]]})
 
 
+# ----------------------------------------------------------------------------
+# streamed connectivity
+# ----------------------------------------------------------------------------
+
+
+def _stream_program(cfg, chunk: int, h: int = 1, placement: str = "block"):
+    """The streamed program of (cfg, K = chunk) on the card: its plan is
+    built on the card (`stream_engine.build`'s chunk counts)."""
+    return StepProgram(cfg, EngineConfig(
+        n_shards=h, placement=placement,
+        connectivity=f"streamed:chunk={chunk}"), device="cuda")
+
+
+def _stream_counts(steps: int, n_chunks: int) -> dict:
+    """A streamed run's launches: per step and chunk, chunk_tables twice,
+    the phase-A row kernel and the element walk once; every other SNN
+    kernel never."""
+    return dict(dict.fromkeys(_snn_counted(), 0),
+                chunk_tables=2 * n_chunks * steps,
+                stdp_phase_a_chunk=n_chunks * steps,
+                arborize_chunk=n_chunks * steps)
+
+
+def _program_bytes(*trees) -> int:
+    """Device bytes of the tensors of NamedTuples of tensors."""
+    return sum(nbytes(x) for t in trees for x in engine.state_tensors(t)
+               if isinstance(x, torch.Tensor) and x.is_cuda)
+
+
+def _chunk_tables_ops(source, c: int, tables, kept) -> tuple:
+    """(integer operations, bytes) of one chunk_tables call on these
+    inputs: SPLITMIX_OPS a draw lane, three lanes a generation slot of an
+    excitatory candidate (ring, member, target) and one of an inhibitory
+    one (target), one more (delay) a kept excitatory synapse; the
+    candidates read, their gids gathered, the tables written."""
+    g = source.geom
+    cand = source.cand[:, c].to(torch.int64)
+    ok = cand >= 0
+    gid = torch.gather(source.src_gid, 1, torch.where(ok, cand, 0))
+    exc = ok & (gid % g.npc < g.nexc)
+    n_exc, n_inh = int(exc.sum()), int((ok & ~exc).sum())
+    kept_exc = sum(int(tables.plastic[h, :k].sum())
+                   for h, k in enumerate(kept))
+    ops_ = SPLITMIX_OPS * (g.M * (3 * n_exc + n_inh) + kept_exc)
+    n_bytes = (nbytes(source.cand[:, c]) + int(ok.sum()) * 8
+               + sum(kept) * (4 + 4 + 1) + nbytes(tables.row_ptr))
+    return ops_, n_bytes, dict(candidates=int(ok.sum()),
+                               slots=int(ok.sum()) * g.M, kept=sum(kept),
+                               kept_excitatory=kept_exc)
+
+
+def _chunk_tables_rows(sp8s, sp4r) -> tuple:
+    """`chunk_tables` on the 8x8 streamed plan's first, an interior and
+    the last chunk, and the last (ragged) chunk of a 4x4 K = 3 plan at H =
+    4: bit-equal (row pointers, and each shard's kept entries) to the plain
+    version on the card and, for the interior and the ragged chunk, on a
+    CPU copy; its flag clear.  Timed beside its plain version and its
+    bound (operations: the draw lanes at the int32 issue rate)."""
+    rows, failed = [], []
+    n8 = sp8s.spec.stream.n_chunks
+    cases = [("first", sp8s, 0), ("interior", sp8s, n8 // 2),
+             ("last", sp8s, n8 - 1),
+             ("ragged_k3", sp4r, sp4r.spec.stream.n_chunks - 1)]
+    for label, sp, c in cases:
+        live = stream_engine.ChunkStream(sp.spec, sp.plan, sp.splan)
+        src, K = live.source, live.tables.src.shape[1]
+        got = live.regenerate(c)
+        torch.cuda.synchronize()
+        want_gpu = kref.chunk_tables(src, c, K)
+        want = [want_gpu]
+        if label in ("interior", "ragged_k3"):
+            src_cpu = kref.ChunkSource(*(x.cpu() if isinstance(
+                x, torch.Tensor) else x for x in src))
+            want.append(kref.chunk_tables(src_cpu, c, K))
+        kept = (want_gpu.row_ptr[:, -1] - want_gpu.row_ptr[:, 0]).tolist()
+        equal = int(live.status[0]) == 0
+        for w in want:
+            equal &= bit_equal(got.row_ptr, w.row_ptr)
+            for h, e in enumerate(kept):
+                equal &= all(bit_equal(a[h, :e], b[h, :e])
+                             for a, b in zip(got[1:], w[1:]))
+        if not equal:
+            failed.append(f"chunk_tables ({label})")
+        n_ops, n_bytes, shape = _chunk_tables_ops(src, c, got, kept)
+        bms, by = bound(n_bytes, n_ops, PEAK_INT32_PER_S)
+        launch = lambda: live.regenerate(c)
+        rows.append(dict(
+            name="chunk_tables", route="cuda",
+            source="src/repro_torch/csrc/stream.cu",
+            replaces="src/repro/core/stream_engine.py:172", launches=None,
+            max_abs_err=0.0 if equal else float("nan"),
+            ms=cuda_ms(launch), device_ms=device_ms(
+                launch, kernel=("gen_kernel", "scan_kernel", "place_kernel",
+                                "rank_kernel")),
+            device_ms_by_kernel={k: device_ms(launch, kernel=k) for k in (
+                "gen_kernel", "scan_kernel", "place_kernel", "rank_kernel")},
+            plain_ms=cuda_ms(lambda: kref.chunk_tables(src, c, K), calls=2,
+                             reps=3, warmup=1),
+            bound_ms=bms, bound_by=by,
+            bound_note=f"operations: {SPLITMIX_OPS} integer instructions a "
+                       f"splitmix64 lane (counted from the source), three "
+                       f"lanes a slot of an excitatory candidate, one of an "
+                       f"inhibitory one, one a kept excitatory synapse, at "
+                       f"the int32 issue rate {PEAK_INT32_PER_S:.4g}/s",
+            ops=n_ops, bytes=n_bytes, library_ms=None,
+            library_note="no PyTorch call regenerates the tables",
+            equal=equal, status=int(live.status[0]),
+            tolerance="bit-equal (row pointers and every kept entry) to the "
+                      "plain version on the card"
+                      + (" and on a CPU copy" if len(want) > 1 else ""),
+            density="main" if label == "interior" else label,
+            shape=dict(shape, chunk=c, H=sp.spec.eng.n_shards,
+                       K=sp.spec.stream.chunk_cols, q=sp.spec.stream.q,
+                       c_cap=sp.spec.stream.c_cap, live_width=K)))
+        del live, got, want, want_gpu
+    return rows, failed
+
+
+def _window_rows(sp8s) -> tuple:
+    """The chunk windows of the phase-A row kernel (with LTP, as `run`
+    calls it, t from the step counter), of LTP (`stdp_ltp_chunk`) and of
+    the element walk (`arborize_chunk`, t from the counter) on the 8x8
+    streamed plan's interior chunk, its synapses' flags and the neurons'
+    spikes drawn at the main density: bit-equal (the whole state, the
+    spikes and counts) to their plain versions on a CPU copy, timed on
+    restored inputs beside their plain versions on the card and bounds
+    from the bytes these inputs make them move."""
+    spec, plan, splan = sp8s.spec, sp8s.plan, sp8s.splan
+    H, N = plan.gid.shape
+    D = spec.cfg.n_delay_slots
+    ss = spec.stream
+    c = ss.n_chunks // 2
+    lo = c * ss.q
+    live = stream_engine.ChunkStream(spec, plan, splan)
+    tb = live.regenerate(c)
+    tb_cpu = kref.ChunkTables(*(x.cpu() for x in tb))
+    e0 = int(tb_cpu.row_ptr[0, 0])
+    kept = int(tb_cpu.row_ptr[0, -1]) - e0
+    t = 1003
+    rng = np.random.default_rng(2023)
+    state = sp8s.init_state()
+    E = state.w.shape[1]
+    f = lambda x: torch.from_numpy(np.asarray(x, np.float32))
+    ring = np.zeros((H, D, E), bool)
+    ring[:, :, e0:e0 + kept] = rng.random((H, D, kept)) < STDP_DENSITY
+    times = lambda shape: f(np.where(rng.random(shape) < 0.7,
+                                     rng.uniform(t - 2000.0, t, shape),
+                                     -1.0e9))
+    cpu = dict(ring=torch.from_numpy(ring),
+               w=f(rng.uniform(0, 10, (H, E))), last_arr=times((H, E)),
+               last_post=times((H, N)),
+               v=f(np.where(rng.random((H, N)) < STDP_DENSITY, 35.0,
+                            rng.uniform(-80.0, 0.0, (H, N)))),
+               u=f(rng.uniform(-20.0, 10.0, (H, N))),
+               spiked=torch.from_numpy(rng.random((H, N)) < STDP_DENSITY),
+               spiked_src=torch.from_numpy(
+                   rng.random(tuple(plan.src_gid.shape)) < STDP_DENSITY),
+               out=torch.zeros((H, N), dtype=torch.bool),
+               counts=torch.zeros((2, H), dtype=torch.int64),
+               ctr=torch.tensor([t, 0], dtype=torch.int64))
+    index, amp = engine.stim_rows(spec, plan, t, 1)
+    cpu.update(stim_idx=index.cpu(), stim_amp=amp.cpu())
+    gpu = {k: v.cuda() for k, v in cpu.items()}
+    exc, nv = plan.exc_mask, plan.neuron_valid
+    kw = dict(izh=spec.izh, stdp=spec.stdp, neg_time=engine.NEG_TIME)
+    ltp_kw = dict(a_plus=spec.stdp.a_plus, tau_plus=spec.stdp.tau_plus,
+                  w_min=spec.stdp.w_min, w_max=spec.stdp.w_max,
+                  neg_time=engine.NEG_TIME)
+
+    def phase_a(d, tables, counter: bool):
+        step = d["ctr"] if counter else t
+        stim = ((d["stim_idx"], d["stim_amp"]) if counter else
+                (d["stim_idx"][0], d["stim_amp"][0]))
+        ops.stdp_phase_a_chunk(
+            d["ring"], None if counter else t % D, tables, lo,
+            exc.to(d["w"].device), nv.to(d["w"].device), *stim, d["v"],
+            d["u"], d["last_post"], d["w"], d["last_arr"], step, d["out"],
+            d["counts"], accumulate=False, with_ltp=True, **kw)
+
+    def ltp(d, tables):
+        ops.stdp_ltp_chunk(d["spiked"], tables, lo, d["last_arr"], d["w"],
+                           d["last_post"], t, **ltp_kw)
+
+    def arb(d, tables, counter: bool):
+        ops.arborize_chunk(d["ring"], d["spiked_src"], tables,
+                           d["ctr"] if counter else t)
+
+    keys = ("ring", "w", "last_arr", "last_post", "v", "u", "out",
+            "counts")
+    rows, failed = [], []
+    cases = (("stdp_phase_a_chunk", phase_a, True,
+              "src/repro/kernels/izhikevich.py:37, src/repro/kernels/"
+              "stdp.py:57, src/repro/kernels/stdp.py:81",
+              "row_kernel<true, true>", "src/repro_torch/csrc/stdp.cu"),
+             ("stdp_ltp_chunk", ltp, None, "src/repro/kernels/stdp.py:81",
+              "ltp_kernel<true>", "src/repro_torch/csrc/stdp.cu"),
+             ("arborize_chunk", arb, True,
+              "src/repro/core/stream_engine.py:389", "arborize_chunk",
+              "src/repro_torch/csrc/arborize.cu"))
+    for name, fn, counter, replaces, kname, source in cases:
+        args = (counter,) if counter is not None else ()
+        g = {k: v.clone() for k, v in gpu.items()}
+        fn(g, tb, *args)
+        torch.cuda.synchronize()
+        w = {k: v.clone() for k, v in cpu.items()}
+        with kref.flush_denormal():
+            fn(w, tb_cpu, *((False,) if counter else ()))
+        equal = all(bit_equal(g[k], w[k]) for k in keys)
+        err = max(max_abs_err(g[k], w[k]) for k in keys if k != "ring")
+        if not equal:
+            failed.append(name)
+        # bytes these inputs make it move
+        rp = tb_cpu.row_ptr[0].to(torch.int64)
+        rows_n = min(ss.q, N - lo)
+        spk_rows = torch.nonzero(w["out"][0, lo:lo + rows_n] if name
+                                 == "stdp_phase_a_chunk" else
+                                 cpu["spiked"][0, lo:lo + rows_n]).reshape(-1)
+        syn_spk = int((rp[spk_rows + 1] - rp[spk_rows]).sum())
+        arrived = int(cpu["ring"][0, t % D, e0:e0 + kept].sum())
+        active = int(cpu["spiked_src"][0][tb_cpu.src[0, :kept].long()].sum())
+        if name == "stdp_phase_a_chunk":
+            n_bytes = (kept + (ss.q + 1) * 4 + rows_n * 19
+                       + arrived * (1 + 4 + 4 + 1 + 4)
+                       + spk_rows.numel() * 8 + syn_spk * 13)
+        elif name == "stdp_ltp_chunk":
+            n_bytes = rows_n + spk_rows.numel() * 8 + syn_spk * 13
+        else:
+            n_bytes = (ss.q + 1) * 4 + kept * (4 + 4) + active * 1
+        bms, by = bound(n_bytes, 0)
+        restore = lambda: [g[k].copy_(gpu[k]) for k in keys]
+        launch = lambda: fn(g, tb, *args)
+        plain = lambda: fn(g, tb, *((False,) if counter else ()))
+        rows.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=None, max_abs_err=err,
+            ms=in_place_ms(launch, restore),
+            device_ms=device_ms(launch, restore=restore, kernel=kname.split(
+                "<")[0]),
+            plain_ms=None, bound_ms=bms, bound_by=by, library_ms=None,
+            library_note="no PyTorch call does it", equal=equal,
+            tolerance="bit-equal (ring, w, last_arr, last_post, v, u, spikes "
+                      "and counts) to the plain version on a CPU copy",
+            kernel=kname, density="main", bytes=n_bytes,
+            shape=dict(chunk=c, rows=rows_n, kept=kept, arrived=arrived,
+                       spiking_rows=int(spk_rows.numel()),
+                       synapses_of_spiking=syn_spk, active=active, t=t)))
+        # the plain version on the card (the same ops on CUDA tensors)
+        rows[-1]["plain_ms"] = _plain_on_card_ms(name, g, tb, lo, t, D, exc,
+                                                 nv, kw, ltp_kw, restore)
+        del g, w
+    return rows, failed
+
+
+def _plain_on_card_ms(name, g, tb, lo, t, D, exc, nv, kw, ltp_kw, restore):
+    """The plain version's ms on the card, on restored inputs (its ops on
+    CUDA tensors; t an int)."""
+    if name == "stdp_phase_a_chunk":
+        fn = lambda: kref.stdp_phase_a_chunk(
+            g["ring"], t % D, tb, lo, exc, nv, g["stim_idx"][0],
+            g["stim_amp"][0], g["v"], g["u"], g["last_post"], g["w"],
+            g["last_arr"], t, g["out"], g["counts"], accumulate=False,
+            with_ltp=True, **kw)
+    elif name == "stdp_ltp_chunk":
+        fn = lambda: kref.stdp_ltp_chunk(g["spiked"], tb, lo, g["last_arr"],
+                                         g["w"], g["last_post"], t, **ltp_kw)
+    else:
+        fn = lambda: kref.arborize_chunk(g["ring"], g["spiked_src"], tb, t)
+    return in_place_ms(fn, restore, calls=3, warmup=1)
+
+
+def phase_stream_kernels(sp8s):
+    """`chunk_tables` and the chunk-window kernels against their plain
+    versions (`_chunk_tables_rows`, `_window_rows`); returns the rows of
+    the `kernels` line (chunk_tables at the 8x8 interior chunk, the
+    windows)."""
+    t0 = time.perf_counter()
+    sp4r = _stream_program(GridConfig(grid_x=4, grid_y=4), 3, 4, "block")
+    build_s = time.perf_counter() - t0
+    rows, failed = _chunk_tables_rows(sp8s, sp4r)
+    w_rows, w_failed = _window_rows(sp8s)
+    rows += w_rows
+    failed += w_failed
+    emit({"phase": "stream_kernels", "ragged_plan_build_s": build_s,
+          "stream_ptxas": _build.inspect("stream.cu")["ptxas"],
+          "rows": rows})
+    if failed:
+        raise PhaseFailed(f"streamed kernels differ from their plain "
+                          f"versions: {failed}")
+    return [r for r in rows if r.get("density") == "main"]
+
+
+def _host_build_equal(sp) -> dict:
+    """The reference's host builder (`connectivity.build_all_streamed`,
+    numpy) on sp's configuration, timed, against the plan and initial
+    weights `stream_engine.build` made on the card."""
+    t0 = time.perf_counter()
+    shards = connectivity.build_all_streamed(
+        sp.spec.cfg, sp.spec.eng, sp.spec.stream.chunk_cols)
+    seconds = time.perf_counter() - t0
+    w = sp.init_state().w.cpu().numpy()
+    e_start = sp.splan.e_start.cpu().numpy()
+    equal = all(
+        np.array_equal(e_start[h], s.e_start)
+        and np.array_equal(sp.splan.cand[h].cpu().numpy(), s.cand)
+        and np.array_equal(sp.plan.src_gid[h].cpu().numpy(), s.src_gid)
+        and np.array_equal(w[h, :s.n_valid], s.weight0)
+        and not w[h, s.n_valid:].any() for h, s in enumerate(shards))
+    return dict(equal=equal, host_builder_s=seconds)
+
+
+def phase_stream_check():
+    """Streamed connectivity at 4x4 full width, 150 steps, K = 1 and K = 3
+    (at H = 4 a shard owns 4 columns: the last chunk is ragged), three
+    layouts: the captured graph's run, a second run (replays only) and the
+    eager loop give the same bits, and the raster and weight signatures
+    of the committed JAX reference's (materialized) runs, the modes being
+    bit-identical; each chunk regenerated twice a step, the phase-A row
+    kernel and the element walk once a chunk, no other SNN kernel; the
+    flag clear; a whole run of replays under sync-debug "error"."""
+    with open(os.path.join(HERE, "src", "repro_torch", "data",
+                           "jax_reference.json")) as f:
+        ref = json.load(f)
+    cfg = GridConfig(**ref["grid"],
+                     neurons_per_column=ref["neurons_per_column"],
+                     synapses_per_neuron=ref["synapses_per_neuron"])
+    steps = ref["steps"]
+    results, failed = {}, []
+    for chunk in STREAM_CHECK_CHUNKS:
+        for name, r in ref["runs"].items():
+            key = f"k{chunk}_{name}"
+            t0 = time.perf_counter()
+            sp = _stream_program(cfg, chunk, r["n_shards"], r["placement"])
+            build_s = time.perf_counter() - t0
+            host = None
+            if (chunk, name) == (1, "h1_block"):
+                host = _host_build_equal(sp)
+            state0 = sp.init_state()
+            t0 = time.perf_counter()
+            first, graph_counts = _counted_run(sp, state0, steps, True)
+            wall = time.perf_counter() - t0
+            rsig, wsig, raster_np = _signatures(sp, first[0], first[1])
+            per_step = raster_np.sum(axis=(1, 2)).astype(int)
+            replayed = sp.run(state0, 0, steps)
+            eager, counts = _counted_run(sp, state0, steps, False)
+            torch.cuda.synchronize()
+            status = int(sp.runner.chunks.status[0])
+            same = _same_run(first, replayed) and _same_run(first, eager)
+            want = _stream_counts(steps, sp.spec.stream.n_chunks)
+            ok = (rsig == r["raster_signature"]
+                  and wsig == r["weight_signature"]
+                  and counts["counted"] == want
+                  and graph_counts["total"] == want and same and status == 0)
+            err = _graph_replays_sync_debug(sp, state0, 0, steps)
+            res = dict(raster_equal=rsig == r["raster_signature"],
+                       weights_equal=wsig == r["weight_signature"],
+                       graph_equal_to_replays_and_eager=same, status=status,
+                       spikes=int(per_step.sum()),
+                       n_chunks=sp.spec.stream.n_chunks,
+                       live_width=sp.runner.chunks.tables.src.shape[1],
+                       launches=counts["counted"],
+                       graph_launches=graph_counts, wall_s=wall,
+                       build_s=build_s, host_build=host,
+                       graph_replays_sync_debug_error=err)
+            if host is not None and not host["equal"]:
+                failed.append(f"{key} (the card's build differs from the "
+                              f"host builder's)")
+            if not ok:
+                failed.append(key)
+                res["first_step_spike_count_differs"] = _first_divergence(
+                    per_step, np.asarray(r["spikes_per_step"]))
+            if err is not None:
+                failed.append(f"{key} (graph replays, sync-debug)")
+            results[key] = res
+            del sp, first, replayed, eager
+            torch.cuda.empty_cache()
+    emit({"phase": "stream_check", "grid": "4x4", "steps": steps,
+          "chunks": list(STREAM_CHECK_CHUNKS), "runs": results})
+    if failed:
+        raise PhaseFailed(f"the streamed path differs from the JAX "
+                          f"reference: {failed}")
+
+
+def phase_stream_timed(sp8s, sp8, build_s: float):
+    """The streamed 8x8 program (K = 1, H = 1, 64 chunks), STREAM_STEPS
+    steps after a warm-up that captures the graph, as the graph's run and
+    as the eager loop (the same bits): ms a step, the capture's seconds,
+    launches, device busy, operations a step and idle share over the graph
+    run (torch.profiler), and device memory beside the materialized
+    program's (sp8, this script's dense 8x8 program): the program's own
+    bytes (plan, streamed plan, state, live tables) and the run's peak
+    above what was allocated before it.  Returns the eager run's launches
+    of the streamed kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = sp8s.spec.cfg
+    n_chunks = sp8s.spec.stream.n_chunks
+    state0 = sp8s.init_state()
+    W = engine.RUN_WINDOW
+    runs = {}
+    for mode in ("graph", "eager"):
+        graph = mode == "graph"
+        sp8s.run(state0, 0, 2 * W, graph=graph)     # warm (and capture)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, counts = _counted_run(sp8s, state0, STREAM_STEPS, graph)
+        wall = time.perf_counter() - t0
+        runs[mode] = dict(out=out, wall=wall, counts=counts,
+                          peak_above=torch.cuda.max_memory_allocated() - base)
+    runner = sp8s.runner
+    sp8s.runner.chunks.check()
+    # the capture alone: the same window's steps captured again
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with (torch.cuda.stream(runner.stream),
+          _build.own_scratch(runner.scratch)):
+        runner._capture()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    same = _same_run(runs["graph"]["out"], runs["eager"]["out"])
+    sp8s.run(state0, 0, STREAM_STEPS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        c0 = time.perf_counter()
+        sp8s.run(state0, 0, STREAM_STEPS)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - c0
+    ev = sorted(((us, k, c) for k, us, c in device_kernel_events(prof)),
+                reverse=True)
+    busy_us = sum(e[0] for e in ev)
+    g = runs["graph"]["out"]
+    raster_np = g[1].cpu().numpy()
+    rate = observables.mean_rate_hz(raster_np, cfg.n_neurons)
+    dense_state = sp8.init_state()
+    dense = sp8.run(dense_state, 0, STREAM_STEPS)
+    equal_dense = (torch.equal(dense[1], g[1]) and sp8.weight_signature(
+        dense[0]) == sp8s.weight_signature(g[0]))
+    want = _stream_counts(STREAM_STEPS, n_chunks)
+    line = dict(
+        phase="stream_timed", grid=f"{cfg.grid_x}x{cfg.grid_y}",
+        neurons=cfg.n_neurons, synapses=cfg.n_synapses, chunk=1,
+        n_chunks=n_chunks, steps=STREAM_STEPS, window=W,
+        graph_nodes_per_window=sum(runner.recorded.values()),
+        capture_s=capture_s, build_s=build_s,
+        graph_equal_to_eager=same, rate_hz=rate,
+        synaptic_events=int(g[2].arrivals.sum()),
+        raster_signature=observables.raster_signature(
+            raster_np, sp8s.plan.gid.cpu().numpy()).hex(),
+        weight_signature=sp8s.weight_signature(g[0]).hex(),
+        raster_and_weights_equal_to_materialized=equal_dense,
+        profile=dict(
+            wall_s=prof_wall,
+            device_busy_ms_per_step=busy_us * 1e-3 / STREAM_STEPS,
+            device_idle_share=1.0 - busy_us * 1e-6 / prof_wall,
+            device_ops_per_step=sum(e[2] for e in ev) / STREAM_STEPS,
+            top=[dict(name=k[:90], device_ms_per_step=us * 1e-3
+                      / STREAM_STEPS, calls=c) for us, k, c in ev[:10]]),
+        memory=dict(
+            streamed_program_bytes=_program_bytes(
+                sp8s.plan, sp8s.splan, state0, runner.chunks.tables),
+            streamed_live_table_bytes=stream_engine.live_table_bytes(
+                sp8s.spec, sp8s.splan),
+            reference_streamed_table_bytes=stream_engine.
+            streamed_table_bytes(sp8s.spec),
+            materialized_table_bytes=stream_engine.materialized_table_bytes(
+                sp8.spec.e_cap),
+            materialized_program_bytes=_program_bytes(sp8.plan,
+                                                      dense_state)))
+    for mode, r in runs.items():
+        line[mode] = dict(
+            wall_s=r["wall"], ms_per_step=r["wall"] / STREAM_STEPS * 1e3,
+            s_per_synapse_per_sim_s_per_hz=timing.norm_seconds(
+                r["wall"], cfg.n_synapses, STREAM_STEPS, rate),
+            run_peak_above_program_bytes=r["peak_above"],
+            launches=r["counts"]["counted"],
+            replayed_launches=r["counts"]["replayed"],
+            launches_as_expected=r["counts"]["total"] == want)
+    line["eager"]["launches_as_expected"] &= (
+        runs["eager"]["counts"]["counted"] == want)
+    emit(line)
+    if not same or not equal_dense:
+        raise PhaseFailed(f"the streamed 8x8 run differs from its eager "
+                          f"loop ({same}) or from the materialized run "
+                          f"({equal_dense})")
+    if not all(line[m]["launches_as_expected"] for m in runs):
+        raise PhaseFailed(f"streamed: kernels not launched as expected: "
+                          f"{line['graph']}, {line['eager']}")
+    return {k: runs["eager"]["counts"]["counted"][k]
+            for k in ops.STREAM_KERNELS + ops.STREAM_SPLIT_KERNELS}
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2375,7 +2909,13 @@ def main() -> int:
         phase_check()
         launches = phase_timed(sp8, sp8e)
         phase_profile(sp8, sp8e)
-        del sp8, sp8e            # so that the later peaks are their own
+        t0 = time.perf_counter()
+        sp8s = _stream_program(GridConfig(grid_x=8, grid_y=8), 1)
+        build_s = time.perf_counter() - t0
+        rows += phase_stream_kernels(sp8s)
+        phase_stream_check()
+        launches.update(phase_stream_timed(sp8s, sp8, build_s))
+        del sp8, sp8e, sp8s      # so that the later peaks are their own
         torch.cuda.empty_cache()
         phase_bench()
         torch.cuda.empty_cache()
@@ -2419,8 +2959,8 @@ if __name__ == "__main__":
     from repro_torch.bench.suites import event_vs_dense, table1, table2
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import (EngineConfig, GridConfig, StepProgram,
-                                  aer, engine, event_engine, observables,
-                                  stimulus)
+                                  aer, connectivity, engine, event_engine,
+                                  observables, stimulus, stream_engine)
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import arborize as karb
     from repro_torch.kernels import event as kev

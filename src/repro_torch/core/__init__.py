@@ -1,13 +1,14 @@
-"""DPSNN-STDP core in PyTorch: the materialized, single-process path of
-`repro.core` (dense and event delivery), with the shards stacked on one
-device."""
+"""DPSNN-STDP core in PyTorch: the single-process path of `repro.core`
+(dense and event delivery over materialized connectivity, dense delivery
+over streamed connectivity), with the shards stacked on one device."""
 
 from .params import (EngineConfig, GridConfig, IzhikevichParams, StdpParams,
                      DEFAULT_IZH, DEFAULT_STDP)
 from .engine import (ShardPlan, ShardState, SimSpec, build, init_state,
                      make_step_fn, run)
 from . import (aer, connectivity, convert, distributed, event_engine,
-               neuron, observables, profiles, stimulus, topology)
+               neuron, observables, profiles, stimulus, stream_engine,
+               topology)
 from .step_program import StepProgram
 
 __all__ = [
@@ -15,5 +16,6 @@ __all__ = [
     "DEFAULT_IZH", "DEFAULT_STDP", "ShardPlan", "ShardState", "SimSpec",
     "StepProgram", "build", "init_state", "make_step_fn", "run",
     "aer", "connectivity", "convert", "distributed", "event_engine",
-    "neuron", "observables", "profiles", "stimulus", "topology",
+    "neuron", "observables", "profiles", "stimulus", "stream_engine",
+    "topology",
 ]

@@ -14,14 +14,15 @@ synapse lives wholly on its target's owner shard, per-target accumulation
 order is identical for every shard count / placement, which is what makes the
 simulated rasters bit-identical across distributions (paper Table 1 check).
 
-This is the port's own copy of the materialized half of
-`repro.core.connectivity` (numpy only, unchanged).  The streamed half
-(`parse_mode` .. `streamed_shard_keys`) is not ported yet.
+This is the port's own copy of `repro.core.connectivity` (numpy only,
+unchanged): the materialized builder and the streamed half
+(`parse_mode` .. `streamed_shard_keys`), whose chunk tables
+`core.stream_engine` regenerates in the step.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -235,3 +236,213 @@ def build_all_shards(cfg: GridConfig, eng: EngineConfig) -> List[ShardSynapses]:
 def _round_up(x: int, m: int) -> int:
     return max(m, -(-x // m) * m)
 
+
+# ---------------------------------------------------------------------------
+# Streamed residency (EngineConfig.connectivity = 'streamed:chunk=<K>')
+#
+# The same counter-based draw lanes that make materialized construction
+# communication-free also make it CHUNKABLE: the canonical synapse list of a
+# shard, restricted to any contiguous range of owned target neurons, is a pure
+# function of (seed, grid, range) and can be regenerated at will.  The host
+# builder below only ever materializes one chunk at a time; the in-step
+# counterpart lives in `core.stream_engine` and must stay bit-identical to
+# `_chunk_synapses` (tests/test_torch_stream.py walls this off).
+
+
+def parse_mode(spec: str) -> Tuple[str, Optional[int]]:
+    """Parse an EngineConfig.connectivity spec.
+
+    Returns ('materialized', None) or ('streamed', chunk_cols).
+    """
+    s = str(spec).strip()
+    if s == "materialized":
+        return "materialized", None
+    name, _, body = s.partition(":")
+    if name != "streamed":
+        raise ValueError(
+            f"unknown connectivity mode {spec!r}: expected 'materialized' "
+            f"or 'streamed:chunk=<K>'")
+    chunk = 1
+    for item in filter(None, (p.strip() for p in body.split(","))):
+        key, eq, val = item.partition("=")
+        if key != "chunk" or not eq:
+            raise ValueError(
+                f"bad streamed connectivity option {item!r} in {spec!r}: "
+                f"the only option is 'chunk=<K>' (target columns per "
+                f"regenerated chunk)")
+        chunk = int(val)
+    if chunk < 1:
+        raise ValueError(f"streamed chunk size must be >= 1, got {chunk}")
+    return "streamed", chunk
+
+
+def stream_geometry(cfg: GridConfig, eng: EngineConfig, chunk_cols: int
+                    ) -> Tuple[int, int, int]:
+    """(n_cap, q, n_chunks): uniform across shards (n_cap is uniform).
+
+    q = owned-neuron slots per chunk; the last chunk may cover fewer real
+    neurons (non-dividing K) — its tail slots simply never match a target.
+    """
+    n_cap = topology.max_local_size(cfg, eng.n_shards, eng.placement)
+    q = chunk_cols * cfg.neurons_per_column
+    n_chunks = -(-n_cap // q)
+    return n_cap, q, n_chunks
+
+
+def chunk_candidates(cfg: GridConfig, eng: EngineConfig, shard: int,
+                     lo: int, hi: int) -> np.ndarray:
+    """Sorted unique gids that may project onto owned local indices [lo, hi).
+
+    Subset of `candidate_sources(cfg, eng, shard)` by construction (the
+    chunk's columns are a subset of the shard's, so their halo is too).
+    """
+    gids = topology.owned_gids(cfg, shard, eng.n_shards, eng.placement)
+    sel = gids[lo:min(hi, gids.shape[0])]
+    if sel.size == 0:
+        return np.empty((0,), dtype=np.int64)
+    cols = np.unique(topology.gid_column(cfg, sel))
+    halos = np.unique(np.concatenate(
+        [topology.neighbour_columns(cfg, int(c)) for c in cols]))
+    npc = cfg.neurons_per_column
+    nexc = cfg.n_exc_per_column
+    exc = (halos[:, None] * npc + np.arange(nexc)[None, :]).ravel()
+    inh = (cols[:, None] * npc + np.arange(nexc, npc)[None, :]).ravel()
+    return np.unique(np.concatenate([exc, inh]))
+
+
+@dataclasses.dataclass
+class ChunkSynapses:
+    """One chunk's incoming synapses, canonical (tgt_gid, src_gid, j) order."""
+
+    src_gid: np.ndarray       # [e] int64
+    tgt_gid: np.ndarray       # [e] int64
+    tgt_local: np.ndarray     # [e] int32 (shard-local target index)
+    j: np.ndarray             # [e] int32
+    delay: np.ndarray         # [e] int32
+    weight0: np.ndarray       # [e] float32
+    plastic: np.ndarray       # [e] bool
+
+
+def _chunk_synapses(cfg: GridConfig, eng: EngineConfig, shard: int,
+                    cand: np.ndarray, lo: int, hi: int) -> ChunkSynapses:
+    """Host reference for one chunk: the [lo, hi) target-local-index slice of
+    the shard's canonical synapse list (bit-equal to `build_shard`'s slice)."""
+    gids = topology.owned_gids(cfg, shard, eng.n_shards, eng.placement)
+    fwd = forward_synapses(cfg, cand)
+    tgt = fwd.tgt_gid.ravel()
+    owner = topology.owner_of(cfg, tgt, eng.n_shards, eng.placement)
+    keep = owner == shard
+    src = np.repeat(cand, cfg.synapses_per_neuron)[keep]
+    j = np.tile(np.arange(cfg.synapses_per_neuron, dtype=np.int64),
+                cand.shape[0])[keep]
+    tgt = tgt[keep]
+    delay = fwd.delay.ravel()[keep]
+    weight = fwd.weight.ravel()[keep]
+    plastic = fwd.plastic.ravel()[keep]
+    tl = np.searchsorted(gids, tgt)
+    assert np.array_equal(gids[tl], tgt), "target must be owned"
+    sel = (tl >= lo) & (tl < hi)
+    src, j, tgt, tl, delay, weight, plastic = (
+        a[sel] for a in (src, j, tgt, tl, delay, weight, plastic))
+    order = np.lexsort((j, src, tgt))
+    return ChunkSynapses(
+        src_gid=src[order], tgt_gid=tgt[order],
+        tgt_local=tl[order].astype(np.int32), j=j[order].astype(np.int32),
+        delay=delay[order].astype(np.int32), weight0=weight[order],
+        plastic=plastic[order])
+
+
+@dataclasses.dataclass
+class StreamedShard:
+    """Streamed-mode shard metadata: O(chunk) synapse residency.
+
+    Only `weight0` is O(E) (it seeds the weight STATE, which is O(E) in
+    either mode); the synapse TABLES are never held whole — `cand` rows name
+    which source-table entries feed each chunk and `e_start` locates each
+    chunk's slice of the canonical synapse order.
+    """
+
+    src_gid: np.ndarray       # [S_cap] int64 (pad -1) — full candidate table
+    n_src: int
+    cand: np.ndarray          # [n_chunks, C_cap] int32 src_gid rows (pad -1)
+    e_start: np.ndarray       # [n_chunks + 1] int64 canonical chunk offsets
+    weight0: np.ndarray       # [n_valid] float32, canonical order (unpadded)
+    n_valid: int
+    chunk_cols: int
+    q: int
+    n_chunks: int
+
+
+def build_streamed_shard(cfg: GridConfig, eng: EngineConfig, shard: int,
+                         chunk_cols: int) -> StreamedShard:
+    """Build one shard's streamed metadata, one chunk resident at a time."""
+    src_table = candidate_sources(cfg, eng, shard)
+    n_cap, q, n_chunks = stream_geometry(cfg, eng, chunk_cols)
+    cands: List[np.ndarray] = []
+    counts: List[int] = []
+    w0: List[np.ndarray] = []
+    for c in range(n_chunks):
+        cand = chunk_candidates(cfg, eng, shard, c * q, (c + 1) * q)
+        sidx = np.searchsorted(src_table, cand)
+        assert np.array_equal(src_table[sidx], cand), \
+            "chunk candidates must be a subset of the shard source table"
+        syn = _chunk_synapses(cfg, eng, shard, cand, c * q, (c + 1) * q)
+        cands.append(sidx.astype(np.int32))
+        counts.append(int(syn.src_gid.shape[0]))
+        w0.append(syn.weight0)
+    c_cap = _round_up(max((c.shape[0] for c in cands), default=1), 8)
+    cand_p = np.full((n_chunks, c_cap), -1, dtype=np.int32)
+    for c, sidx in enumerate(cands):
+        cand_p[c, :sidx.shape[0]] = sidx
+    e_start = np.concatenate(
+        [[0], np.cumsum(np.asarray(counts, dtype=np.int64))])
+    weight0 = (np.concatenate(w0) if w0
+               else np.empty((0,), dtype=np.float32))
+    S = src_table.shape[0]
+    s_cap = _round_up(S, 8)
+    src_gid_p = np.full((s_cap,), -1, dtype=np.int64)
+    src_gid_p[:S] = src_table
+    return StreamedShard(
+        src_gid=src_gid_p, n_src=S, cand=cand_p,
+        e_start=e_start, weight0=weight0.astype(np.float32),
+        n_valid=int(e_start[-1]), chunk_cols=chunk_cols, q=q,
+        n_chunks=n_chunks)
+
+
+def build_all_streamed(cfg: GridConfig, eng: EngineConfig, chunk_cols: int
+                       ) -> List[StreamedShard]:
+    """Build every shard with uniform (max) caps, for stacking."""
+    raw = [build_streamed_shard(cfg, eng, h, chunk_cols)
+           for h in range(eng.n_shards)]
+    s_cap = max(r.src_gid.shape[0] for r in raw)
+    c_cap = max(r.cand.shape[1] for r in raw)
+    out = []
+    for r in raw:
+        src_gid = np.full((s_cap,), -1, dtype=np.int64)
+        src_gid[:r.n_src] = r.src_gid[:r.n_src]
+        cand = np.full((r.n_chunks, c_cap), -1, dtype=np.int32)
+        cand[:, :r.cand.shape[1]] = r.cand
+        out.append(dataclasses.replace(r, src_gid=src_gid, cand=cand))
+    return out
+
+
+def streamed_shard_keys(cfg: GridConfig, eng: EngineConfig, shard: int,
+                        chunk_cols: int
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(tgt_gid, src_gid, j) int64 arrays in canonical order, chunk-wise.
+
+    Used by checkpointing to key each weight-state position without ever
+    holding more than one chunk's synapse tables live.
+    """
+    _, q, n_chunks = stream_geometry(cfg, eng, chunk_cols)
+    tgts, srcs, js = [], [], []
+    for c in range(n_chunks):
+        cand = chunk_candidates(cfg, eng, shard, c * q, (c + 1) * q)
+        syn = _chunk_synapses(cfg, eng, shard, cand, c * q, (c + 1) * q)
+        tgts.append(syn.tgt_gid)
+        srcs.append(syn.src_gid)
+        js.append(syn.j.astype(np.int64))
+    empty = np.empty((0,), dtype=np.int64)
+    return (np.concatenate(tgts) if tgts else empty,
+            np.concatenate(srcs) if srcs else empty,
+            np.concatenate(js) if js else empty)

@@ -5,7 +5,9 @@
 `np.asarray` takes) and returns the port's tensors on `device`, so a run
 started in JAX continues here bit for bit; `event_from_jax(plan, eplan,
 state, device)` does the same for the event backend's `EventPlan` and
-`EventState`.  This module does not import JAX: it reads the fields by
+`EventState`, and `streamed_from_jax(plan, splan, state, device)` for
+streamed connectivity's `StreamedPlan` (its state is a ShardState sized
+[H, e_pad]).  This module does not import JAX: it reads the fields by
 name.
 """
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 
 from .engine import ShardPlan, ShardState, plan_from_arrays, resolve_device
 from .event_engine import EventPlan, EventState
+from .stream_engine import StreamedPlan
 
 _PLAN_FIELDS = ("src_gid", "syn_src", "syn_tgt", "syn_delay", "syn_plastic",
                 "syn_valid", "exc_mask", "neuron_valid", "gid", "columns",
@@ -52,3 +55,15 @@ def event_from_jax(plan, eplan, state, device=None
                     ev_count=_tensor(state.ev_count, np.int32, dev),
                     sat=_tensor(state.sat, np.int32, dev))
     return p, ep, st
+
+
+def streamed_from_jax(plan, splan, state, device=None
+                      ) -> Tuple[ShardPlan, StreamedPlan, ShardState]:
+    """(port ShardPlan, StreamedPlan, ShardState) from the JAX package's
+    stacked streamed-connectivity ShardPlan (1-element synapse dummies),
+    StreamedPlan and ShardState (synapse state [H, e_pad])."""
+    dev = resolve_device(device)
+    p, s = from_jax(plan, state, dev)
+    sp = StreamedPlan(**{k: _tensor(getattr(splan, k), np.int32, dev)
+                         for k in StreamedPlan._fields})
+    return p, sp, s

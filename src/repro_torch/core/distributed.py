@@ -17,8 +17,8 @@ shards stacked on one device (`StepProgram.phase_fns`):
 A mesh of devices (one shard per device, real collectives) is ROADMAP
 queue 1 item 8.  The offsets and groups are host-side numpy functions of
 the plan's tables; `delivery_step_fns` dispatches the phase callables on
-EngineConfig.delivery, as the JAX package's `_delivery_phases` does, so
-every phase handle runs either backend.
+EngineConfig.delivery and on streamed connectivity, as the JAX package's
+`_delivery_phases` does, so every phase handle runs every backend.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 
-from . import engine, event_engine, topology
+from . import engine, event_engine, stream_engine, topology
 from .engine import ShardPlan, SimSpec
 
 
@@ -103,12 +103,18 @@ class PhasePrograms(NamedTuple):
 
 
 def delivery_step_fns(spec: SimSpec, plan: ShardPlan, t0: int, n_steps: int,
-                      eplan=None, caps: Optional[dict] = None
-                      ) -> engine.StepFns:
-    """The phase callables of a window of steps for the plan's delivery:
-    `engine.make_step_fn` (dense) or `event_engine.make_step_fn` (event,
-    with the EventPlan and the optional `caps` c_post / c_src).  Both share
-    the exchange and the signatures of `engine.StepFns`."""
+                      eplan=None, caps: Optional[dict] = None, *,
+                      splan=None) -> engine.StepFns:
+    """The phase callables of a window of steps for the plan's delivery
+    and connectivity mode: `stream_engine.make_step_fn` (streamed, with
+    the StreamedPlan), `engine.make_step_fn` (dense) or
+    `event_engine.make_step_fn` (event, with the EventPlan and the
+    optional `caps` c_post / c_src).  All share the exchange and the
+    signatures of `engine.StepFns`."""
+    if spec.stream is not None:
+        if splan is None:
+            raise ValueError("streamed connectivity needs the StreamedPlan")
+        return stream_engine.make_step_fn(spec, plan, splan, t0, n_steps)
     if spec.eng.delivery == "event":
         if eplan is None:
             raise ValueError("delivery='event' needs the EventPlan")

@@ -39,7 +39,7 @@ reads a device value on the host, so on the card a step never waits.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -97,6 +97,9 @@ class SimSpec(NamedTuple):
     e_cap: int
     s_cap: int
     n_total: int
+    # streamed connectivity's geometry (`stream_engine.StreamSpec`), None
+    # for materialized synapse tables
+    stream: Optional[object] = None
 
 
 class StepTimings(NamedTuple):
@@ -282,7 +285,11 @@ def build(cfg: GridConfig, eng: EngineConfig,
 
 
 def init_state(spec: SimSpec, plan: ShardPlan) -> ShardState:
-    """Fresh dynamic state (zero weights; `build` installs w0) [H, ...]."""
+    """Fresh dynamic state (zero weights; `build` installs w0) [H, ...];
+    synapse state [H, e_pad] under streamed connectivity."""
+    if spec.stream is not None:
+        from . import stream_engine
+        return stream_engine.init_state(spec, plan)
     dev = plan.exc_mask.device
     c = lambda x: kref.f32(x, dev)
     v = torch.full(plan.exc_mask.shape, np.float32(spec.izh.v_init),

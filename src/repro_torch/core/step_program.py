@@ -7,8 +7,10 @@
     state, times, rasters, counts = sp.time_phases(state, 0, 100)
 
 This is the single-process subset of `repro.core.step_program.StepProgram`
-(`mesh=None`, dense or event delivery, materialized connectivity), with
-the shards stacked on a leading [H] axis of one device.  `run` is the
+(`mesh=None`; dense or event delivery over materialized connectivity, or
+dense delivery over streamed connectivity, `connectivity='streamed:chunk=
+K'`, `core.stream_engine`), with the shards stacked on a leading [H] axis
+of one device.  `run` is the
 reference driver that defines the physics (global-mask exchange); on the
 card it replays one captured CUDA graph a window of steps, kept per
 StepProgram (`engine.CapturedRun`).  The phase
@@ -33,7 +35,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import aer, distributed, engine, event_engine
+from . import aer, connectivity, distributed, engine, event_engine
+from . import stream_engine
 from .engine import ShardPlan, SimSpec
 from .params import (DEFAULT_IZH, DEFAULT_STDP, EngineConfig, GridConfig,
                      IzhikevichParams, StdpParams)
@@ -44,15 +47,19 @@ PHASE_WINDOW = 100
 
 
 def check_supported(eng: EngineConfig, mesh=None) -> None:
-    """Raise NotImplementedError for what this port does not run yet (and
-    ValueError for a delivery that does not exist)."""
+    """Raise NotImplementedError for what this port does not run yet, and
+    ValueError for a delivery or connectivity mode that does not exist or
+    a pair of them that the reference refuses (streamed with event
+    delivery)."""
     if eng.delivery not in ("dense", "event"):
         raise ValueError(f"unknown delivery {eng.delivery!r}: expected "
                          f"'dense' or 'event'")
-    if eng.connectivity != "materialized":
-        raise NotImplementedError(
-            f"connectivity={eng.connectivity!r}: streamed connectivity is "
-            f"not ported yet (ROADMAP queue 1, item 7)")
+    mode, _ = connectivity.parse_mode(eng.connectivity)
+    if mode == "streamed" and eng.delivery != "dense":
+        raise ValueError(
+            "connectivity='streamed' requires delivery='dense': the event "
+            "backend's fwd/in row tables are an O(E) synapse-id "
+            "permutation, which contradicts O(chunk) table residency")
     if mesh is not None:
         raise NotImplementedError(
             "a device mesh is not ported yet; shards run stacked on one "
@@ -79,7 +86,9 @@ class StepProgram:
     `hier_groups` (a group count, or a list of equal-sized contiguous
     blocks of shards) sets the shard groups of `exchange='hier'`.  With
     `delivery='event'` the state is an `event_engine.EventState` and
-    `caps` may set the spike compactions' c_post / c_src."""
+    `caps` may set the spike compactions' c_post / c_src.  Streamed
+    connectivity keeps its chunk metadata in `splan`
+    (`stream_engine.StreamedPlan`)."""
 
     def __init__(self, cfg: GridConfig, eng: EngineConfig, *,
                  device=None, mesh=None,
@@ -89,34 +98,42 @@ class StepProgram:
         check_supported(eng, mesh)
         dev = engine.resolve_device(device)
         izh, stdp = izh or DEFAULT_IZH, stdp or DEFAULT_STDP
-        eplan = None
-        if eng.delivery == "event":
+        eplan = splan = None
+        if connectivity.parse_mode(eng.connectivity)[0] == "streamed":
+            spec, plan, splan, state = stream_engine.build(
+                cfg, eng, izh, stdp, device=dev)
+        elif eng.delivery == "event":
             spec, plan, eplan, state = event_engine.build(
                 cfg, eng, izh, stdp, device=dev)
         else:
             spec, plan, state = engine.build(cfg, eng, izh, stdp,
                                              device=dev)
-        self._init(spec, plan, state, eplan, caps, hier_groups)
+        self._init(spec, plan, state, eplan, caps, hier_groups, splan)
 
     @classmethod
     def from_parts(cls, spec: SimSpec, plan: ShardPlan, state0=None, *,
                    eplan: Optional[event_engine.EventPlan] = None,
+                   splan: Optional[stream_engine.StreamedPlan] = None,
                    caps: Optional[dict] = None,
                    hier_groups=None) -> "StepProgram":
-        """Wrap an already-built (spec, plan[, state][, eplan]) without
-        re-running connectivity construction (e.g. a plan from
-        `convert.from_jax`); delivery='event' needs the EventPlan."""
+        """Wrap an already-built (spec, plan[, state][, eplan][, splan])
+        without re-running connectivity construction (e.g. a plan from
+        `convert.from_jax`); delivery='event' needs the EventPlan, streamed
+        connectivity the StreamedPlan."""
         check_supported(spec.eng)
         sp = cls.__new__(cls)
-        sp._init(spec, plan, state0, eplan, caps, hier_groups)
+        sp._init(spec, plan, state0, eplan, caps, hier_groups, splan)
         return sp
 
-    def _init(self, spec, plan, state0, eplan, caps, hier_groups):
+    def _init(self, spec, plan, state0, eplan, caps, hier_groups, splan):
         if spec.eng.delivery == "event" and eplan is None:
             raise ValueError("delivery='event' needs an EventPlan")
+        if spec.stream is not None and splan is None:
+            raise ValueError("streamed connectivity needs a StreamedPlan")
         self.spec: SimSpec = spec
         self.plan: ShardPlan = plan
         self.eplan = eplan
+        self.splan = splan
         self.caps = caps or {}
         self.device = plan.gid.device
         self.hier_groups = hier_groups
@@ -149,12 +166,19 @@ class StepProgram:
         `graph=False` runs the same steps eagerly."""
         spec, plan = self.spec, self.plan
         if self.device.type == "cuda" and self.runner is None:
-            if self.eplan is not None:
+            if self.splan is not None:
+                self.runner = stream_engine.make_runner(spec, plan,
+                                                        self.splan, state)
+            elif self.eplan is not None:
                 self.runner = event_engine.make_runner(
                     spec, plan, self.eplan, state, self.caps.get("c_post"),
                     self.caps.get("c_src"))
             else:
                 self.runner = engine.make_runner(spec, plan, state)
+        if self.splan is not None:
+            return stream_engine.run(spec, plan, self.splan, state, t0,
+                                     n_steps, graph=graph,
+                                     runner=self.runner)
         if self.eplan is not None:
             return event_engine.run(spec, plan, self.eplan, state, t0,
                                     n_steps, self.caps.get("c_post"),
@@ -166,12 +190,20 @@ class StepProgram:
     def weight_signature(self, state) -> bytes:
         """sha256 over the valid synapse weights in canonical per-shard
         order (the plastic-state counterpart of the raster signature),
-        byte-compatible with the JAX package's (of either delivery)."""
+        byte-compatible with the JAX package's (of either delivery and
+        either connectivity mode: streamed state holds shard h's valid
+        weights at [0, e_start[h, -1]))."""
         if isinstance(state, event_engine.EventState):
             state = state.base
         w = state.w.detach().cpu().numpy()
-        valid = self.plan.syn_valid.cpu().numpy()
         h = hashlib.sha256()
+        if self.splan is not None:
+            ends = self.splan.e_start[:, -1].cpu().numpy()
+            for hh in range(w.shape[0]):
+                h.update(np.ascontiguousarray(w[hh, :int(ends[hh])])
+                         .tobytes())
+            return h.digest()
+        valid = self.plan.syn_valid.cpu().numpy()
         for hh in range(w.shape[0]):
             h.update(np.ascontiguousarray(w[hh][valid[hh]]).tobytes())
         return h.digest()
@@ -191,7 +223,8 @@ class StepProgram:
         (`engine.StimWindow`)."""
         if self._phases is None:
             fns = distributed.delivery_step_fns(
-                self.spec, self.plan, 0, PHASE_WINDOW, self.eplan, self.caps)
+                self.spec, self.plan, 0, PHASE_WINDOW, self.eplan, self.caps,
+                splan=self.splan)
             num = self._with_numerics
             self._fns = fns
             self._phases = distributed.PhasePrograms(

@@ -60,7 +60,14 @@
 // B a synapse, 116 MB at 8x8); each thread owns kPer synapses kThreads
 // apart and loads the delay only where the source spiked.
 //
-// Both take the ring slot as the floor modulo of `jnp.mod`, computed from
+// `arborize_chunk` is that walk on one regenerated chunk of streamed
+// connectivity (`core/stream_engine.py::phase_b`; the reference's
+// broadcast-compare over its chunk window): a thread an entry i of the
+// chunk's tables (`csrc/stream.cu`: source row and delay, [H, K]), below
+// the shard's kept count, sets the flag of state position row_ptr[h, 0] + i
+// where its source spiked (9 B read an entry, one flag out a synapse set).
+//
+// All take the ring slot as the floor modulo of `jnp.mod`, computed from
 // t mod D and delay mod D in 32 bits; t mod D is given by the host, or read
 // from the device step counter `ctr[0]` when one is given (so that a
 // captured CUDA graph advances it).  Every tensor is read an element at a
@@ -142,6 +149,27 @@ __global__ void __launch_bounds__(kThreads) arborize_elements(
     const int64_t* __restrict__ ctr) {
   element_walk(ring, spiked_src, el, blockIdx.y, D, E, S,
                step_mod(ctr, t_mod, D), blockIdx.x, gridDim.x);
+}
+
+// Entries i (grid-stride) of shard blockIdx.y's chunk tables below its kept
+// count row_ptr[h, rp_stride - 1] - row_ptr[h, 0].
+__global__ void __launch_bounds__(kThreads) arborize_chunk(
+    uint8_t* __restrict__ ring, const uint8_t* __restrict__ spiked_src,
+    const int32_t* __restrict__ row_ptr, const int32_t* __restrict__ src,
+    const int32_t* __restrict__ delay, int64_t D, int64_t E, int64_t S,
+    int64_t K, int64_t rp_stride, int t_mod,
+    const int64_t* __restrict__ ctr) {
+  const int64_t h = blockIdx.y;
+  const int32_t* rp = row_ptr + h * rp_stride;
+  const int64_t e0 = rp[0], kept = rp[rp_stride - 1] - e0;
+  const int tm = step_mod(ctr, t_mod, D);
+  const uint8_t* spiked = spiked_src + h * S;
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < kept;
+       i += (int64_t)gridDim.x * kThreads) {
+    if (!spiked[src[h * K + i]]) continue;
+    const int slot = ring_slot(delay[h * K + i], tm, (int)D);
+    ring[(h * D + slot) * E + e0 + i] = 1;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -300,6 +328,26 @@ extern "C" int repro_arborize_elements(void* ring, const void* spiked_src,
   arborize_elements<<<dim3((unsigned)blocks, (unsigned)H), kThreads, 0,
                       (cudaStream_t)stream>>>(
       (uint8_t*)ring, (const uint8_t*)spiked_src, el, D, E, S,
+      host_t_mod(t, D), (const int64_t*)ctr);
+  return (int)cudaGetLastError();
+}
+
+// Phase B on one regenerated chunk: ring [H, D, E] bool, spiked_src [H, S]
+// bool, the chunk's row_ptr [H, rp_stride] int32 (absolute state
+// positions) and its src, delay [H, K] int32; ctr the step counter or
+// null.
+extern "C" int repro_arborize_chunk(void* ring, const void* spiked_src,
+                                    const void* row_ptr, const void* src,
+                                    const void* delay, int64_t H, int64_t D,
+                                    int64_t E, int64_t S, int64_t K,
+                                    int64_t rp_stride, int64_t t,
+                                    const void* ctr, void* stream) {
+  if (K == 0 || S == 0) return 0;
+  arborize_chunk<<<dim3((unsigned)((K + kThreads - 1) / kThreads),
+                        (unsigned)H),
+                   kThreads, 0, (cudaStream_t)stream>>>(
+      (uint8_t*)ring, (const uint8_t*)spiked_src, (const int32_t*)row_ptr,
+      (const int32_t*)src, (const int32_t*)delay, D, E, S, K, rp_stride,
       host_t_mod(t, D), (const int64_t*)ctr);
   return (int)cudaGetLastError();
 }

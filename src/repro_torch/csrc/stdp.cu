@@ -30,6 +30,17 @@
 //   arrival_kernel: the arrival pass alone, writing contrib [H, E] for
 //     `csrc/segment_sum.cu` to sum; the yardstick of row_kernel<false>;
 //   ltp_kernel: LTP alone (a split phase A).
+// and, for streamed connectivity (`core/stream_engine.py`), the chunk
+// windows of row_kernel<true> and ltp_kernel (kWindow): the rows [lo, lo +
+// rows) of one regenerated chunk, whose CSR (`csrc/stream.cu`) holds
+// absolute state positions and whose plastic flags are the chunk's own
+// table, read at h * pl_stride + e - row_ptr[h, 0].  A row keeps its
+// absolute index n (v, u, the stimulus list, spiked, last_post), touches
+// only its own synapses, and the counts are added to the step's (a later
+// chunk of the step passes `accumulate`).  Each row's current is complete
+// within its chunk and its LTP reads its own synapses after the same
+// launch's LTD, so a chunk at a time is the reference's three streamed
+// passes bit for bit.
 //
 // In place: the arrival passes write w and last_arr where a synapse
 // arrived and clear the ring bytes they found set; phase A also writes v
@@ -173,10 +184,11 @@ __device__ __forceinline__ uint64_t bytes_below(int64_t k) {
 // The last block of shard h's row of blocks to finish writes the shard's
 // totals to n_arrived[h] (and n_spikes[h] where given); the scratch triple
 // (arrivals, spikes, ticket) is left zero.
+// With `accumulate` the totals are added to n_arrived[h] (n_spikes[h]).
 __device__ __forceinline__ void add_counts(
     unsigned long long arrivals, unsigned long long spikes, int64_t h,
     int64_t* __restrict__ n_arrived, int64_t* __restrict__ n_spikes,
-    unsigned long long* __restrict__ scratch) {
+    unsigned long long* __restrict__ scratch, bool accumulate = false) {
   unsigned long long* acc = scratch + 3 * h;
   unsigned long long* ticket = acc + 2;
   if (arrivals != 0) atomicAdd(acc, arrivals);
@@ -184,9 +196,10 @@ __device__ __forceinline__ void add_counts(
   __threadfence();  // this block's adds before its ticket
   if (atomicAdd(ticket, 1ull) == gridDim.x - 1) {
     // the last block of row h: every other block's adds have landed
-    n_arrived[h] = (int64_t)atomicExch(acc, 0ull);
-    const unsigned long long s = atomicExch(acc + 1, 0ull);
-    if (n_spikes != nullptr) n_spikes[h] = (int64_t)s;
+    const int64_t a = (int64_t)atomicExch(acc, 0ull);
+    const int64_t s = (int64_t)atomicExch(acc + 1, 0ull);
+    n_arrived[h] = accumulate ? n_arrived[h] + a : a;
+    if (n_spikes != nullptr) n_spikes[h] = accumulate ? n_spikes[h] + s : s;
     atomicExch(ticket, 0ull);
   }
 }
@@ -199,8 +212,8 @@ __device__ __forceinline__ int row_round(
     const uint64_t (&flags)[kLaneWords], int64_t w0, int64_t beg, int64_t end,
     int g, float* __restrict__ list, uint8_t* __restrict__ flag,
     const uint8_t* __restrict__ plastic, float* __restrict__ w,
-    float* __restrict__ last_arr, int64_t base, float t, bool ltd_on,
-    float ltd, float w_min, float w_max, float& acc) {
+    float* __restrict__ last_arr, int64_t base, int64_t pbase, float t,
+    bool ltd_on, float ltd, float w_min, float w_max, float& acc) {
   const int64_t s0 = w0 * 8;
   uint32_t mine = 0;  // bit 8k + j: synapse s0 + 8k + j arrived
 #pragma unroll
@@ -238,7 +251,7 @@ __device__ __forceinline__ int row_round(
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       wv[q] = off[q] >= 0 ? w[base + s0 + off[q]] : 0.0f;
-      pl[q] = off[q] >= 0 ? plastic[base + s0 + off[q]] : 0;
+      pl[q] = off[q] >= 0 ? plastic[pbase + s0 + off[q]] : 0;
     }
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
@@ -287,14 +300,14 @@ __device__ __forceinline__ float stim_sum(const int64_t* __restrict__ idx,
 }
 
 // LTP on synapses [beg, end) of one target that spiked, by the calling
-// lanes (`lanes` of them, `lane` the caller's rank): each loads plastic,
-// last_arr and w of up to kLtpUnroll synapses (stride `lanes`) before it
-// uses any.
+// lanes (`lanes` of them, `lane` the caller's rank): each loads plastic
+// (at e + pshift), last_arr and w of up to kLtpUnroll synapses (stride
+// `lanes`) before it uses any.
 __device__ __forceinline__ void ltp_walk(
     int64_t beg, int64_t end, int lane, int lanes,
     const uint8_t* __restrict__ plastic, const float* __restrict__ last_arr,
     float* __restrict__ w, float t, float a_plus, float inv_tau_plus,
-    float w_min, float w_max, float half_neg_time) {
+    float w_min, float w_max, float half_neg_time, int64_t pshift = 0) {
   for (int64_t e0 = beg + lane; e0 < end; e0 += lanes * kLtpUnroll) {
     uint8_t p[kLtpUnroll];
     float la[kLtpUnroll], wv[kLtpUnroll];
@@ -302,7 +315,7 @@ __device__ __forceinline__ void ltp_walk(
     for (int k = 0; k < kLtpUnroll; ++k) {
       const int64_t e = e0 + (int64_t)lanes * k;
       const bool in = e < end;
-      p[k] = in ? plastic[e] : 0;
+      p[k] = in ? plastic[e + pshift] : 0;
       la[k] = in ? last_arr[e] : half_neg_time;
       wv[k] = in ? w[e] : 0.0f;
     }
@@ -326,9 +339,14 @@ struct RowConsts {
   // step counter (t, stimulus row) on the device, or nullptr: then t and
   // r above, and the stimulus list is the step's own [H, n_stim] row
   const int64_t* ctr;
+  // the chunk window (kWindow): rows [lo, lo + rows), row_ptr rows of
+  // rp_stride entries, the plastic table's rows of pl_stride entries, and
+  // whether the counts add to the step's
+  int64_t lo, rows, rp_stride, pl_stride;
+  int accumulate;
 };
 
-template <bool kPhaseA>
+template <bool kPhaseA, bool kWindow>
 __global__ void __launch_bounds__(kRowThreads, 2) row_kernel(
     uint8_t* __restrict__ ring, const int32_t* __restrict__ row_ptr,
     const uint8_t* __restrict__ plastic, float* __restrict__ last_post,
@@ -354,25 +372,32 @@ __global__ void __launch_bounds__(kRowThreads, 2) row_kernel(
   const int64_t srow = p.ctr != nullptr ? p.ctr[1] : 0;
   const int lane = threadIdx.x & 31, g = threadIdx.x & (kGroup - 1);
   const int slot = threadIdx.x / kGroup;  // the group's row of each tile
-  const int32_t* rp = row_ptr + h * (N + 1);
+  // the rows walked, [lo, lo + rows): all of the shard's, or a chunk's
+  const int64_t lo = kWindow ? p.lo : 0;
+  const int64_t rows = kWindow ? p.rows : N;
+  const int32_t* rp = row_ptr + h * (kWindow ? p.rp_stride : N + 1) -
+                      (kWindow ? lo : 0);  // rp[n] for the row of n
   const float* lps = last_post + h * N;
   const uint64_t* words =
       reinterpret_cast<const uint64_t*>(ring + (h * p.D + r) * p.E);
   uint8_t* flag = ring + (h * p.D + r) * p.E;
   const int64_t base = h * p.E;
+  // plastic of state position e of shard h: the plan's [H, E] table, or
+  // the chunk's [H, pl_stride] table from its first position on
+  const int64_t pbase = kWindow ? h * p.pl_stride - rp[lo] : base;
   float* list = pre[slot];
   if (kPhaseA && threadIdx.x < kMaxTilesPerBlock) spiking[threadIdx.x] = 0;
   // the block walks tiles of kRowsPerBlock rows, gridDim.x apart; the
   // bounds of the tile after next and the first flag words of the next
   // are loaded before the current row is worked
-  const int64_t tiles = (N + kRowsPerBlock - 1) / kRowsPerBlock;
+  const int64_t tiles = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
   const int64_t stride = gridDim.x;
   auto load_bounds = [&](int64_t tile, int64_t& beg, int64_t& end,
                          float& lp) {
-    const int64_t n = tile * kRowsPerBlock + slot;
+    const int64_t n = lo + tile * kRowsPerBlock + slot;
     beg = end = 0;
     lp = p.half_neg_time;
-    if (tile < tiles && n < N) {
+    if (tile < tiles && n < lo + rows) {
       beg = rp[n];
       end = rp[n + 1];
       lp = lps[n];
@@ -398,8 +423,8 @@ __global__ void __launch_bounds__(kRowThreads, 2) row_kernel(
     load_bounds(tile + 2 * stride, beg2, end2, lp2);
     uint64_t nxt[kLaneWords];
     load_flags((nbeg >> 3) + g * kLaneWords, nend, nxt);
-    const int64_t n = tile * kRowsPerBlock + slot;
-    const bool first = g == 0 && n < N;  // the lane that ends the row
+    const int64_t n = lo + tile * kRowsPerBlock + slot;
+    const bool first = g == 0 && n < lo + rows;  // the lane that ends the row
     // phase A: the row's neuron and its stimulus, before the rounds (their
     // loads do not wait on the row's flags)
     float vv = 0.0f, uu = 0.0f, ext = 0.0f;
@@ -428,7 +453,7 @@ __global__ void __launch_bounds__(kRowThreads, 2) row_kernel(
           (beg >> 3) + (int64_t)round * kRoundWords + g * kLaneWords;
       if (round > 0) load_flags(w0, end, cur);  // rows past 256 synapses
       count += row_round(cur, w0, beg, end, g, list, flag, plastic, w,
-                         last_arr, base, t, ltd_on, ltd, p.w_min,
+                         last_arr, base, pbase, t, ltd_on, ltd, p.w_min,
                          p.w_max, acc);
     }
     if (kPhaseA) {
@@ -483,11 +508,11 @@ __global__ void __launch_bounds__(kRowThreads, 2) row_kernel(
       for (unsigned bits = spiking[k]; bits != 0; bits &= bits - 1, ++i) {
         if ((i & (kRowThreads / 32 - 1)) != warp) continue;
         const int64_t n =
-            (blockIdx.x + k * stride) * kRowsPerBlock + __ffs(bits) - 1;
+            lo + (blockIdx.x + k * stride) * kRowsPerBlock + __ffs(bits) - 1;
         if (lane == 0) last_post[h * N + n] = t;
         ltp_walk(base + rp[n], base + rp[n + 1], lane, 32, plastic,
                  last_arr, w, t, p.a_plus, p.inv_tau_plus, p.w_min,
-                 p.w_max, p.half_neg_time);
+                 p.w_max, p.half_neg_time, kWindow ? pbase - base : 0);
       }
     }
   }
@@ -497,7 +522,8 @@ __global__ void __launch_bounds__(kRowThreads, 2) row_kernel(
       arrivals += warp_count[i][0];
       fired += warp_count[i][1];
     }
-    add_counts(arrivals, fired, h, n_arrived, n_spikes, scratch);
+    add_counts(arrivals, fired, h, n_arrived, n_spikes, scratch,
+               kWindow && p.accumulate);
   }
 }
 
@@ -567,25 +593,33 @@ __global__ void __launch_bounds__(kArrivalThreads) arrival_kernel(
   add_counts(total, 0, h, n_arrived, nullptr, scratch);
 }
 
+// The window (kWindow) is the rows [lo, lo + rows) of a chunk, its row_ptr
+// rows rp_stride apart and its plastic table's pl_stride apart.
+template <bool kWindow>
 __global__ void __launch_bounds__(kLtpThreads) ltp_kernel(
     const uint8_t* __restrict__ spiked, const int32_t* __restrict__ row_ptr,
     const uint8_t* __restrict__ plastic, const float* __restrict__ last_arr,
     float* __restrict__ w, float* __restrict__ last_post, int64_t H,
     int64_t N, int64_t E, float t, float a_plus, float inv_tau_plus,
-    float w_min, float w_max, float half_neg_time) {
+    float w_min, float w_max, float half_neg_time, int64_t lo, int64_t rows,
+    int64_t rp_stride, int64_t pl_stride) {
   const int64_t target =
       ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  if (target >= H * N) return;  // the whole warp
-  const int64_t h = target / N;
-  const int32_t* row = row_ptr + target + h;  // row_ptr[h, n], [H, N + 1]
+  if (target >= H * (kWindow ? rows : N)) return;  // the whole warp
+  const int64_t h = target / (kWindow ? rows : N);
+  // row_ptr[h, n], [H, N + 1]; or the chunk's row of n
+  const int32_t* row = kWindow ? row_ptr + h * rp_stride + (target - h * rows)
+                               : row_ptr + target + h;
+  const int64_t at = kWindow ? h * N + lo + (target - h * rows) : target;
   // the spike flag and the row's bounds in one round of loads
-  const bool fired = spiked[target] != 0;
+  const bool fired = spiked[at] != 0;
   const int64_t beg = h * E + row[0], end = h * E + row[1];
   if (!fired) return;  // the whole warp
   const int lane = threadIdx.x & 31;
-  if (lane == 0) last_post[target] = t;
+  if (lane == 0) last_post[at] = t;
   ltp_walk(beg, end, lane, 32, plastic, last_arr, w, t, a_plus, inv_tau_plus,
-           w_min, w_max, half_neg_time);
+           w_min, w_max, half_neg_time,
+           kWindow ? h * pl_stride - row_ptr[h * rp_stride] - h * E : 0);
 }
 
 // The event backend's LTP (`repro/core/event_engine.py::
@@ -670,7 +704,7 @@ extern "C" int repro_stdp_arrival(
 
 // Blocks of row_kernel<kPhaseA> resident on the current device at once
 // (SMs x blocks an SM), cached per device; returns a cudaError_t.
-template <bool kPhaseA>
+template <bool kPhaseA, bool kWindow>
 static int resident_blocks(int* out) {
   static int cache[64] = {0};
   int dev = 0;
@@ -684,7 +718,7 @@ static int resident_blocks(int* out) {
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, row_kernel<kPhaseA>, kRowThreads, 0);
+        &per_sm, row_kernel<kPhaseA, kWindow>, kRowThreads, 0);
   if (err != cudaSuccess) return (int)err;
   *out = sms * per_sm;
   if (dev < 64) cache[dev] = *out;
@@ -716,19 +750,21 @@ struct RowPtrs {
 // As many blocks as fit on the card at once (each walks several tiles),
 // split among the shards, but enough that none walks more than
 // kMaxTilesPerBlock tiles.
-template <bool kPhaseA>
+template <bool kPhaseA, bool kWindow>
 static int launch_rows(const RowPtrs& a, const RowConsts& c, int64_t H,
                        void* stream) {
   int resident = 0;
-  const int err = resident_blocks<kPhaseA>(&resident);
+  const int err = resident_blocks<kPhaseA, kWindow>(&resident);
   if (err != 0) return err;
-  const int64_t tiles = (c.N + kRowsPerBlock - 1) / kRowsPerBlock;
+  const int64_t tiles =
+      ((kWindow ? c.rows : c.N) + kRowsPerBlock - 1) / kRowsPerBlock;
   const int64_t least = (tiles + kMaxTilesPerBlock - 1) / kMaxTilesPerBlock;
   int64_t blocks = resident / H;
   blocks = blocks < least ? least : blocks;
   blocks = blocks < 1 ? 1 : blocks > tiles ? tiles : blocks;
   const dim3 grid((unsigned)blocks, (unsigned)H);
-  row_kernel<kPhaseA><<<grid, kRowThreads, 0, (cudaStream_t)stream>>>(
+  row_kernel<kPhaseA, kWindow><<<grid, kRowThreads, 0,
+                                 (cudaStream_t)stream>>>(
       a.ring, a.row_ptr, a.plastic, a.last_post, a.w, a.last_arr, a.i_syn,
       a.n_arrived, a.n_spikes, a.scratch, a.exc, a.neuron_valid, a.stim_idx,
       a.stim_amp, a.v, a.u, a.spiked, c);
@@ -762,21 +798,14 @@ extern "C" int repro_stdp_arrival_current(
   c.w_min = w_min;
   c.w_max = w_max;
   c.half_neg_time = half_neg_time;
-  return launch_rows<false>(a, c, H, stream);
+  return launch_rows<false, false>(a, c, H, stream);
 }
 
-// ptrs: ring, row_ptr, plastic, exc, neuron_valid, stim_idx, stim_amp, v,
-// u, last_post, w, last_arr, spiked, n_arrived, n_spikes, scratch, ctr (the
-// step counter, or null: then t and r are the launch arguments and the
-// stimulus is the step's row; else the stimulus is a window [W, H, n_stim]
-// read at row ctr[1]).
-// ints: H, D, E, N, r, n_stim, substeps, with_ltp.
-// floats: t, a_minus, inv_tau_minus, a_plus, inv_tau_plus, w_min, w_max,
-// half_neg_time, a_exc, a_inh, b_exc, b_inh, c_exc, c_inh, d_exc, d_inh,
-// v_peak, h, dt.
-extern "C" int repro_stdp_phase_a(void* const* ptrs, const int64_t* ints,
-                                  const float* floats, void* stream) {
-  RowPtrs a = {};
+// The row kernels' pointers, constants and shard count from
+// repro_stdp_phase_a's and repro_stdp_phase_a_chunk's arguments.
+static int64_t phase_a_args(void* const* ptrs, const int64_t* ints,
+                            const float* floats, RowPtrs& a, RowConsts& c) {
+  a = {};
   a.ring = (uint8_t*)ptrs[0];
   a.row_ptr = (const int32_t*)ptrs[1];
   a.plastic = (const uint8_t*)ptrs[2];
@@ -793,7 +822,7 @@ extern "C" int repro_stdp_phase_a(void* const* ptrs, const int64_t* ints,
   a.n_arrived = (int64_t*)ptrs[13];
   a.n_spikes = (int64_t*)ptrs[14];
   a.scratch = (unsigned long long*)ptrs[15];
-  RowConsts c = {};
+  c = {};
   c.ctr = (const int64_t*)ptrs[16];
   const int64_t H = ints[0];
   c.D = ints[1];
@@ -808,7 +837,42 @@ extern "C" int repro_stdp_phase_a(void* const* ptrs, const int64_t* ints,
                       &c.a_exc, &c.a_inh, &c.b_exc, &c.b_inh, &c.c_exc,
                       &c.c_inh, &c.d_exc, &c.d_inh, &c.v_peak, &c.h, &c.dt};
   for (int i = 0; i < (int)(sizeof(f) / sizeof(f[0])); ++i) *f[i] = floats[i];
-  return launch_rows<true>(a, c, H, stream);
+  return H;
+}
+
+// ptrs: ring, row_ptr, plastic, exc, neuron_valid, stim_idx, stim_amp, v,
+// u, last_post, w, last_arr, spiked, n_arrived, n_spikes, scratch, ctr (the
+// step counter, or null: then t and r are the launch arguments and the
+// stimulus is the step's row; else the stimulus is a window [W, H, n_stim]
+// read at row ctr[1]).
+// ints: H, D, E, N, r, n_stim, substeps, with_ltp.
+// floats: t, a_minus, inv_tau_minus, a_plus, inv_tau_plus, w_min, w_max,
+// half_neg_time, a_exc, a_inh, b_exc, b_inh, c_exc, c_inh, d_exc, d_inh,
+// v_peak, h, dt.
+extern "C" int repro_stdp_phase_a(void* const* ptrs, const int64_t* ints,
+                                  const float* floats, void* stream) {
+  RowPtrs a;
+  RowConsts c;
+  const int64_t H = phase_a_args(ptrs, ints, floats, a, c);
+  return launch_rows<true, false>(a, c, H, stream);
+}
+
+// repro_stdp_phase_a's arguments on a chunk window, with ints 8-12: lo,
+// rows, rp_stride, pl_stride, accumulate (row_ptr is the chunk's [H,
+// rp_stride], plastic its [H, pl_stride] table).
+extern "C" int repro_stdp_phase_a_chunk(void* const* ptrs,
+                                        const int64_t* ints,
+                                        const float* floats, void* stream) {
+  RowPtrs a;
+  RowConsts c;
+  const int64_t H = phase_a_args(ptrs, ints, floats, a, c);
+  c.lo = ints[8];
+  c.rows = ints[9];
+  c.rp_stride = ints[10];
+  c.pl_stride = ints[11];
+  c.accumulate = (int)ints[12];
+  if (c.rows <= 0) return 0;
+  return launch_rows<true, true>(a, c, H, stream);
 }
 
 extern "C" int repro_stdp_ltp(
@@ -818,10 +882,31 @@ extern "C" int repro_stdp_ltp(
     float w_max, float half_neg_time, void* stream) {
   const int64_t per_block = kLtpThreads / 32;
   const int64_t blocks = (H * N + per_block - 1) / per_block;
-  ltp_kernel<<<(unsigned)blocks, kLtpThreads, 0, (cudaStream_t)stream>>>(
+  ltp_kernel<false><<<(unsigned)blocks, kLtpThreads, 0,
+                      (cudaStream_t)stream>>>(
       (const uint8_t*)spiked, (const int32_t*)row_ptr,
       (const uint8_t*)plastic, (const float*)last_arr, (float*)w,
       (float*)last_post, H, N, E, t, a_plus, inv_tau_plus, w_min, w_max,
-      half_neg_time);
+      half_neg_time, 0, N, N + 1, E);
+  return (int)cudaGetLastError();
+}
+
+// LTP on the rows [lo, lo + rows) of a chunk: row_ptr the chunk's [H,
+// rp_stride], plastic its [H, pl_stride] table.
+extern "C" int repro_stdp_ltp_chunk(
+    const void* spiked, const void* row_ptr, const void* plastic,
+    const void* last_arr, void* w, void* last_post, int64_t H, int64_t N,
+    int64_t E, int64_t lo, int64_t rows, int64_t rp_stride,
+    int64_t pl_stride, float t, float a_plus, float inv_tau_plus,
+    float w_min, float w_max, float half_neg_time, void* stream) {
+  if (rows <= 0) return 0;
+  const int64_t per_block = kLtpThreads / 32;
+  const int64_t blocks = (H * rows + per_block - 1) / per_block;
+  ltp_kernel<true><<<(unsigned)blocks, kLtpThreads, 0,
+                     (cudaStream_t)stream>>>(
+      (const uint8_t*)spiked, (const int32_t*)row_ptr,
+      (const uint8_t*)plastic, (const float*)last_arr, (float*)w,
+      (float*)last_post, H, N, E, t, a_plus, inv_tau_plus, w_min, w_max,
+      half_neg_time, lo, rows, rp_stride, pl_stride);
   return (int)cudaGetLastError();
 }

@@ -50,6 +50,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     "repro_arborize": [_P] * 8 + [_I64] * 5 + [_P, _P],
     "repro_arborize_elements": [_P] * 5 + [_I64] * 5 + [_P, _P],
+    "repro_arborize_chunk": [_P] * 5 + [_I64] * 7 + [_P, _P],
+    # (pointers [17], int64 [16], uint64 [4], stream): csrc/stream.cu
+    "repro_chunk_tables": [_P] * 4,
     # (pointers [14], int64 [6], float [5], stream): csrc/event.cu
     "repro_event_arrival": [_P] * 4,
     # (pointers [10], int64 [9], stream): csrc/event.cu
@@ -63,9 +66,12 @@ SIGNATURES = {
                                             _P],
     "repro_stdp_arrival": [_P] * 10 + [_I64] * 5 + [_F] * 6 + [_P],
     "repro_stdp_ltp": [_P] * 6 + [_I64] * 3 + [_F] * 6 + [_P],
+    "repro_stdp_ltp_chunk": [_P] * 6 + [_I64] * 7 + [_F] * 6 + [_P],
     "repro_stdp_arrival_current": [_P] * 9 + [_I64] * 5 + [_F] * 6 + [_P],
     # (pointers [17], int64 [8], float [19], stream): csrc/stdp.cu
     "repro_stdp_phase_a": [_P] * 4,
+    # (pointers [17], int64 [13], float [19], stream): csrc/stdp.cu
+    "repro_stdp_phase_a_chunk": [_P] * 4,
     "repro_segment_sum_ordered": [_P] * 3 + [_I64] * 3 + [_P],
     "repro_rg_lru_scan": [_P] * 4 + [_I64] * 3 + [_P],
     "repro_flash_attention": [_P] * 4 + [_I64] * 4 + [ctypes.c_int] * 2
@@ -102,7 +108,8 @@ def counted(name: str) -> None:
 
 class Scratch:
     """The kernels' zeroed integer scratch on one device, by name: fill
-    counts, totals and tickets that every launch leaves zero again.
+    counts, totals and tickets that every launch leaves zero again, and
+    lists that a launch writes before it reads them.
 
     A captured CUDA graph replays the addresses it recorded, so a graph
     owns its Scratch for as long as the graph lives

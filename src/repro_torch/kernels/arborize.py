@@ -15,7 +15,8 @@ sample of the spike flags shows DENSE_PERCENT or more of a shard's
 sources spiking, every synapse of the shard element-major (the cheaper
 walk there; `walks_elements` says which a launch takes).
 `arborize_elements`, the element-major kernel it replaced, is that walk
-alone and stays as its yardstick.
+alone and stays as its yardstick.  `arborize_chunk` is the element walk
+over one regenerated chunk of streamed connectivity (`ref.ChunkTables`).
 """
 from __future__ import annotations
 
@@ -105,3 +106,35 @@ def arborize_elements(arr_ring, spiked_src, syn_src, syn_delay, syn_valid,
     _require_elements(name, H, E, syn_src, syn_delay, syn_valid)
     return _launch(name, "repro_arborize_elements", arr_ring, spiked_src,
                    (syn_src, syn_delay, syn_valid), t)
+
+
+def arborize_chunk(arr_ring, spiked_src, tables, t):
+    """Phase B on one regenerated chunk: arr_ring [H, D, E] bool,
+    spiked_src [H, S] bool, the chunk's tables (`ref.ChunkTables`:
+    row_ptr [H, q + 1] int32 in absolute state positions, src and delay
+    [H, K] int32), t an int or the device step counter.  Sets the flag at
+    slot (t + delay) mod D of every entry below the shard's kept count
+    whose source spiked, in place; returns arr_ring."""
+    name = "arborize_chunk"
+    H, E, S = _require_ring(name, arr_ring, spiked_src)
+    q1 = tables.row_ptr.shape[1]
+    K = tables.src.shape[1]
+    _build.require(name, torch.int32, (H, q1), row_ptr=tables.row_ptr)
+    _build.require(name, torch.int32, (H, K), src=tables.src,
+                   delay=tables.delay)
+    _build.one_device(name, arr_ring, spiked_src, tables.row_ptr,
+                      tables.src, tables.delay)
+    D = arr_ring.shape[1]
+    if H * E == 0 or D == 0:
+        return arr_ring
+    ctr, t_int = _build.step_counter(name, t, arr_ring.device)
+    lib = _build.library()
+    with torch.cuda.device(arr_ring.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_arborize_chunk(
+            arr_ring.data_ptr(), spiked_src.data_ptr(),
+            tables.row_ptr.data_ptr(), tables.src.data_ptr(),
+            tables.delay.data_ptr(), H, D, E, S, K, q1, t_int, ctr, stream)
+    _build.check(err, name)
+    _build.counted(name)
+    return arr_ring

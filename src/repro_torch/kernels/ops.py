@@ -22,6 +22,7 @@ from . import ref
 from . import rg_lru as _rg
 from . import segment_sum as _seg
 from . import stdp as _stdp
+from . import stream as _stream
 
 #: The kernels of the DPSNN-STDP step, of the LM's RG-LRU layers, and of
 #: the `attention` entry point (which no model of the port calls).  The
@@ -37,8 +38,14 @@ from . import stdp as _stdp
 #: LTP and the emission; the split schedule lists the spikes apart
 #: (`EVENT_SPLIT_KERNELS`), and the LTP kernel `event_ltp` replaced stays
 #: as its yardstick (`EVENT_YARDSTICKS`; `izhikevich_update` is the
-#: neuron pass's).
+#: neuron pass's).  Streamed connectivity (`core.stream_engine`) runs, for
+#: each chunk of each step, `chunk_tables` then the phase-A row kernel on
+#: the chunk's rows, and `chunk_tables` then phase B's element walk on its
+#: synapses (`STREAM_KERNELS`); its split schedule runs LTP chunk by chunk
+#: (`STREAM_SPLIT_KERNELS`).
 SNN_KERNELS = ("stdp_phase_a", "arborize")
+STREAM_KERNELS = ("chunk_tables", "stdp_phase_a_chunk", "arborize_chunk")
+STREAM_SPLIT_KERNELS = ("stdp_ltp_chunk",)
 PHASE_A_KERNELS = ("izhikevich_update", "stdp_arrival_current", "stdp_ltp")
 PAIR_KERNELS = ("stdp_arrival", "segment_sum_ordered")
 PHASE_B_KERNELS = ("arborize_elements",)
@@ -49,7 +56,8 @@ LM_KERNELS = ("rg_lru_scan",)
 ATTN_KERNELS = ("flash_attention",)
 KERNELS = (SNN_KERNELS + PHASE_A_KERNELS + PAIR_KERNELS + PHASE_B_KERNELS
            + EVENT_KERNELS + EVENT_SPLIT_KERNELS + EVENT_YARDSTICKS
-           + LM_KERNELS + ATTN_KERNELS)
+           + STREAM_KERNELS + STREAM_SPLIT_KERNELS + LM_KERNELS
+           + ATTN_KERNELS)
 
 
 def _route(x: torch.Tensor, name: str) -> bool:
@@ -178,6 +186,73 @@ def arborize(arr_ring, spiked_src, syn_src, syn_delay, syn_valid, fwd_ptr,
     if _route(arr_ring, "arborize"):
         return _arb.arborize(*args, fwd_ptr, fwd_ids, fwd_delay, t)
     return ref.arborize(*args, _plain_step(t, "arborize"))
+
+
+def chunk_tables(source: ref.ChunkSource, c: int, out: ref.ChunkTables,
+                 status) -> ref.ChunkTables:
+    """Regenerate chunk c of every shard (`ref.ChunkSource`) into the live
+    tables `out` (`ref.ChunkTables`, [H, q + 1] and [H, K]) and return
+    them.  On the card a kept count that differs from the plan's e_start,
+    or exceeds K, sets a bit of `status` [1] int32 (read it after the card
+    has finished, never in the step); the plain version raises at once
+    (`kernels.stream.chunk_tables`)."""
+    if _route(source.cand, "chunk_tables"):
+        return _stream.chunk_tables(source, c, out, status)
+    new = ref.chunk_tables(source, c, out.src.shape[1])
+    for dst, src in zip(out, new):
+        dst.copy_(src)
+    return out
+
+
+def stdp_phase_a_chunk(arr_ring, r, tables: ref.ChunkTables, lo: int,
+                       exc_mask, neuron_valid, stim_idx, stim_amp, v, u,
+                       last_post, w, last_arr, t, spiked, counts, *,
+                       accumulate, izh, stdp, neg_time, with_ltp,
+                       coeffs=None) -> None:
+    """`stdp_phase_a` on one regenerated chunk: the rows [lo, lo + q) (cut
+    at N) of `tables` (`ref.ChunkTables`), their synapses at the state
+    positions of the chunk's CSR.  Writes the rows' spikes into spiked
+    [H, N] and their counts into counts [2, H] int64 (arrivals, spikes;
+    added with `accumulate`), and updates the state at the chunk's rows
+    and synapses in place.  On the card `t` may be the device step
+    counter, with r None and the stimulus a window [W, H, C*K]
+    (`kernels.stdp.stdp_phase_a_chunk`)."""
+    kw = dict(izh=izh, stdp=stdp, neg_time=neg_time, with_ltp=with_ltp,
+              accumulate=accumulate)
+    args = (arr_ring, r, tables, lo, exc_mask, neuron_valid, stim_idx,
+            stim_amp, v, u, last_post, w, last_arr)
+    if _route(w, "stdp_phase_a_chunk"):
+        return _stdp.stdp_phase_a_chunk(*args, t, spiked, counts, **kw)
+    with ref.flush_denormal():
+        return ref.stdp_phase_a_chunk(
+            *args, _plain_step(t, "stdp_phase_a_chunk"), spiked, counts,
+            coeffs=coeffs, **kw)
+
+
+def stdp_ltp_chunk(spiked, tables: ref.ChunkTables, lo: int, last_arr, w,
+                   last_post, t, *, a_plus, tau_plus, w_min, w_max,
+                   neg_time) -> None:
+    """`stdp_ltp` on one regenerated chunk's rows [lo, lo + q) (cut at N):
+    w and last_post in place (`kernels.stdp.stdp_ltp_chunk`)."""
+    args = (spiked, tables, lo, last_arr, w, last_post)
+    kw = dict(a_plus=a_plus, tau_plus=tau_plus, w_min=w_min, w_max=w_max,
+              neg_time=neg_time)
+    if _route(w, "stdp_ltp_chunk"):
+        return _stdp.stdp_ltp_chunk(*args, t, **kw)
+    with ref.flush_denormal():
+        return ref.stdp_ltp_chunk(*args, _plain_step(t, "stdp_ltp_chunk"),
+                                  **kw)
+
+
+def arborize_chunk(arr_ring, spiked_src, tables: ref.ChunkTables,
+                   t) -> None:
+    """Phase B on one regenerated chunk: the flag at slot (t + delay) mod D
+    of each of its synapses whose source spiked, in place; t an int or on
+    the card the device step counter (`kernels.arborize.arborize_chunk`)."""
+    if _route(arr_ring, "arborize_chunk"):
+        return _arb.arborize_chunk(arr_ring, spiked_src, tables, t)
+    return ref.arborize_chunk(arr_ring, spiked_src, tables,
+                              _plain_step(t, "arborize_chunk"))
 
 
 def event_arrival(ev_ring, ev_count, syn_tgt, row_ptr, syn_plastic,

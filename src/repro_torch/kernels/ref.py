@@ -534,6 +534,346 @@ def segment_sum_ordered(contrib: torch.Tensor,
     return acc
 
 
+# ----------------------------------------------------------------------------
+# streamed connectivity: chunk regeneration and the chunk-window passes
+# ----------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+_M16 = 0xFFFF
+
+
+class ChunkGeometry(NamedTuple):
+    """The host integers of chunk regeneration (`core.stream_engine`)."""
+    M: int                    # synapses a source
+    npc: int                  # neurons a column
+    nexc: int                 # excitatory neurons a column
+    gx: int
+    gy: int
+    n_neurons: int
+    delay_min: int
+    dspan: int                # delay_max - delay_min + 1
+    q: int                    # owned-neuron slots a chunk
+    n_chunks: int
+    c_cap: int                # candidate sources a chunk (padded)
+    scatter: bool             # placement: scatter (else block)
+    lanes: tuple              # the four draw lanes' seeds (uint64 ints)
+
+
+class ChunkSource(NamedTuple):
+    """What regenerates a chunk's tables, on one device.  src_gid [H, S]
+    int64 (the plan's source table, -1 pad), cand [H, n_chunks, c_cap]
+    int32 (each chunk's candidate rows of src_gid, ascending, -1 pad),
+    e_start [H, n_chunks + 1] int32 (each chunk's first state position),
+    the profile's ring offsets off [K, 2] int32, ring starts start [R + 2]
+    int32 and thresholds thresh [R + 1] int64 (U[k] = ceil(fr[k] * 2^53):
+    the ring is the number of k with bits53 >= U[k]), the block bounds
+    bounds [H + 1] int64 (unused under scatter), and the geometry."""
+    src_gid: torch.Tensor
+    cand: torch.Tensor
+    e_start: torch.Tensor
+    off: torch.Tensor
+    start: torch.Tensor
+    thresh: torch.Tensor
+    bounds: torch.Tensor
+    geom: ChunkGeometry
+
+
+class ChunkTables(NamedTuple):
+    """One regenerated chunk of every shard, canonical (tgt, src, j) order.
+
+    row_ptr [H, q + 1] int32: row k (local target c*q + k) of shard h is
+    the state positions [row_ptr[h, k], row_ptr[h, k + 1]), so row_ptr[h,
+    0] is the chunk's e_start; entry i of src / delay / plastic [H, K]
+    (int32 src-table row, int32 delay, bool) is the synapse at position
+    row_ptr[h, 0] + i, for i below the chunk's kept count row_ptr[h, q] -
+    row_ptr[h, 0] (<= K); entries past it are unspecified."""
+    row_ptr: torch.Tensor
+    src: torch.Tensor
+    delay: torch.Tensor
+    plastic: torch.Tensor
+
+
+def _lo_mul32(a, b):
+    """The low 32 bits of a * b, for a, b in [0, 2^32) held in int64 (16-bit
+    halves: no product leaves int64)."""
+    a0, a1 = a & _M16, a >> 16
+    b0, b1 = b & _M16, b >> 16
+    return (a0 * b0 + (((a0 * b1 + a1 * b0) & _M16) << 16)) & _M32
+
+
+def _mul32(a, b):
+    """The full 64-bit product of two 32-bit limbs as (hi, lo) limbs."""
+    a0, a1 = a & _M16, a >> 16
+    b0, b1 = b & _M16, b >> 16
+    t00, t01, t10 = a0 * b0, a0 * b1, a1 * b0
+    mid = (t00 >> 16) + (t01 & _M16) + (t10 & _M16)
+    lo = (t00 & _M16) | ((mid & _M16) << 16)
+    hi = a1 * b1 + (mid >> 16) + (t01 >> 16) + (t10 >> 16)
+    return hi & _M32, lo
+
+
+def _add64(ah, al, bh, bl):
+    lo = al + bl
+    return (ah + bh + (lo >> 32)) & _M32, lo & _M32
+
+
+def _shr64(h, l, k: int):
+    """(h, l) >> k for 0 < k < 32; every limb is non-negative, so int64's
+    arithmetic shift is the logical one."""
+    return h >> k, ((l >> k) | (h << (32 - k))) & _M32
+
+
+def _mul64(ah, al, bh, bl):
+    """The low 64 bits of the product (wrapping, as uint64)."""
+    hi, lo = _mul32(al, bl)
+    return (hi + _lo_mul32(al, bh) + _lo_mul32(ah, bl)) & _M32, lo
+
+
+def _c64(x: int):
+    return x >> 32, x & _M32
+
+
+def splitmix64_limbs(h, l):
+    """splitmix64 (`core.connectivity.splitmix64`) on 32-bit limbs held in
+    int64 tensors: the JAX package's uint32-limb scheme, for a torch that
+    has no uint64 arithmetic."""
+    h, l = _add64(h, l, *_c64(0x9E3779B97F4A7C15))
+    xh, xl = _shr64(h, l, 30)
+    h, l = _mul64(h ^ xh, l ^ xl, *_c64(0xBF58476D1CE4E5B9))
+    xh, xl = _shr64(h, l, 27)
+    h, l = _mul64(h ^ xh, l ^ xl, *_c64(0x94D049BB133111EB))
+    xh, xl = _shr64(h, l, 31)
+    return h ^ xh, l ^ xl
+
+
+def _mod64(h, l, m):
+    """(h * 2^32 + l) mod m for 0 < m < 2^16 (a tensor or an int)."""
+    r32 = (1 << 32) % m
+    return ((h % m) * r32 + l % m) % m
+
+
+def chunk_tables(source: ChunkSource, c: int, k: int, *,
+                 with_j: bool = False):
+    """Plain version of kernels.stream.chunk_tables: chunk c of every
+    shard regenerated from the draw lanes, K = k entries a shard ->
+    ChunkTables (entries past a shard's kept count 0), and with `with_j`
+    also j [H, K] int32 (each entry's forward slot).
+
+    Each candidate source g of the chunk draws lanes 0-3 at counter g * M
+    + j (splitmix64 on limbs): the ring by integer threshold, the member
+    of the ring, the target neuron and the delay, exactly as
+    `core.connectivity.forward_synapses`; the synapses whose target the
+    shard owns at a local index in [c*q, c*q + q) are kept, in generation
+    order (source ascending, then j), and stably sorted by target.  Raises
+    ValueError where a shard's kept count is not its e_start difference
+    or exceeds K."""
+    g_ = source.geom
+    dev = source.cand.device
+    i64 = torch.int64
+    H = source.cand.shape[0]
+    cand = source.cand[:, c].to(i64)                          # [H, c_cap]
+    cvalid = cand >= 0
+    sidx = torch.where(cvalid, cand, 0)
+    g = torch.where(cvalid, torch.gather(source.src_gid, 1, sidx), 0)
+    jj = torch.arange(g_.M, dtype=i64, device=dev)
+    counter = g[:, :, None] * g_.M + jj                      # [H, c_cap, M]
+    ch, cl = counter >> 32, counter & _M32
+
+    def draw(lane):
+        sh, sl = _c64(g_.lanes[lane])
+        return splitmix64_limbs(ch ^ sh, cl ^ sl)
+
+    b0h, b0l = draw(0)
+    bits53 = (b0h << 21) | (b0l >> 11)
+    ring = (bits53[..., None] >= source.thresh).sum(-1)
+    reach = source.start.shape[0] - 2
+    ring = torch.clamp(ring, 0, reach)
+    start = source.start.to(i64)
+    rsize = start[ring + 1] - start[ring]
+    member = _mod64(*draw(1), rsize)
+    off = source.off.to(i64)[start[ring] + member]           # [.., 2]
+    col = torch.div(g, g_.npc, rounding_mode="floor")[:, :, None]
+    cx, cy = col % g_.gx, torch.div(col, g_.gx, rounding_mode="floor")
+    tcol = (torch.remainder(cy + off[..., 1], g_.gy) * g_.gx
+            + torch.remainder(cx + off[..., 0], g_.gx))
+    b2h, b2l = draw(2)
+    tgt_exc = tcol * g_.npc + _mod64(b2h, b2l, g_.npc)
+    tgt_inh = col * g_.npc + _mod64(b2h, b2l, g_.nexc)
+    exc = (g % g_.npc < g_.nexc)[:, :, None]
+    tgt = torch.where(exc, tgt_exc, tgt_inh)
+    delay = torch.where(exc, g_.delay_min + _mod64(*draw(3), g_.dspan),
+                        g_.delay_min)
+    # ownership (engine.make_gid_to_local) and the chunk's range
+    if g_.scatter:
+        hh = torch.arange(H, device=dev).view(H, 1, 1)
+        owned = (tgt % H == hh) & (tgt >= 0) & (tgt < g_.n_neurons)
+        tloc = torch.div(tgt, H, rounding_mode="floor")
+    else:
+        lo_b = source.bounds[:-1].view(H, 1, 1)
+        owned = (tgt >= lo_b) & (tgt < source.bounds[1:].view(H, 1, 1))
+        tloc = tgt - lo_b
+    lo = c * g_.q
+    keep = (cvalid[:, :, None] & owned & (tloc >= lo)
+            & (tloc < lo + g_.q)).reshape(H, -1)
+    rel = torch.where(keep, tloc.reshape(H, -1) - lo, g_.q)
+    _, order = torch.sort(rel, dim=1, stable=True)
+    kept = keep.sum(1)
+    want = (source.e_start[:, c + 1] - source.e_start[:, c]).to(i64)
+    if not torch.equal(kept, want) or int(kept.max()) > k:
+        raise ValueError(f"chunk {c}: kept {kept.tolist()} synapses, the "
+                         f"plan says {want.tolist()} (at most {k})")
+    order = order[:, :k] if order.shape[1] >= k else torch.cat(
+        [order, order.new_zeros(H, k - order.shape[1])], 1)
+    live = torch.arange(k, device=dev)[None, :] < kept[:, None]
+    take = lambda x: torch.where(live, torch.gather(
+        x.expand(H, g_.c_cap, g_.M).reshape(H, -1), 1, order), 0)
+    counts = torch.zeros((H, g_.q + 1), dtype=i64, device=dev)
+    counts.scatter_add_(1, rel, torch.ones_like(rel))
+    row_ptr = (source.e_start[:, c:c + 1].to(i64) + torch.cat(
+        [counts.new_zeros(H, 1), counts[:, :g_.q].cumsum(1)], 1))
+    tables = ChunkTables(
+        row_ptr=row_ptr.to(torch.int32),
+        src=take(sidx[:, :, None]).to(torch.int32),
+        delay=take(delay).to(torch.int32),
+        plastic=take(exc.to(i64)).to(torch.bool))
+    if not with_j:
+        return tables
+    return tables, take(jj.view(1, 1, -1)).to(torch.int32)
+
+
+class _Window(NamedTuple):
+    """A chunk's state positions: pos [H, K] (clamped into [0, E)), valid
+    [H, K] (below the kept count), rows [lo, hi), the window's local CSR
+    lrp [H, hi - lo + 1] and each entry's local row [H, K] (hi - lo past
+    the kept count)."""
+    pos: torch.Tensor
+    valid: torch.Tensor
+    lo: int
+    hi: int
+    lrp: torch.Tensor
+    row: torch.Tensor
+
+
+def _window(tables: ChunkTables, lo: int, N: int, E: int) -> _Window:
+    rp = tables.row_ptr.to(torch.int64)
+    K = tables.src.shape[1]
+    hi = min(lo + rp.shape[1] - 1, N)
+    e0 = rp[:, :1]
+    lrp = rp[:, :hi - lo + 1] - e0
+    k = torch.arange(K, device=rp.device)[None, :]
+    valid = k < rp[:, -1:] - e0
+    pos = torch.clamp(e0 + k, max=E - 1)
+    return _Window(pos, valid, lo, hi, lrp, rows_of_synapses(lrp, K))
+
+
+def _put(dst: torch.Tensor, win: _Window, values: torch.Tensor) -> None:
+    """dst[h, pos] = values where valid (dst [H, E])."""
+    h, i = torch.nonzero(win.valid, as_tuple=True)
+    dst[h, win.pos[h, i]] = values[h, i]
+
+
+def _by_row(x: torch.Tensor, win: _Window) -> torch.Tensor:
+    """x[h, row] of each entry (x [H, hi - lo], the window's rows; 0 or
+    False past the kept count)."""
+    return torch.cat([x, x.new_zeros(x.shape[0], 1)], 1).gather(1, win.row)
+
+
+def _ltp_window(spk, win, tables, last_arr, w, last_post, tf, *, a_plus,
+                tau_plus, w_min, w_max, neg_time) -> None:
+    """LTP on the window's rows that spiked (spk [H, hi - lo]), in place."""
+    w_win = w.gather(1, win.pos)
+    w_new = _ltp(_by_row(spk, win), w_win,
+                 last_arr.gather(1, win.pos), tables.plastic, win.valid, tf,
+                 a_plus=a_plus, tau_plus=tau_plus, w_min=w_min, w_max=w_max,
+                 neg_time=neg_time)
+    _put(w, win, w_new)
+    part = last_post[:, win.lo:win.hi]
+    part.copy_(torch.where(spk, tf, part))
+
+
+def stdp_phase_a_chunk(arr_ring, r: int, tables: ChunkTables, lo: int,
+                       exc_mask, neuron_valid, stim_idx, stim_amp, v, u,
+                       last_post, w, last_arr, t: int, spiked, counts, *,
+                       accumulate: bool, izh, stdp, neg_time: float,
+                       with_ltp: bool, coeffs=None) -> None:
+    """Plain version of kernels.stdp.stdp_phase_a_chunk: `stdp_phase_a` on
+    the rows [lo, min(lo + q, N)) of one regenerated chunk (`tables`), its
+    synapses at the state positions of their CSR rows.
+
+    Pops slot r at the chunk's synapses (LTD, last-arrival refresh, each
+    row's in-order current), adds the rows' stimulus, updates their
+    neurons, masks the spikes by neuron_valid, and with `with_ltp` applies
+    LTP to the rows that spiked.  Writes v, u, w, last_arr, arr_ring[:, r]
+    (cleared at the chunk's synapses), last_post (with LTP) and spiked
+    [H, N] at those rows and synapses only; counts [2, H] int64 (arrivals,
+    spikes) gets the chunk's counts, added to it with `accumulate`."""
+    H, D, E = arr_ring.shape
+    N = v.shape[1]
+    win = _window(tables, lo, N, E)
+    tf = f32(t, w.device)
+    arr = arr_ring[:, r].gather(1, win.pos) & win.valid
+    lp = _by_row(last_post[:, lo:win.hi], win)
+    w_win, la_win = w.gather(1, win.pos), last_arr.gather(1, win.pos)
+    w_new, la_new, contrib = _arrival(
+        arr, w_win, lp, la_win, tables.plastic & win.valid, tf,
+        a_minus=stdp.a_minus, tau_minus=stdp.tau_minus, w_min=stdp.w_min,
+        w_max=stdp.w_max, neg_time=neg_time)
+    _put(w, win, w_new)
+    _put(last_arr, win, la_new)
+    h, i = torch.nonzero(win.valid, as_tuple=True)
+    arr_ring[h, r, win.pos[h, i]] = False
+    i_syn = segment_sum_ordered(contrib, make_segments(
+        win.lrp.to(torch.int32), contrib.shape[1]))
+    rows = slice(lo, win.hi)
+    i_tot = i_syn + stim_current(stim_idx, stim_amp, N)[:, rows]
+    a, b, c, d = (x[:, rows] for x in (coeffs if coeffs is not None
+                                       else izh_coefficients(exc_mask, izh)))
+    v2, u2, spk = izhikevich_update(v[:, rows], u[:, rows], i_tot, a, b, c,
+                                    d, v_peak=izh.v_peak, dt=izh.dt,
+                                    substeps=izh.v_substeps)
+    v[:, rows] = v2
+    u[:, rows] = u2
+    spk = spk & neuron_valid[:, rows]
+    spiked[:, rows] = spk
+    if with_ltp:
+        _ltp_window(spk, win, tables, last_arr, w, last_post, tf,
+                    a_plus=stdp.a_plus, tau_plus=stdp.tau_plus,
+                    w_min=stdp.w_min, w_max=stdp.w_max, neg_time=neg_time)
+    new = torch.stack([arr.sum(1), spk.sum(1)])
+    if accumulate:
+        counts += new
+    else:
+        counts.copy_(new)
+
+
+def stdp_ltp_chunk(spiked, tables: ChunkTables, lo: int, last_arr, w,
+                   last_post, t: int, *, a_plus, tau_plus, w_min, w_max,
+                   neg_time) -> None:
+    """Plain version of kernels.stdp.stdp_ltp_chunk: `stdp_ltp` on the rows
+    [lo, min(lo + q, N)) of one regenerated chunk; w and last_post (= t
+    where spiked) in place at those rows' synapses and neurons."""
+    N = spiked.shape[1]
+    win = _window(tables, lo, N, w.shape[1])
+    _ltp_window(spiked[:, lo:win.hi], win, tables, last_arr, w, last_post,
+                f32(t, w.device), a_plus=a_plus, tau_plus=tau_plus,
+                w_min=w_min, w_max=w_max, neg_time=neg_time)
+
+
+def arborize_chunk(arr_ring, spiked_src, tables: ChunkTables,
+                   t: int) -> None:
+    """Plain version of kernels.arborize.arborize_chunk: phase B on one
+    regenerated chunk.  For each of the chunk's synapses whose source
+    (its src-table row, in spiked_src [H, S]) spiked, the flag at slot
+    (t + delay) mod D (floor mod) of its state position is set in place."""
+    H, D, E = arr_ring.shape
+    win = _window(tables, 0, tables.row_ptr.shape[1] - 1, E)
+    active = (torch.gather(spiked_src, 1, tables.src.to(torch.int64))
+              & win.valid)
+    slot = torch.remainder(tables.delay.to(torch.int64) + t, D)
+    h, i = torch.nonzero(active, as_tuple=True)
+    arr_ring[h, slot[h, i], win.pos[h, i]] = True
+
+
 def rg_lru_scan(a: torch.Tensor, b: torch.Tensor,
                 h0: torch.Tensor) -> torch.Tensor:
     """Plain version of kernels.rg_lru: h_t = a_t * h_{t-1} + b_t.

@@ -23,6 +23,11 @@ state in place, in one launch:
   the per-target CSR `row_ptr` (which holds exactly the valid synapses,
   pads outside every row), and sets their `last_post` to t.
 
+For streamed connectivity, `stdp_phase_a_chunk` and `stdp_ltp_chunk` run
+the same kernels (`row_kernel<true>`, `ltp_kernel`) on a chunk window: the
+rows [lo, lo + q) of one regenerated chunk (`ref.ChunkTables`), its CSR in
+absolute state positions and its own plastic table.
+
 All are memory-bound and read of most synapses only what says that
 nothing happens there (`csrc/stdp.cu`'s note gives the bounds).  The
 arrival kernels read the ring slot as 8-byte words (`stdp_arrival` also
@@ -41,7 +46,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .ref import Segments, reciprocal_f32
+from .ref import ChunkTables, Segments, reciprocal_f32
 
 
 def _stream():
@@ -107,6 +112,36 @@ def stdp_arrival_current(arr_ring, r: int, seg: Segments, syn_plastic,
     return i_syn, n_arrived
 
 
+def _phase_a_floats(t, izh, stdp, neg_time):
+    """The phase-A kernel's float launch arguments."""
+    return (ctypes.c_float * 19)(
+        float(t), stdp.a_minus, reciprocal_f32(stdp.tau_minus), stdp.a_plus,
+        reciprocal_f32(stdp.tau_plus), stdp.w_min, stdp.w_max, neg_time / 2,
+        izh.a_exc, izh.a_inh, izh.b_exc, izh.b_inh, izh.c_exc, izh.c_inh,
+        izh.d_exc, izh.d_inh, izh.v_peak, np.float32(izh.dt / izh.v_substeps),
+        izh.dt)
+
+
+def _step_stimulus(name, H, r, t, stim_idx, stim_amp):
+    """(counted, stim_idx, stim_amp [rows, K]): the step counter's window
+    flattened to [W * H, K], or the step's own row."""
+    counted = isinstance(t, torch.Tensor)
+    if counted != (r is None):
+        raise ValueError(f"{name}: give r with a step t, or r=None with the "
+                         f"step counter")
+    if counted:
+        window, _, k = stim_idx.shape
+        stim_idx = stim_idx.view(window * H, k)
+        stim_amp = stim_amp.view(window * H, k)
+    rows, K = stim_idx.shape
+    if rows % H:
+        raise ValueError(f"{name}: stimulus rows {rows} are not a multiple "
+                         f"of H = {H}")
+    _build.require(name, torch.int64, (rows, K), stim_idx=stim_idx)
+    _build.require(name, torch.float32, (rows, K), stim_amp=stim_amp)
+    return counted, stim_idx, stim_amp
+
+
 def stdp_phase_a(arr_ring, r, seg: Segments, syn_plastic, exc_mask,
                  neuron_valid, stim_idx, stim_amp, v, u, last_post, w,
                  last_arr, t, *, izh, stdp, neg_time: float,
@@ -134,14 +169,8 @@ def stdp_phase_a(arr_ring, r, seg: Segments, syn_plastic, exc_mask,
     H, D, E = arr_ring.shape
     row_ptr = seg.row_ptr
     N = row_ptr.shape[1] - 1
-    counted = isinstance(t, torch.Tensor)
-    if counted != (r is None):
-        raise ValueError(f"{name}: give r with a step t, or r=None with the "
-                         f"step counter")
-    if counted:
-        window, _, k = stim_idx.shape
-        stim_idx = stim_idx.view(window * H, k)
-        stim_amp = stim_amp.view(window * H, k)
+    counted, stim_idx, stim_amp = _step_stimulus(name, H, r, t, stim_idx,
+                                                 stim_amp)
     K = stim_idx.shape[1]
     # every slot is aligned when slot 0 is (E % 8 == 0)
     _check_ring(name, arr_ring, 0 if counted else r)
@@ -149,12 +178,6 @@ def stdp_phase_a(arr_ring, r, seg: Segments, syn_plastic, exc_mask,
     _build.require(name, torch.bool, (H, E), syn_plastic=syn_plastic)
     _build.require(name, torch.bool, (H, N), exc_mask=exc_mask,
                    neuron_valid=neuron_valid)
-    rows = stim_idx.shape[0]
-    if rows % H:
-        raise ValueError(f"{name}: stimulus rows {rows} are not a multiple "
-                         f"of H = {H}")
-    _build.require(name, torch.int64, (rows, K), stim_idx=stim_idx)
-    _build.require(name, torch.float32, (rows, K), stim_amp=stim_amp)
     _build.require(name, torch.float32, (H, N), v=v, u=u,
                    last_post=last_post)
     _build.require(name, torch.float32, (H, E), w=w, last_arr=last_arr)
@@ -177,16 +200,105 @@ def stdp_phase_a(arr_ring, r, seg: Segments, syn_plastic, exc_mask,
             _scratch(w.device, H).data_ptr(), ctr)
         ints = (ctypes.c_int64 * 8)(H, D, E, N, 0 if counted else int(r), K,
                                     int(izh.v_substeps), int(with_ltp))
-        floats = (ctypes.c_float * 19)(
-            float(t_int if counted else t), stdp.a_minus, reciprocal_f32(stdp.tau_minus),
-            stdp.a_plus, reciprocal_f32(stdp.tau_plus), stdp.w_min,
-            stdp.w_max, neg_time / 2, izh.a_exc, izh.a_inh, izh.b_exc,
-            izh.b_inh, izh.c_exc, izh.c_inh, izh.d_exc, izh.d_inh,
-            izh.v_peak, np.float32(izh.dt / izh.v_substeps), izh.dt)
+        floats = _phase_a_floats(t_int if counted else t, izh, stdp,
+                                 neg_time)
         err = lib.repro_stdp_phase_a(ptrs, ints, floats, stream)
     _build.check(err, name)
     _build.counted(name)
     return spiked, counts[0], counts[1]
+
+
+def _check_chunk(name, tables: ChunkTables, H: int, N: int,
+                 lo: int) -> int:
+    """The chunk's rows [lo, lo + rows) cut at N; its tables on the card."""
+    q = tables.row_ptr.shape[1] - 1
+    K = tables.src.shape[1]
+    _build.require(name, torch.int32, (H, q + 1), row_ptr=tables.row_ptr)
+    _build.require(name, torch.bool, (H, K), plastic=tables.plastic)
+    if not 0 <= lo < max(N, 1):
+        raise ValueError(f"{name}: chunk rows from {lo} outside N = {N}")
+    return min(q, N - lo)
+
+
+def stdp_phase_a_chunk(arr_ring, r, tables: ChunkTables, lo: int, exc_mask,
+                       neuron_valid, stim_idx, stim_amp, v, u, last_post, w,
+                       last_arr, t, spiked, counts, *, accumulate: bool, izh,
+                       stdp, neg_time: float, with_ltp: bool) -> None:
+    """`stdp_phase_a` on the rows [lo, lo + q) (cut at N) of one regenerated
+    chunk: `tables.row_ptr` [H, q + 1] int32 (the chunk's CSR in absolute
+    state positions; its synapses' ring flags, w and last_arr are the
+    state's) and `tables.plastic` [H, K] bool (the chunk's own table, read
+    at position - row_ptr[h, 0]); the other arguments as `stdp_phase_a`'s,
+    and spiked [H, N] bool and counts [2, H] int64 (arrivals, spikes) the
+    step's outputs: the rows' spikes are written, the chunk's counts
+    written, or with `accumulate` added.  In place, no value read back."""
+    name = "stdp_phase_a_chunk"
+    H, D, E = arr_ring.shape
+    N = v.shape[1]
+    counted, stim_idx, stim_amp = _step_stimulus(name, H, r, t, stim_idx,
+                                                 stim_amp)
+    rows = _check_chunk(name, tables, H, N, lo)
+    _check_ring(name, arr_ring, 0 if counted else r)
+    _build.require(name, torch.bool, (H, N), exc_mask=exc_mask,
+                   neuron_valid=neuron_valid, spiked=spiked)
+    _build.require(name, torch.float32, (H, N), v=v, u=u,
+                   last_post=last_post)
+    _build.require(name, torch.float32, (H, E), w=w, last_arr=last_arr)
+    _build.require(name, torch.int64, (2, H), counts=counts)
+    _build.one_device(name, arr_ring, tables.row_ptr, tables.plastic,
+                      exc_mask, stim_idx, stim_amp, v, w, spiked, counts)
+    ctr, t_int = _build.step_counter(name, t, w.device)
+    lib = _build.library()
+    with torch.cuda.device(w.device):
+        stream = _stream()
+        ptrs = (ctypes.c_void_p * 17)(
+            arr_ring.data_ptr(), tables.row_ptr.data_ptr(),
+            tables.plastic.data_ptr(), exc_mask.data_ptr(),
+            neuron_valid.data_ptr(), stim_idx.data_ptr(),
+            stim_amp.data_ptr(), v.data_ptr(), u.data_ptr(),
+            last_post.data_ptr(), w.data_ptr(), last_arr.data_ptr(),
+            spiked.data_ptr(), counts[0].data_ptr(), counts[1].data_ptr(),
+            _scratch(w.device, H).data_ptr(), ctr)
+        ints = (ctypes.c_int64 * 13)(
+            H, D, E, N, 0 if counted else int(r), stim_idx.shape[1],
+            int(izh.v_substeps), int(with_ltp), int(lo), rows,
+            tables.row_ptr.shape[1], tables.plastic.shape[1],
+            int(accumulate))
+        floats = _phase_a_floats(t_int if counted else t, izh, stdp,
+                                 neg_time)
+        err = lib.repro_stdp_phase_a_chunk(ptrs, ints, floats, stream)
+    _build.check(err, name)
+    _build.counted(name)
+
+
+def stdp_ltp_chunk(spiked, tables: ChunkTables, lo: int, last_arr, w,
+                   last_post, t: int, *, a_plus, tau_plus, w_min, w_max,
+                   neg_time) -> None:
+    """`stdp_ltp` on the rows [lo, lo + q) (cut at N) of one regenerated
+    chunk (`stdp_phase_a_chunk`'s tables): w and last_post in place; t an
+    int (the split phases run eagerly)."""
+    name = "stdp_ltp_chunk"
+    if isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: takes the step as an int")
+    H, N = spiked.shape
+    E = w.shape[1]
+    rows = _check_chunk(name, tables, H, N, lo)
+    _build.require(name, torch.bool, (H, N), spiked=spiked)
+    _build.require(name, torch.float32, (H, E), last_arr=last_arr, w=w)
+    _build.require(name, torch.float32, (H, N), last_post=last_post)
+    _build.one_device(name, spiked, tables.row_ptr, tables.plastic, last_arr,
+                      w, last_post)
+    lib = _build.library()
+    with torch.cuda.device(w.device):
+        err = lib.repro_stdp_ltp_chunk(
+            spiked.data_ptr(), tables.row_ptr.data_ptr(),
+            tables.plastic.data_ptr(), last_arr.data_ptr(), w.data_ptr(),
+            last_post.data_ptr(), H, N, E, int(lo), rows,
+            tables.row_ptr.shape[1], tables.plastic.shape[1], float(t),
+            float(a_plus), float(reciprocal_f32(tau_plus)), float(w_min),
+            float(w_max), float(neg_time / 2), _stream())
+    _build.check(err, name)
+    _build.counted(name)
 
 
 def stdp_arrival(arr_ring, r: int, syn_valid, syn_tgt, syn_plastic,

@@ -4,12 +4,16 @@
       [--placement block|scatter] [--profile ring3|gaussian:sigma=1.5|...]
       [--exchange allgather|halo|hier [--hier-groups G]]
       [--exchange-schedule sync|pipelined] [--delivery dense|event]
-      [--device cuda|cpu]
+      [--connectivity-mode materialized|streamed:chunk=K] [--device cuda|cpu]
 
 Runs the DPSNN-STDP step through the hand-written CUDA kernels on the
 card (`--device cuda`, the default; `run` replays a captured CUDA graph)
 or through their plain PyTorch versions on the CPU, with dense (O(E)
-arrival flags) or event (O(spikes x fan-out) event lists) delivery.  `--shards H` stacks H logical shards on the one device; the
+arrival flags) or event (O(spikes x fan-out) event lists) delivery.
+`--connectivity-mode streamed:chunk=K` regenerates each chunk of K target
+columns' synapse tables inside the step instead of holding them whole
+(dense delivery; the same raster and weights).  `--shards H` stacks H
+logical shards on the one device; the
 raster is identical for every H and placement (paper Table 1).  Prints the
 same `[snn]` lines as `python -m repro.launch.snn`.  With `--exchange` or
 `--exchange-schedule` it also runs the same steps through
@@ -18,8 +22,7 @@ wire and schedule) and prints its per-phase walls; the shards of 'hier'
 are `--hier-groups` groups (no mesh: one device).
 
 Not ported yet, and refused with the ROADMAP item that ports it:
-`--connectivity-mode streamed:...` (queue 1, item 7) and `--ckpt-dir`
-(item 9).
+`--ckpt-dir` (queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ import argparse
 import numpy as np
 
 from repro_torch.core import (EngineConfig, GridConfig, StepProgram,
-                              observables, profiles)
+                              observables, profiles, stream_engine)
 from repro_torch.core.step_program import check_supported
 
 
@@ -58,7 +61,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--delivery", default="dense",
                     choices=["dense", "event"])
-    ap.add_argument("--connectivity-mode", default="materialized")
+    ap.add_argument("--connectivity-mode", default="materialized",
+                    help="materialized | streamed:chunk=K (K target "
+                         "columns' synapse tables regenerated a chunk at a "
+                         "time inside the step; dense delivery)")
     ap.add_argument("--ckpt-dir", default=None)
     args = ap.parse_args(argv)
 
@@ -78,12 +84,12 @@ def main(argv=None):
                        connectivity=args.connectivity_mode)
     try:
         check_supported(eng)
-    except NotImplementedError as e:
+    except (NotImplementedError, ValueError) as e:
         ap.error(str(e))
     prof = profiles.from_config(cfg)       # fail fast on a bad spec
     print(f"[snn] {cfg.n_neurons} neurons / {cfg.n_synapses} synapses "
           f"on {args.shards} shards ({eng.exchange}, {args.placement}, "
-          f"{eng.delivery} delivery, "
+          f"{eng.delivery} delivery, {eng.connectivity} connectivity, "
           f"{prof.spec()} reach={prof.reach()}, {args.device})")
 
     sp = StepProgram(cfg, eng, device=args.device,
@@ -112,6 +118,14 @@ def main(argv=None):
     if args.delivery == "event":
         print(f"[snn] event delivery: {int(tm.arrivals.sum())} arrivals, "
               f"{int(state.sat.sum())} events dropped (sat)")
+    if sp.splan is not None:
+        ss = sp.spec.stream
+        print(f"[snn] streamed: {ss.n_chunks} chunks of {ss.chunk_cols} "
+              f"column(s) a shard, live tables "
+              f"{stream_engine.live_table_bytes(sp.spec, sp.splan)} B a "
+              f"shard (the reference's accounting "
+              f"{stream_engine.streamed_table_bytes(sp.spec)} B); "
+              f"weights {sp.weight_signature(state).hex()[:16]}")
     print(f"[snn] final-window rate {rate:.1f} Hz; done at t={args.steps} ms")
     return rate
 

@@ -10,6 +10,11 @@
   suites' deterministic keys (spikes, arrivals, raster signature, rate)
   at the same arguments; the JAX suites run in an AVX-pinned subprocess
   (`test_torch_reference.start_avx`), started with the module;
+* `weak_scaling` cut to WEAK_STEPS steps a cell (`run_suite(quick=True,
+  steps=...)`): the residency cell's ratio (10.4x, the reference's
+  accounting) and its streamed = materialized identity, and its and the
+  ladder's (H = 1, 2, 4) signatures equal to the JAX package's cells at the
+  same depth;
 * the registry and the CLI: the ported suites, and NotImplementedError
   naming the ROADMAP item for the JAX package's others.
 """
@@ -24,7 +29,7 @@ import torch
 from repro_torch.bench import cli, registry, timing
 from repro_torch.bench import profile as BP
 from repro_torch.bench import report as R
-from repro_torch.bench.suites import table1, table2
+from repro_torch.bench.suites import table1, table2, weak_scaling
 from repro_torch.core import EngineConfig, GridConfig
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -37,6 +42,7 @@ TABLE2 = dict(gx=2, gy=2, npc=100, steps=STEPS)
 CELLS = {"halo-2-scatter-pipelined": ("halo", 2, "scatter", "pipelined"),
          "allgather-4-block-sync": ("allgather", 4, "block", "sync")}
 DET = ("spikes", "arrivals", "raster_sig", "rate_hz")
+WEAK_STEPS = 4
 
 
 def _jax_suites() -> dict:
@@ -46,12 +52,35 @@ def _jax_suites() -> dict:
     from repro.bench.suites import table1 as J1, table2 as J2
     from repro.core import EngineConfig as JE, GridConfig as JG
     out = dict(table1=J1.bench(rows=[(1, 1)], steps=STEPS)[0],
-               table2=J2.bench(**TABLE2))
+               table2=J2.bench(**TABLE2), weak_scaling=_jax_weak())
     for key, (ex, h, pl, sched) in CELLS.items():
         cell = JP.profile_cell(JG(**CFG), JE(n_shards=h, exchange=ex,
                                              placement=pl,
                                              exchange_schedule=sched), STEPS)
         out[key] = {k: cell[k] for k in DET}
+    return out
+
+
+def _jax_weak() -> dict:
+    """Inside the AVX subprocess: the JAX weak_scaling suite's quick cells
+    at WEAK_STEPS steps (its `_run_cell` on each cell's configs)."""
+    from repro.bench.suites import weak_scaling as JW
+    from repro.core import EngineConfig as JE, GridConfig as JG
+    grid = dict(neurons_per_column=30, seed=2013,
+                connectivity="ring:max_ring=1")
+    cfg = JG(grid_x=10, grid_y=10, synapses_per_neuron=100, **grid)
+    cells = dict(residency_streamed=(cfg, JE(
+        n_shards=1, connectivity="streamed:chunk=1")),
+        residency_materialized=(cfg, JE(n_shards=1)))
+    for gx, gy, h in JW.LADDER:
+        cells[f"ladder_{gx}x{gy}_h{h}"] = (JG(
+            grid_x=gx, grid_y=gy, synapses_per_neuron=60, **grid),
+            JE(n_shards=h, connectivity="streamed:chunk=2"))
+    out = {}
+    for name, (c, e) in cells.items():
+        r = JW._run_cell(c, e, WEAK_STEPS)
+        out[name] = dict(spikes=r["spikes"], raster_sig=r["raster_sig"],
+                         weight_sig=r["weight_sig"])
     return out
 
 
@@ -284,13 +313,40 @@ def test_profile_cell_equals_jax(jax_suites, key):
     assert cell["phases_sum_s"] <= cell["wall_s"]
 
 
+# -- weak_scaling -----------------------------------------------------------
+
+
+def test_weak_scaling_equals_jax_cells(jax_suites):
+    rep = weak_scaling.run_suite(quick=True, device="cpu", steps=WEAK_STEPS)
+    assert R.validate(rep) == []
+    d, want = rep["deterministic"], jax_suites["weak_scaling"]
+    assert d["residency_ratio_x10"] == 104
+    assert d["residency_ratio_x10"] >= 10 * weak_scaling.RATIO_FLOOR
+    assert d["residency_identical"] is True
+    res = want["residency_streamed"]
+    assert (d["residency_spikes"], d["residency_raster_sig"],
+            d["residency_weight_sig"]) == (res["spikes"], res["raster_sig"],
+                                           res["weight_sig"])
+    assert want["residency_materialized"] == res
+    assert d["residency_spikes"] > 0
+    extra = rep["extra"]["residency"]
+    assert extra["live_table_bytes"] < extra["streamed_table_bytes"]
+    assert [r["shards"] for r in rep["extra"]["ladder"]] == [1, 2, 4]
+    for gx, gy, h in weak_scaling.LADDER:
+        tag = f"ladder_{gx}x{gy}_h{h}"
+        assert (d[f"{tag}_spikes"], d[f"{tag}_raster_sig"]) == (
+            want[tag]["spikes"], want[tag]["raster_sig"])
+
+
 # -- registry and CLI ----------------------------------------------------
 
 
 def test_registry_ports_three_suites():
-    # (since event delivery: a fourth, event_vs_dense's single-device rows)
+    # (since event delivery: a fourth, event_vs_dense's single-device rows;
+    # since streamed connectivity: weak_scaling)
     assert sorted(registry.BENCHES) == ["event_vs_dense", "profile",
-                                        "table1", "table2"]
+                                        "table1", "table2", "weak_scaling"]
+    assert "weak_scaling" not in registry.NOT_PORTED
     for name in registry.NOT_PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             registry.get(name)

@@ -1298,3 +1298,233 @@ if __name__ == "__main__":
             n, [SOFTCAP_ISA_ENVS[setting]] * n))
         report["setting"] = setting
         print(json.dumps(report))
+
+
+# -- streamed connectivity -------------------------------------------------
+
+STREAM_CFG = GridConfig(grid_x=2, grid_y=3, neurons_per_column=60,
+                        synapses_per_neuron=24, seed=7)
+STREAM_WIDE = GridConfig(grid_x=2, grid_y=2)          # full width
+
+
+def _streamed(cfg, h, placement, chunk, cuda):
+    """(spec, plan, splan, state) of a streamed build on the CPU, and the
+    same plan, streamed plan and state on the card."""
+    from repro_torch.core import stream_engine as SE
+    spec, plan, splan, state = SE.build(cfg, EngineConfig(
+        n_shards=h, placement=placement,
+        connectivity=f"streamed:chunk={chunk}"), device="cpu")
+    to = lambda x: engine.map_state(lambda t: t.to(cuda), x)
+    return spec, (plan, splan, state), (to(plan), to(splan), to(state))
+
+
+@pytest.mark.parametrize("cfg,h,placement,chunk", [
+    (STREAM_CFG, 1, "block", 1), (STREAM_CFG, 2, "block", 2),
+    (STREAM_CFG, 2, "scatter", 3), (STREAM_WIDE, 1, "block", 1),
+    (STREAM_WIDE, 4, "scatter", 3)], ids=["h1-k1", "h2-k2", "h2-scatter-k3",
+                                          "full-h1-k1", "full-h4-scatter-k3"])
+def test_chunk_tables_equal_plain_version(cuda, cfg, h, placement, chunk):
+    """Every chunk regenerated on the card equals the plain version entry
+    by entry (row pointers whole, each shard's kept entries), with its
+    mismatch flag clear; one launch counted a chunk."""
+    from repro_torch.core import stream_engine as SE
+    spec, (plan, splan, _), (gplan, gsplan, _) = _streamed(
+        cfg, h, placement, chunk, cuda)
+    src = SE.chunk_source(spec, plan, splan)
+    live = SE.ChunkStream(spec, gplan, gsplan)
+    K = SE.live_width(splan)
+    ops.reset_launch_counts()
+    for c in range(spec.stream.n_chunks):
+        got = live.regenerate(c)
+        want = ref.chunk_tables(src, c, K)
+        torch.cuda.synchronize()
+        assert torch.equal(got.row_ptr.cpu(), want.row_ptr)
+        kept = (want.row_ptr[:, -1] - want.row_ptr[:, 0]).tolist()
+        for hh, e in enumerate(kept):
+            for a, b in zip(got[1:], want[1:]):
+                assert torch.equal(a[hh, :e].cpu(), b[hh, :e])
+    assert int(live.status[0]) == 0
+    assert ops.launch_counts()["chunk_tables"] == spec.stream.n_chunks
+
+
+@pytest.mark.parametrize("h,placement,chunk", [(1, "block", 1),
+                                               (2, "scatter", 3)])
+def test_streamed_build_on_card_equals_host_build(cuda, h, placement,
+                                                  chunk):
+    """`stream_engine.build` on the card counts each chunk's synapses and
+    sets their initial weights with the chunk kernel; the CPU runs the
+    reference's host builder: the same spec, plans and state."""
+    from repro_torch.core import stream_engine as SE
+    eng = EngineConfig(n_shards=h, placement=placement,
+                       connectivity=f"streamed:chunk={chunk}")
+    host = SE.build(STREAM_CFG, eng, device="cpu")
+    card = SE.build(STREAM_CFG, eng, device=cuda)
+    assert card[0] == host[0]
+    for a, b in zip(card[1:], host[1:]):
+        for x, y in zip(engine.state_tensors(a), engine.state_tensors(b)):
+            assert x.is_cuda and _bits_equal(x, y)
+
+
+def test_chunk_tables_flag_a_wrong_plan(cuda):
+    """A plan whose e_start disagrees with what a chunk keeps sets the
+    flag (read after the card has finished); the plain version raises."""
+    from repro_torch.core import stream_engine as SE
+    spec, (plan, splan, _), (gplan, gsplan, _) = _streamed(
+        STREAM_CFG, 1, "block", 1, cuda)
+    bad = gsplan._replace(e_start=gsplan.e_start + torch.arange(
+        gsplan.e_start.shape[1], dtype=torch.int32, device=cuda))
+    live = SE.ChunkStream(spec, gplan, bad)
+    live.regenerate(1)
+    torch.cuda.synchronize()
+    assert int(live.status[0]) & 1
+    with pytest.raises(RuntimeError, match="flagged"):
+        live.check()
+
+
+@pytest.mark.parametrize("density", [0.0, 0.0215, 0.215, 1.0])
+@pytest.mark.parametrize("h,placement,chunk", [(1, "block", 1),
+                                               (2, "scatter", 2),
+                                               (2, "block", 3)])
+def test_chunk_window_kernels_equal_plain_versions(cuda, h, placement, chunk,
+                                                   density):
+    """The chunk windows of the row kernel (with and without LTP), of the
+    LTP kernel and of the element walk, chunk after chunk on the same
+    tables, leave the same state, spikes and counts as their plain
+    versions on a CPU copy."""
+    from repro_torch.core import stream_engine as SE
+    spec, (plan, splan, state), _ = _streamed(STREAM_CFG, h, placement,
+                                              chunk, cuda)
+    src = SE.chunk_source(spec, plan, splan)
+    K = SE.live_width(splan)
+    rng = np.random.default_rng(chunk)
+    H, D, E = state.arr_ring.shape
+    N = state.v.shape[1]
+    ends = splan.e_start[:, -1].tolist()
+    f = lambda x: torch.from_numpy(np.asarray(x, np.float32))
+    ring = np.zeros((H, D, E), bool)
+    for hh, e in enumerate(ends):
+        ring[hh, :, :e] = rng.random((D, e)) < density
+    times = lambda shape: f(np.where(rng.random(shape) < 0.7,
+                                     rng.uniform(-2000.0, 200.0, shape),
+                                     -1.0e9))
+    cpu = dict(ring=torch.from_numpy(ring), w=f(rng.uniform(0, 10, (H, E))),
+               last_arr=times((H, E)), last_post=times((H, N)),
+               v=f(rng.uniform(-80.0, 35.0, (H, N))),
+               u=f(rng.uniform(-20.0, 10.0, (H, N))),
+               idx=torch.from_numpy(rng.integers(0, N, (H, 64))
+                                    .astype(np.int64)),
+               amp=f(np.where(rng.random((H, 64)) < 0.8, 20.0, 0.0)),
+               spiked=torch.from_numpy(rng.random((H, N)) < density),
+               spiked_src=torch.from_numpy(
+                   rng.random(tuple(plan.src_gid.shape)) < density),
+               exc=plan.exc_mask, nv=plan.neuron_valid,
+               out=torch.zeros((H, N), dtype=torch.bool),
+               counts=torch.zeros((2, H), dtype=torch.int64))
+    gpu = {k: v.clone().to(cuda) for k, v in cpu.items()}
+    for d in (cpu, gpu):
+        for c in range(spec.stream.n_chunks):
+            tb = ref.chunk_tables(src, c, K)
+            tb = ref.ChunkTables(*(x.to(d["w"].device) for x in tb))
+            lo = c * spec.stream.q
+            for with_ltp in (True, False):
+                ops.stdp_phase_a_chunk(
+                    d["ring"], 7 % D, tb, lo, d["exc"], d["nv"], d["idx"],
+                    d["amp"], d["v"], d["u"], d["last_post"], d["w"],
+                    d["last_arr"], 207, d["out"], d["counts"],
+                    accumulate=c > 0, izh=DEFAULT_IZH, stdp=DEFAULT_STDP,
+                    neg_time=-1.0e9, with_ltp=with_ltp)
+            ops.stdp_ltp_chunk(d["spiked"], tb, lo, d["last_arr"], d["w"],
+                               d["last_post"], 208, **LTP_KW)
+            ops.arborize_chunk(d["ring"], d["spiked_src"], tb, 208)
+    torch.cuda.synchronize()
+    for k in cpu:
+        assert _bits_equal(gpu[k], cpu[k]), k
+
+
+def test_streamed_graph_run_equals_eager_materialized_and_cpu(cuda):
+    """A streamed `run` on the card (a captured graph of `RUN_WINDOW`
+    steps, K = 2 over 3 owned columns: a ragged last chunk) equals its
+    eager loop, the CPU port's streamed run and the card's materialized
+    run; each step launches chunk_tables twice a chunk and the phase-A row
+    kernel and the element walk once a chunk."""
+    from repro_torch.core import stream_engine as SE
+    W = engine.RUN_WINDOW
+    steps = W + 17
+    base = dict(n_shards=2, placement="block")
+    eng = EngineConfig(connectivity="streamed:chunk=2", **base)
+    cpu = StepProgram(STREAM_CFG, eng, device="cpu")
+    s_c, r_c, _ = cpu.run(cpu.init_state(), 0, steps)
+    mat = StepProgram(STREAM_CFG, EngineConfig(**base), device="cuda")
+    _, r_m, _ = mat.run(mat.init_state(), 0, steps)
+    sp = StepProgram(STREAM_CFG, eng, device="cuda")
+    n_chunks = sp.spec.stream.n_chunks
+    assert n_chunks == 2
+    s0 = sp.init_state()
+    runs = []
+    for graph in (True, True, False):
+        ops.reset_launch_counts()
+        s, r, _ = sp.run(s0, 0, steps, graph=graph)
+        torch.cuda.synchronize()
+        runs.append((s, r, ops.launch_counts(),
+                     sp.runner.replayed_launches()))
+    sp.runner.chunks.check()
+    per_step = dict(chunk_tables=2 * n_chunks, stdp_phase_a_chunk=n_chunks,
+                    arborize_chunk=n_chunks)
+    assert sp.runner.recorded == {k: W * n for k, n in per_step.items()}
+    for (s, r, counts, replayed), n in zip(runs, (W + 17, 17, steps)):
+        assert torch.equal(r.cpu(), r_c) and torch.equal(r, r_m)
+        for a, b in zip(engine.state_tensors(s), engine.state_tensors(s_c)):
+            assert _bits_equal(a, b)
+        assert counts == dict(dict.fromkeys(ops.KERNELS, 0),
+                              **{k: v * n for k, v in per_step.items()})
+        assert replayed == {k: v * (steps - n) for k, v in per_step.items()}
+    assert sp.weight_signature(runs[0][0]) == mat.weight_signature(
+        mat.run(mat.init_state(), 0, steps)[0])
+    assert SE.live_width(sp.splan) == sp.runner.chunks.tables.src.shape[1]
+
+
+@pytest.mark.parametrize("exchange", ["allgather", "halo", "hier"])
+def test_streamed_phase_handles_equal_cpu_and_never_synchronise(cuda,
+                                                                exchange):
+    """The streamed phase handles on the card under sync-debug "error", in
+    the sync and the pipelined order (its plasticity half is the LTP
+    kernel's chunk window), equal the CPU port's."""
+    eng = EngineConfig(n_shards=2, exchange=exchange, placement="scatter",
+                       connectivity="streamed:chunk=2")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        sp = StepProgram(STREAM_CFG, eng, device=dev, hier_groups=2)
+        pp = sp.phase_fns()
+        state = engine.clone_state(sp.init_state())
+        state, spiked, _ = pp.phase_a(state, 0)
+        state = pp.phase_b(state, pp.exchange(spiked), 0)
+        ss = pp.exchange(spiked)
+        rasters = []
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for t in range(1, 4):
+                state, spiked, _ = pp.phase_a(state, t)
+                state = pp.phase_b(state, pp.exchange(spiked), t)
+                rasters.append(spiked)
+            for t in range(4, 7):
+                state = pp.phase_b(state, ss, t - 1)
+                state, spiked, _ = pp.phase_a_dynamics(state, t)
+                ss = pp.exchange(spiked)
+                state = pp.phase_a_plasticity(state, spiked, t)
+                rasters.append(spiked)
+        finally:
+            if dev == "cuda":
+                torch.cuda.set_sync_debug_mode(0)
+        out[dev] = ([r.cpu() for r in rasters],
+                    [x.cpu() for x in engine.state_tensors(state)])
+    n = sp.spec.stream.n_chunks
+    assert ops.launch_counts() == dict(
+        dict.fromkeys(ops.KERNELS, 0), chunk_tables=6 * 2 * n + 3 * n,
+        stdp_phase_a_chunk=6 * n, arborize_chunk=6 * n,
+        stdp_ltp_chunk=3 * n)
+    assert all(torch.equal(a, b) for a, b in zip(*(out[d][0] for d in out)))
+    assert all(_bits_equal(a, b) for a, b in zip(out["cuda"][1],
+                                                  out["cpu"][1]))

@@ -231,19 +231,23 @@ def test_build_without_nvcc_raises():
 def test_unported_options_are_refused():
     from repro_torch.launch import snn
     cfg = GridConfig(neurons_per_column=50, synapses_per_neuron=10)
-    # (event delivery runs; a delivery that does not exist is refused as a
-    # bad value)
-    for eng in (EngineConfig(connectivity="streamed:chunk=1"),
-                EngineConfig(delivery="event",
-                             connectivity="streamed:chunk=1")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            StepProgram(cfg, eng, device="cpu")
+    # (event delivery and streamed connectivity run; a delivery that does
+    # not exist, and streamed with event delivery, which the reference
+    # refuses too, are refused as bad values)
+    with pytest.raises(ValueError, match="dense"):
+        StepProgram(cfg, EngineConfig(delivery="event",
+                                      connectivity="streamed:chunk=1"),
+                    device="cpu")
     with pytest.raises(ValueError, match="delivery"):
         StepProgram(cfg, EngineConfig(delivery="nope"), device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         StepProgram(cfg, EngineConfig(), device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="item 8"):
+        StepProgram(cfg, EngineConfig(connectivity="streamed:chunk=1"),
+                    device="cpu", mesh=object())
     for argv in (["--delivery", "nope"], ["--ckpt-dir", "x"],
-                 ["--connectivity-mode", "streamed:chunk=2"]):
+                 ["--connectivity-mode", "streamed:chunk=2", "--delivery",
+                  "event"], ["--connectivity-mode", "streamed:chunk=0"]):
         with pytest.raises(SystemExit):
             snn.main(argv + ["--device", "cpu"])
 

@@ -1,4 +1,5 @@
-"""The kernels' launch registry and integer scratch (`kernels._build`).
+"""The kernels' launch registry and integer scratch (`kernels._build`),
+and the launcher's streamed connectivity on the CPU (no launch counted).
 
 Every wrapper counts its launches in one registry (`_build.counted`), and
 takes its zeroed integer scratch from `_build.scratch`: the innermost
@@ -79,3 +80,20 @@ def test_scratch_grows_zeroed(dtype):
     big = own.get("counts", 5, dtype)
     assert big is not small and big.dtype == dtype
     assert big.numel() == 5 and not big.any()
+
+
+def test_launcher_runs_streamed_on_cpu(capsys):
+    """`--connectivity-mode streamed:chunk=2` runs a few steps on the CPU,
+    through the plain versions (no kernel launch counted), with the rate
+    and weights of the materialized run."""
+    from repro_torch.launch import snn
+    argv = ["--grid", "2x2", "--neurons-per-column", "60", "--synapses",
+            "16", "--steps", "12", "--shards", "2", "--device", "cpu"]
+    ops.reset_launch_counts()
+    rate = snn.main(argv + ["--connectivity-mode", "streamed:chunk=2"])
+    out = capsys.readouterr().out
+    assert "streamed:chunk=2 connectivity" in out
+    assert "[snn] streamed: 1 chunks of 2 column(s) a shard" in out
+    assert "done at t=12 ms" in out
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+    assert rate == snn.main(argv) > 0
