@@ -125,9 +125,13 @@ every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
            4x4 K = 3 plan at H = 4, bit-equal (row pointers and every kept
            entry) to the plain version on the card (and on a CPU copy for
            the interior and the ragged chunk), its flag clear, timed beside
-           its plain version and its bound (operations: SPLITMIX_OPS
-           integer instructions a draw lane, counted from the source, at
-           the int32 issue rate); the chunk windows of the phase-A row
+           its plain version and two bounds (operations: SPLITMIX_OPS
+           integer instructions a draw lane, counted in the SASS, at the
+           int32 issue rate): the least work (the lanes the prefilter
+           cannot skip, from `kref.chunk_prefilter` on this chunk, whose
+           pass shares it prints) and the reference's draw order (three
+           lanes a slot); each stage's device time (gen, scan, sort; a
+           stage that reads none fails); the chunk windows of the phase-A row
            kernel (with LTP, t from the step counter), of LTP and of the
            element walk on the interior chunk at the main density,
            bit-equal to their plain versions on a CPU copy, timed on
@@ -271,13 +275,14 @@ EVENT_KERNEL_NAMES = {"event_arrival": ("arrival_place", "arrival_sum"),
                       "event_emit": "emit_scan"}
 # streamed connectivity: the check's chunk sizes (K = 3 leaves a ragged
 # last chunk at H = 4, 4 columns a shard), the 8x8 timed run's steps (64
-# chunks, each regenerated twice a step: ~10 ms a step of hashing), and
-# the integer instructions of one splitmix64 draw lane in csrc/stream.cu
-# (the seed's xor 2, the add 2, three 64-bit shift-xors 4 each, two 64-bit
-# multiplies 4 each), counted from the source
+# chunks, each regenerated twice a step), the integer instructions of one
+# splitmix64 draw lane (counted in the SASS of a kernel that draws one
+# lane, less that of the same kernel copying its input, sm_90a, the port's
+# flags), and chunk_tables' kernels, as the profiler names them
 STREAM_CHECK_CHUNKS = (1, 3)
 STREAM_STEPS = 100
-SPLITMIX_OPS = 24
+SPLITMIX_OPS = 22
+CHUNK_KERNELS = ("gen_kernel", "scan_kernel", "sort_kernel")
 # the profiler's names of the STDP kernels (row_kernel<true, false> is
 # phase A; <true, true> its chunk window on the streamed path)
 STDP_KERNEL_NAMES = {"stdp_phase_a": "row_kernel<true, false>",
@@ -2420,11 +2425,16 @@ def _program_bytes(*trees) -> int:
 
 
 def _chunk_tables_ops(source, c: int, tables, kept) -> tuple:
-    """(integer operations, bytes) of one chunk_tables call on these
-    inputs: SPLITMIX_OPS a draw lane, three lanes a generation slot of an
-    excitatory candidate (ring, member, target) and one of an inhibitory
-    one (target), one more (delay) a kept excitatory synapse; the
-    candidates read, their gids gathered, the tables written."""
+    """(integer operations of the least work, of the reference's draw
+    order, bytes, shape) of one chunk_tables call on these inputs, at
+    SPLITMIX_OPS a draw lane.  Least work: lane 0 on every excitatory
+    slot, lane 2 on every inhibitory one, lane 1 on the slots whose ring
+    can reach the chunk and lane 2 on those whose target column lies in
+    it (`kref.chunk_prefilter` on this chunk), lane 3 on each kept
+    excitatory synapse.  The reference's draw order: lanes 0-2 on every
+    excitatory slot, lane 2 on every inhibitory one, lane 3 on each kept
+    excitatory synapse.  Bytes: the candidates read, their gids gathered,
+    the tables written."""
     g = source.geom
     cand = source.cand[:, c].to(torch.int64)
     ok = cand >= 0
@@ -2433,12 +2443,25 @@ def _chunk_tables_ops(source, c: int, tables, kept) -> tuple:
     n_exc, n_inh = int(exc.sum()), int((ok & ~exc).sum())
     kept_exc = sum(int(tables.plastic[h, :k].sum())
                    for h, k in enumerate(kept))
-    ops_ = SPLITMIX_OPS * (g.M * (3 * n_exc + n_inh) + kept_exc)
+    pf = kref.chunk_prefilter(source, c)
+    excm = exc[:, :, None]
+    lane1 = int((pf.lane0 & excm).sum())
+    lane2_exc = int((pf.lane1 & excm).sum())
+    del pf
+    lanes = g.M * (n_exc + n_inh) + lane1 + lane2_exc + kept_exc
+    ops_ = SPLITMIX_OPS * lanes
+    draw_order_ops = SPLITMIX_OPS * (g.M * (3 * n_exc + n_inh) + kept_exc)
     n_bytes = (nbytes(source.cand[:, c]) + int(ok.sum()) * 8
                + sum(kept) * (4 + 4 + 1) + nbytes(tables.row_ptr))
-    return ops_, n_bytes, dict(candidates=int(ok.sum()),
-                               slots=int(ok.sum()) * g.M, kept=sum(kept),
-                               kept_excitatory=kept_exc)
+    exc_slots = max(g.M * n_exc, 1)
+    return ops_, draw_order_ops, n_bytes, dict(
+        candidates=int(ok.sum()), slots=int(ok.sum()) * g.M,
+        kept=sum(kept), kept_excitatory=kept_exc, lanes=lanes,
+        lane1_draws=lane1, lane2_excitatory_draws=lane2_exc,
+        prefilter_lane0_share_of_excitatory=lane1 / exc_slots,
+        prefilter_lane1_share_of_excitatory=lane2_exc / exc_slots,
+        prefilter_lane1_share=(lane2_exc + g.M * n_inh)
+        / max(int(ok.sum()) * g.M, 1))
 
 
 def _chunk_tables_rows(sp8s, sp4r) -> tuple:
@@ -2446,8 +2469,11 @@ def _chunk_tables_rows(sp8s, sp4r) -> tuple:
     the last chunk, and the last (ragged) chunk of a 4x4 K = 3 plan at H =
     4: bit-equal (row pointers, and each shard's kept entries) to the plain
     version on the card and, for the interior and the ragged chunk, on a
-    CPU copy; its flag clear.  Timed beside its plain version and its
-    bound (operations: the draw lanes at the int32 issue rate)."""
+    CPU copy; its flag clear.  Timed beside its plain version, stage by
+    stage (CHUNK_KERNELS; a stage that reads no device time fails), and
+    beside two bounds (operations: the draw lanes at the int32 issue
+    rate): the least work and the reference's draw order
+    (`_chunk_tables_ops`)."""
     rows, failed = [], []
     n8 = sp8s.spec.stream.n_chunks
     cases = [("first", sp8s, 0), ("interior", sp8s, n8 // 2),
@@ -2473,28 +2499,38 @@ def _chunk_tables_rows(sp8s, sp4r) -> tuple:
                              for a, b in zip(got[1:], w[1:]))
         if not equal:
             failed.append(f"chunk_tables ({label})")
-        n_ops, n_bytes, shape = _chunk_tables_ops(src, c, got, kept)
+        n_ops, draw_ops, n_bytes, shape = _chunk_tables_ops(src, c, got,
+                                                            kept)
         bms, by = bound(n_bytes, n_ops, PEAK_INT32_PER_S)
         launch = lambda: live.regenerate(c)
+        by_kernel = {k: device_ms(launch, kernel=k) for k in CHUNK_KERNELS}
+        if not all(by_kernel.values()):
+            failed.append(f"chunk_tables ({label}): a stage read no device "
+                          f"time: {by_kernel}")
         rows.append(dict(
             name="chunk_tables", route="cuda",
             source="src/repro_torch/csrc/stream.cu",
             replaces="src/repro/core/stream_engine.py:172", launches=None,
             max_abs_err=0.0 if equal else float("nan"),
             ms=cuda_ms(launch), device_ms=device_ms(
-                launch, kernel=("gen_kernel", "scan_kernel", "place_kernel",
-                                "rank_kernel")),
-            device_ms_by_kernel={k: device_ms(launch, kernel=k) for k in (
-                "gen_kernel", "scan_kernel", "place_kernel", "rank_kernel")},
+                launch, kernel=CHUNK_KERNELS),
+            device_ms_by_kernel=by_kernel,
             plain_ms=cuda_ms(lambda: kref.chunk_tables(src, c, K), calls=2,
                              reps=3, warmup=1),
             bound_ms=bms, bound_by=by,
-            bound_note=f"operations: {SPLITMIX_OPS} integer instructions a "
-                       f"splitmix64 lane (counted from the source), three "
-                       f"lanes a slot of an excitatory candidate, one of an "
-                       f"inhibitory one, one a kept excitatory synapse, at "
-                       f"the int32 issue rate {PEAK_INT32_PER_S:.4g}/s",
-            ops=n_ops, bytes=n_bytes, library_ms=None,
+            bound_note=f"operations, the least work: {SPLITMIX_OPS} integer "
+                       f"instructions a splitmix64 lane (counted in the "
+                       f"SASS), lane 0 on every excitatory slot, lane 2 on "
+                       f"every inhibitory one, lanes 1 and 2 where the "
+                       f"prefilter passes, lane 3 a kept excitatory "
+                       f"synapse, at the int32 issue rate "
+                       f"{PEAK_INT32_PER_S:.4g}/s",
+            draw_order_bound_ms=bound(n_bytes, draw_ops,
+                                      PEAK_INT32_PER_S)[0],
+            draw_order_note="the reference's draw order: lanes 0-2 on every "
+                            "excitatory slot, as a thread a slot draws them",
+            ops=n_ops, draw_order_ops=draw_ops, bytes=n_bytes,
+            library_ms=None,
             library_note="no PyTorch call regenerates the tables",
             equal=equal, status=int(live.status[0]),
             tolerance="bit-equal (row pointers and every kept entry) to the "

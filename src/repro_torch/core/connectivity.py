@@ -371,6 +371,7 @@ class StreamedShard:
     chunk_cols: int
     q: int
     n_chunks: int
+    row_max: int              # the longest target row of any chunk
 
 
 def build_streamed_shard(cfg: GridConfig, eng: EngineConfig, shard: int,
@@ -380,6 +381,7 @@ def build_streamed_shard(cfg: GridConfig, eng: EngineConfig, shard: int,
     n_cap, q, n_chunks = stream_geometry(cfg, eng, chunk_cols)
     cands: List[np.ndarray] = []
     counts: List[int] = []
+    rows: List[int] = [0]
     w0: List[np.ndarray] = []
     for c in range(n_chunks):
         cand = chunk_candidates(cfg, eng, shard, c * q, (c + 1) * q)
@@ -389,6 +391,8 @@ def build_streamed_shard(cfg: GridConfig, eng: EngineConfig, shard: int,
         syn = _chunk_synapses(cfg, eng, shard, cand, c * q, (c + 1) * q)
         cands.append(sidx.astype(np.int32))
         counts.append(int(syn.src_gid.shape[0]))
+        if counts[-1]:
+            rows.append(int(np.bincount(syn.tgt_local).max()))
         w0.append(syn.weight0)
     c_cap = _round_up(max((c.shape[0] for c in cands), default=1), 8)
     cand_p = np.full((n_chunks, c_cap), -1, dtype=np.int32)
@@ -406,7 +410,7 @@ def build_streamed_shard(cfg: GridConfig, eng: EngineConfig, shard: int,
         src_gid=src_gid_p, n_src=S, cand=cand_p,
         e_start=e_start, weight0=weight0.astype(np.float32),
         n_valid=int(e_start[-1]), chunk_cols=chunk_cols, q=q,
-        n_chunks=n_chunks)
+        n_chunks=n_chunks, row_max=max(rows))
 
 
 def build_all_streamed(cfg: GridConfig, eng: EngineConfig, chunk_cols: int

@@ -52,6 +52,7 @@ from .params import (DEFAULT_IZH, DEFAULT_STDP, EngineConfig, GridConfig,
                      IzhikevichParams, StdpParams)
 from ..kernels import ops as kops
 from ..kernels import ref as kref
+from ..kernels import stream as kstream
 
 ChunkTables = kref.ChunkTables
 
@@ -65,6 +66,7 @@ class StreamSpec(NamedTuple):
     c_cap: int                # candidate-source cap per chunk
     k_cap: int                # generation slots per chunk (c_cap * M)
     e_pad: int                # padded synapse-state length (>= E + k_cap)
+    row_cap: int              # the longest target row of any chunk
 
 
 class StreamedPlan(NamedTuple):
@@ -101,30 +103,47 @@ def _gen_consts(cfg: GridConfig):
 def chunk_source(spec: SimSpec, plan: ShardPlan,
                  splan: StreamedPlan) -> kref.ChunkSource:
     """What `ops.chunk_tables` reads, on the plan's device: the plan's
-    source table, the streamed plan, the profile's tables and the
-    geometry."""
-    cfg, eng, ss = spec.cfg, spec.eng, spec.stream
+    source table, the streamed plan, the profile's tables, the kernel's
+    modulus constants and the geometry."""
+    ss = spec.stream
+    return make_chunk_source(spec.cfg, spec.eng, ss.q, plan.src_gid,
+                             splan.cand, splan.e_start, ss.row_cap)
+
+
+def make_chunk_source(cfg: GridConfig, eng: EngineConfig, q: int,
+                      src_gid: torch.Tensor, cand: torch.Tensor,
+                      e_start: torch.Tensor, row_cap: int
+                      ) -> kref.ChunkSource:
+    """`chunk_source` from its parts (src_gid [H, S] int64, cand [H,
+    n_chunks, c_cap] int32, e_start [H, n_chunks + 1] int32, one device;
+    row_cap the longest target row of any chunk, the kernel's bucket
+    width)."""
     # the modulus arithmetic of the generator needs every modulus < 2^16
     if not (cfg.neurons_per_column < (1 << 16)
             and cfg.synapses_per_neuron < (1 << 16)):
         raise ValueError("streamed generation assumes npc, M < 65536")
     _, off_tab, start, U, lanes = _gen_consts(cfg)
-    dev = plan.gid.device
+    dev = cand.device
     t = lambda x, dt: torch.from_numpy(np.asarray(x, dtype=dt)).to(dev)
+    dspan = cfg.delay_max - cfg.delay_min + 1
+    _, n_chunks, c_cap = cand.shape
     geom = kref.ChunkGeometry(
         M=cfg.synapses_per_neuron, npc=cfg.neurons_per_column,
         nexc=cfg.n_exc_per_column, gx=cfg.grid_x, gy=cfg.grid_y,
-        n_neurons=cfg.n_neurons, delay_min=cfg.delay_min,
-        dspan=cfg.delay_max - cfg.delay_min + 1, q=ss.q,
-        n_chunks=ss.n_chunks, c_cap=ss.c_cap,
-        scatter=eng.placement == "scatter", lanes=tuple(lanes))
+        n_neurons=cfg.n_neurons, delay_min=cfg.delay_min, dspan=dspan, q=q,
+        n_chunks=n_chunks, c_cap=c_cap,
+        scatter=eng.placement == "scatter", lanes=tuple(lanes),
+        row_cap=int(row_cap))
+    # the order csrc/stream.cu reads them in: npc, nexc, dspan, H, rings
+    moduli = [cfg.neurons_per_column, cfg.n_exc_per_column, dspan,
+              eng.n_shards] + list(np.diff(start))
     return kref.ChunkSource(
-        src_gid=plan.src_gid, cand=splan.cand, e_start=splan.e_start,
+        src_gid=src_gid, cand=cand, e_start=e_start,
         off=t(off_tab, np.int32), start=t(start, np.int32),
         thresh=t(U, np.int64),
         bounds=t(topology.shard_bounds_block(cfg.n_neurons, eng.n_shards),
                  np.int64),
-        geom=geom)
+        fastmod=t(kref.fastmod_table(moduli), np.int64), geom=geom)
 
 
 def live_width(splan: StreamedPlan) -> int:
@@ -270,18 +289,21 @@ def _candidates(cfg: GridConfig, eng: EngineConfig, chunk_cols: int):
 
 def _count_on_card(spec: SimSpec, plan: ShardPlan, cand: torch.Tensor):
     """(e_start [H, n_chunks + 1] int64 numpy, each shard's weight0 [E_h]
-    fp32 on the card): the chunks' kept counts and initial weights from
-    `ops.chunk_tables` itself, chunk after chunk (what the host builder
-    finds by generating every chunk in numpy).  A chunk's kept count is
-    its row_ptr's span; the initial weight of a kept synapse is w_exc_init
-    where it is plastic (an excitatory source) and w_inh_init elsewhere, as
-    in `connectivity.forward_synapses`."""
+    fp32 on the card, the longest target row of any chunk): the chunks'
+    kept counts, rows and initial weights from `ops.chunk_tables` itself,
+    chunk after chunk (what the host builder finds by generating every
+    chunk in numpy).  A chunk's kept count is its row_ptr's span; a chunk
+    with a row longer than the buckets (2 M keys at first) runs again with
+    buckets that hold it.  The initial weight of a kept synapse is
+    w_exc_init where it is plastic (an excitatory source) and w_inh_init
+    elsewhere, as in `connectivity.forward_synapses`."""
     ss, cfg = spec.stream, spec.cfg
     dev = cand.device
     H = cand.shape[0]
     e_start = torch.zeros((H, ss.n_chunks + 1), dtype=torch.int32,
                           device=dev)
-    source = chunk_source(spec, plan, StreamedPlan(cand, e_start))
+    source = make_chunk_source(cfg, spec.eng, ss.q, plan.src_gid, cand,
+                               e_start, 2 * cfg.synapses_per_neuron)
     z = lambda n, dt: torch.zeros((H, n), dtype=dt, device=dev)
     tables = ChunkTables(row_ptr=z(ss.q + 1, torch.int32),
                          src=z(ss.k_cap, torch.int32),
@@ -293,15 +315,22 @@ def _count_on_card(spec: SimSpec, plan: ShardPlan, cand: torch.Tensor):
     w_exc, w_inh = (kref.f32(x, dev) for x in (cfg.w_exc_init,
                                                cfg.w_inh_init))
     weights = [[] for _ in range(H)]
+    row_max = 0
     for c in range(ss.n_chunks):
         kops.chunk_tables(source, c, tables, flag)
+        longest = int((tables.row_ptr[:, 1:] - tables.row_ptr[:, :-1]).max())
+        if longest > source.geom.row_cap:
+            source = source._replace(
+                geom=source.geom._replace(row_cap=longest))
+            kops.chunk_tables(source, c, tables, flag)
+        row_max = max(row_max, longest)
         kept = tables.row_ptr[:, ss.q] - tables.row_ptr[:, 0]
         e_start[:, c + 1] = e_start[:, c] + kept
         for h, n in enumerate(kept.tolist()):
             weights[h].append(torch.where(tables.plastic[h, :n], w_exc,
                                           w_inh))
     return (e_start.cpu().numpy().astype(np.int64),
-            [torch.cat(w) for w in weights])
+            [torch.cat(w) for w in weights], row_max)
 
 
 def build(cfg: GridConfig, eng: EngineConfig,
@@ -339,6 +368,7 @@ def build(cfg: GridConfig, eng: EngineConfig,
         cand = np.stack([s.cand for s in shards])
         e_start = np.stack([s.e_start for s in shards])
         weight0 = [torch.from_numpy(s.weight0) for s in shards]
+        row_max = max(s.row_max for s in shards)
     c_cap = cand.shape[2]
     s_cap = src_gid.shape[1]
     k_cap = c_cap * cfg.synapses_per_neuron
@@ -374,14 +404,14 @@ def build(cfg: GridConfig, eng: EngineConfig,
                    e_cap=0, s_cap=s_cap, n_total=cfg.n_neurons,
                    stream=StreamSpec(chunk_cols=chunk_cols, q=q,
                                      n_chunks=n_chunks, c_cap=c_cap,
-                                     k_cap=k_cap, e_pad=0))
+                                     k_cap=k_cap, e_pad=0, row_cap=0))
     if e_start is None:
-        e_start, weight0 = _count_on_card(spec, plan, cand_t)
+        e_start, weight0, row_max = _count_on_card(spec, plan, cand_t)
     e_max = int(e_start[:, -1].max())
     # the reference's layout: its last chunk's [e0, e0 + k_cap) window fits
     e_pad = connectivity._round_up(max(e_max, 1), 8) + k_cap
     spec = spec._replace(e_cap=e_pad, stream=spec.stream._replace(
-        e_pad=e_pad))
+        e_pad=e_pad, row_cap=max(row_max, 1)))
     splan = StreamedPlan(cand=cand_t, e_start=torch.from_numpy(
         e_start.astype(np.int32)).to(device))
     state = init_state(spec, plan)
@@ -517,17 +547,17 @@ def materialized_table_bytes(e_cap: int) -> int:
 
 
 #: The port's live chunk-table bytes per entry (src and delay int32,
-#: plastic bool) and its regeneration scratch per entry (a kept (key,
-#: target) pair, int64, and its placed key, int32).
+#: plastic bool).
 LIVE_BYTES_PER_ENTRY = 4 + 4 + 1
-SCRATCH_BYTES_PER_ENTRY = 8 + 4
 
 
 def live_table_bytes(spec: SimSpec, splan: StreamedPlan) -> int:
     """The port's actual peak live synapse-table bytes per shard: one
     chunk's tables sized by the largest kept count, its row pointers, the
-    regeneration scratch (kept pairs, placed keys, per-target counts) and
-    the persistent metadata."""
-    k, q = live_width(splan), spec.stream.q
-    return (k * (LIVE_BYTES_PER_ENTRY + SCRATCH_BYTES_PER_ENTRY)
-            + (q + 1) * 4 + q * 4 + metadata_bytes(spec))
+    regeneration scratch (per target a bucket of row_cap keys and a
+    counter: `kernels.stream`) and the persistent metadata."""
+    ss = spec.stream
+    k = live_width(splan)
+    return (k * LIVE_BYTES_PER_ENTRY + (ss.q + 1) * 4
+            + ss.q * (ss.row_cap + kstream.COUNT_STRIDE) * 4
+            + metadata_bytes(spec))

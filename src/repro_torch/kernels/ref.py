@@ -557,6 +557,7 @@ class ChunkGeometry(NamedTuple):
     c_cap: int                # candidate sources a chunk (padded)
     scatter: bool             # placement: scatter (else block)
     lanes: tuple              # the four draw lanes' seeds (uint64 ints)
+    row_cap: int              # the longest target row of any chunk
 
 
 class ChunkSource(NamedTuple):
@@ -567,7 +568,10 @@ class ChunkSource(NamedTuple):
     the profile's ring offsets off [K, 2] int32, ring starts start [R + 2]
     int32 and thresholds thresh [R + 1] int64 (U[k] = ceil(fr[k] * 2^53):
     the ring is the number of k with bits53 >= U[k]), the block bounds
-    bounds [H + 1] int64 (unused under scatter), and the geometry."""
+    bounds [H + 1] int64 (unused under scatter), the kernel's modulus
+    constants fastmod [4 + R + 1, 3] int64 (`fastmod_table` of npc, nexc,
+    dspan, H and each ring's size; the plain version takes remainders
+    with `%`), and the geometry."""
     src_gid: torch.Tensor
     cand: torch.Tensor
     e_start: torch.Tensor
@@ -575,6 +579,7 @@ class ChunkSource(NamedTuple):
     start: torch.Tensor
     thresh: torch.Tensor
     bounds: torch.Tensor
+    fastmod: torch.Tensor
     geom: ChunkGeometry
 
 
@@ -652,21 +657,61 @@ def _mod64(h, l, m):
     return ((h % m) * r32 + l % m) % m
 
 
-def chunk_tables(source: ChunkSource, c: int, k: int, *,
-                 with_j: bool = False):
-    """Plain version of kernels.stream.chunk_tables: chunk c of every
-    shard regenerated from the draw lanes, K = k entries a shard ->
-    ChunkTables (entries past a shard's kept count 0), and with `with_j`
-    also j [H, K] int32 (each entry's forward slot).
+_M64 = (1 << 64) - 1
 
-    Each candidate source g of the chunk draws lanes 0-3 at counter g * M
-    + j (splitmix64 on limbs): the ring by integer threshold, the member
-    of the ring, the target neuron and the delay, exactly as
-    `core.connectivity.forward_synapses`; the synapses whose target the
-    shard owns at a local index in [c*q, c*q + q) are kept, in generation
-    order (source ascending, then j), and stably sorted by target.  Raises
-    ValueError where a shard's kept count is not its e_start difference
-    or exceeds K."""
+
+def fastmod_constants(m: int) -> tuple:
+    """(2^32 mod m, c) for 0 < m < 2^16, c = ceil(2^64 / m) mod 2^64 (0 at
+    m = 1): the constants of Lemire's exact 32-bit remainder and quotient
+    (`fastmod_u32`, `fastdiv_u32`), which `csrc/stream.cu` takes from the
+    host instead of dividing."""
+    if not 0 < m < (1 << 16):
+        raise ValueError(f"modulus {m} outside (0, 2^16)")
+    return (1 << 32) % m, (_M64 // m + 1) & _M64
+
+
+def fastmod_table(moduli) -> np.ndarray:
+    """[n, 3] int64 rows (m, 2^32 mod m, c as int64 bits) of each modulus."""
+    rows = []
+    for m in moduli:
+        r32, c = fastmod_constants(int(m))
+        rows.append((int(m), r32, c - (1 << 64) if c >> 63 else c))
+    return np.asarray(rows, dtype=np.int64).reshape(-1, 3)
+
+
+def _mulhi_u32(x: np.ndarray, y) -> np.ndarray:
+    """The high 64 bits of x * y for uint64 x and y < 2^32 (uint64)."""
+    y = np.uint64(y) if np.isscalar(y) else y
+    return ((x >> np.uint64(32)) * y
+            + (((x & np.uint64(_M32)) * y) >> np.uint64(32))) >> np.uint64(32)
+
+
+def fastmod_u32(a: np.ndarray, m: int, c: int) -> np.ndarray:
+    """a mod m for uint64 a < 2^32: (c * a mod 2^64) * m >> 64, as the
+    kernel's `fm_mod`."""
+    with np.errstate(over="ignore"):
+        return _mulhi_u32(np.uint64(c) * a, m)
+
+
+def fastdiv_u32(a: np.ndarray, c: int) -> np.ndarray:
+    """a // m for uint64 a < 2^32: c * a >> 64, a itself at m = 1 (c = 0),
+    as the kernel's `fm_div`."""
+    return _mulhi_u32(np.full_like(a, c), a) if c else a.copy()
+
+
+def fastmod64(x: np.ndarray, m: int, r32: int, c: int) -> np.ndarray:
+    """x mod m for uint64 x, m < 2^16, as the kernel's `fm_mod64`."""
+    hi = fastmod_u32(x >> np.uint64(32), m, c)
+    lo = fastmod_u32(x & np.uint64(_M32), m, c)
+    return fastmod_u32(hi * np.uint64(r32) + lo, m, c)
+
+
+def _chunk_slots(source: ChunkSource, c: int) -> dict:
+    """Every generation slot of chunk c, [H, c_cap, M] (candidate-major):
+    the draws of `core.connectivity.forward_synapses` (lanes 0-3 at counter
+    g * M + j, splitmix64 on limbs) and the reference's ownership and range
+    test.  Keys: cvalid, sidx, g [H, c_cap]; exc [H, c_cap, 1]; ring, tcol,
+    tgt, delay, tloc, keep (bool) [H, c_cap, M]; jj [M]."""
     g_ = source.geom
     dev = source.cand.device
     i64 = torch.int64
@@ -713,9 +758,35 @@ def chunk_tables(source: ChunkSource, c: int, k: int, *,
         owned = (tgt >= lo_b) & (tgt < source.bounds[1:].view(H, 1, 1))
         tloc = tgt - lo_b
     lo = c * g_.q
-    keep = (cvalid[:, :, None] & owned & (tloc >= lo)
-            & (tloc < lo + g_.q)).reshape(H, -1)
-    rel = torch.where(keep, tloc.reshape(H, -1) - lo, g_.q)
+    keep = cvalid[:, :, None] & owned & (tloc >= lo) & (tloc < lo + g_.q)
+    return dict(cvalid=cvalid, sidx=sidx, g=g, exc=exc, ring=ring,
+                tcol=torch.where(exc, tcol, col), tgt=tgt, delay=delay,
+                tloc=tloc, keep=keep, jj=jj)
+
+
+def chunk_tables(source: ChunkSource, c: int, k: int, *,
+                 with_j: bool = False):
+    """Plain version of kernels.stream.chunk_tables: chunk c of every
+    shard regenerated from the draw lanes, K = k entries a shard ->
+    ChunkTables (entries past a shard's kept count 0), and with `with_j`
+    also j [H, K] int32 (each entry's forward slot).
+
+    Each candidate source g of the chunk draws lanes 0-3 at counter g * M
+    + j (splitmix64 on limbs): the ring by integer threshold, the member
+    of the ring, the target neuron and the delay, exactly as
+    `core.connectivity.forward_synapses`; the synapses whose target the
+    shard owns at a local index in [c*q, c*q + q) are kept, in generation
+    order (source ascending, then j), and stably sorted by target.  Raises
+    ValueError where a shard's kept count is not its e_start difference
+    or exceeds K, or a row is longer than the geometry's row_cap."""
+    g_ = source.geom
+    dev = source.cand.device
+    i64 = torch.int64
+    H = source.cand.shape[0]
+    sl = _chunk_slots(source, c)
+    keep = sl["keep"].reshape(H, -1)
+    lo = c * g_.q
+    rel = torch.where(keep, sl["tloc"].reshape(H, -1) - lo, g_.q)
     _, order = torch.sort(rel, dim=1, stable=True)
     kept = keep.sum(1)
     want = (source.e_start[:, c + 1] - source.e_start[:, c]).to(i64)
@@ -729,16 +800,84 @@ def chunk_tables(source: ChunkSource, c: int, k: int, *,
         x.expand(H, g_.c_cap, g_.M).reshape(H, -1), 1, order), 0)
     counts = torch.zeros((H, g_.q + 1), dtype=i64, device=dev)
     counts.scatter_add_(1, rel, torch.ones_like(rel))
+    longest = int(counts[:, :g_.q].max())
+    if longest > g_.row_cap:
+        raise ValueError(f"chunk {c}: a row of {longest} synapses, the plan "
+                         f"says at most {g_.row_cap}")
     row_ptr = (source.e_start[:, c:c + 1].to(i64) + torch.cat(
         [counts.new_zeros(H, 1), counts[:, :g_.q].cumsum(1)], 1))
     tables = ChunkTables(
         row_ptr=row_ptr.to(torch.int32),
-        src=take(sidx[:, :, None]).to(torch.int32),
-        delay=take(delay).to(torch.int32),
-        plastic=take(exc.to(i64)).to(torch.bool))
+        src=take(sl["sidx"][:, :, None]).to(torch.int32),
+        delay=take(sl["delay"]).to(torch.int32),
+        plastic=take(sl["exc"].to(i64)).to(torch.bool))
     if not with_j:
         return tables
-    return tables, take(jj.view(1, 1, -1)).to(torch.int32)
+    return tables, take(sl["jj"].view(1, 1, -1)).to(torch.int32)
+
+
+class Prefilter(NamedTuple):
+    """The draw order of `csrc/stream.cu`, slot by slot ([H, c_cap, M]
+    bool): the slots still possible after lane 0 (an excitatory slot
+    whose ring can reach the chunk's columns; every slot of an inhibitory
+    candidate whose own column is among them), after lane 1 (the target
+    column among them), and the slots the reference keeps."""
+    lane0: torch.Tensor
+    lane1: torch.Tensor
+    keep: torch.Tensor
+
+
+def chunk_columns(source: ChunkSource, c: int) -> tuple:
+    """(lo, hi) [H] int64: the column interval holding every target of
+    chunk c of each shard, as the kernel finds it (hi < lo: no target)."""
+    g_ = source.geom
+    H = source.cand.shape[0]
+    dev = source.cand.device
+    h = torch.arange(H, dtype=torch.int64, device=dev)
+    first = c * g_.q
+    if g_.scatter:
+        gid_lo = h + H * first
+        gid_hi = torch.clamp(h + H * (first + g_.q - 1),
+                             max=g_.n_neurons - 1)
+    else:
+        gid_lo = source.bounds[:-1] + first
+        gid_hi = torch.minimum(gid_lo + g_.q, source.bounds[1:]) - 1
+    empty = gid_hi < gid_lo
+    lo = torch.where(empty, 1, torch.div(gid_lo, g_.npc,
+                                         rounding_mode="floor"))
+    hi = torch.where(empty, 0, torch.div(gid_hi, g_.npc,
+                                         rounding_mode="floor"))
+    return lo, hi
+
+
+def chunk_prefilter(source: ChunkSource, c: int) -> Prefilter:
+    """The kernel's ring and column prefilter on chunk c, a plain model:
+    each candidate's ring set (the rings with an offset whose wrapped
+    target column lies in `chunk_columns`; every ring where the profile
+    has 64 or more), then lane 0 (the ring in the set) and lane 1 (the
+    column in the interval).  Only necessary conditions: every kept slot
+    passes both."""
+    g_ = source.geom
+    sl = _chunk_slots(source, c)
+    lo, hi = (x.view(-1, 1, 1) for x in chunk_columns(source, c))
+    col = torch.div(sl["g"], g_.npc, rounding_mode="floor")[:, :, None]
+    cx, cy = col % g_.gx, torch.div(col, g_.gx, rounding_mode="floor")
+    off = source.off.to(torch.int64)
+    tc = (torch.remainder(cy + off[:, 1], g_.gy) * g_.gx
+          + torch.remainder(cx + off[:, 0], g_.gx))     # [H, c_cap, n_off]
+    hit = (tc >= lo) & (tc <= hi)
+    start = source.start.tolist()
+    reach = len(start) - 2
+    rings = torch.stack([hit[..., start[r]:start[r + 1]].any(-1)
+                         for r in range(reach + 1)], -1)
+    if reach >= 64:
+        rings = torch.ones_like(rings)
+    exc = sl["exc"]
+    in_cols = (col >= lo) & (col <= hi)
+    lane0 = sl["cvalid"][:, :, None] & torch.where(
+        exc, torch.gather(rings, 2, sl["ring"]), in_cols)
+    lane1 = lane0 & (sl["tcol"] >= lo) & (sl["tcol"] <= hi)
+    return Prefilter(lane0=lane0, lane1=lane1, keep=sl["keep"])
 
 
 class _Window(NamedTuple):

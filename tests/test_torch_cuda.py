@@ -1318,22 +1318,37 @@ def _streamed(cfg, h, placement, chunk, cuda):
     return spec, (plan, splan, state), (to(plan), to(splan), to(state))
 
 
+@pytest.mark.parametrize("profile", ["ring3", "ring:max_ring=1",
+                                     "gaussian:sigma=1.5"])
 @pytest.mark.parametrize("cfg,h,placement,chunk", [
     (STREAM_CFG, 1, "block", 1), (STREAM_CFG, 2, "block", 2),
     (STREAM_CFG, 2, "scatter", 3), (STREAM_WIDE, 1, "block", 1),
     (STREAM_WIDE, 4, "scatter", 3)], ids=["h1-k1", "h2-k2", "h2-scatter-k3",
                                           "full-h1-k1", "full-h4-scatter-k3"])
-def test_chunk_tables_equal_plain_version(cuda, cfg, h, placement, chunk):
+def test_chunk_tables_equal_plain_version(cuda, cfg, h, placement, chunk,
+                                          profile):
     """Every chunk regenerated on the card equals the plain version entry
     by entry (row pointers whole, each shard's kept entries), with its
-    mismatch flag clear; one launch counted a chunk."""
+    mismatch flag clear; one launch counted a chunk.  Over the three
+    profiles: the kernel's ring prefilter sees one ring, two, and six."""
     from repro_torch.core import stream_engine as SE
+    cfg = dataclasses.replace(cfg, connectivity=profile)
     spec, (plan, splan, _), (gplan, gsplan, _) = _streamed(
         cfg, h, placement, chunk, cuda)
+    ops.reset_launch_counts()
+    _chunks_equal_plain(spec, plan, splan, gplan, gsplan)
+    assert ops.launch_counts()["chunk_tables"] == spec.stream.n_chunks
+
+
+def _chunks_equal_plain(spec, plan, splan, gplan, gsplan) -> int:
+    """Every chunk regenerated on the card equals the plain version on
+    the CPU (row pointers whole, each shard's kept entries), flag clear
+    -> the longest row."""
+    from repro_torch.core import stream_engine as SE
     src = SE.chunk_source(spec, plan, splan)
     live = SE.ChunkStream(spec, gplan, gsplan)
     K = SE.live_width(splan)
-    ops.reset_launch_counts()
+    longest = 0
     for c in range(spec.stream.n_chunks):
         got = live.regenerate(c)
         want = ref.chunk_tables(src, c, K)
@@ -1343,8 +1358,50 @@ def test_chunk_tables_equal_plain_version(cuda, cfg, h, placement, chunk):
         for hh, e in enumerate(kept):
             for a, b in zip(got[1:], want[1:]):
                 assert torch.equal(a[hh, :e].cpu(), b[hh, :e])
+        longest = max(longest, int(want.row_ptr.diff(dim=1).max()))
     assert int(live.status[0]) == 0
-    assert ops.launch_counts()["chunk_tables"] == spec.stream.n_chunks
+    return longest
+
+
+@pytest.mark.parametrize("M,lo,hi", [(384, 256, 512), (640, 512, 1 << 20)],
+                         ids=["rows-257-512", "rows-past-512"])
+def test_chunk_tables_long_rows(cuda, M, lo, hi):
+    """Rows longer than the 8-register sort takes (257-512 keys, the
+    16-register sort) and longer than any register sort (the rank by
+    counting): 2x2 columns of 50 at M = 384 and 640, H = 2 scatter, K = 1,
+    every chunk equal to the plain version; the buckets are the plan's
+    longest row wide."""
+    cfg = GridConfig(grid_x=2, grid_y=2, neurons_per_column=50,
+                     synapses_per_neuron=M, seed=7)
+    spec, (plan, splan, _), (gplan, gsplan, _) = _streamed(
+        cfg, 2, "scatter", 1, cuda)
+    longest = _chunks_equal_plain(spec, plan, splan, gplan, gsplan)
+    assert lo < longest <= hi and longest == spec.stream.row_cap
+
+
+def test_chunk_tables_8x8_chunk_h2_scatter(cuda):
+    """One chunk of the 8x8 full-width plan at H = 2, scatter placement,
+    K = 1 (a shard's chunk spans two columns, every other gid): the card
+    equals the plain version run on the card, both shards, flag clear.
+    The plan is built on the card (the kernel counts the chunks; the
+    plain version raises where a count disagrees)."""
+    from repro_torch.core import StepProgram
+    from repro_torch.core import stream_engine as SE
+    sp = StepProgram(GridConfig(grid_x=8, grid_y=8), EngineConfig(
+        n_shards=2, placement="scatter", connectivity="streamed:chunk=1"),
+        device=cuda)
+    live = SE.ChunkStream(sp.spec, sp.plan, sp.splan)
+    c = sp.spec.stream.n_chunks // 2
+    got = live.regenerate(c)
+    want = ref.chunk_tables(live.source, c, live.tables.src.shape[1])
+    torch.cuda.synchronize()
+    assert int(live.status[0]) == 0
+    assert torch.equal(got.row_ptr, want.row_ptr)
+    kept = (want.row_ptr[:, -1] - want.row_ptr[:, 0]).tolist()
+    assert min(kept) > 0
+    for hh, e in enumerate(kept):
+        for a, b in zip(got[1:], want[1:]):
+            assert torch.equal(a[hh, :e], b[hh, :e])
 
 
 @pytest.mark.parametrize("h,placement,chunk", [(1, "block", 1),
@@ -1377,6 +1434,29 @@ def test_chunk_tables_flag_a_wrong_plan(cuda):
     live.regenerate(1)
     torch.cuda.synchronize()
     assert int(live.status[0]) & 1
+    with pytest.raises(RuntimeError, match="flagged"):
+        live.check()
+
+
+def test_chunk_tables_flag_a_short_row_cap(cuda):
+    """Buckets one key shorter than the plan's longest row: the chunk
+    that holds it sets bit 1 of the flag, and no other chunk does."""
+    from repro_torch.core import stream_engine as SE
+    spec, (plan, splan, _), (gplan, gsplan, _) = _streamed(
+        STREAM_CFG, 1, "block", 1, cuda)
+    src = SE.chunk_source(spec, plan, splan)
+    K, cap = SE.live_width(splan), spec.stream.row_cap
+    short = spec._replace(stream=spec.stream._replace(row_cap=cap - 1))
+    live = SE.ChunkStream(short, gplan, gsplan)
+    at_cap = []
+    for c in range(spec.stream.n_chunks):
+        live.status.zero_()
+        live.regenerate(c)
+        torch.cuda.synchronize()
+        over = int(ref.chunk_tables(src, c, K).row_ptr.diff(dim=1).max())
+        assert int(live.status[0]) == (2 if over == cap else 0)
+        at_cap += [c] if over == cap else []
+    live.regenerate(at_cap[0])
     with pytest.raises(RuntimeError, match="flagged"):
         live.check()
 

@@ -219,7 +219,9 @@ def test_plain_chunk_tables_equal_jax(profile, placement, chunk):
     spec, plan, splan, _ = SE.build(GridConfig(**grid), EngineConfig(**eng),
                                     device="cpu")
     jspec, jplan, jsplan, _ = JSE.build(JG(**grid), JE(**eng))
-    assert spec.stream == tuple(jspec.stream)
+    # the reference's geometry, then the port's longest row of any chunk
+    assert spec.stream[:len(jspec.stream)] == tuple(jspec.stream)
+    longest = 0
     np.testing.assert_array_equal(splan.cand.numpy(), np.asarray(jsplan.cand))
     np.testing.assert_array_equal(splan.e_start.numpy(),
                                   np.asarray(jsplan.e_start))
@@ -234,6 +236,7 @@ def test_plain_chunk_tables_equal_jax(profile, placement, chunk):
             tb, j = ref.chunk_tables(source, c, K, with_j=True)
             lo = c * ss.q
             rp = tb.row_ptr[h].numpy().astype(np.int64)
+            longest = max(longest, int(np.diff(rp).max()))
             e = int(rp[-1] - rp[0])
             assert rp[0] == int(splan.e_start[h, c])
             rows = np.repeat(np.arange(ss.q), np.diff(rp))
@@ -259,6 +262,7 @@ def test_plain_chunk_tables_equal_jax(profile, placement, chunk):
                                               want_p)
                 np.testing.assert_array_equal(j[h, :e].numpy(), want_j)
             assert not tb.src[h, e:].any() and not tb.plastic[h, e:].any()
+    assert ss.row_cap == longest
 
 
 def test_plain_chunk_tables_refuse_a_wrong_plan():
@@ -272,6 +276,24 @@ def test_plain_chunk_tables_refuse_a_wrong_plan():
         ref.chunk_tables(bad, 0, SE.live_width(splan))
     with pytest.raises(ValueError, match="at most"):
         ref.chunk_tables(source, 0, 1)
+
+
+@pytest.mark.parametrize("placement", ["block", "scatter"])
+def test_plain_chunk_tables_refuse_a_short_row_cap(placement):
+    """The plan's row_cap is the longest target row of any chunk: the
+    chunk that holds that row is refused under a row_cap one shorter,
+    as the kernel flags it."""
+    spec, plan, splan, _ = SE.build(GridConfig(**SMALL),
+                                    EngineConfig(**_eng(2, placement, 1)),
+                                    device="cpu")
+    source = SE.chunk_source(spec, plan, splan)
+    K, cap = SE.live_width(splan), spec.stream.row_cap
+    longest = [int(ref.chunk_tables(source, c, K).row_ptr.diff(dim=1).max())
+               for c in range(spec.stream.n_chunks)]
+    assert max(longest) == cap
+    short = source._replace(geom=source.geom._replace(row_cap=cap - 1))
+    with pytest.raises(ValueError, match="a row of"):
+        ref.chunk_tables(short, longest.index(cap), K)
 
 
 def test_limb_splitmix_equals_numpy():
