@@ -150,6 +150,29 @@ every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
            seconds, launches, device busy, operations a step and idle
            share, and the program's device bytes beside the materialized
            program's;
+  mesh_check  the mesh (`core.distributed` over `torch.distributed`
+           ranks, `bench.subproc.Ranks`; the ranks load the library
+           the `build` phase made): R = 2 and R = 4 ranks sharing the one
+           card (the wire gloo, staged through pinned host memory; NCCL
+           where every rank has a card of its own) and one rank under
+           NCCL, H = 4 shards, at 4x4 full width, 150 steps: dense
+           {allgather, halo, hier} x {sync, pipelined}, scatter with
+           allgather, event with allgather and halo (`no_drop_caps`, sat
+           0) and streamed K = 1 with halo sync and pipelined (NCCL:
+           dense halo and allgather, and at R = 1 streamed K = 1 with
+           scatter placement and halo, which more ranks refuse); each
+           cell's gathered raster and
+           weights equal to `jax_reference.json`'s H = 4 run, every
+           rank's kernels launched as the path launches them (eager), and
+           the wire the one the runtime names; a failed rank fails the
+           phase.  With two or more cards R = 2 also runs under NCCL
+           (`nccl_multi_rank` says whether it ran);
+  mesh_timed  the 8x8 dense halo program at H = 4 (12.8 M synapses),
+           MESH_STEPS_8X8 steps, stacked in this process (R = 1: the
+           captured graph's run) and over 4 ranks (eager), under each
+           schedule: ms a step, `time_phases`' phase split and exchange
+           share (its fence includes the wire), the raster equal across
+           all four, beside the card's name and power limit;
   bench    the ported suites (`repro_torch.bench`) on the card, one line
            per report (its env, config, deterministic and wall keys):
            `table1` quick (1x1, 4x4, 150 steps; the 4x4 row's raster
@@ -159,9 +182,9 @@ every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
            halo, 200 steps) under `sync` and again under `pipelined`
            (equal raster signatures), `profile` (exchange x placement
            at 2x2, H=4, 150 steps; it raises unless every cell gives the
-           same raster and totals), and `event_vs_dense` (2x2, 500
-           neurons a column, 200 steps, stim 1 and 0: both deliveries'
-           rasters must be equal).
+           same raster and totals), and `event_vs_dense`'s single-device
+           rows (2x2, 500 neurons a column, 200 steps, stim 1 and 0: both
+           deliveries' rasters must be equal).
 
 Then the LM serving path (`recurrentgemma-2b`, `repro_torch.serve`):
 
@@ -392,21 +415,26 @@ def device_ms(fn, calls: int = 10, restore=None, kernel="",
     and copies whose name holds `kernel` (or one of a tuple of names; all
     of fn's by default) and not `skip` (the device-to-device copies of
     `restore()`, which runs before every call where fn updates its inputs
-    in place)."""
+    in place).  A session whose profiler hands back no event of those
+    kernels (CUPTI now and then returns none, also for kernels that ran)
+    is profiled again, up to three sessions; None if none reads."""
     from torch.profiler import ProfilerActivity, profile
     restore = restore or (lambda: None)
     restore()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            restore()
-            fn()
-        torch.cuda.synchronize()
     names = (kernel,) if isinstance(kernel, str) else kernel
-    rows = [us for k, us, _ in device_kernel_events(prof)
-            if any(n in k for n in names) and skip not in k]
-    return sum(rows) * 1e-3 / calls if rows else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                restore()
+                fn()
+            torch.cuda.synchronize()
+        rows = [us for k, us, _ in device_kernel_events(prof)
+                if any(n in k for n in names) and skip not in k]
+        if rows:
+            return sum(rows) * 1e-3 / calls
+    return None
 
 
 def bound(n_bytes: float, n_flops: float,
@@ -1643,16 +1671,18 @@ def _first_divergence(a: np.ndarray, b: np.ndarray):
     return int(diff[0]) if diff.size else None
 
 
-def _snn_counted() -> tuple:
+def _snn_counted(kops=None) -> tuple:
     """The SNN kernels whose launches `check` and `timed` read: the dense
     path's, those it replaced (off the path: `izhikevich_update`, the
     pair, `arborize_elements`), the event path's, the split schedule's
     `event_compact`, the LTP kernel the event path's replaced, and the
-    streamed path's."""
-    return (ops.SNN_KERNELS + ops.PHASE_A_KERNELS + ops.PAIR_KERNELS
-            + ops.PHASE_B_KERNELS + ops.EVENT_KERNELS
-            + ops.EVENT_SPLIT_KERNELS + ops.EVENT_YARDSTICKS
-            + ops.STREAM_KERNELS + ops.STREAM_SPLIT_KERNELS)
+    streamed path's.  (`kops`: the ops module, where the caller is a rank
+    that imported it itself.)"""
+    kops = kops or ops
+    return (kops.SNN_KERNELS + kops.PHASE_A_KERNELS + kops.PAIR_KERNELS
+            + kops.PHASE_B_KERNELS + kops.EVENT_KERNELS
+            + kops.EVENT_SPLIT_KERNELS + kops.EVENT_YARDSTICKS
+            + kops.STREAM_KERNELS + kops.STREAM_SPLIT_KERNELS)
 
 
 def _path_kernels(delivery: str) -> tuple:
@@ -2002,7 +2032,7 @@ def phase_bench():
                  schedules_equal=same)
     prof = bench_profile.run_profile(device="cuda")
     _report_line("profile", prof, cells=prof["extra"]["cells"])
-    evd = event_vs_dense.run_suite(device="cuda")
+    evd = event_vs_dense.run_suite(device="cuda", distributed=False)
     _report_line("event_vs_dense", evd, rows=evd["extra"]["rows"])
     if not quick_ok:
         raise PhaseFailed(f"table1's 4x4 row differs from the JAX "
@@ -2918,6 +2948,312 @@ def phase_stream_timed(sp8s, sp8, build_s: float):
             for k in ops.STREAM_KERNELS + ops.STREAM_SPLIT_KERNELS}
 
 
+# ----------------------------------------------------------------------------
+# the mesh: torch.distributed ranks on the card
+# ----------------------------------------------------------------------------
+
+MESH_STEPS_8X8 = 200
+MESH_SHARDS = 4
+# each rank joins the job (cluster.runtime), then runs one function of this
+# script, imported as a module: it imports what it needs itself
+_MESH_RANK_CODE = """
+import sys
+sys.path[:0] = [{here!r}, {src!r}]
+from repro_torch.cluster import runtime
+runtime.ensure_initialized()
+import chip_smoke
+chip_smoke.{fn}({args!r})
+"""
+
+
+def _mesh_launches(kops, delivery: str, n_chunks, pipelined: bool,
+                   n: int) -> dict:
+    """The SNN kernels one rank launches in an eager run of n steps (the
+    pipelined schedule: the split phase A and one phase B more, the
+    prologue's all-False one)."""
+    b = n + 1 if pipelined else n
+    if n_chunks:
+        # chunk_tables before each chunk of phase A, of LTP and of phase B
+        want = dict(chunk_tables=n_chunks * (n + (n if pipelined else 0)
+                                             + b),
+                    stdp_phase_a_chunk=n_chunks * n,
+                    arborize_chunk=n_chunks * b)
+        if pipelined:
+            want["stdp_ltp_chunk"] = n_chunks * n
+    elif delivery == "event":
+        want = dict.fromkeys(kops.EVENT_KERNELS, n)
+        want["event_emit"] = b
+        if pipelined:
+            want["event_compact"] = n
+    else:
+        want = dict(stdp_phase_a=n, arborize=b)
+        if pipelined:
+            want["stdp_ltp"] = n
+    return dict(dict.fromkeys(_snn_counted(kops), 0), **want)
+
+
+def mesh_rank(args: dict) -> None:
+    """Inside each rank of a mesh job on the card: each group of cells
+    builds once (every rank the full host plan; its block on its card),
+    then each cell runs `args["steps"]` steps through `StepProgram.run`
+    over the mesh; the primary emits, a cell, whether the gathered raster
+    and weights equal the reference's, the gathered `sat`, every rank's
+    launches against what the path launches, and the wall."""
+    import torch
+    from repro_torch.bench.subproc import emit as emit_result
+    from repro_torch.cluster import runtime
+    from repro_torch.core import (EngineConfig, GridConfig, StepProgram,
+                                  event_engine, observables)
+    from repro_torch.dist.mesh import make_snn_mesh
+    from repro_torch.kernels import ops as kops
+    names = _snn_counted(kops)
+    cfg, steps, H = GridConfig(**args["grid"]), args["steps"], MESH_SHARDS
+    for g in args["groups"]:
+        t0 = time.perf_counter()
+        mesh = make_snn_mesh(H)
+        sp0 = StepProgram(cfg, EngineConfig(n_shards=H, **g["build"]),
+                          mesh=mesh)
+        state0, caps = sp0.init_state(), None
+        if sp0.eplan is not None:
+            state0 = event_engine.init_event_state(
+                sp0.spec, state0.base, sp0.spec.e_cap)
+            caps = event_engine.no_drop_caps(sp0.spec)
+        build_s = time.perf_counter() - t0
+        for c in g["cells"]:
+            eng = dataclasses.replace(sp0.spec.eng, exchange=c["exchange"],
+                                      exchange_schedule=c["schedule"])
+            sp = StepProgram.from_parts(
+                sp0.spec._replace(eng=eng), sp0.plan, state0,
+                eplan=sp0.eplan, splan=sp0.splan, caps=caps, mesh=mesh)
+            block = sp.place(state0)
+            torch.cuda.synchronize()
+            kops.reset_launch_counts()
+            t1 = time.perf_counter()
+            st, raster, _ = sp.run(block, 0, steps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            counts = kops.launch_counts()
+            ranks = runtime.gather(torch.tensor([[counts[k]
+                                                  for k in names]]))
+            raster, full = sp.gather_raster(raster), sp.gather(st)
+            if not runtime.is_primary():
+                continue
+            want = _mesh_launches(
+                kops, eng.delivery,
+                sp.spec.stream.n_chunks if sp.splan is not None else 0,
+                eng.exchange_schedule == "pipelined", steps)
+            ranks = [dict(zip(names, r)) for r in ranks.tolist()]
+            ref = c["want"]
+            rsig = observables.raster_signature(
+                raster.numpy(), sp.plan.gid.numpy()).hex()
+            sat = (full.sat.tolist() if sp.eplan is not None else None)
+            emit_result(dict(
+                name=c["name"], wire=mesh.backend, ranks=mesh.world,
+                raster_equal=rsig == ref["raster_signature"],
+                weights_equal=(sp.weight_signature(full).hex()
+                               == ref["weight_signature"]),
+                spikes=int(raster.sum()), sat=sat,
+                sat_equal=sat is None or (sat == ref["sat"]
+                                          and not any(sat)),
+                launches_as_expected=all(r == want for r in ranks),
+                launches={k: v for k, v in ranks[0].items() if v},
+                wall_s=wall, build_s=build_s))
+
+
+def mesh_timing_rank(args: dict) -> None:
+    """Inside each rank: the 8x8 dense halo program at H = MESH_SHARDS,
+    under each schedule: `time_phases` (the primary's phase walls, the
+    exchange's fence including the wire) and the eager run's wall from a
+    barrier to the last rank's end, each after a warm-up; the gathered
+    raster's signature."""
+    import torch
+    from repro_torch.bench.subproc import emit as emit_result
+    from repro_torch.cluster import runtime
+    from repro_torch.core import (EngineConfig, GridConfig, StepProgram,
+                                  observables)
+    from repro_torch.dist.mesh import make_snn_mesh
+    cfg, steps = GridConfig(**args["grid"]), args["steps"]
+    t0 = time.perf_counter()
+    mesh = make_snn_mesh(MESH_SHARDS)
+    sp0 = StepProgram(cfg, EngineConfig(n_shards=MESH_SHARDS,
+                                        exchange="halo"), mesh=mesh)
+    build_s = time.perf_counter() - t0
+
+    def barrier():
+        torch.cuda.synchronize()
+        mesh.wire.all_reduce_sum(torch.zeros(1, device=mesh.device))
+
+    for sched in ("sync", "pipelined"):
+        eng = dataclasses.replace(sp0.spec.eng, exchange_schedule=sched)
+        sp = StepProgram.from_parts(sp0.spec._replace(eng=eng), sp0.plan,
+                                    sp0.init_state(), mesh=mesh)
+        block = sp.place(sp0.init_state())
+        _, times, _, counts = sp.time_phases(block, 0, steps)
+        sp.run(block, 0, 10)                         # warm-up
+        barrier()
+        t1 = time.perf_counter()
+        _, raster, _ = sp.run(block, 0, steps)
+        barrier()
+        wall = time.perf_counter() - t1
+        raster = sp.gather_raster(raster)
+        if runtime.is_primary():
+            total = sum(times.values())
+            emit_result(dict(
+                schedule=sched, ranks=mesh.world, wire=mesh.backend,
+                run_ms_per_step=wall / steps * 1e3,
+                phases_ms_per_step={k: v / steps * 1e3
+                                    for k, v in times.items()},
+                exchange_share=times["exchange_s"] / total,
+                spikes=counts["spikes"], build_s=build_s,
+                raster_signature=observables.raster_signature(
+                    raster.numpy(), sp.plan.gid.numpy()).hex()))
+
+
+def _start_mesh_job(fn: str, args: dict, n_ranks: int, timeout: float):
+    from repro_torch.bench import subproc
+    code = _MESH_RANK_CODE.format(here=HERE, src=os.path.join(HERE, "src"),
+                                  fn=fn, args=args)
+    return subproc.Ranks(code, n_ranks, device="cuda", timeout=timeout)
+
+
+def _stacked_timing(grid: dict, steps: int) -> list:
+    """R = 1: the same 8x8 halo program at H = MESH_SHARDS stacked on the
+    card in this process: `time_phases` under each schedule and the
+    captured graph's run, after a warm-up."""
+    cfg = GridConfig(**grid)
+    t0 = time.perf_counter()
+    sp0 = StepProgram(cfg, EngineConfig(n_shards=MESH_SHARDS,
+                                        exchange="halo"), device="cuda")
+    build_s = time.perf_counter() - t0
+    state0 = sp0.init_state()
+    out = []
+    for sched in ("sync", "pipelined"):
+        eng = dataclasses.replace(sp0.spec.eng, exchange_schedule=sched)
+        sp = StepProgram.from_parts(sp0.spec._replace(eng=eng), sp0.plan,
+                                    state0)
+        _, times, _, counts = sp.time_phases(state0, 0, steps)
+        sp.run(state0, 0, 2 * engine.RUN_WINDOW)   # warm-up, capture
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, raster, _ = sp.run(state0, 0, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        total = sum(times.values())
+        out.append(dict(
+            schedule=sched, ranks=1, wire="stacked (one process)",
+            run_ms_per_step=wall / steps * 1e3, run="captured graph",
+            phases_ms_per_step={k: v / steps * 1e3
+                                for k, v in times.items()},
+            exchange_share=times["exchange_s"] / total,
+            spikes=counts["spikes"], build_s=build_s,
+            raster_signature=observables.raster_signature(
+                raster.cpu().numpy(), sp.plan.gid.cpu().numpy()).hex()))
+    return out
+
+
+def phase_mesh(card: str):
+    """The mesh on the card: R = 2 and R = 4 ranks of a torch.distributed
+    job sharing the one GPU (the wire gloo, staged through pinned host
+    memory), and one rank under NCCL; at 4x4 full width, 150 steps, each
+    cell's gathered raster and weights equal to `jax_reference.json`, and
+    every rank's kernels launched as the path launches them; then the 8x8
+    dense halo program at H = 4, MESH_STEPS_8X8 steps, stacked (R = 1) and
+    over 4 ranks, under each schedule: ms a step and the exchange's share
+    of `time_phases`, beside the card's name and power limit."""
+    from repro_torch.bench import subproc
+    with open(os.path.join(HERE, "src", "repro_torch", "data",
+                           "jax_reference.json")) as f:
+        ref = json.load(f)
+    grid = dict(ref["grid"], neurons_per_column=ref["neurons_per_column"],
+                synapses_per_neuron=ref["synapses_per_neuron"])
+    dense, scatter = ref["runs"]["h4_block"], ref["runs"]["h4_scatter"]
+    event = ref["event_runs"]["h4_block"]
+
+    def cells(want, pairs):
+        return [dict(name=f"{ex}_{sc}", exchange=ex, schedule=sc,
+                     want=want) for ex, sc in pairs]
+    every = [(ex, sc) for ex in EXCHANGES for sc in ("sync", "pipelined")]
+    groups = [
+        dict(build=dict(delivery="dense"), cells=cells(dense, every)),
+        dict(build=dict(placement="scatter"),
+             cells=cells(scatter, [("allgather", "sync")])),
+        dict(build=dict(delivery="event"), cells=[
+            dict(c, name="event_" + c["name"]) for c in cells(
+                event, [("allgather", "sync"), ("halo", "pipelined")])]),
+        dict(build=dict(connectivity="streamed:chunk=1"), cells=[
+            dict(c, name="streamed_" + c["name"]) for c in cells(
+                dense, [("halo", "sync"), ("halo", "pipelined")])])]
+    nccl_groups = [dict(build=dict(delivery="dense"), cells=cells(
+        dense, [("halo", "sync"), ("allgather", "sync")]))]
+    # one rank holding every shard runs streamed scatter, which more ranks
+    # refuse (the chunk kernel reads a block row's index as its shard id)
+    nccl_r1_groups = nccl_groups + [
+        dict(build=dict(placement="scatter",
+                        connectivity="streamed:chunk=1"),
+             cells=[dict(c, name="streamed_scatter_" + c["name"])
+                    for c in cells(scatter, [("halo", "sync")])])]
+    args = dict(grid=grid, steps=ref["steps"], groups=groups)
+    n_dev = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    jobs = {f"R{R}": _start_mesh_job("mesh_rank", args, R, 420)
+            for R in (2, 4)}
+    jobs["nccl_R1"] = _start_mesh_job(
+        "mesh_rank", dict(args, groups=nccl_r1_groups), 1, 420)
+    if n_dev >= 2:
+        jobs["nccl_R2"] = _start_mesh_job(
+            "mesh_rank", dict(args, groups=nccl_groups), 2, 420)
+    results, failed = {}, []
+    for key, job in jobs.items():
+        try:
+            results[key] = subproc.results(job.wait())
+        except subproc.RanksError as e:
+            failed.append(key)
+            results[key] = str(e)[-3000:]
+    check_s = time.perf_counter() - t0
+    for key, rows in results.items():
+        if isinstance(rows, str):
+            continue
+        # NCCL where every rank has a GPU of its own (cluster.runtime)
+        R = int(key.rsplit("R", 1)[1])
+        want_wire = "nccl" if R <= n_dev else "gloo, host-staged"
+        n_cells = sum(len(g["cells"]) for g in dict(
+            nccl_R1=nccl_r1_groups, nccl_R2=nccl_groups).get(key, groups))
+        ok = len(rows) == n_cells and all(
+            r["raster_equal"] and r["weights_equal"] and r["sat_equal"]
+            and r["launches_as_expected"] and r["wire"] == want_wire
+            for r in rows)
+        if not ok:
+            failed.append(key)
+    emit({"phase": "mesh_check", "grid": "4x4", "shards": MESH_SHARDS,
+          "steps": ref["steps"], "device_count": n_dev,
+          "nccl_multi_rank": ("run: R = 2" if n_dev >= 2
+                              else "not run: 1 device"),
+          "seconds": check_s, "jobs": results})
+    if failed:
+        raise PhaseFailed(f"mesh cells failed or differ from the JAX "
+                          f"reference: {failed}")
+
+    # 8x8 full width (12.8 M synapses): R = 1 stacked, then R = 4 ranks
+    grid8 = dict(grid_x=8, grid_y=8)
+    t0 = time.perf_counter()
+    timing_rows = _stacked_timing(grid8, MESH_STEPS_8X8)
+    torch.cuda.empty_cache()
+    try:
+        timing_rows += subproc.results(_start_mesh_job(
+            "mesh_timing_rank", dict(grid=grid8, steps=MESH_STEPS_8X8),
+            MESH_SHARDS, 420).wait())
+    except subproc.RanksError as e:
+        raise PhaseFailed(f"the 8x8 mesh timing failed: {str(e)[-3000:]}")
+    print(card, flush=True)
+    same = len({r["raster_signature"] for r in timing_rows}) == 1
+    emit({"phase": "mesh_timed", "card": card, "grid": "8x8",
+          "synapses": 12_800_000, "shards": MESH_SHARDS, "exchange": "halo",
+          "steps": MESH_STEPS_8X8, "seconds": time.perf_counter() - t0,
+          "rasters_equal": same, "rows": timing_rows})
+    if not same or len(timing_rows) != 4:
+        raise PhaseFailed("the 8x8 mesh runs differ from the stacked one")
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2925,7 +3261,7 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     try:
-        phase_card()
+        card = phase_card()
         lookup = phase_build()
         phase_attn_sass()
         t0 = time.perf_counter()
@@ -2952,6 +3288,8 @@ def main() -> int:
         phase_stream_check()
         launches.update(phase_stream_timed(sp8s, sp8, build_s))
         del sp8, sp8e, sp8s      # so that the later peaks are their own
+        torch.cuda.empty_cache()
+        phase_mesh(card)
         torch.cuda.empty_cache()
         phase_bench()
         torch.cuda.empty_cache()

@@ -6,7 +6,9 @@ simulation with hand-written CUDA kernels for Hopper (`kernels/`,
 neither `jax` nor `repro`.
 
 Subpackages: `core` (the spiking engine), `kernels` (CUDA wrappers, plain
-versions, dispatch), `launch` (entry points).
+versions, dispatch), `dist` (the mesh over a job's ranks and its wire),
+`cluster` (joining a `torch.distributed` job), `bench` (measuring
+tools and suites), `launch` (entry points).
 """
 
 __version__ = "0.1.0"

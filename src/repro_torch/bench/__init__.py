@@ -10,6 +10,8 @@
              (hard-fails deterministic drift, warns on wall-clock)
   registry — suite registration; cli — `python -m repro_torch.bench
              list|run|compare`
+  subproc  — fresh-interpreter ranks of a torch.distributed job (the
+             distributed suites start theirs)
 
 Suites run on the card by default (`device="cuda"`) and on the CPU when
 asked.

@@ -23,9 +23,19 @@ def _profile(quick, device):
     return profile.run_profile(quick, device)
 
 
+def _comm_overlap(quick, device):
+    from .suites import comm_overlap
+    return comm_overlap.run_suite(quick, device)
+
+
 def _event_vs_dense(quick, device):
     from .suites import event_vs_dense
     return event_vs_dense.run_suite(quick, device)
+
+
+def _scaling(quick, device):
+    from .suites import scaling
+    return scaling.run_suite(quick, device)
 
 
 def _table1(quick, device):
@@ -44,12 +54,18 @@ def _weak_scaling(quick, device):
 
 
 BENCHES: Dict[str, Entry] = {e.name: e for e in [
+    Entry("comm_overlap", _comm_overlap,
+          "hidden vs exposed exchange time, sync vs pipelined, over "
+          "torch.distributed ranks"),
     Entry("event_vs_dense", _event_vs_dense,
-          "dense O(E) vs event O(spikes x fan) delivery, single device "
-          "(the distributed cells: ROADMAP queue 1, item 8)"),
+          "dense O(E) vs event O(spikes x fan) delivery: single device, "
+          "and H x exchange x delivery over ranks"),
     Entry("profile", _profile,
           "per-phase compute/exchange/arborization split, "
           "{allgather,halo} x {block,scatter} (paper Table 2)"),
+    Entry("scaling", _scaling,
+          "strong/weak scaling over torch.distributed ranks (paper Figs. "
+          "3-1, 3-2)"),
     Entry("table1", _table1,
           "problem sizes, rates, normalized time/synapse (paper Table 1)"),
     Entry("table2", _table2,
@@ -63,8 +79,6 @@ BENCHES: Dict[str, Entry] = {e.name: e for e in [
 #: The JAX package's suites that the port does not run yet, and the
 #: ROADMAP item (queue 1) that ports each.
 NOT_PORTED: Dict[str, str] = {
-    "comm_overlap": "item 8 (multi-device exchange)",
-    "scaling": "item 8 (multi-device exchange)",
     "cluster_scaling": "item 10 (the cluster runtime)",
     "simserve_throughput": "item 11 (the simulation service)",
     "connectivity_sweep": "item 12 (the rest of the bench tooling)",

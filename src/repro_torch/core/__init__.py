@@ -1,6 +1,7 @@
-"""DPSNN-STDP core in PyTorch: the single-process path of `repro.core`
-(dense and event delivery over materialized connectivity, dense delivery
-over streamed connectivity), with the shards stacked on one device."""
+"""DPSNN-STDP core in PyTorch: `repro.core` (dense and event delivery over
+materialized connectivity, dense delivery over streamed connectivity),
+with the shards stacked on one device or cut into blocks over the ranks of
+a `torch.distributed` job (`distributed`)."""
 
 from .params import (EngineConfig, GridConfig, IzhikevichParams, StdpParams,
                      DEFAULT_IZH, DEFAULT_STDP)

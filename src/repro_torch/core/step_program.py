@@ -6,19 +6,30 @@
     pa, ex, pb = sp.phase_fns()[:3]               # Table 2 phase split
     state, times, rasters, counts = sp.time_phases(state, 0, 100)
 
-This is the single-process subset of `repro.core.step_program.StepProgram`
-(`mesh=None`; dense or event delivery over materialized connectivity, or
-dense delivery over streamed connectivity, `connectivity='streamed:chunk=
-K'`, `core.stream_engine`), with the shards stacked on a leading [H] axis
-of one device.  `run` is the
+    # a rank of a torch.distributed job (cluster.runtime): its block of
+    # H / R shards on its device, real collectives between the ranks
+    sp = StepProgram(cfg, eng, mesh=make_snn_mesh(H))
+    state, raster, tm = sp.run(sp.place(sp.init_state()), 0, 500)
+    raster = sp.gather_raster(raster)             # [T, H, N] on the primary
+
+This is `repro.core.step_program.StepProgram` for dense or event
+delivery over materialized connectivity, or dense delivery over streamed
+connectivity (`connectivity='streamed:chunk=K'`, `core.stream_engine`).
+Without a mesh the shards are stacked on a leading [H] axis of one
+device.  With one (`dist.mesh.SnnMesh`) every rank builds the full host
+plan and uploads only its block of L = H / R shards; `run`, the phase
+handles and `time_phases` step that block and exchange spikes with the
+other ranks over the wire (`core.distributed.MeshProgram`), eagerly;
+`gather` and `gather_raster` collect a state or raster on the primary.
+Without a mesh, `run` is the
 reference driver that defines the physics (global-mask exchange); on the
 card it replays one captured CUDA graph a window of steps, kept per
 StepProgram (`engine.CapturedRun`).  The phase
-handles emulate each exchange wire over the stacked shards ('allgather':
-the global mask; 'halo': `aer.pack` per shard and `torch.roll` over the
-shard axis by each halo offset; 'hier': one AER buffer per group of
-shards, rolled at whole-group stride), so per-phase profiles keep each
-wire's work.  `StepProgram.fused` (an HLO analysis handle) has no
+handles run each exchange wire over the stacked shards ('allgather':
+the global mask; 'halo' and 'hier': the mesh path's AER wires over a
+one-process mesh, a buffer a shard or a group of shards, each receiver
+gathering its senders' buffers on the device), so per-phase profiles keep
+each wire's work.  `StepProgram.fused` (an HLO analysis handle) has no
 counterpart here (ROADMAP queue 1, item 13.6); the rest of the JAX facade
 raises `NotImplementedError` naming the ROADMAP item that ports it.
 
@@ -35,22 +46,21 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import aer, connectivity, distributed, engine, event_engine
+from . import connectivity, distributed, engine, event_engine
 from . import stream_engine
+from .distributed import PHASE_WINDOW
 from .engine import ShardPlan, SimSpec
 from .params import (DEFAULT_IZH, DEFAULT_STDP, EngineConfig, GridConfig,
                      IzhikevichParams, StdpParams)
-
-# steps of stimulus a phase handle draws at once when its caller has not
-# drawn a window (`time_phases` draws its whole range)
-PHASE_WINDOW = 100
+from ..cluster import runtime
+from ..dist.mesh import Ready
 
 
 def check_supported(eng: EngineConfig, mesh=None) -> None:
     """Raise NotImplementedError for what this port does not run yet, and
-    ValueError for a delivery or connectivity mode that does not exist or
-    a pair of them that the reference refuses (streamed with event
-    delivery)."""
+    ValueError for a delivery or connectivity mode that does not exist, a
+    pair of them that the reference refuses (streamed with event
+    delivery), or a mesh of another shard count."""
     if eng.delivery not in ("dense", "event"):
         raise ValueError(f"unknown delivery {eng.delivery!r}: expected "
                          f"'dense' or 'event'")
@@ -60,35 +70,37 @@ def check_supported(eng: EngineConfig, mesh=None) -> None:
             "connectivity='streamed' requires delivery='dense': the event "
             "backend's fwd/in row tables are an O(E) synapse-id "
             "permutation, which contradicts O(chunk) table residency")
-    if mesh is not None:
+    if mesh is None:
+        return
+    if mesh.n_shards != eng.n_shards:
+        raise ValueError(f"the mesh has {mesh.n_shards} shards, the engine "
+                         f"{eng.n_shards}")
+    if mode == "streamed" and eng.placement == "scatter" and mesh.world > 1:
         raise NotImplementedError(
-            "a device mesh is not ported yet; shards run stacked on one "
-            "device (ROADMAP queue 1, item 8)")
-
-
-def _match(ids: torch.Tensor, n_total: int, src_safe, src_ok):
-    """[H, S] spiked_src from received AER ids [H, K]: scatter the ids into
-    a per-shard [N_total] mask (INVALID pads into a spare last slot), then
-    one gather by the source table."""
-    idx = torch.where(ids < n_total, ids, n_total).to(torch.int64)
-    mask = torch.zeros((ids.shape[0], n_total + 1), dtype=torch.bool,
-                       device=ids.device)
-    mask.scatter_(1, idx, True)
-    return torch.gather(mask, 1, src_safe) & src_ok
+            "streamed connectivity with scatter placement over more than "
+            "one rank: the chunk kernel (csrc/stream.cu) takes a block "
+            "row's index as its shard id, which a rank's block of scatter "
+            "shards is not (ROADMAP queue 1, item 8's remainder)")
 
 
 class StepProgram:
     """Run, phase and timing handles for one (GridConfig, EngineConfig) on
-    one device.
+    one device, or on one rank of a mesh.
 
     `device=None` means the card; without one it raises.  Pass
-    `device="cpu"` for the plain PyTorch path (what the tests do).
+    `device="cpu"` for the plain PyTorch path (what the tests do).  With
+    `mesh=` (`dist.mesh.SnnMesh`) the device is the rank's.
     `hier_groups` (a group count, or a list of equal-sized contiguous
-    blocks of shards) sets the shard groups of `exchange='hier'`.  With
+    blocks of shards) sets the shard groups of `exchange='hier'` without a
+    mesh; over a mesh they are the ranks' blocks.  With
     `delivery='event'` the state is an `event_engine.EventState` and
     `caps` may set the spike compactions' c_post / c_src.  Streamed
     connectivity keeps its chunk metadata in `splan`
-    (`stream_engine.StreamedPlan`)."""
+    (`stream_engine.StreamedPlan`).
+
+    Over a mesh `plan`, `eplan`, `splan` and `init_state()` are the full
+    host trees (every rank builds them); `run`, the phase handles and
+    `time_phases` take and give the rank's block ([L, ...], `place`)."""
 
     def __init__(self, cfg: GridConfig, eng: EngineConfig, *,
                  device=None, mesh=None,
@@ -96,10 +108,21 @@ class StepProgram:
                  stdp: Optional[StdpParams] = None,
                  caps: Optional[dict] = None, hier_groups=None):
         check_supported(eng, mesh)
-        dev = engine.resolve_device(device)
+        streamed = connectivity.parse_mode(eng.connectivity)[0] == "streamed"
+        if mesh is None:
+            dev = engine.resolve_device(device)
+        else:
+            if device is not None and \
+                    torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device={device!r}, the mesh's rank runs "
+                                 f"on {mesh.device}")
+            # the host plan is built on the CPU, except that on the card the
+            # streamed build counts the chunks with the chunk kernel
+            dev = (mesh.device if streamed and mesh.device.type == "cuda"
+                   else torch.device("cpu"))
         izh, stdp = izh or DEFAULT_IZH, stdp or DEFAULT_STDP
         eplan = splan = None
-        if connectivity.parse_mode(eng.connectivity)[0] == "streamed":
+        if streamed:
             spec, plan, splan, state = stream_engine.build(
                 cfg, eng, izh, stdp, device=dev)
         elif eng.delivery == "event":
@@ -108,24 +131,29 @@ class StepProgram:
         else:
             spec, plan, state = engine.build(cfg, eng, izh, stdp,
                                              device=dev)
-        self._init(spec, plan, state, eplan, caps, hier_groups, splan)
+        if mesh is not None and dev.type != "cpu":
+            plan, splan, state = (engine.map_state(torch.Tensor.cpu, t)
+                                  for t in (plan, splan, state))
+        self._init(spec, plan, state, eplan, caps, hier_groups, splan, mesh)
 
     @classmethod
     def from_parts(cls, spec: SimSpec, plan: ShardPlan, state0=None, *,
                    eplan: Optional[event_engine.EventPlan] = None,
                    splan: Optional[stream_engine.StreamedPlan] = None,
                    caps: Optional[dict] = None,
-                   hier_groups=None) -> "StepProgram":
+                   hier_groups=None, mesh=None) -> "StepProgram":
         """Wrap an already-built (spec, plan[, state][, eplan][, splan])
         without re-running connectivity construction (e.g. a plan from
         `convert.from_jax`); delivery='event' needs the EventPlan, streamed
-        connectivity the StreamedPlan."""
-        check_supported(spec.eng)
+        connectivity the StreamedPlan.  Over a `mesh` the parts are the
+        full stacked trees, on any device."""
+        check_supported(spec.eng, mesh)
         sp = cls.__new__(cls)
-        sp._init(spec, plan, state0, eplan, caps, hier_groups, splan)
+        sp._init(spec, plan, state0, eplan, caps, hier_groups, splan, mesh)
         return sp
 
-    def _init(self, spec, plan, state0, eplan, caps, hier_groups, splan):
+    def _init(self, spec, plan, state0, eplan, caps, hier_groups, splan,
+              mesh=None):
         if spec.eng.delivery == "event" and eplan is None:
             raise ValueError("delivery='event' needs an EventPlan")
         if spec.stream is not None and splan is None:
@@ -135,11 +163,16 @@ class StepProgram:
         self.eplan = eplan
         self.splan = splan
         self.caps = caps or {}
-        self.device = plan.gid.device
+        self.mesh = mesh
+        self.device = plan.gid.device if mesh is None else mesh.device
         self.hier_groups = hier_groups
         self._state0 = state0
         self._fns = None
         self._phases = None
+        self._issue = None
+        # the rank's part over a mesh (`distributed.MeshProgram`), made on
+        # first use
+        self._mp = None
         # the card's run loop (`engine.CapturedRun`), made by the first run
         self.runner = None
 
@@ -152,19 +185,63 @@ class StepProgram:
         return None
 
     def init_state(self):
-        """The freshly-built initial state."""
+        """The freshly-built initial state (over a mesh: the full host
+        state; `place` takes the rank's block of it)."""
         if self._state0 is None:
             raise ValueError("no initial state: this StepProgram wraps "
                              "prebuilt parts without state0")
         return self._state0
+
+    # -- the mesh: placement and gathers ---------------------------------
+
+    def _mesh_program(self) -> distributed.MeshProgram:
+        if self._mp is None:
+            self._mp = distributed.MeshProgram(
+                self.spec, self.plan, self.mesh, eplan=self.eplan,
+                caps=self.caps, hier_groups=self.hier_groups,
+                splan=self.splan)
+        return self._mp
+
+    def place(self, state):
+        """The rank's block of a full stacked state, on its device (the
+        block of a job of two or more ranks is returned as it is); the
+        state itself without a mesh."""
+        if self.mesh is None:
+            return state
+        v = engine.state_tensors(state)[0]
+        if (self.mesh.world > 1 and v.shape[0] == self.mesh.per_rank
+                and v.device == self.mesh.device):
+            return state
+        return self._mesh_program().place(state)
+
+    def gather(self, state):
+        """The ranks' blocks of a state assembled into the full [H, ...]
+        state on the primary's CPU (None on the other ranks; a collective).
+        Without a mesh, the state on the CPU."""
+        if self.mesh is None:
+            return engine.map_state(torch.Tensor.cpu, state)
+        return runtime.gather(state)
+
+    def gather_raster(self, raster: torch.Tensor):
+        """The ranks' rasters [T, L, N] as [T, H, N] on the primary's CPU
+        (None on the other ranks; a collective)."""
+        if self.mesh is None:
+            return raster.cpu()
+        full = runtime.gather(raster.transpose(0, 1))
+        return None if full is None else full.transpose(0, 1).contiguous()
 
     def run(self, state, t0: int, n_steps: int, *, graph: bool = True):
         """(state, raster [T, H, N] bool, timings) on this device; the
         input state is not modified.  On the card the steps replay this
         program's CUDA graph of `engine.RUN_WINDOW` steps (its first full
         window runs eagerly and is then captured; `self.runner`);
-        `graph=False` runs the same steps eagerly."""
+        `graph=False` runs the same steps eagerly.  Over a mesh: the
+        rank's block (state [L, ...], raster [T, L, N], timings [T, L]),
+        stepped eagerly under the engine's schedule, the wire between
+        phase A and phase B; a full state is placed first."""
         spec, plan = self.spec, self.plan
+        if self.mesh is not None:
+            return self._mesh_program().run(self.place(state), t0, n_steps)
         if self.device.type == "cuda" and self.runner is None:
             if self.splan is not None:
                 self.runner = stream_engine.make_runner(spec, plan,
@@ -192,9 +269,14 @@ class StepProgram:
         order (the plastic-state counterpart of the raster signature),
         byte-compatible with the JAX package's (of either delivery and
         either connectivity mode: streamed state holds shard h's valid
-        weights at [0, e_start[h, -1]))."""
+        weights at [0, e_start[h, -1])).  Over a mesh, of a gathered
+        (full) state."""
         if isinstance(state, event_engine.EventState):
             state = state.base
+        if state.w.shape[0] != self.spec.eng.n_shards:
+            raise ValueError(f"weight_signature of {state.w.shape[0]} "
+                             f"shards: gather the ranks' blocks first "
+                             f"(StepProgram.gather)")
         w = state.w.detach().cpu().numpy()
         h = hashlib.sha256()
         if self.splan is not None:
@@ -220,18 +302,23 @@ class StepProgram:
 
         They update the state they are given in place.  A phase A draws
         the stimulus window its t falls in when t leaves the current one
-        (`engine.StimWindow`)."""
+        (`engine.StimWindow`).  Over a mesh they step the rank's block and
+        `exchange` sends and receives over the wire and waits for it."""
         if self._phases is None:
-            fns = distributed.delivery_step_fns(
-                self.spec, self.plan, 0, PHASE_WINDOW, self.eplan, self.caps,
-                splan=self.splan)
-            num = self._with_numerics
-            self._fns = fns
-            self._phases = distributed.PhasePrograms(
-                phase_a=num(fns.phase_a), exchange=self._exchange(fns),
-                phase_b=num(fns.phase_b),
-                phase_a_dynamics=num(fns.phase_a_dynamics),
-                phase_a_plasticity=num(fns.phase_a_plasticity))
+            if self.mesh is not None:
+                mp = self._mesh_program()
+                fns, exchange, issue = (mp.step_fns(0, PHASE_WINDOW),
+                                        mp.exchange, mp.issue)
+            else:
+                fns = distributed.delivery_step_fns(
+                    self.spec, self.plan, 0, PHASE_WINDOW, self.eplan,
+                    self.caps, splan=self.splan)
+                exchange = distributed.stacked_exchange(
+                    self.spec, self.plan, fns, self.hier_groups)
+                issue = lambda spiked: Ready(exchange(spiked))
+            self._fns, self._issue = fns, issue
+            self._phases = distributed.phase_programs(
+                fns, exchange, self._with_numerics)
         return self._phases
 
     def _with_numerics(self, fn):
@@ -244,50 +331,6 @@ class StepProgram:
             with engine._numerics(self.device):
                 return fn(*args)
         return wrapped
-
-    def _exchange(self, fns: engine.StepFns):
-        """The exchange wire over the stacked [H, N] spike masks, each mode
-        keeping its own work: the global mask ('allgather', the run's own
-        `fns.exchange`), AER buffers rolled over the shard axis ('halo'),
-        or over groups of shards ('hier'); all give the same [H, S]
-        spiked_src."""
-        spec, plan = self.spec, self.plan
-        if spec.eng.exchange == "allgather":
-            return fns.exchange
-        src_ok = plan.src_gid >= 0
-        src_safe = torch.where(src_ok, plan.src_gid, 0)
-        n_total = spec.n_total
-        if spec.eng.exchange == "halo":
-            offsets = distributed.halo_offsets(spec, plan)
-            gid = plan.gid
-
-            def ex_halo(spiked):
-                ids, _ = aer.pack(spiked, gid, gid.shape[1])
-                # receiver h hears sender (h - d) mod H
-                received = [torch.roll(ids, d, 0) for d in offsets]
-                return _match(torch.cat(received, 1), n_total, src_safe,
-                              src_ok)
-            return ex_halo
-
-        if spec.eng.exchange == "hier":
-            groups = distributed._resolve_groups(spec, None,
-                                                 self.hier_groups)
-            G, L = len(groups), len(groups[0])
-            g_offsets = distributed.hier_offsets(spec, plan, L)
-            H, N = plan.gid.shape
-            gid_g = plan.gid.reshape(G, L * N)
-
-            def ex_hier(spiked):
-                # level 1: the group's gather is a reshape on one device;
-                # level 2: one buffer a group, rolled at group stride
-                ids, _ = aer.pack(spiked.reshape(G, L * N), gid_g, L * N)
-                received = torch.cat([torch.roll(ids, d, 0)
-                                      for d in g_offsets], 1)
-                per_shard = received[:, None].expand(G, L, -1).reshape(H, -1)
-                return _match(per_shard, n_total, src_safe, src_ok)
-            return ex_hier
-
-        raise ValueError(f"unknown exchange {spec.eng.exchange!r}")
 
     # -- timing handle (per-phase wall-clock attribution) ----------------
 
@@ -311,8 +354,14 @@ class StepProgram:
         later, so exchange_s records the issue and the residual wait; an
         all-False buffer makes the first phase B (at t0 - 1) a no-op, and
         an epilogue delivers the last step's spikes.  Keys are the same
-        under both schedules."""
+        under both schedules.
+
+        Over a mesh the state is the rank's block (a full one is placed),
+        the times are this rank's, the exchange's fence includes the wire
+        (its wait for the other ranks), `counts` are the job's totals and
+        `rasters` are gathered on the primary (None on the other ranks)."""
         self.phase_fns()
+        state = self.place(state)
         self._fns.stim.draw(t0, n_steps)
         if self.spec.eng.exchange_schedule == "pipelined":
             run = self._time_phases_pipelined
@@ -352,8 +401,15 @@ class StepProgram:
             self._tally(tally, spiked, tm, collect_rasters)
         return (s, times) + self._totals(tally, collect_rasters)
 
+    def _no_spikes(self) -> torch.Tensor:
+        """The all-False spiked_src of the stepped shards."""
+        if self.mesh is not None:
+            return self._mesh_program().no_spikes()
+        return torch.zeros(self.plan.src_gid.shape, dtype=torch.bool,
+                           device=self.device)
+
     def _time_phases_pipelined(self, state, t0, n_steps, collect_rasters):
-        pp, fence = self.phase_fns(), self._fence
+        pp, fence, issue = self.phase_fns(), self._fence, self._issue
         warm = engine.clone_state(state)
         s_w, spk_w, _ = pp.phase_a_dynamics(warm, t0)
         src_w = pp.exchange(spk_w)
@@ -366,13 +422,13 @@ class StepProgram:
         tally = ([], [], [])
         s = engine.clone_state(state)
         # all-False prologue buffer (phase B of it sets nothing)
-        ss_buf = torch.zeros(self.plan.src_gid.shape, dtype=torch.bool,
-                             device=self.device)
+        pending = Ready(self._no_spikes())
         fence()
         for t in range(t0, t0 + n_steps):
             # the residual exchange wait surfaces only here, right before
             # the consuming phase B: everything since its issue was hidden
             c0 = time.perf_counter()
+            ss_buf = pending.wait()
             fence()
             times["exchange_s"] += time.perf_counter() - c0
             c0 = time.perf_counter()
@@ -384,7 +440,7 @@ class StepProgram:
             fence()
             times["phase_a_s"] += time.perf_counter() - c0
             c0 = time.perf_counter()
-            ss_buf = pp.exchange(spiked)       # issue, do not wait
+            pending = issue(spiked)            # issue, do not wait
             times["exchange_s"] += time.perf_counter() - c0
             c0 = time.perf_counter()
             s = pp.phase_a_plasticity(s, spiked, t)
@@ -393,6 +449,7 @@ class StepProgram:
             self._tally(tally, spiked, tm, collect_rasters)
         # epilogue flush: deliver the last step's spikes
         c0 = time.perf_counter()
+        ss_buf = pending.wait()
         fence()
         times["exchange_s"] += time.perf_counter() - c0
         c0 = time.perf_counter()
@@ -410,15 +467,25 @@ class StepProgram:
         tally[1].append(tm.spikes)
         tally[2].append(tm.arrivals)
 
-    @staticmethod
-    def _totals(tally, collect_rasters):
-        """(rasters or None, counts) read back once, after the loop."""
+    def _totals(self, tally, collect_rasters):
+        """(rasters or None, counts) read back once, after the loop; over a
+        mesh the counts summed over the ranks and the rasters gathered on
+        the primary."""
         rasters, spikes, arrivals = tally
-        counts = dict(spikes=int(torch.stack(spikes).sum()) if spikes else 0,
-                      arrivals=int(torch.stack(arrivals).sum())
-                      if arrivals else 0)
+        sums = torch.stack([
+            torch.stack(x).sum().to(torch.int64) if x else torch.zeros(
+                (), dtype=torch.int64, device=self.device)
+            for x in (spikes, arrivals)])
+        if self.mesh is not None:
+            sums = self.mesh.wire.all_reduce_sum(sums)
+        counts = dict(spikes=int(sums[0]), arrivals=int(sums[1]))
         if not collect_rasters:
             return None, counts
         if not rasters:
             return [], counts
-        return list(torch.stack(rasters).cpu().numpy()), counts
+        stack = torch.stack(rasters)
+        if self.mesh is not None:
+            stack = self.gather_raster(stack)
+            if stack is None:
+                return None, counts
+        return list(stack.cpu().numpy()), counts

@@ -107,17 +107,22 @@ def chunk_source(spec: SimSpec, plan: ShardPlan,
     modulus constants and the geometry."""
     ss = spec.stream
     return make_chunk_source(spec.cfg, spec.eng, ss.q, plan.src_gid,
-                             splan.cand, splan.e_start, ss.row_cap)
+                             splan.cand, splan.e_start, ss.row_cap,
+                             shard_id=plan.shard_id)
 
 
 def make_chunk_source(cfg: GridConfig, eng: EngineConfig, q: int,
                       src_gid: torch.Tensor, cand: torch.Tensor,
-                      e_start: torch.Tensor, row_cap: int
-                      ) -> kref.ChunkSource:
+                      e_start: torch.Tensor, row_cap: int,
+                      shard_id: torch.Tensor = None) -> kref.ChunkSource:
     """`chunk_source` from its parts (src_gid [H, S] int64, cand [H,
     n_chunks, c_cap] int32, e_start [H, n_chunks + 1] int32, one device;
     row_cap the longest target row of any chunk, the kernel's bucket
-    width)."""
+    width).  `shard_id` [H] names the stacked rows' shards when they are a
+    rank's block of consecutive shards (`dist.sharding.shard_put`); the
+    block bounds are then that block's (read on the device, no sync).
+    Scatter placement needs all of the shards: the kernel takes a row's
+    index as its shard id there."""
     # the modulus arithmetic of the generator needs every modulus < 2^16
     if not (cfg.neurons_per_column < (1 << 16)
             and cfg.synapses_per_neuron < (1 << 16)):
@@ -126,7 +131,16 @@ def make_chunk_source(cfg: GridConfig, eng: EngineConfig, q: int,
     dev = cand.device
     t = lambda x, dt: torch.from_numpy(np.asarray(x, dtype=dt)).to(dev)
     dspan = cfg.delay_max - cfg.delay_min + 1
-    _, n_chunks, c_cap = cand.shape
+    H, n_chunks, c_cap = cand.shape
+    if eng.placement == "scatter" and H != eng.n_shards:
+        raise NotImplementedError(
+            f"streamed scatter placement over a block of {H} of the "
+            f"{eng.n_shards} shards: the chunk kernel takes a row's index "
+            f"as its shard id")
+    bounds = t(topology.shard_bounds_block(cfg.n_neurons, eng.n_shards),
+               np.int64)
+    if shard_id is not None:
+        bounds = bounds[torch.cat([shard_id, shard_id[-1:] + 1])]
     geom = kref.ChunkGeometry(
         M=cfg.synapses_per_neuron, npc=cfg.neurons_per_column,
         nexc=cfg.n_exc_per_column, gx=cfg.grid_x, gy=cfg.grid_y,
@@ -140,9 +154,7 @@ def make_chunk_source(cfg: GridConfig, eng: EngineConfig, q: int,
     return kref.ChunkSource(
         src_gid=src_gid, cand=cand, e_start=e_start,
         off=t(off_tab, np.int32), start=t(start, np.int32),
-        thresh=t(U, np.int64),
-        bounds=t(topology.shard_bounds_block(cfg.n_neurons, eng.n_shards),
-                 np.int64),
+        thresh=t(U, np.int64), bounds=bounds.contiguous(),
         fastmod=t(kref.fastmod_table(moduli), np.int64), geom=geom)
 
 

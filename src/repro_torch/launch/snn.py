@@ -19,7 +19,19 @@ same `[snn]` lines as `python -m repro.launch.snn`.  With `--exchange` or
 `--exchange-schedule` it also runs the same steps through
 `StepProgram.time_phases` (the paper's Table 2 split, with that exchange
 wire and schedule) and prints its per-phase walls; the shards of 'hier'
-are `--hier-groups` groups (no mesh: one device).
+are `--hier-groups` groups without a job.
+
+As a rank of a job (the REPRO_CLUSTER_* variables, `repro_torch._flags`,
+or torchrun's), it joins the job before it touches a device, and
+`--shards H` runs over the job's R ranks, H / R shards each, with real
+collectives (`core.distributed`; hier's groups are the ranks' blocks):
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.snn --grid 2x2 \
+        --shards 4 --exchange halo --device cpu
+
+The primary prints the `[snn]` lines, with the process count and the wire
+(gloo, gloo staged through pinned host memory where ranks share a GPU,
+or NCCL).
 
 Not ported yet, and refused with the ROADMAP item that ports it:
 `--ckpt-dir` (queue 1, item 9).
@@ -30,9 +42,11 @@ import argparse
 
 import numpy as np
 
+from repro_torch.cluster import runtime
 from repro_torch.core import (EngineConfig, GridConfig, StepProgram,
                               observables, profiles, stream_engine)
 from repro_torch.core.step_program import check_supported
+from repro_torch.dist.mesh import make_snn_mesh
 
 
 def main(argv=None):
@@ -58,7 +72,9 @@ def main(argv=None):
                          "(bit-identical outputs)")
     ap.add_argument("--hier-groups", type=int, default=None,
                     help="shard groups of --exchange hier")
-    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
+                    help="where the steps run (default: the job's device, "
+                         "else cuda)")
     ap.add_argument("--delivery", default="dense",
                     choices=["dense", "event"])
     ap.add_argument("--connectivity-mode", default="materialized",
@@ -71,6 +87,11 @@ def main(argv=None):
     if args.ckpt_dir:
         ap.error("--ckpt-dir: checkpoints are not ported yet "
                  "(ROADMAP queue 1, item 9)")
+    # a rank of a job joins it before anything touches a device
+    in_job = runtime.ensure_initialized(device=args.device)
+    device = (runtime.job().device.type if in_job
+              else args.device or "cuda")
+    primary = runtime.is_primary()
     gx, gy = (int(v) for v in args.grid.split("x"))
     cfg = GridConfig(grid_x=gx, grid_y=gy,
                      neurons_per_column=args.neurons_per_column,
@@ -83,51 +104,75 @@ def main(argv=None):
                        delivery=args.delivery,
                        connectivity=args.connectivity_mode)
     try:
-        check_supported(eng)
+        mesh = make_snn_mesh(args.shards) if in_job else None
+        check_supported(eng, mesh)
     except (NotImplementedError, ValueError) as e:
         ap.error(str(e))
     prof = profiles.from_config(cfg)       # fail fast on a bad spec
-    print(f"[snn] {cfg.n_neurons} neurons / {cfg.n_synapses} synapses "
-          f"on {args.shards} shards ({eng.exchange}, {args.placement}, "
-          f"{eng.delivery} delivery, {eng.connectivity} connectivity, "
-          f"{prof.spec()} reach={prof.reach()}, {args.device})")
+    job = (f", {runtime.process_count()} processes over {mesh.backend}"
+           if in_job else "")
+    if primary:
+        print(f"[snn] {cfg.n_neurons} neurons / {cfg.n_synapses} synapses "
+              f"on {args.shards} shards ({eng.exchange}, {args.placement}, "
+              f"{eng.delivery} delivery, {eng.connectivity} connectivity, "
+              f"{prof.spec()} reach={prof.reach()}, {device}{job})",
+              flush=True)
 
-    sp = StepProgram(cfg, eng, device=args.device,
+    sp = StepProgram(cfg, eng, device=device, mesh=mesh,
                      hier_groups=args.hier_groups)
     if split:
         try:
             sp.phase_fns()              # fail fast on the hier groups
         except ValueError as e:
             ap.error(str(e))
-    state, raster, tm = sp.run(sp.init_state(), 0, args.steps)
-    raster = raster.cpu().numpy()
-    rate = observables.mean_rate_hz(raster, cfg.n_neurons)
+    state, raster, tm = sp.run(sp.place(sp.init_state()), 0, args.steps)
+    raster = sp.gather_raster(raster)
+    rate = (observables.mean_rate_hz(raster.numpy(), cfg.n_neurons)
+            if primary else None)
     if split:
         _, times, rasters, counts = sp.time_phases(
             sp.init_state(), 0, args.steps, collect_rasters=True)
-        same = np.array_equal(np.stack(rasters), raster)
-        ms = {k: v / args.steps * 1e3 for k, v in times.items()}
-        print(f"[snn] phases ({eng.exchange}, {eng.exchange_schedule}): "
-              f"phase A {ms['phase_a_s']:.4f}, exchange "
-              f"{ms['exchange_s']:.4f}, phase B {ms['phase_b_s']:.4f} "
-              f"ms/step; {counts['spikes']} spikes; raster "
-              f"{'equal to' if same else 'DIFFERS from'} the fused run's")
-        if not same:
-            raise SystemExit("[snn] the phase split's raster differs from "
-                             "the fused run's")
+        if primary:
+            same = np.array_equal(np.stack(rasters), raster.numpy())
+            ms = {k: v / args.steps * 1e3 for k, v in times.items()}
+            print(f"[snn] phases ({eng.exchange}, "
+                  f"{eng.exchange_schedule}): phase A "
+                  f"{ms['phase_a_s']:.4f}, exchange "
+                  f"{ms['exchange_s']:.4f}, phase B {ms['phase_b_s']:.4f} "
+                  f"ms/step; {counts['spikes']} spikes; raster "
+                  f"{'equal to' if same else 'DIFFERS from'} the fused "
+                  f"run's", flush=True)
+            if not same:
+                raise SystemExit("[snn] the phase split's raster differs "
+                                 "from the fused run's")
     if args.delivery == "event":
-        print(f"[snn] event delivery: {int(tm.arrivals.sum())} arrivals, "
-              f"{int(state.sat.sum())} events dropped (sat)")
+        arrivals, sat = (int(x) for x in _summed(
+            sp, tm.arrivals.sum(), state.sat.sum()))
+        if primary:
+            print(f"[snn] event delivery: {arrivals} arrivals, {sat} events "
+                  f"dropped (sat)")
     if sp.splan is not None:
-        ss = sp.spec.stream
-        print(f"[snn] streamed: {ss.n_chunks} chunks of {ss.chunk_cols} "
-              f"column(s) a shard, live tables "
-              f"{stream_engine.live_table_bytes(sp.spec, sp.splan)} B a "
-              f"shard (the reference's accounting "
-              f"{stream_engine.streamed_table_bytes(sp.spec)} B); "
-              f"weights {sp.weight_signature(state).hex()[:16]}")
-    print(f"[snn] final-window rate {rate:.1f} Hz; done at t={args.steps} ms")
+        full = sp.gather(state)
+        if primary:
+            ss = sp.spec.stream
+            print(f"[snn] streamed: {ss.n_chunks} chunks of "
+                  f"{ss.chunk_cols} column(s) a shard, live tables "
+                  f"{stream_engine.live_table_bytes(sp.spec, sp.splan)} B "
+                  f"a shard (the reference's accounting "
+                  f"{stream_engine.streamed_table_bytes(sp.spec)} B); "
+                  f"weights {sp.weight_signature(full).hex()[:16]}")
+    if primary:
+        print(f"[snn] final-window rate {rate:.1f} Hz; done at "
+              f"t={args.steps} ms", flush=True)
     return rate
+
+
+def _summed(sp, *xs):
+    """Device scalars summed over the job's ranks (as they are without a
+    mesh)."""
+    import torch
+    v = torch.stack([x.to(torch.int64) for x in xs])
+    return sp.mesh.wire.all_reduce_sum(v) if sp.mesh is not None else v
 
 
 if __name__ == "__main__":

@@ -343,10 +343,13 @@ def test_weak_scaling_equals_jax_cells(jax_suites):
 
 def test_registry_ports_three_suites():
     # (since event delivery: a fourth, event_vs_dense's single-device rows;
-    # since streamed connectivity: weak_scaling)
-    assert sorted(registry.BENCHES) == ["event_vs_dense", "profile",
-                                        "table1", "table2", "weak_scaling"]
-    assert "weak_scaling" not in registry.NOT_PORTED
+    # since streamed connectivity: weak_scaling; since the mesh:
+    # comm_overlap, scaling and event_vs_dense's distributed cells)
+    assert sorted(registry.BENCHES) == ["comm_overlap", "event_vs_dense",
+                                        "profile", "scaling", "table1",
+                                        "table2", "weak_scaling"]
+    for name in ("weak_scaling", "comm_overlap", "scaling"):
+        assert name not in registry.NOT_PORTED
     for name in registry.NOT_PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             registry.get(name)
@@ -367,7 +370,7 @@ def test_cli_runs_table2_on_the_cpu(tmp_path, monkeypatch, capsys):
     assert cli.main(["list"]) == 0
     out = capsys.readouterr().out
     assert "table1" in out and "not ported yet" in out
-    assert cli.main(["run", "scaling", "--device", "cpu", "--out",
+    assert cli.main(["run", "roofline", "--device", "cpu", "--out",
                      str(tmp_path)]) == 1
 
 

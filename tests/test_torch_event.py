@@ -667,8 +667,6 @@ def test_event_vs_dense_rows_equal_jax(jax_ref):
     assert [{k: r[k] for k in keys} for r in rows] == [
         {k: r[k] for k in keys} for r in jax_ref["suite"]]
     assert all(r["identical_rasters"] for r in rows)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        event_vs_dense.bench_distributed(quick=True, device="cpu")
 
 
 # ----------------------------------------------------------------------------

@@ -29,7 +29,8 @@ from repro_torch.core import engine as tengine
 from repro_torch.core import observables as tobs
 from repro_torch.core import stimulus as tstim
 from repro_torch.core.params import EngineConfig, GridConfig
-from repro_torch.core.step_program import StepProgram
+from repro_torch.core.step_program import StepProgram, check_supported
+from repro_torch.dist.mesh import SnnMesh
 from repro_torch.kernels import izhikevich as kizh
 from repro_torch.kernels import ops, segment_sum as kseg, stdp as kstdp
 from repro_torch.kernels import ref as kref
@@ -240,11 +241,18 @@ def test_unported_options_are_refused():
                     device="cpu")
     with pytest.raises(ValueError, match="delivery"):
         StepProgram(cfg, EngineConfig(delivery="nope"), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        StepProgram(cfg, EngineConfig(), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        StepProgram(cfg, EngineConfig(connectivity="streamed:chunk=1"),
-                    device="cpu", mesh=object())
+    # a mesh runs (its ranks: tests/test_torch_mesh.py); one of another
+    # shard count, or streamed scatter shards over several ranks, is
+    # refused
+    mesh = SnnMesh(n_shards=2, world=2, rank=0, device=torch.device("cpu"),
+                   wire=None, backend="gloo")
+    check_supported(EngineConfig(n_shards=2), mesh)
+    with pytest.raises(ValueError, match="the mesh has 2 shards"):
+        StepProgram(cfg, EngineConfig(), device="cpu", mesh=mesh)
+    with pytest.raises(NotImplementedError, match="scatter"):
+        StepProgram(cfg, EngineConfig(n_shards=2, placement="scatter",
+                                      connectivity="streamed:chunk=1"),
+                    mesh=mesh)
     for argv in (["--delivery", "nope"], ["--ckpt-dir", "x"],
                  ["--connectivity-mode", "streamed:chunk=2", "--delivery",
                   "event"], ["--connectivity-mode", "streamed:chunk=0"]):

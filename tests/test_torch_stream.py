@@ -39,6 +39,7 @@ from repro_torch.core import (EngineConfig, GridConfig, StepProgram,
                               connectivity, convert, engine, observables)
 from repro_torch.core import stream_engine as SE
 from repro_torch.core.step_program import check_supported
+from repro_torch.dist.mesh import SnnMesh
 from repro_torch.kernels import ops, ref
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -391,9 +392,13 @@ def test_streamed_event_delivery_refused():
         StepProgram(GridConfig(**SMALL), eng, device="cpu")
     with pytest.raises(ValueError, match="dense"):
         SE.build(GridConfig(**SMALL), eng, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        check_supported(EngineConfig(connectivity="streamed:chunk=1"),
-                        mesh=object())
+    # over a mesh streamed connectivity runs (its ranks:
+    # tests/test_torch_mesh.py), but not with event delivery either
+    mesh = SnnMesh(n_shards=1, world=1, rank=0, device=torch.device("cpu"),
+                   wire=None, backend="gloo")
+    check_supported(EngineConfig(connectivity="streamed:chunk=1"), mesh=mesh)
+    with pytest.raises(ValueError, match="dense"):
+        check_supported(eng, mesh=mesh)
 
 
 def test_streamed_program_needs_its_plan():
