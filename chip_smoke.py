@@ -173,6 +173,27 @@ every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
            schedule: ms a step, `time_phases`' phase split and exchange
            share (its fence includes the wire), the raster equal across
            all four, beside the card's name and power limit;
+  ckpt_check  checkpoints (`core.checkpoint`, `StepProgram.load`) at 4x4
+           full width, 150 steps: each case of CKPT_CASES (dense H = 1 ->
+           H = 4 block, H = 4 block -> scatter, event H = 4 -> H = 1 with
+           the capacities that drop nothing, streamed K = 1 -> K = 2 at
+           H = 4, and dense H = 4 -> H = 1 restored at t = 30, off the
+           graph's window) runs 0 -> t on the card, saves, loads into a
+           fresh program of the other layout and runs t -> 150: both
+           windows' events give `jax_reference.json`'s raster signature
+           and the final weights the restoring layout's weight signature;
+           at 2x2 full width the file the card writes at t = 50 (dense,
+           event) has the payload digest of the CPU plain path's; an R = 2
+           job saves and an R = 4 job restores (sharing the card); at 8x8
+           dense the keys', save's and load's seconds and the file's
+           bytes (host work), beside the card and the host's CPUs;
+  cluster_check  `repro_torch.cluster run --supervise --ckpt-every 50`
+           at 4x4 full width, H = 4 over 2 ranks sharing the card, 150
+           steps, with `crash@step=50:rank=1` and with
+           `corrupt_ckpt@step=100` (the two at once): each restarts,
+           resumes at t = 50 (the corrupt epoch fails its sha256) and
+           gives the h4_block signatures; restarts, steps salvaged and
+           walls beside the card;
   bench    the ported suites (`repro_torch.bench`) on the card, one line
            per report (its env, config, deterministic and wall keys):
            `table1` quick (1x1, 4x4, 150 steps; the 4x4 row's raster
@@ -184,7 +205,8 @@ every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
            at 2x2, H=4, 150 steps; it raises unless every cell gives the
            same raster and totals), and `event_vs_dense`'s single-device
            rows (2x2, 500 neurons a column, 200 steps, stim 1 and 0: both
-           deliveries' rasters must be equal).
+           deliveries' rasters must be equal), and `cluster_scaling` quick
+           (1 and 2 ranks on the card: the rasters must be equal).
 
 Then the LM serving path (`recurrentgemma-2b`, `repro_torch.serve`):
 
@@ -1697,11 +1719,12 @@ def _main_path_counts(steps: int, delivery: str = "dense") -> dict:
                 **dict.fromkeys(_path_kernels(delivery), steps))
 
 
-def _program(cfg, eng) -> "StepProgram":
-    """The program of (cfg, eng) on the card; under event delivery with
-    capacities that drop nothing (`event_engine.no_drop_caps`, a ring of
-    E events a slot), as the committed reference's event runs."""
-    sp = StepProgram(cfg, eng, device="cuda")
+def _program(cfg, eng, device: str = "cuda") -> "StepProgram":
+    """The program of (cfg, eng) on the card (or `device`); under event
+    delivery with capacities that drop nothing
+    (`event_engine.no_drop_caps`, a ring of E events a slot), as the
+    committed reference's event runs."""
+    sp = StepProgram(cfg, eng, device=device)
     if eng.delivery == "event":
         state0 = event_engine.init_event_state(
             sp.spec, sp.init_state().base, sp.spec.e_cap)
@@ -2034,6 +2057,14 @@ def phase_bench():
     _report_line("profile", prof, cells=prof["extra"]["cells"])
     evd = event_vs_dense.run_suite(device="cuda", distributed=False)
     _report_line("event_vs_dense", evd, rows=evd["extra"]["rows"])
+    try:
+        cs = cluster_cli.sweep_report(quick=True, device="cuda")
+    except Exception as e:          # a failed launch or unequal rasters
+        raise PhaseFailed(f"cluster_scaling: {str(e)[-3000:]}")
+    _report_line("cluster_scaling", cs, points=cs["extra"]["points"])
+    if not cs["deterministic"]["identical_across_procs"]:
+        raise PhaseFailed("cluster_scaling's rasters differ across process "
+                          "counts")
     if not quick_ok:
         raise PhaseFailed(f"table1's 4x4 row differs from the JAX "
                           f"reference: {det}")
@@ -3255,6 +3286,303 @@ def phase_mesh(card: str):
 
 
 
+# ----------------------------------------------------------------------------
+# checkpoints and the supervised cluster runtime
+# ----------------------------------------------------------------------------
+
+CKPT_SAVE_T = 50        # ckpt_check's cases save at this step
+CKPT_ODD_T = 30         # and one restores off the captured graph's window
+# (name, saving layout, restoring layout, t): a layout is (delivery, H,
+# placement, chunk K or None for materialized connectivity)
+CKPT_CASES = (
+    ("dense_h1_to_h4_block", ("dense", 1, "block", None),
+     ("dense", 4, "block", None), CKPT_SAVE_T),
+    ("dense_h4_block_to_h4_scatter", ("dense", 4, "block", None),
+     ("dense", 4, "scatter", None), CKPT_SAVE_T),
+    ("event_h4_block_to_h1", ("event", 4, "block", None),
+     ("event", 1, "block", None), CKPT_SAVE_T),
+    ("streamed_k1_to_k2_h4", ("dense", 4, "block", 1),
+     ("dense", 4, "block", 2), CKPT_SAVE_T),
+    ("dense_h4_block_to_h1_t30", ("dense", 4, "block", None),
+     ("dense", 1, "block", None), CKPT_ODD_T))
+CLUSTER_FAULTS = (("crash", "crash@step=50:rank=1"),
+                  ("corrupt_ckpt", "corrupt_ckpt@step=100"))
+
+
+def _ckpt8_state(sp8) -> tuple:
+    """(spec, plan, state, t) of the dense 8x8 program after CKPT_SAVE_T
+    steps, plan and state copied to the host: ckpt_check times a save and
+    a load of it."""
+    state, _, _ = sp8.run(sp8.init_state(), 0, CKPT_SAVE_T)
+    cpu = lambda tree: engine.map_state(torch.Tensor.cpu, tree)
+    return sp8.spec, cpu(sp8.plan), cpu(state), CKPT_SAVE_T
+
+
+def _ckpt_program(cfg, layout, cache: dict, device: str = "cuda"):
+    """The program of a CKPT_CASES layout on `device`, built once."""
+    key = (layout, device)
+    if key not in cache:
+        delivery, h, placement, chunk = layout
+        if chunk is None:
+            cache[key] = _program(cfg, EngineConfig(
+                n_shards=h, placement=placement, delivery=delivery),
+                device=device)
+        else:
+            cache[key] = _stream_program(cfg, chunk, h, placement)
+    return cache[key]
+
+
+def _ckpt_want(ref: dict, layout) -> dict:
+    """The reference run whose layout a restore has."""
+    delivery, h, placement, _ = layout
+    runs = ref["event_runs"] if delivery == "event" else ref["runs"]
+    return runs[f"h{h}_{placement}"]
+
+
+def _digest(path: str) -> str:
+    with np.load(path) as z:
+        return str(z["payload_sha256"])
+
+
+def ckpt_rank(args: dict) -> None:
+    """Inside each rank: H = 4 dense block shards over the job's ranks.
+    "save": run 0 -> t, the primary saves the gathered state with the
+    gathered raster's events; "load": every rank restores the file and
+    places its block, runs t -> steps, and the primary reports the
+    signatures of the file's events followed by its own, and the
+    weights'."""
+    from repro_torch.bench.subproc import emit as emit_result
+    from repro_torch.cluster import runtime
+    from repro_torch.core import (EngineConfig, GridConfig, StepProgram,
+                                  checkpoint, observables)
+    from repro_torch.dist.mesh import make_snn_mesh
+    cfg, t = GridConfig(**args["grid"]), args["t"]
+    mesh = make_snn_mesh(4)
+    sp = StepProgram(cfg, EngineConfig(n_shards=4), mesh=mesh)
+    gid = sp.plan.gid.numpy()
+    if args["mode"] == "save":
+        state, raster, _ = sp.run(sp.place(sp.init_state()), 0, t)
+        raster, full = sp.gather_raster(raster), sp.gather(state)
+        if runtime.is_primary():
+            checkpoint.save(args["path"], sp.spec, sp.plan, full, t,
+                            raster_events=observables.raster_events(
+                                raster.numpy(), gid))
+            emit_result(dict(saved=args["path"], ranks=mesh.world,
+                             wire=mesh.backend))
+        return
+    state, t0 = sp.load(args["path"])
+    state, raster, _ = sp.run(sp.place(state), t0, args["steps"] - t0)
+    raster, full = sp.gather_raster(raster), sp.gather(state)
+    if runtime.is_primary():
+        ev_t, ev_g = checkpoint.load_raster_events(args["path"])
+        ct, cg = observables.raster_events(raster.numpy(), gid, t0=t0)
+        emit_result(dict(
+            t=t0, ranks=mesh.world, wire=mesh.backend,
+            raster_signature=observables.events_signature(
+                np.concatenate([ev_t, ct]), np.concatenate([ev_g, cg])).hex(),
+            weight_signature=sp.weight_signature(full).hex()))
+
+
+def phase_ckpt(card: str, ckpt8: tuple):
+    """Checkpoints on the card (`core.checkpoint`, `StepProgram.load`) at
+    the full width of `jax_reference.json` (4x4, 150 steps): each case of
+    CKPT_CASES runs 0 -> t on the card through the graph, saves, loads
+    into a fresh program of another layout and runs t -> 150; the two
+    windows' events give the reference's raster signature and the final
+    weights the weight signature of the reference run of the restoring
+    layout.  At 2x2 full width the file the card writes at t = 50 (dense
+    and event) has the payload digest of the one the CPU plain path
+    writes.  Over ranks, an R = 2 job saves and an R = 4 job restores
+    (both sharing the card).  At 8x8 dense: save and load seconds and
+    the file's bytes (host work), beside the card and the host's CPUs."""
+    import tempfile
+    from repro_torch.bench import subproc
+    from repro_torch.core import checkpoint
+    with open(os.path.join(HERE, "src", "repro_torch", "data",
+                           "jax_reference.json")) as f:
+        ref = json.load(f)
+    grid = dict(ref["grid"], neurons_per_column=ref["neurons_per_column"],
+                synapses_per_neuron=ref["synapses_per_neuron"])
+    cfg, steps = GridConfig(**grid), ref["steps"]
+    tmp = tempfile.mkdtemp(prefix="ckpt_check_")
+    t_phase = time.perf_counter()
+    rank_args = dict(grid=grid, t=CKPT_SAVE_T, steps=steps,
+                     path=os.path.join(tmp, "ranks.npz"))
+    job = _start_mesh_job("ckpt_rank", dict(rank_args, mode="save"), 2, 420)
+    programs, cases, failed = {}, {}, []
+    for name, a, b, t in CKPT_CASES:
+        spa = _ckpt_program(cfg, a, programs)
+        spb = _ckpt_program(cfg, b, programs)
+        s_a, r_a, _ = spa.run(spa.init_state(), 0, t)
+        torch.cuda.synchronize()
+        c0 = time.perf_counter()
+        path = checkpoint.save(os.path.join(tmp, f"{name}.npz"), spa.spec,
+                               spa.plan, s_a, t)
+        save_s = time.perf_counter() - c0
+        c0 = time.perf_counter()
+        state, t_back = spb.load(path)
+        load_s = time.perf_counter() - c0
+        s_b, r_b, _ = spb.run(state, t_back, steps - t_back)
+        ev = [observables.raster_events(r.cpu().numpy(),
+                                        sp.plan.gid.cpu().numpy(), t0=t0)
+              for r, sp, t0 in ((r_a, spa, 0), (r_b, spb, t_back))]
+        rsig = observables.events_signature(
+            np.concatenate([e[0] for e in ev]),
+            np.concatenate([e[1] for e in ev])).hex()
+        want = _ckpt_want(ref, b)
+        res = dict(t=t_back, raster_equal=rsig == want["raster_signature"],
+                   weights_equal=(spb.weight_signature(s_b).hex()
+                                  == want["weight_signature"]),
+                   restore_replays=spb.runner.replays, save_s=save_s,
+                   load_s=load_s, file_bytes=os.path.getsize(path))
+        if a[0] == "event":
+            res["sat"] = int(s_b.sat.sum())
+        cases[name] = res
+        if not (res["raster_equal"] and res["weights_equal"]
+                and t_back == t and not res.get("sat")):
+            failed.append(name)
+    del programs
+    torch.cuda.empty_cache()
+
+    # the card's file and the CPU plain path's, 2x2 full width, t = 50
+    cfg2, devices = GridConfig(grid_x=2, grid_y=2), {}
+    for delivery in ("dense", "event"):
+        layout = (delivery, 2, "block", None)
+        digests = []
+        for device in ("cuda", "cpu"):
+            sp = _ckpt_program(cfg2, layout, {}, device=device)
+            s, _, _ = sp.run(sp.init_state(), 0, CKPT_SAVE_T)
+            digests.append(_digest(checkpoint.save(os.path.join(
+                tmp, f"cross_{delivery}_{device}.npz"), sp.spec, sp.plan,
+                s, CKPT_SAVE_T)))
+        devices[delivery] = dict(card=digests[0][:16],
+                                 equal=digests[0] == digests[1])
+        if not devices[delivery]["equal"]:
+            failed.append(f"card vs cpu file ({delivery})")
+
+    # R = 2 saves, R = 4 restores
+    ranks = {}
+    try:
+        ranks["save"] = subproc.results(job.wait())
+        ranks["load"] = subproc.results(_start_mesh_job(
+            "ckpt_rank", dict(rank_args, mode="load"), 4, 420).wait())
+        got, want = ranks["load"][0], ref["runs"]["h4_block"]
+        ranks["equal"] = (got["raster_signature"] == want["raster_signature"]
+                          and got["weight_signature"]
+                          == want["weight_signature"]
+                          and got["t"] == CKPT_SAVE_T)
+    except (subproc.RanksError, IndexError, KeyError) as e:
+        ranks["error"] = str(e)[-3000:]
+    if not ranks.get("equal"):
+        failed.append("R2 -> R4")
+
+    # 8x8 dense, 12.8 M synapses: host work
+    spec8, plan8, state8, t8 = ckpt8
+    path8 = os.path.join(tmp, "dense_8x8.npz")
+    c0 = time.perf_counter()
+    checkpoint._global_keys(spec8, plan8)       # the layout's keys, once
+    keys_s = time.perf_counter() - c0
+    c0 = time.perf_counter()
+    checkpoint.save(path8, spec8, plan8, state8, t8)
+    save_s = time.perf_counter() - c0
+    c0 = time.perf_counter()
+    back, t_back = checkpoint.load(path8, spec8, plan8)
+    load_s = time.perf_counter() - c0
+    same8 = t_back == t8 and all(bit_equal(x, y) for x, y in zip(
+        engine.state_tensors(back), engine.state_tensors(state8)))
+    if not same8:
+        failed.append("8x8 round trip")
+    print(card, flush=True)
+    emit({"phase": "ckpt_check", "card": card, "grid": "4x4",
+          "steps": steps, "cases": cases, "card_vs_cpu_file_2x2": devices,
+          "ranks_r2_to_r4": ranks,
+          "dense_8x8": dict(
+              synapses=int(plan8.row_ptr[:, -1].sum()), t=t8,
+              keys_s=keys_s, save_s=save_s, load_s=load_s,
+              file_bytes=os.path.getsize(path8), round_trip_equal=same8,
+              note="host work; keys_s builds the layout's synapse keys "
+                   "and their canonical order (once a process), which "
+                   "the save and the load then reuse",
+              host_cpus=os.cpu_count(),
+              host_cpus_usable=len(os.sched_getaffinity(0))),
+          "seconds": time.perf_counter() - t_phase})
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    if failed:
+        raise PhaseFailed(f"checkpoint cases failed: {failed}")
+
+
+def phase_cluster(card: str):
+    """`repro_torch.cluster run --supervise --ckpt-every 50` at 4x4 full
+    width, H = 4 over 2 ranks sharing the card, 150 steps, once with each
+    fault of CLUSTER_FAULTS (the two launches at once): a crash of rank 1
+    at step 50 restarts and restores at t = 50; the epoch at t = 100
+    truncated after its write fails its sha256 and recovery falls back to
+    t = 50.  Each recovered run's raster and weight signatures must be
+    `jax_reference.json`'s h4_block run's.  Prints the restarts, the
+    steps salvaged and the wall seconds beside the card."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.cluster import cli as ccli
+    with open(os.path.join(HERE, "src", "repro_torch", "data",
+                           "jax_reference.json")) as f:
+        ref = json.load(f)
+    want = ref["runs"]["h4_block"]
+    tmp = tempfile.mkdtemp(prefix="cluster_check_")
+
+    def scenario(item):
+        name, fault = item
+        args = ccli.workload_namespace(
+            grid="x".join(str(ref["grid"][k]) for k in ("grid_x", "grid_y")),
+            neurons_per_column=ref["neurons_per_column"],
+            synapses=ref["synapses_per_neuron"], seed=GridConfig().seed,
+            steps=ref["steps"], shards=4, phase_steps=0,
+            ckpt_dir=os.path.join(tmp, name), ckpt_every=CKPT_SAVE_T,
+            supervise=True, fault=fault, max_restarts=2,
+            stall_timeout=240.0, device="cuda")
+        t0 = time.perf_counter()
+        try:
+            row = ccli.run_point(args, 2, timeout=600)
+        except Exception as e:          # a LaunchError, with its history
+            return name, dict(error=str(e)[-4000:])
+        return name, dict(row=row, wall_s=time.perf_counter() - t0)
+
+    t_phase = time.perf_counter()
+    with ThreadPoolExecutor(len(CLUSTER_FAULTS)) as ex:
+        got = dict(ex.map(scenario, CLUSTER_FAULTS))
+    results, failed = {}, []
+    for name, fault in CLUSTER_FAULTS:
+        g = got[name]
+        if "error" in g:
+            results[name] = g
+            failed.append(name)
+            continue
+        row, rec = g["row"], g["row"]["recovery"]
+        res = dict(fault=fault, restarts=rec["restarts"],
+                   restored_t=rec["restored_t"],
+                   steps_salvaged=rec["recovered_steps"],
+                   attempts=rec["attempts"], wall_s=g["wall_s"],
+                   run_wall_s=row["wall_s"], ckpt_wall_s=row["ckpt_wall_s"],
+                   wire=row["wire"],
+                   raster_equal=row["raster_sig"] == want["raster_signature"],
+                   weights_equal=(row["weights_sig"]
+                                  == want["weight_signature"]))
+        results[name] = res
+        if not (res["raster_equal"] and res["weights_equal"]
+                and res["restarts"] >= 1 and res["restored_t"] == CKPT_SAVE_T
+                and res["steps_salvaged"] == CKPT_SAVE_T):
+            failed.append(name)
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(card, flush=True)
+    emit({"phase": "cluster_check", "card": card, "grid": "4x4",
+          "shards": 4, "ranks": 2, "steps": ref["steps"],
+          "ckpt_every": CKPT_SAVE_T, "runs": results,
+          "seconds": time.perf_counter() - t_phase})
+    if failed:
+        raise PhaseFailed(f"supervised recovery failed or differs from the "
+                          f"JAX reference: {failed}")
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3287,9 +3615,14 @@ def main() -> int:
         rows += phase_stream_kernels(sp8s)
         phase_stream_check()
         launches.update(phase_stream_timed(sp8s, sp8, build_s))
+        ckpt8 = _ckpt8_state(sp8)
         del sp8, sp8e, sp8s      # so that the later peaks are their own
         torch.cuda.empty_cache()
         phase_mesh(card)
+        torch.cuda.empty_cache()
+        phase_ckpt(card, ckpt8)
+        del ckpt8
+        phase_cluster(card)
         torch.cuda.empty_cache()
         phase_bench()
         torch.cuda.empty_cache()
@@ -3331,6 +3664,7 @@ if __name__ == "__main__":
     from repro_torch.bench import profile as bench_profile
     from repro_torch.bench import timing
     from repro_torch.bench.suites import event_vs_dense, table1, table2
+    from repro_torch.cluster import cli as cluster_cli
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import (EngineConfig, GridConfig, StepProgram,
                                   aer, connectivity, engine, event_engine,

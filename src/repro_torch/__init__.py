@@ -7,7 +7,8 @@ neither `jax` nor `repro`.
 
 Subpackages: `core` (the spiking engine), `kernels` (CUDA wrappers, plain
 versions, dispatch), `dist` (the mesh over a job's ranks and its wire),
-`cluster` (joining a `torch.distributed` job), `bench` (measuring
+`cluster` (joining a `torch.distributed` job, and the supervised
+multi-process launcher, worker and fault injection), `bench` (measuring
 tools and suites), `launch` (entry points).
 """
 

@@ -23,6 +23,11 @@ def _profile(quick, device):
     return profile.run_profile(quick, device)
 
 
+def _cluster_scaling(quick, device):
+    from ..cluster import cli as cluster_cli
+    return cluster_cli.sweep_report(quick=quick, device=device)
+
+
 def _comm_overlap(quick, device):
     from .suites import comm_overlap
     return comm_overlap.run_suite(quick, device)
@@ -54,6 +59,10 @@ def _weak_scaling(quick, device):
 
 
 BENCHES: Dict[str, Entry] = {e.name: e for e in [
+    Entry("cluster_scaling", _cluster_scaling,
+          "strong scaling over process counts with bit-identical rasters, "
+          "per-process phase split (paper Figs. 5-8; "
+          "repro_torch.cluster)"),
     Entry("comm_overlap", _comm_overlap,
           "hidden vs exposed exchange time, sync vs pipelined, over "
           "torch.distributed ranks"),
@@ -79,7 +88,6 @@ BENCHES: Dict[str, Entry] = {e.name: e for e in [
 #: The JAX package's suites that the port does not run yet, and the
 #: ROADMAP item (queue 1) that ports each.
 NOT_PORTED: Dict[str, str] = {
-    "cluster_scaling": "item 10 (the cluster runtime)",
     "simserve_throughput": "item 11 (the simulation service)",
     "connectivity_sweep": "item 12 (the rest of the bench tooling)",
     "roofline": "item 12 (the rest of the bench tooling)",

@@ -9,9 +9,14 @@ store on a free localhost port, or a "file://" store when `store=` names
 a path, so that parallel test workers never collide on a port), and
 returns the primary's standard output.  The code joins the job with
 `repro_torch.cluster.runtime.ensure_initialized()`.  A rank that fails
-or outlives the timeout fails the job: every rank is killed, and the
-raised `RanksError` carries each rank's exit code and output tails.
-"""
+or outlives the timeout fails the job: every rank is reaped (SIGTERM,
+then SIGKILL for a rank that ignores it, `reap`), and the raised
+`RanksError` carries each rank's exit code and output.
+
+The cluster launcher (`cluster.local`) starts its workers the same way,
+as `Ranks(None, n, argv=["-m", "repro_torch.cluster.worker", ...],
+env=...)`, and watches them with `wait_all(watch)`: `watch` is called
+while the ranks run and ends the job with its reason (a stalled gang)."""
 from __future__ import annotations
 
 import json
@@ -21,7 +26,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from typing import List, Optional
+from typing import Callable, List, Optional, Sequence
 
 import repro_torch
 from repro_torch._flags import cluster_env
@@ -35,12 +40,46 @@ DEFAULT_TIMEOUT = 600.0
 
 
 class RanksError(RuntimeError):
-    """A rank failed or timed out; `returncodes` holds each rank's exit
-    code (None: killed at the timeout or for a peer's failure)."""
+    """A rank failed, timed out or was stopped by a watch; `returncodes`
+    holds each rank's exit code as it was when the job ended (None: still
+    running, then reaped), `outputs` each rank's standard output and
+    error, `reason` the first line and `reaped` what `reap` did."""
 
-    def __init__(self, msg: str, returncodes: List[Optional[int]]):
+    def __init__(self, msg: str, returncodes: List[Optional[int]],
+                 outputs: Sequence[str] = (), reason: str = "",
+                 reaped: Optional[dict] = None):
         self.returncodes = returncodes
+        self.outputs = list(outputs)
+        self.reason = reason or msg.splitlines()[0]
+        self.reaped = reaped or dict(terminated=[], killed=[])
         super().__init__(msg)
+
+
+def reap(procs, total_timeout: float = 5.0) -> dict:
+    """Terminate, then kill, every process still running: one shared
+    grace period for all of them.  Returns {"terminated": [...],
+    "killed": [...]}: which ones got SIGTERM, and which of those ignored
+    it and needed SIGKILL."""
+    info = dict(terminated=[], killed=[])
+    for i, p in enumerate(procs):
+        if p.poll() is None:
+            info["terminated"].append(i)
+            p.terminate()
+    deadline = time.monotonic() + total_timeout
+    for i, p in enumerate(procs):
+        if p.poll() is None:
+            try:
+                p.wait(timeout=max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                info["killed"].append(i)
+                p.kill()
+    for p in procs:
+        if p.poll() is None:
+            try:
+                p.wait(timeout=5.0)
+            except subprocess.TimeoutExpired:
+                pass
+    return info
 
 
 def free_port() -> int:
@@ -60,35 +99,38 @@ class Ranks:
     """`code` started as the `n_ranks` ranks of a job on `device` ("cpu"
     or "cuda"; None leaves it to the ranks, which run on the card);
     `wait()` gives the primary's output (see the module docstring).  A
-    timeout of None is `DEFAULT_TIMEOUT`."""
+    timeout of None is `DEFAULT_TIMEOUT`.  `argv` (with `code` None) are
+    the interpreter's arguments instead of `-c code`; `env` adds
+    variables to every rank's environment; `tuned` starts them under
+    `_flags.tuned_host_env`."""
 
-    def __init__(self, code: str, n_ranks: int, *,
+    def __init__(self, code: Optional[str], n_ranks: int, *,
                  device: Optional[str] = None,
                  timeout: Optional[float] = None,
-                 store: Optional[str] = None):
+                 store: Optional[str] = None,
+                 argv: Optional[Sequence[str]] = None,
+                 env: Optional[dict] = None, tuned: bool = False):
+        if (code is None) == (argv is None):
+            raise ValueError("give either code or argv")
         self.timeout = DEFAULT_TIMEOUT if timeout is None else timeout
         self._dir = tempfile.TemporaryDirectory()
         coord = (f"file://{os.path.abspath(store)}" if store is not None
                  else f"127.0.0.1:{free_port()}")
+        args = ["-c", code] if argv is None else list(argv)
         self.procs, self.logs = [], []
         for r in range(n_ranks):
-            env = cluster_env(SRC, coordinator=coord, num_processes=n_ranks,
-                              process_id=r, device=device)
+            rank_env = cluster_env(SRC, coordinator=coord,
+                                   num_processes=n_ranks, process_id=r,
+                                   device=device, tuned=tuned)
+            rank_env.update(env or {})
             out = os.path.join(self._dir.name, f"rank{r}.out")
             err = os.path.join(self._dir.name, f"rank{r}.err")
             self.logs.append((out, err))
             with open(out, "w") as fo, open(err, "w") as fe:
                 self.procs.append(subprocess.Popen(
-                    [sys.executable, "-c", code], env=env, stdout=fo,
+                    [sys.executable, *args], env=rank_env, stdout=fo,
                     stderr=fe, stdin=subprocess.DEVNULL))
         self.started = time.monotonic()
-
-    def _kill(self) -> None:
-        for p in self.procs:
-            if p.poll() is None:
-                p.kill()
-        for p in self.procs:
-            p.wait()
 
     def _report(self, why: str) -> str:
         parts = [why]
@@ -98,31 +140,54 @@ class Ranks:
                          f"stderr tail:\n{_tail(err)}")
         return "\n".join(parts)
 
+    def outputs(self) -> List[str]:
+        """Each rank's standard output, then its standard error."""
+        texts = []
+        for out, err in self.logs:
+            parts = []
+            for path in (out, err):
+                with open(path, errors="replace") as f:
+                    parts.append(f.read())
+            texts.append("".join(parts))
+        return texts
+
     def wait(self) -> str:
         """The primary's standard output once every rank exited 0; raises
-        RanksError (after killing the rest) at the first failure or at the
+        RanksError (after reaping the rest) at the first failure or at the
         timeout."""
+        self.wait_all()
+        return self._stdout0
+
+    def wait_all(self, watch: Optional[Callable[[], Optional[str]]] = None
+                 ) -> List[str]:
+        """`wait`, returning every rank's output (`outputs`); `watch()`,
+        called while the ranks run, ends the job with the reason it
+        returns."""
+        why = None
         try:
             while True:
                 codes = [p.poll() for p in self.procs]
                 bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
                 if bad:
-                    self._kill()
-                    raise RanksError(self._report(
-                        f"rank {bad[0]} failed with exit code "
-                        f"{codes[bad[0]]}"), [p.returncode
-                                              for p in self.procs])
-                if all(c == 0 for c in codes):
-                    with open(self.logs[0][0]) as f:
-                        return f.read()
-                if time.monotonic() - self.started > self.timeout:
-                    self._kill()
-                    raise RanksError(self._report(
-                        f"ranks timed out after {self.timeout} s"),
-                        [None] * len(self.procs))
+                    why = (f"rank {bad[0]} failed with exit code "
+                           f"{codes[bad[0]]}")
+                elif all(c == 0 for c in codes):
+                    break
+                elif time.monotonic() - self.started > self.timeout:
+                    why = f"ranks timed out after {self.timeout} s"
+                elif watch is not None:
+                    why = watch()
+                if why:
+                    codes = [p.poll() for p in self.procs]
+                    reaped = reap(self.procs)
+                    raise RanksError(self._report(why), codes,
+                                     self.outputs(), why, reaped)
                 time.sleep(0.05)
+            with open(self.logs[0][0]) as f:
+                self._stdout0 = f.read()
+            return self.outputs()
         finally:
-            self._kill()
+            reap(self.procs)
             self._dir.cleanup()
 
 

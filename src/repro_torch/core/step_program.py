@@ -3,6 +3,8 @@
     sp = StepProgram(cfg, eng)                    # on the card
     sp = StepProgram(cfg, eng, device="cpu")      # plain PyTorch on the CPU
     state, raster, tm = sp.run(sp.init_state(), 0, 500)
+    checkpoint.save(path, sp.spec, sp.plan, state, 500)
+    state, t = sp.load(path)                      # any layout, either package
     pa, ex, pb = sp.phase_fns()[:3]               # Table 2 phase split
     state, times, rasters, counts = sp.time_phases(state, 0, 100)
 
@@ -191,6 +193,17 @@ class StepProgram:
             raise ValueError("no initial state: this StepProgram wraps "
                              "prebuilt parts without state0")
         return self._state0
+
+    def load(self, path: str):
+        """Restore (state, t) from a checkpoint (`core.checkpoint`, written
+        by either package at any layout) into this program's layout: the
+        state as `init_state()` has it, on this device without a mesh and
+        the full host state over one (`place` takes the rank's block).
+        `run` from it at t resumes this program's captured graph at any
+        t."""
+        from . import checkpoint
+        return checkpoint.load(path, self.spec, self.plan,
+                               cap_ev=self.cap_ev)
 
     # -- the mesh: placement and gathers ---------------------------------
 

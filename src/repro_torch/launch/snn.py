@@ -33,18 +33,30 @@ The primary prints the `[snn]` lines, with the process count and the wire
 (gloo, gloo staged through pinned host memory where ranks share a GPU,
 or NCCL).
 
-Not ported yet, and refused with the ROADMAP item that ports it:
-`--ckpt-dir` (queue 1, item 9).
+Checkpoints (`core.checkpoint`, the JAX package's file format):
+
+    python -m repro_torch.launch.snn --grid 2x2 --steps 100 \
+        --ckpt-dir ckpts --ckpt-every 50
+
+resumes from the newest `ckpts/ckpt_<t>.npz` (`checkpoint.latest`, a
+file written by either package at any layout), runs `--steps` more steps
+in chunks of `--ckpt-every` (all of them in one chunk when 0) and saves
+after each chunk.  In a job the primary writes the state that
+`StepProgram.gather` collects, and every rank restores the file and
+places its block.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
+import torch
 
 from repro_torch.cluster import runtime
 from repro_torch.core import (EngineConfig, GridConfig, StepProgram,
-                              observables, profiles, stream_engine)
+                              checkpoint, observables, profiles,
+                              stream_engine)
 from repro_torch.core.step_program import check_supported
 from repro_torch.dist.mesh import make_snn_mesh
 
@@ -81,12 +93,15 @@ def main(argv=None):
                     help="materialized | streamed:chunk=K (K target "
                          "columns' synapse tables regenerated a chunk at a "
                          "time inside the step; dense delivery)")
-    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="resume from the newest checkpoint here and save "
+                         "one after each chunk")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="steps a chunk (0: one chunk); needs --ckpt-dir")
     args = ap.parse_args(argv)
 
-    if args.ckpt_dir:
-        ap.error("--ckpt-dir: checkpoints are not ported yet "
-                 "(ROADMAP queue 1, item 9)")
+    if args.ckpt_every and not args.ckpt_dir:
+        ap.error("--ckpt-every needs --ckpt-dir")
     # a rank of a job joins it before anything touches a device
     in_job = runtime.ensure_initialized(device=args.device)
     device = (runtime.job().device.type if in_job
@@ -125,15 +140,36 @@ def main(argv=None):
             sp.phase_fns()              # fail fast on the hier groups
         except ValueError as e:
             ap.error(str(e))
-    state, raster, tm = sp.run(sp.place(sp.init_state()), 0, args.steps)
-    raster = sp.gather_raster(raster)
-    rate = (observables.mean_rate_hz(raster.numpy(), cfg.n_neurons)
+    state, t0 = sp.init_state(), 0
+    if args.ckpt_dir:
+        latest = checkpoint.latest(args.ckpt_dir)
+        if latest:
+            state, t0 = sp.load(latest)
+            if primary:
+                print(f"[snn] resumed at t={t0} from {latest}", flush=True)
+    start = sp.place(state)
+    state, t, chunk = start, t0, args.ckpt_every or args.steps
+    rasters, arrivals = [], 0
+    while t < t0 + args.steps:
+        n = min(chunk, t0 + args.steps - t)
+        state, raster, tm = sp.run(state, t, n)
+        t += n
+        rasters.append(sp.gather_raster(raster))
+        arrivals = arrivals + tm.arrivals.sum()
+        if args.ckpt_dir:
+            full = sp.gather(state)         # a collective over a job
+            if primary:
+                checkpoint.save(os.path.join(args.ckpt_dir,
+                                             f"ckpt_{t}.npz"),
+                                sp.spec, sp.plan, full, t)
+    rate = (observables.mean_rate_hz(rasters[-1].numpy(), cfg.n_neurons)
             if primary else None)
     if split:
-        _, times, rasters, counts = sp.time_phases(
-            sp.init_state(), 0, args.steps, collect_rasters=True)
+        _, times, steps, counts = sp.time_phases(
+            start, t0, args.steps, collect_rasters=True)
         if primary:
-            same = np.array_equal(np.stack(rasters), raster.numpy())
+            same = np.array_equal(np.stack(steps),
+                                  torch.cat(rasters).numpy())
             ms = {k: v / args.steps * 1e3 for k, v in times.items()}
             print(f"[snn] phases ({eng.exchange}, "
                   f"{eng.exchange_schedule}): phase A "
@@ -147,7 +183,7 @@ def main(argv=None):
                                  "from the fused run's")
     if args.delivery == "event":
         arrivals, sat = (int(x) for x in _summed(
-            sp, tm.arrivals.sum(), state.sat.sum()))
+            sp, arrivals, state.sat.sum()))
         if primary:
             print(f"[snn] event delivery: {arrivals} arrivals, {sat} events "
                   f"dropped (sat)")
@@ -163,14 +199,13 @@ def main(argv=None):
                   f"weights {sp.weight_signature(full).hex()[:16]}")
     if primary:
         print(f"[snn] final-window rate {rate:.1f} Hz; done at "
-              f"t={args.steps} ms", flush=True)
+              f"t={t} ms", flush=True)
     return rate
 
 
 def _summed(sp, *xs):
     """Device scalars summed over the job's ranks (as they are without a
     mesh)."""
-    import torch
     v = torch.stack([x.to(torch.int64) for x in xs])
     return sp.mesh.wire.all_reduce_sum(v) if sp.mesh is not None else v
 

@@ -345,10 +345,13 @@ def test_registry_ports_three_suites():
     # (since event delivery: a fourth, event_vs_dense's single-device rows;
     # since streamed connectivity: weak_scaling; since the mesh:
     # comm_overlap, scaling and event_vs_dense's distributed cells)
-    assert sorted(registry.BENCHES) == ["comm_overlap", "event_vs_dense",
-                                        "profile", "scaling", "table1",
-                                        "table2", "weak_scaling"]
-    for name in ("weak_scaling", "comm_overlap", "scaling"):
+    # (since the cluster runtime: cluster_scaling)
+    assert sorted(registry.BENCHES) == ["cluster_scaling", "comm_overlap",
+                                        "event_vs_dense", "profile",
+                                        "scaling", "table1", "table2",
+                                        "weak_scaling"]
+    for name in ("weak_scaling", "comm_overlap", "scaling",
+                 "cluster_scaling"):
         assert name not in registry.NOT_PORTED
     for name in registry.NOT_PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):

@@ -253,7 +253,9 @@ def test_unported_options_are_refused():
         StepProgram(cfg, EngineConfig(n_shards=2, placement="scatter",
                                       connectivity="streamed:chunk=1"),
                     mesh=mesh)
-    for argv in (["--delivery", "nope"], ["--ckpt-dir", "x"],
+    # (--ckpt-dir runs since the checkpoints: tests/test_torch_checkpoint.py;
+    # --ckpt-every without it is refused)
+    for argv in (["--delivery", "nope"], ["--ckpt-every", "10"],
                  ["--connectivity-mode", "streamed:chunk=2", "--delivery",
                   "event"], ["--connectivity-mode", "streamed:chunk=0"]):
         with pytest.raises(SystemExit):

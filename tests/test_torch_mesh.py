@@ -79,12 +79,23 @@ CELLS[4].update(
     streamed_allgather_sync=_cell(SMALL, exchange="allgather",
                                   connectivity="streamed:chunk=1"),
     strip_halo_sync=_cell(STRIP, exchange="halo"),
-    strip_hier_sync=_cell(STRIP, exchange="hier"))
+    strip_hier_sync=_cell(STRIP, exchange="hier"),
+    event_hier_sync=_cell(SMALL, exchange="hier", delivery="event"),
+    scatter_halo_sync=_cell(SMALL, exchange="halo", placement="scatter"),
+    scatter_hier_pipelined=_cell(SMALL, exchange="hier",
+                                 placement="scatter",
+                                 exchange_schedule="pipelined"))
 CELLS[2].update(
     {f"dense_{ex}_{sc}": _cell(SMALL, exchange=ex, exchange_schedule=sc)
      for ex in ("halo", "hier") for sc in SCHEDULES},
     dense_allgather_sync=_cell(SMALL, exchange="allgather"),
     event_halo_sync=_cell(SMALL, exchange="halo", delivery="event"),
+    event_hier_pipelined=_cell(SMALL, exchange="hier", delivery="event",
+                               exchange_schedule="pipelined"),
+    scatter_halo_pipelined=_cell(SMALL, exchange="halo",
+                                 placement="scatter",
+                                 exchange_schedule="pipelined"),
+    scatter_hier_sync=_cell(SMALL, exchange="hier", placement="scatter"),
     streamed_halo_sync=_cell(SMALL, exchange="halo",
                              connectivity="streamed:chunk=1"))
 # one rank holding all four shards: streamed connectivity with scatter
