@@ -82,7 +82,18 @@ every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
            21 and 40 slots (a 2x2 event plan at full width, delay_max 20
            and 39: the kernel scans 16 slots a pass), bit-equal to its
            plain version on a CPU copy and on the card, timed beside it
-           (rows `d21`, `d40`).  The phase also prints ptxas's
+           (rows `d21`, `d40`).  Each of the six ops of the two paths
+           (`stdp_phase_a`, `arborize` and the four event ops) also has
+           a `[t_base]` row: its form with per-shard steps, as
+           `simserve`'s folded round launches it (t from a step counter
+           at 0, t_base[h] the shard's step), at simserve_timed's 8-tenant
+           fold (8 slots of the 4x4 full-width plan at H = 1, shard h at
+           step t + h, its inputs drawn at its own step at 2.15%),
+           bit-equal to its plain version with the same per-shard steps
+           on a CPU copy and on the card and, shard by shard, to each
+           shard's solo launch at its own step, timed beside those 8 solo
+           launches in turns on the same restored inputs.  The phase also
+           prints ptxas's
            registers and spills of `stdp.cu`, `arborize.cu`, `event.cu`
            and `event_phase_a.cu`;
   check    both deliveries (`StepProgram(..., device="cuda").run`; the
@@ -194,6 +205,26 @@ every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
            resumes at t = 50 (the corrupt epoch fails its sha256) and
            gives the h4_block signatures; restarts, steps salvaged and
            walls beside the card;
+  simserve_check  the multi-tenant service (`repro_torch.simserve`) at
+           4x4 full width (3.2 M synapses a tenant): seeds 2013, 7, 99,
+           5, 123456, 42 alternating dense and event delivery and seed
+           2013 under event delivery, at H = 2, in 2 slots, rounds of 25
+           steps, 150 steps each (queueing, preemption), the first
+           running tenant evicted after round 2 and resumed at H = 4
+           through its checkpoint; event tenants with capacities that
+           drop nothing.  Every tenant's streamed signature equal to its
+           solo `StepProgram.run` on the card, the seed-2013 pair equal to
+           `jax_reference.json`'s h1_block runs, sat 0, one capture per
+           shape key over 3 keys, preemptions > 0, and every kernel of
+           both paths launched by the service (the counts the `[t_base]`
+           rows carry);
+  simserve_timed  `simserve_throughput` at 4x4 full width, dense, H = 1:
+           1, 4 and 8 tenants, 300 steps in rounds of 50: tenant-steps/s,
+           the wall and the admissions' host builds, the paper's time per
+           synaptic event, the device's idle share over a profiled round,
+           beside the same tenants run one after another alone through
+           `StepProgram.run` (each equal to its service run; one build and
+           one capture a cell);
   bench    the ported suites (`repro_torch.bench`) on the card, one line
            per report (its env, config, deterministic and wall keys):
            `table1` quick (1x1, 4x4, 150 steps; the 4x4 row's raster
@@ -253,8 +284,9 @@ Then the LM serving path (`recurrentgemma-2b`, `repro_torch.serve`):
 
 Then the `{"kernels": [...]}` line (launches from the timed eager run of
 the delivery whose path the kernel is on, or the streamed timed eager
-run, counted by the wrappers, from the lm_serve run, and from
-attn_kernels' one call per shape) and, last,
+run, counted by the wrappers; of the `[t_base]` rows from simserve_check's
+service run; from the lm_serve run, and from attn_kernels' one call per
+shape) and, last,
 `{"ok": true, "device": {...}}`.  Any failed phase exits non-zero before
 that line.  Without a CUDA device, or without the rest of the repository
 beside it, it exits non-zero and prints no result.
@@ -373,6 +405,13 @@ ATTN_VARIANTS = {"rg_local_prefill": "wgmma", "rg_local_long": "wgmma",
                  "softcap": "wgmma", "bidir_ragged": "simt",
                  "rg_local_ragged": "wgmma"}
 ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2.0 ** -7, 1e-4)}
+# simserve_check: the fleet's seeds (alternating dense and event delivery),
+# its slots, round and steps; simserve_timed: the suite's steps and rounds
+SIMSERVE_SEEDS = (2013, 7, 99, 5, 123456, 42)
+SIMSERVE_SLOTS, SIMSERVE_ROUND, SIMSERVE_STEPS = 2, 25, 150
+# the [t_base] kernel rows: simserve_timed's largest group, 8 tenants at
+# H = 1, folded onto 8 shards
+T_BASE_SLOTS = 8
 
 
 class PhaseFailed(RuntimeError):
@@ -1106,6 +1145,67 @@ def _event_state(rng, plan_cpu, t: int, density: float, cap: int, D: int):
                 sat=torch.zeros(H, dtype=torch.int32))
 
 
+def _event_traffic(pc: dict, st: dict, r: int, lookup):
+    """({name: (bytes, flops)}, counts, operands) of the event ops on these
+    inputs (CPU tensors; ring slot r): what each must move and compute,
+    each input byte read once and each output byte written once, counting
+    only what the data makes it touch (`csrc/event.cu`'s note); the
+    neuron pass's comes from its plain output.  `lookup` is
+    `phase_build`'s: where the arrivals read syn_tgt, 8 B an event more."""
+    H, E = pc["valid"].shape
+    N = pc["row_ptr"].shape[1] - 1
+    S, D = pc["fwd"].shape[1], st["ev_ring"].shape[1]
+    half_neg = engine.NEG_TIME / 2
+    n = lambda m: int(m.sum())
+    ev = st["ev_ring"][:, r]
+    listed = ev >= 0
+    eve = torch.clamp(ev, min=0).to(torch.int64)
+    tgt_ev = torch.gather(pc["tgt"], 1, eve)
+    plast_ev = torch.gather(pc["plastic"], 1, eve) & listed
+    ltd = plast_ev & (torch.gather(st["last_post"], 1, tgt_ev)
+                      > half_neg)
+    n_ev = n(listed)
+    # per event: its list entry in and cleared, its target (syn_tgt's
+    # 8 B where the kernel reads it), plastic, w in, last_arr out; per
+    # LTD w out; per neuron last_post in, row pointers in and i_syn
+    # out; the counts
+    tgt_bytes = 8 if lookup[0] == 0 else 0
+    a_bytes = (n_ev * (4 + 4 + tgt_bytes + 1 + 4 + 4) + n(ltd) * 4
+               + H * N * (4 + 4) + H * (N + 1) * 4 + H * D * 4 + H * 8)
+    post_ids = st["post_ids"]
+    listed_n = torch.zeros((H, N + 1), dtype=torch.bool).scatter_(
+        1, post_ids.to(torch.int64), True)[:, :N]
+    row = kref.rows_of_synapses(pc["row_ptr"], E)
+    post = torch.cat([listed_n, listed_n.new_zeros(H, 1)],
+                     1).gather(1, row)
+    post_pl = post & pc["plastic"]
+    ltp_n = post_pl & (st["last_arr"] > half_neg)
+    # per listed neuron its list entry and its row's two pointers;
+    # per synapse of a listed one plastic, per plastic one last_arr,
+    # per LTP w in / out; the counts
+    l_bytes = (n(listed_n) * (4 + 4 + 4) + n(post) + n(post_pl) * 4
+               + n(ltp_n) * 8 + H * 8)
+    src_ids = st["src_ids"]
+    ok = src_ids < S
+    fwd = torch.gather(pc["fwd"], 1, torch.clamp(
+        src_ids, max=S - 1).to(torch.int64)[:, :, None].expand(
+        -1, -1, pc["fwd"].shape[2]))
+    emitted = n((fwd >= 0) & ok[:, :, None])
+    # the list; per emitted event its row entry and delay in and its
+    # id out; the counts and sat
+    e_bytes = src_ids.numel() * 4 + emitted * (4 + 4 + 4) + H * D * 8
+    traffic = {"event_arrival": (a_bytes, n_ev + n(ltd) * 25),
+               "event_neurons": None,       # from the plain output
+               "event_ltp": (l_bytes, n(ltp_n) * 25),
+               "event_emit": (e_bytes, 0)}
+    counts = dict(events=n_ev, ltd=n(ltd), spiking=n(st["spiked"]),
+                  listed_neurons=n(listed_n), ltp=n(ltp_n),
+                  spiking_sources=n(st["spiked_src"]), listed_sources=n(ok),
+                  emitted=emitted)
+    return traffic, counts, dict(eve=eve, listed=listed, tgt_ev=tgt_ev,
+                                 fwd=fwd, ok=ok)
+
+
 def _event_rows(sp8e, lookup):
     """The event ops on the 8x8 event plan's own tables (the plan's
     targets, delays and CSR rows, the EventPlan's forward rows) with the
@@ -1217,55 +1317,12 @@ def _event_rows(sp8e, lookup):
                             d["sat"], t)
             return d["ev_ring"], d["ev_count"], d["sat"]
 
-        # what each op must move on these inputs (csrc/event.cu's note)
         n = lambda m: int(m.sum())
-        ev = st["ev_ring"][:, r]
-        listed = ev >= 0
-        eve = torch.clamp(ev, min=0).to(torch.int64)
-        tgt_ev = torch.gather(pc["tgt"], 1, eve)
-        plast_ev = torch.gather(pc["plastic"], 1, eve) & listed
-        ltd = plast_ev & (torch.gather(st["last_post"], 1, tgt_ev)
-                          > half_neg)
-        n_ev = n(listed)
-        # per event: its list entry in and cleared, its target (syn_tgt's
-        # 8 B where the kernel reads it), plastic, w in, last_arr out; per
-        # LTD w out; per neuron last_post in, row pointers in and i_syn
-        # out; the counts
-        tgt_bytes = 8 if lookup[0] == 0 else 0
-        a_bytes = (n_ev * (4 + 4 + tgt_bytes + 1 + 4 + 4) + n(ltd) * 4
-                   + H * N * (4 + 4) + H * (N + 1) * 4 + H * D * 4 + H * 8)
-        post_ids = st["post_ids"]
-        listed_n = torch.zeros((H, N + 1), dtype=torch.bool).scatter_(
-            1, post_ids.to(torch.int64), True)[:, :N]
-        row = kref.rows_of_synapses(pc["row_ptr"], E)
-        post = torch.cat([listed_n, listed_n.new_zeros(H, 1)],
-                         1).gather(1, row)
-        post_pl = post & pc["plastic"]
-        ltp_n = post_pl & (st["last_arr"] > half_neg)
-        # per listed neuron its list entry and its row's two pointers;
-        # per synapse of a listed one plastic, per plastic one last_arr,
-        # per LTP w in / out; the counts
-        l_bytes = (n(listed_n) * (4 + 4 + 4) + n(post) + n(post_pl) * 4
-                   + n(ltp_n) * 8 + H * 8)
-        src_ids = st["src_ids"]
-        ok = src_ids < S
-        fwd = torch.gather(pc["fwd"], 1, torch.clamp(
-            src_ids, max=S - 1).to(torch.int64)[:, :, None].expand(
-            -1, -1, pc["fwd"].shape[2]))
-        emitted = n((fwd >= 0) & ok[:, :, None])
-        # the list; per emitted event its row entry and delay in and its
-        # id out; the counts and sat
-        e_bytes = src_ids.numel() * 4 + emitted * (4 + 4 + 4) + H * D * 8
-        traffic = {"event_arrival": (a_bytes, n_ev + n(ltd) * 25),
-                   "event_neurons": None,       # from the plain output
-                   "event_ltp": (l_bytes, n(ltp_n) * 25),
-                   "event_emit": (e_bytes, 0)}
+        traffic, counts, aux = _event_traffic(pc, st, r, lookup)
         shape = dict(H=H, E=E, N=N, S=S, D=D, cap_ev=cap, t=t,
-                     c_post=c_post, c_src=c_src,
-                     events=n_ev, ltd=n(ltd), spiking=n(st["spiked"]),
-                     listed_neurons=n(listed_n), ltp=n(ltp_n),
-                     spiking_sources=n(st["spiked_src"]),
-                     listed_sources=n(ok), emitted=emitted)
+                     c_post=c_post, c_src=c_src, **counts)
+        eve, listed, tgt_ev = aux["eve"], aux["listed"], aux["tgt_ev"]
+        fwd, ok = aux["fwd"], aux["ok"]
         # index_add_'s operands: each event's flat target and weight
         lib_tgt = (tgt_ev + torch.arange(H)[:, None] * N)[listed].cuda()
         lib_w = torch.gather(st["w"], 1, eve)[listed].cuda()
@@ -1511,6 +1568,311 @@ def _event_rows(sp8e, lookup):
     return rows, failed
 
 
+def _t_base_rows(sp, lookup):
+    """The per-shard step forms (`t_base`) of the six ops of the two
+    paths at a folded shape the service launches: T_BASE_SLOTS slots of
+    `sp`'s plan (H = 1; its event plan and capacities for the event ops)
+    folded onto [T_BASE_SLOTS, ...], as simserve_timed's 8-tenant group,
+    shard h at step t + h, so that the shards' ring slots and time
+    differences all differ.  Each shard's inputs are drawn at its own step
+    at the main path's density (2.15%).  Each op runs once on the whole
+    fold (t from a zero step counter, t_base the shards' steps) and must
+    be bit-equal, in every output and updated state tensor, to its plain
+    version with the same per-shard steps on a CPU copy and on the card,
+    and each shard's rows to that shard's solo launch at its own step, on
+    a copy of its inputs.  Timed beside those T_BASE_SLOTS solo launches
+    (in turns, on the same restored inputs), its plain version, its bound
+    (the solo rows' models summed over the shards, and t_base read once)
+    and, for the arrivals, `index_add_`.  (`lookup`: `phase_build`'s.)"""
+    dev = sp.plan.gid.device
+    B = T_BASE_SLOTS
+    spec = sp.spec
+    stdp, izh = spec.stdp, spec.izh
+    fold = lambda x: x.repeat((B,) + (1,) * (x.dim() - 1)).contiguous()
+    plan = engine.map_state(fold, sp.plan)
+    eplan = engine.map_state(fold, sp.eplan)
+    H, E = plan.syn_valid.shape                     # one shard a slot
+    N, S = plan.gid.shape[1], plan.src_gid.shape[1]
+    D = spec.cfg.n_delay_slots
+    c_post, c_src = sp.caps["c_post"], sp.caps["c_src"]
+    ts = [1003 + h for h in range(B)]
+    tb = torch.tensor(ts, dtype=torch.int64, device=dev)
+    ctr0 = torch.zeros(2, dtype=torch.int64, device=dev)
+    # each shard's step counter, as its solo event neuron pass reads it
+    ctrs = {t: torch.tensor([t, 0], dtype=torch.int64, device=dev)
+            for t in ts}
+    half_neg = engine.NEG_TIME / 2
+    ltd_kw = dict(a_minus=stdp.a_minus, tau_minus=stdp.tau_minus,
+                  w_min=stdp.w_min, w_max=stdp.w_max,
+                  neg_time=engine.NEG_TIME)
+    ltp_kw = dict(a_plus=stdp.a_plus, tau_plus=stdp.tau_plus,
+                  w_min=stdp.w_min, w_max=stdp.w_max,
+                  neg_time=engine.NEG_TIME)
+    pa_kw = dict(izh=izh, stdp=stdp, neg_time=engine.NEG_TIME,
+                 with_ltp=True)
+    pg = dict(valid=plan.syn_valid, tgt=plan.syn_tgt,
+              plastic=plan.syn_plastic, row_ptr=plan.row_ptr,
+              exc=plan.exc_mask, neuron_valid=plan.neuron_valid,
+              src=plan.syn_src, delay=plan.syn_delay, fwd_ptr=plan.fwd_ptr,
+              fwd_ids=plan.fwd_ids, fwd_delay=plan.fwd_delay,
+              fwd=eplan.fwd_rows)
+    pc = {k: v.cpu() for k, v in pg.items()}
+    # each shard's plan alone (its solo launch's), on the host and device
+    rows_of = lambda d, h: {k: v[h:h + 1] for k, v in d.items()
+                            if k != "seg"}
+    pc_h = [rows_of(pc, h) for h in range(B)]
+    pg_h = [{k: v.clone() for k, v in rows_of(pg, h).items()}
+            for h in range(B)]
+    for p in [pg, pc] + pg_h:
+        p["seg"] = kref.make_segments(p["row_ptr"], E)
+
+    rng = np.random.default_rng(2027)
+    f = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32))
+
+    def dense_inputs(h):
+        t, p = ts[h], pc_h[h]
+        st = _stdp_state(rng, p, D, t % D, float(t), STDP_DENSITY)
+        idx, amp = engine.stim_rows(spec, sp.plan, t, 1)
+        st = _phase_a_inputs(rng, p, st, (idx[0], amp[0]), STDP_DENSITY)
+        st["spiked_src"] = torch.from_numpy(rng.random((1, S))
+                                            < STDP_DENSITY)
+        return st
+
+    def event_inputs(h):
+        t, p = ts[h], pc_h[h]
+        st = _event_state(rng, p, t, STDP_DENSITY, sp.cap_ev, D)
+        st["spiked"] = torch.from_numpy(rng.random((1, N)) < STDP_DENSITY)
+        st["spiked_src"] = torch.from_numpy(rng.random((1, S))
+                                            < STDP_DENSITY)
+        st["post_count"], st["post_ids"] = kref.event_compact(
+            st["spiked"], st["last_post"].clone(), st["sat"].clone(), t,
+            c_post=c_post)
+        ids, drop = aer.compact_indices(st["spiked_src"], c_src, fill=S)
+        st["src_ids"], st["src_drop"] = ids.contiguous(), drop
+        st["i_syn"] = f(rng.uniform(-5.0, 20.0, (1, N)))
+        st["v"] = f(np.where(rng.random((1, N)) < STDP_DENSITY,
+                             rng.uniform(30.0, 40.0, (1, N)),
+                             rng.uniform(-80.0, -60.0, (1, N))))
+        st["u"] = f(rng.uniform(-20.0, 10.0, (1, N)))
+        idx, amp = engine.stim_rows(spec, sp.plan, t, 1)
+        st["stim_idx"], st["stim_amp"] = idx[0].cpu(), amp[0].cpu()
+        return st
+
+    def per_shard(draw):
+        parts = [draw(h) for h in range(B)]
+        return parts, {k: torch.cat([q[k] for q in parts])
+                       for k in parts[0]}
+
+    def steps(impl, d, t):
+        """(t argument, keywords): an int t is a solo launch at t; None
+        the fold (the kernel's zero step counter and t_base, the plain
+        version's per-shard steps)."""
+        if t is not None:
+            return t, {}
+        if impl is kref:
+            return torch.tensor(ts, dtype=torch.int64,
+                                device=d["w"].device), {}
+        return ctr0, {"t_base": tb}
+
+    def window(impl, t, x):
+        # the kernels read the stimulus from a window when t is a counter
+        return x[None] if impl is not kref and (t is None or impl is kev) \
+            else x
+
+    def phase_a(impl, d, p, t=None):
+        step, kw = steps(impl, d, t)
+        r = None if impl is kstdp and t is None else (t or 0) % D
+        out = impl.stdp_phase_a(
+            d["ring"], r, p["seg"], *(
+                (p["valid"], p["tgt"]) if impl is kref else ()),
+            p["plastic"], p["exc"], p["neuron_valid"],
+            window(impl, t, d["stim_idx"]), window(impl, t, d["stim_amp"]),
+            d["v"], d["u"], d["last_post"], d["w"], d["last_arr"], step,
+            **pa_kw, **kw)
+        return (*out, d["v"], d["u"], d["w"], d["last_arr"],
+                d["last_post"], d["ring"])
+
+    def arborize(impl, d, p, t=None):
+        step, kw = steps(impl, d, t)
+        csr = ((p["fwd_ptr"], p["fwd_ids"], p["fwd_delay"])
+               if impl is karb else ())
+        return (impl.arborize(d["ring"], d["spiked_src"], p["src"],
+                              p["delay"], p["valid"], *csr, step, **kw),)
+
+    def arrival(impl, d, p, t=None):
+        step, kw = steps(impl, d, t)
+        if impl is kref:
+            out = kref.event_arrival(
+                d["ev_ring"], d["ev_count"], (t or 0) % D, p["tgt"],
+                p["plastic"], d["last_post"], d["w"], d["last_arr"], step,
+                **ltd_kw)
+        else:
+            out = kev.event_arrival(
+                d["ev_ring"], d["ev_count"], p["tgt"], p["row_ptr"],
+                p["plastic"], d["last_post"], d["w"], d["last_arr"], step,
+                **ltd_kw, **kw)
+        return (*out, d["w"], d["last_arr"], d["ev_ring"], d["ev_count"])
+
+    def neurons(impl, d, p, t=None):
+        # the kernel as the path calls it: t and the stimulus row from a
+        # step counter, the stimulus a window
+        step, kw = steps(impl, d, t)
+        if impl is kev and t is not None:
+            step = ctrs[t]
+        out = impl.event_neurons(
+            d["i_syn"], window(impl, t, d["stim_idx"]),
+            window(impl, t, d["stim_amp"]), p["exc"], p["neuron_valid"],
+            d["v"], d["u"], d["last_post"], d["sat"], step, izh=izh,
+            c_post=c_post, **kw)
+        return (*out, d["v"], d["u"], d["last_post"], d["sat"])
+
+    def ltp(impl, d, p, t=None):
+        step, kw = steps(impl, d, t)
+        impl.event_ltp(d["post_ids"], d["post_count"], p["row_ptr"],
+                       p["plastic"], d["last_arr"], d["w"], step, **ltp_kw,
+                       **kw)
+        return (d["w"],)
+
+    def emit(impl, d, p, t=None):
+        step, kw = steps(impl, d, t)
+        impl.event_emit(d["src_ids"], d["src_drop"], p["fwd"], p["delay"],
+                        d["ev_ring"], d["ev_count"], d["sat"], step, **kw)
+        return d["ev_ring"], d["ev_count"], d["sat"]
+
+    n = lambda m: int(m.sum())
+    dense_h, dense = per_shard(dense_inputs)
+    event_h, event = per_shard(event_inputs)
+    # the work each shard's inputs make each op do (the solo rows' models)
+    ev_traffic = [_event_traffic(pc_h[h], event_h[h], ts[h] % D, lookup)
+                  for h in range(B)]
+    summed = lambda name: tuple(map(sum, zip(*(tr[name] for tr, _, _ in
+                                              ev_traffic))))
+    lib_tgt = torch.cat([(aux["tgt_ev"] + h * N)[aux["listed"]]
+                         for h, (_, _, aux) in enumerate(ev_traffic)]).to(dev)
+    lib_w = torch.cat([torch.gather(event_h[h]["w"], 1, aux["eve"])[
+        aux["listed"]] for h, (_, _, aux) in enumerate(ev_traffic)]).to(dev)
+    cases = (
+        ("stdp_phase_a", phase_a, kstdp, dense,
+         ("ring", "w", "last_arr", "v", "u", "last_post"),
+         STDP_KERNEL_NAMES["stdp_phase_a"], "src/repro_torch/csrc/stdp.cu",
+         STDP_REPLACES["stdp_phase_a"]),
+        ("arborize", arborize, karb, dense, ("ring",), "arborize_rows",
+         "src/repro_torch/csrc/arborize.cu", "src/repro/core/engine.py:315"),
+        *((name, fn, kev, event, state, EVENT_KERNEL_NAMES[name],
+           EVENT_SOURCES[name], EVENT_REPLACES[name])
+          for name, fn, state in (
+              ("event_arrival", arrival,
+               ("ev_ring", "ev_count", "w", "last_arr")),
+              ("event_neurons", neurons, ("v", "u", "last_post", "sat")),
+              ("event_ltp", ltp, ("w",)),
+              ("event_emit", emit, ("ev_ring", "ev_count", "sat")))))
+    rows, failed = [], []
+    on_dev = {}
+    for name, fn, kimpl, st, state, kernel, source, replaces in cases:
+        if id(st) not in on_dev:
+            on_dev.clear()
+            torch.cuda.empty_cache()
+            saved = {k: v.to(dev) for k, v in st.items()}
+            on_dev[id(st)] = (saved, {k: v.clone() for k, v in saved.items()},
+                              [{k: v[h:h + 1].clone() for k, v in
+                                saved.items()} for h in range(B)])
+        saved, work, solo_work = on_dev[id(st)]
+
+        def restore(*names):
+            for k in names:
+                work[k].copy_(saved[k])
+
+        def solo_restore(names=state):
+            for h in range(B):
+                for k in names:
+                    solo_work[h][k].copy_(saved[k][h:h + 1])
+
+        again = lambda: restore(*state)
+        launch = lambda: fn(kimpl, work, pg)
+        solo_all = lambda: [fn(kimpl, solo_work[h], pg_h[h], ts[h])
+                            for h in range(B)]
+        restore(*saved)
+        got = [x.clone() for x in launch()]
+        torch.cuda.synchronize()
+        cpu = {k: v.clone() for k, v in st.items()}
+        with kref.flush_denormal():
+            want = fn(kref, cpu, pc)
+        restore(*state)
+        want_dev = fn(kref, work, pg)
+        solo_restore(saved)
+        solo = [[x.clone() for x in out] for out in solo_all()]
+        equal_plain = all(bit_equal(a, b) and bit_equal(a, c)
+                          for a, b, c in zip(got, want, want_dev))
+        equal_solo = all(bit_equal(a[h:h + 1], solo[h][i])
+                         for i, a in enumerate(got) for h in range(B))
+        err = max(max(max_abs_err(a, b), max_abs_err(a, c),
+                      *(max_abs_err(a[h:h + 1], solo[h][i])
+                        for h in range(B)))
+                  for i, (a, b, c) in enumerate(zip(got, want, want_dev)))
+        if not (equal_plain and equal_solo):
+            failed.append(f"{name}[t_base]")
+        if name == "stdp_phase_a":
+            n_bytes = n_flops = 0
+            for h in range(B):
+                r = ts[h] % D
+                tr, _ = _stdp_traffic(pc_h[h], dense_h[h], r, half_neg)
+                b_, f_, _ = _phase_a_traffic(
+                    pc_h[h], dense_h[h], want[0][h:h + 1], r, ts[h],
+                    half_neg, tr["stdp_arrival_current"][0])
+                n_bytes, n_flops = n_bytes + b_, n_flops + f_
+        elif name == "arborize":
+            # the spike flags, the two row pointers of each spiking
+            # source, per synapse it sets its id and delay in, its flag out
+            n_active = n(torch.gather(st["spiked_src"], 1, pc["src"])
+                         & pc["valid"])
+            n_bytes = H * S + n(st["spiked_src"]) * 8 + n_active * (4 + 4 + 1)
+            n_flops = 0
+        elif name == "event_neurons":
+            n_bytes = (H * N * (16 + 4 + 2 + 1) + n(want[0]) * 4
+                       + H * c_post * 4
+                       + nbytes(st["stim_idx"], st["stim_amp"]) + H * 12)
+            n_flops = H * N * 20
+        else:
+            n_bytes, n_flops = summed(name)
+        n_bytes += 8 * H                                 # t_base
+        bms, by = bound(n_bytes, n_flops)
+        forms = {"t_base": [], "solo": []}
+        for _ in range(2):
+            forms["t_base"].append(device_ms(launch, restore=again,
+                                             kernel=kernel))
+            forms["solo"].append(device_ms(solo_all, restore=solo_restore,
+                                           kernel=kernel))
+        rows.append(dict(
+            name=name + "[t_base]", route="cuda", source=source,
+            replaces=replaces, launches=None, max_abs_err=err,
+            ms=in_place_ms(launch, again),
+            solo_ms=in_place_ms(solo_all, solo_restore),
+            device_ms=forms["t_base"][0],
+            t_base_device_ms=forms["t_base"],
+            solo_device_ms=forms["solo"],
+            plain_ms=in_place_ms(lambda: fn(kref, work, pg), again,
+                                 calls=3, warmup=1),
+            bound_ms=bms, bound_by=by,
+            library_ms=(cuda_ms(lambda: torch.zeros(
+                H * N, device=dev).index_add_(0, lib_tgt, lib_w))
+                if name == "event_arrival" else None),
+            equal=equal_plain and equal_solo, equal_to_plain=equal_plain,
+            equal_to_solo=equal_solo,
+            form="one launch over the fold: t from a step counter at 0, "
+                 "t_base[h] the shard's step (int64 [H]), as simserve's "
+                 "round launches it; solo_*: the slots' own launches, one "
+                 "a shard at its step",
+            tolerance="bit-equal (every output and updated state tensor, "
+                      "0 ulp), to the plain version with the same "
+                      "per-shard steps on a CPU copy and on the card, and "
+                      "each shard's rows to its solo launch",
+            density="main", bytes=n_bytes, flops=n_flops,
+            shape=dict(slots=B, tenant_shards=1, H=H, E=E, N=N, S=S, D=D,
+                       steps=ts, cap_ev=sp.cap_ev, c_post=c_post,
+                       c_src=c_src)))
+    return rows, failed
+
+
 def _event_emit_long_rings():
     """`event_emit` on rings of 21 and 40 slots (delay_max 20 and 39; the
     kernel scans 16 slots a pass): a 2x2 event plan at full width (800,000
@@ -1674,6 +2036,13 @@ def phase_kernels(plan8, spec8, sp8e, lookup):
     long_rows, long_failed = _event_emit_long_rings()
     rows += long_rows
     failed += long_failed
+    sp4e = _program(GridConfig(grid_x=4, grid_y=4),
+                    EngineConfig(delivery="event"))
+    tb_rows, tb_failed = _t_base_rows(sp4e, lookup)
+    del sp4e
+    torch.cuda.empty_cache()
+    rows += tb_rows
+    failed += tb_failed
     # registers, shared memory and spills of the STDP kernels (row_kernel<
     # true> is phase A, row_kernel<false> the fused arrival pass) and of
     # phase B's
@@ -2071,6 +2440,146 @@ def phase_bench():
     if not same:
         raise PhaseFailed("table2 differs between the sync and pipelined "
                           "schedules")
+
+
+# ----------------------------------------------------------------------------
+# the multi-tenant simulation service (repro_torch.simserve)
+# ----------------------------------------------------------------------------
+
+
+def _simserve_fleet(cfg0, H: int) -> list:
+    """simserve_check's tenants at H shards: SIMSERVE_SEEDS alternating
+    dense and event delivery, then seed 2013 under event delivery (the
+    reference's other run).  The event tenants carry capacities at which
+    nothing drops: each shard's neurons listed, as many sources as the
+    grid has neurons (no shard has more), and a ring of twice a shard's
+    mean synapses a slot (each synapse is in a slot at most once)."""
+    caps = (cfg0.n_neurons // H, cfg0.n_neurons)
+    cap_ev = 2 * cfg0.n_synapses // H
+    fleet = list(enumerate(SIMSERVE_SEEDS)) + [(len(SIMSERVE_SEEDS), 2013)]
+    reqs = []
+    for i, seed in fleet:
+        cfg = dataclasses.replace(cfg0, seed=seed)
+        if i % 2 or i == len(SIMSERVE_SEEDS):
+            reqs.append(simserve.TenantRequest(
+                f"t{i}", cfg, EngineConfig(n_shards=H, delivery="event"),
+                SIMSERVE_STEPS, caps=caps, cap_ev=cap_ev))
+        else:
+            reqs.append(simserve.TenantRequest(
+                f"t{i}", cfg, EngineConfig(n_shards=H), SIMSERVE_STEPS))
+    return reqs
+
+
+def phase_simserve_check(card: str) -> dict:
+    """The service on the card at 4x4 full width (3.2 M synapses a
+    tenant): the fleet of `_simserve_fleet` at H = 2 in 2 slots, rounds of
+    SIMSERVE_ROUND steps, SIMSERVE_STEPS steps each; the first running
+    tenant evicted after round 2 and resumed a round later at H = 4
+    (through its checkpoint).  Every tenant's streamed signature must equal
+    its solo `StepProgram.run` on the card (the captured graph), the seed
+    2013 tenants `jax_reference.json`'s h1_block runs (dense and event),
+    sat 0 everywhere, one capture per shape key over 3 keys, preemptions
+    > 0, and every kernel of both deliveries' paths launched (the
+    wrappers' counts, set to 0 before the service and read after it: each
+    program's first round runs eagerly, then is captured).  Returns those
+    counts."""
+    with open(os.path.join(HERE, "src", "repro_torch", "data",
+                           "jax_reference.json")) as f:
+        ref = json.load(f)
+    cfg0 = GridConfig(**ref["grid"],
+                      neurons_per_column=ref["neurons_per_column"],
+                      synapses_per_neuron=ref["synapses_per_neuron"])
+    reqs = _simserve_fleet(cfg0, 2)
+    svc = simserve.SimService(slots=SIMSERVE_SLOTS,
+                              round_steps=SIMSERVE_ROUND, device="cuda")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        svc.submit(r)
+    svc.step_round()
+    svc.step_round()
+    victim = next(v for v in svc.sessions.values()
+                  if v.status == simserve.RUNNING)
+    svc.evict(victim.name)
+    svc.step_round()
+    svc.resume(victim.name, eng=dataclasses.replace(
+        victim.eng, n_shards=2 * victim.eng.n_shards))
+    snap = svc.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    tenants, failed = {}, []
+    t0 = time.perf_counter()
+    for r in reqs:
+        sess = svc.sessions[r.name]
+        sig = sess.stream.signature().hex()
+        solo_sig, solo_sat = simserve.batcher.solo_run(
+            r.cfg, r.eng, r.n_steps, r.caps, r.cap_ev, device="cuda")
+        res = dict(seed=r.cfg.seed, delivery=r.eng.delivery,
+                   shards=sess.eng.n_shards, status=sess.status,
+                   equal_to_solo=sig == solo_sig.hex(), sat=sess.sat_total,
+                   solo_sat=solo_sat, evictions=sess.evictions,
+                   resumes=sess.resumes, events=sess.stream.n_events,
+                   queue_wait_rounds=sess.queue_wait_rounds)
+        if r.cfg.seed == 2013:
+            runs = ref["runs" if r.eng.delivery == "dense" else "event_runs"]
+            res["equal_to_jax_reference"] = (
+                sig == runs["h1_block"]["raster_signature"])
+            if not res["equal_to_jax_reference"]:
+                failed.append(f"{r.name} against jax_reference.json")
+        if not (res["equal_to_solo"] and sess.status == simserve.DONE
+                and sess.sat_total == 0 and solo_sat == 0):
+            failed.append(r.name)
+        tenants[r.name] = res
+    solo_s = time.perf_counter() - t0
+    traces = snap["program_cache"]["traces"]
+    unlaunched = [k for k in ops.SNN_KERNELS + ops.EVENT_KERNELS
+                  if not counts.get(k)]
+    emit({"phase": "simserve_check", "card": card,
+          "grid": f"{cfg0.grid_x}x{cfg0.grid_y}",
+          "synapses_per_tenant": cfg0.n_synapses, "slots": SIMSERVE_SLOTS,
+          "round_steps": SIMSERVE_ROUND, "steps": SIMSERVE_STEPS,
+          "victim": victim.name, "tenants": tenants,
+          "snapshot": {k: v for k, v in snap.items()
+                       if k != "program_cache"},
+          "program_cache": snap["program_cache"], "launches": counts,
+          "wall_s": wall, "solo_runs_s": solo_s})
+    if failed:
+        raise PhaseFailed(f"simserve: tenants differ from their solo runs "
+                          f"or the reference, or dropped events: {failed}")
+    if len(traces) != 3 or any(n != 1 for n in traces.values()) \
+            or snap["program_cache"]["builds"] != 3:
+        raise PhaseFailed(f"simserve: not one capture per shape key: "
+                          f"{snap['program_cache']}")
+    if not snap["preemptions"]:
+        raise PhaseFailed("simserve: the overloaded slots preempted nobody")
+    if unlaunched:
+        raise PhaseFailed(f"simserve: the service's rounds launched no "
+                          f"{unlaunched}")
+    return counts
+
+
+def phase_simserve_timed(card: str) -> None:
+    """`simserve_throughput` on the card at 4x4 full width, dense, H = 1:
+    1, 4 and 8 tenants in as many slots, 300 steps in rounds of 50
+    (`size="full"`; tenant-steps/s, wall, the host's table builds, the
+    paper's time per synaptic event, the device's idle share over a
+    profiled round), beside the same tenants run one after another alone
+    through `StepProgram.run`; every tenant equal to its solo run, one
+    build and one capture a cell."""
+    rep = simserve_throughput.run_suite(device="cuda", size="full")
+    rows = rep["extra"]["rows"]
+    for r in rows:
+        r.pop("tenant_sigs")
+    emit({"phase": "simserve_timed", "card": card, "env": rep["env"],
+          "config": rep["config"], "deterministic": rep["deterministic"],
+          "wall": rep["wall"], "rows": rows, "solo": rep["extra"]["solo"]})
+    bad = [r["tenants"] for r in rows
+           if not (r["solo_equal"] and r["cache_builds"] == 1
+                   and r["traces"] == 1)]
+    if bad:
+        raise PhaseFailed(f"simserve_timed: cells of {bad} tenants differ "
+                          f"from their solo runs or were recaptured")
 
 
 # ----------------------------------------------------------------------------
@@ -3624,6 +4133,10 @@ def main() -> int:
         del ckpt8
         phase_cluster(card)
         torch.cuda.empty_cache()
+        simserve_launches = phase_simserve_check(card)
+        torch.cuda.empty_cache()
+        phase_simserve_timed(card)
+        torch.cuda.empty_cache()
         phase_bench()
         torch.cuda.empty_cache()
         lm_rows = phase_lm_kernels()
@@ -3636,8 +4149,12 @@ def main() -> int:
         return 1
     for r in rows:
         # the timed eager runs launched every other SNN kernel 0 times
-        # (phase_timed checks it)
-        r["launches"] = launches.get(r["name"], 0)
+        # (phase_timed checks it); the t_base forms' launches are those of
+        # simserve_check's service run
+        name = r["name"]
+        r["launches"] = (simserve_launches.get(name[:-len("[t_base]")], 0)
+                         if name.endswith("[t_base]")
+                         else launches.get(name, 0))
     rows.append(dict(lm_rows[0], launches=lm_launches))   # prefill shape
     rows.append(dict(attn_rows[0], launches=attn_launches))  # rg_local_prefill
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
@@ -3651,19 +4168,22 @@ def main() -> int:
     return 0
 
 
-if __name__ == "__main__":
-    # The CPU plain versions are yardsticks, so their bits must not depend
-    # on the host: ATen's and MKL's CPU kernels otherwise dispatch on the
-    # host's vector instruction set (AVX-512, AVX2, ...), and the plain
-    # attention's bits follow it (`tests/test_torch_cuda.py --softcap-isa`).
-    # Pin both to the code paths every x86-64 host runs alike, before torch
-    # starts.
+def import_port() -> None:
+    """Import the port as this script's globals, the names its phases use
+    (a script that runs some phases alone calls this first).  The CPU
+    plain versions are yardsticks, so their bits must not depend on the
+    host: ATen's and MKL's CPU kernels otherwise dispatch on the host's
+    vector instruction set (AVX-512, AVX2, ...), and the plain attention's
+    bits follow it (`tests/test_torch_cuda.py --softcap-isa`).  Pin both
+    to the code paths every x86-64 host runs alike, before torch starts."""
     os.environ.update(ATEN_CPU_CAPABILITY="default", MKL_CBWR="COMPATIBLE")
     sys.path.insert(0, os.path.join(HERE, "src"))
     import torch
     from repro_torch.bench import profile as bench_profile
     from repro_torch.bench import timing
-    from repro_torch.bench.suites import event_vs_dense, table1, table2
+    from repro_torch import simserve
+    from repro_torch.bench.suites import (event_vs_dense, simserve_throughput,
+                                          table1, table2)
     from repro_torch.cluster import cli as cluster_cli
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import (EngineConfig, GridConfig, StepProgram,
@@ -3681,4 +4201,9 @@ if __name__ == "__main__":
     from repro_torch.models import convert, lm
     from repro_torch.serve import engine as serve_engine
     from repro_torch.serve import sampling
+    globals().update(locals())
+
+
+if __name__ == "__main__":
+    import_port()
     sys.exit(main())

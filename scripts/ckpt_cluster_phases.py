@@ -18,22 +18,11 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def main() -> int:
-    # the CPU plain versions' pin, before torch starts (as chip_smoke.py)
-    os.environ.update(ATEN_CPU_CAPABILITY="default", MKL_CBWR="COMPATIBLE")
-    sys.path[:0] = [HERE, os.path.join(HERE, "src")]
-    import torch
+    sys.path.insert(0, HERE)
     import chip_smoke as cs
-    from repro_torch.cluster import cli as cluster_cli
-    from repro_torch.core import (EngineConfig, GridConfig, StepProgram,
-                                  engine, event_engine, observables)
-    from repro_torch.kernels import _build, ops
-    # the names chip_smoke.py's own main imports as its globals
-    for name, value in dict(
-            torch=torch, EngineConfig=EngineConfig, GridConfig=GridConfig,
-            StepProgram=StepProgram, engine=engine, observables=observables,
-            event_engine=event_engine, _build=_build, ops=ops,
-            cluster_cli=cluster_cli).items():
-        setattr(cs, name, value)
+    cs.import_port()
+    torch, StepProgram = cs.torch, cs.StepProgram
+    GridConfig, EngineConfig = cs.GridConfig, cs.EngineConfig
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
@@ -56,7 +45,7 @@ def main() -> int:
             print(f"{name} FAILED: {e}", file=sys.stderr, flush=True)
             rc = 1
     t0 = time.perf_counter()
-    rep = cluster_cli.sweep_report(quick=True, device="cuda")
+    rep = cs.cluster_cli.sweep_report(quick=True, device="cuda")
     print(json.dumps({"phase": "cluster_scaling_quick",
                       "seconds": time.perf_counter() - t0,
                       "deterministic": rep["deterministic"],

@@ -43,6 +43,11 @@ def _scaling(quick, device):
     return scaling.run_suite(quick, device)
 
 
+def _simserve_throughput(quick, device):
+    from .suites import simserve_throughput
+    return simserve_throughput.run_suite(quick, device)
+
+
 def _table1(quick, device):
     from .suites import table1
     return table1.run_suite(quick, device)
@@ -75,6 +80,10 @@ BENCHES: Dict[str, Entry] = {e.name: e for e in [
     Entry("scaling", _scaling,
           "strong/weak scaling over torch.distributed ranks (paper Figs. "
           "3-1, 3-2)"),
+    Entry("simserve_throughput", _simserve_throughput,
+          "the multi-tenant service at 1 / 4 / 8 same-shape tenants: "
+          "steps/s, one build and one capture per key (repro_torch."
+          "simserve)"),
     Entry("table1", _table1,
           "problem sizes, rates, normalized time/synapse (paper Table 1)"),
     Entry("table2", _table2,
@@ -88,7 +97,6 @@ BENCHES: Dict[str, Entry] = {e.name: e for e in [
 #: The JAX package's suites that the port does not run yet, and the
 #: ROADMAP item (queue 1) that ports each.
 NOT_PORTED: Dict[str, str] = {
-    "simserve_throughput": "item 11 (the simulation service)",
     "connectivity_sweep": "item 12 (the rest of the bench tooling)",
     "roofline": "item 12 (the rest of the bench tooling)",
     "lm_throughput": "item 13 (the LM substrate)",

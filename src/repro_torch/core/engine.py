@@ -364,20 +364,23 @@ def make_gid_to_local(spec: SimSpec, shard_id: torch.Tensor) -> Callable:
 # ----------------------------------------------------------------------------
 
 
-def _phase_a(spec: SimSpec, plan: ShardPlan, state: ShardState, t: int,
-             stim, seg: kref.Segments, coeffs, with_ltp: bool
+def _phase_a(spec: SimSpec, plan: ShardPlan, state: ShardState, t,
+             stim, seg: kref.Segments, coeffs, with_ltp: bool, t_base=None
              ) -> Tuple[ShardState, torch.Tensor, StepTimings]:
     """Phase A steps 1-5, and 6 `with_ltp`, as one op (one launch on the
     card): pop slot t mod D (the arrived pre-LTD weights of each target
     summed in canonical (tgt, src, j) order => reproducible current), LTD
     against the nearest post spike, last-arrival refresh, stimulus,
-    Izhikevich update, and LTP of the targets that spiked."""
+    Izhikevich update, and LTP of the targets that spiked.  `t` is an int,
+    or on the card the device step counter (the stimulus then a window);
+    `t_base` (int64 [H]) gives each shard its own step t + t_base[h]."""
+    r = None if isinstance(t, torch.Tensor) else t % spec.cfg.n_delay_slots
     spiked, n_arrived, n_spikes = kops.stdp_phase_a(
-        state.arr_ring, t % spec.cfg.n_delay_slots, seg, plan.syn_valid,
+        state.arr_ring, r, seg, plan.syn_valid,
         plan.syn_tgt, plan.syn_plastic, plan.exc_mask, plan.neuron_valid,
         *stim, state.v, state.u, state.last_post, state.w, state.last_arr, t,
         izh=spec.izh, stdp=spec.stdp, neg_time=NEG_TIME, with_ltp=with_ltp,
-        coeffs=coeffs)
+        coeffs=coeffs, t_base=t_base)
     return state, spiked, StepTimings(spikes=n_spikes, arrivals=n_arrived)
 
 
@@ -428,25 +431,28 @@ def phase_a_plasticity(spec: SimSpec, plan: ShardPlan, state: ShardState,
     return state
 
 
-def phase_a(spec: SimSpec, plan: ShardPlan, state: ShardState, t: int,
-            stim, seg: kref.Segments, coeffs=None
+def phase_a(spec: SimSpec, plan: ShardPlan, state: ShardState, t,
+            stim, seg: kref.Segments, coeffs=None, t_base=None
             ) -> Tuple[ShardState, torch.Tensor, StepTimings]:
     """Local dynamics: arrivals -> currents -> LTD -> neuron -> LTP, the
     same bits as `phase_a_dynamics` then `phase_a_plasticity` in one op.
-    Arguments as `phase_a_dynamics`'.  Returns (state, spiked [H, N] bool,
-    timings).  Updates the state's v, u, w, last_arr, last_post and
-    arr_ring in place."""
-    return _phase_a(spec, plan, state, t, stim, seg, coeffs, with_ltp=True)
+    Arguments as `phase_a_dynamics`', and `t_base` as `_phase_a`'s.
+    Returns (state, spiked [H, N] bool, timings).  Updates the state's v,
+    u, w, last_arr, last_post and arr_ring in place."""
+    return _phase_a(spec, plan, state, t, stim, seg, coeffs, with_ltp=True,
+                    t_base=t_base)
 
 
 def phase_b(spec: SimSpec, plan: ShardPlan, state: ShardState,
-            spiked_src: torch.Tensor, t: int) -> ShardState:
+            spiked_src: torch.Tensor, t, t_base=None) -> ShardState:
     """Deferred axonal arborization: set arrival flags at slot
     (t + delay) mod D, in place, for the valid synapses whose source
     spiked (`kernels.ops.arborize`: one launch on the card, which walks
     the plan's forward CSR rows of the sources that spiked and reads
-    nothing back).  An all-False `spiked_src` sets nothing."""
-    kops.arborize(state.arr_ring, spiked_src, *arborize_tables(plan), t)
+    nothing back).  An all-False `spiked_src` sets nothing.  `t_base` as
+    `_phase_a`'s."""
+    kops.arborize(state.arr_ring, spiked_src, *arborize_tables(plan), t,
+                  t_base=t_base)
     return state
 
 
@@ -479,8 +485,12 @@ class StimWindow:
     time pays one upload per window; `draw(t0, n)` sets the window
     explicitly (a timed loop draws its whole range before it starts)."""
 
-    def __init__(self, spec: SimSpec, plan: ShardPlan, t0: int, n: int):
+    def __init__(self, spec: SimSpec, plan: ShardPlan, t0: int, n: int,
+                 cfg: Optional[GridConfig] = None):
         self.spec, self.plan = spec, plan
+        # the stimulus stream is the simulation's own (its seed): `cfg`
+        # where the spec is shared by several (`simserve`'s groups)
+        self.cfg = spec.cfg if cfg is None else cfg
         self.columns = plan.columns.cpu().numpy()
         self.g2l = make_gid_to_local(spec, plan.shard_id)
         self.origin = t0
@@ -488,9 +498,9 @@ class StimWindow:
 
     def draw(self, t0: int, n: int) -> None:
         gids = torch.from_numpy(stimulus.stim_table(
-            self.spec.cfg, self.columns, t0, n)).to(self.plan.gid.device)
+            self.cfg, self.columns, t0, n)).to(self.plan.gid.device)
         self.index, self.amp = stimulus.stim_inputs(
-            self.spec.cfg, self.plan.columns, self.g2l,
+            self.cfg, self.plan.columns, self.g2l,
             gids.to(torch.int64), self.spec.n_local)
         self.t0, self.n = t0, n
 
@@ -522,19 +532,54 @@ class StepFns(NamedTuple):
 def make_exchange(spec: SimSpec, plan: ShardPlan) -> Callable:
     """The run's exchange, spiked [H, N] -> spiked_src [H, S]: the global
     spike mask gathered by each shard's source table (its tables derived
-    from the plan once; three device operations a call)."""
-    dev = plan.gid.device
-    flat_gid = plan.gid.reshape(-1)
-    owned = torch.nonzero(flat_gid >= 0).reshape(-1)
-    gid_pos = torch.zeros(spec.n_total, dtype=torch.int64, device=dev)
-    gid_pos[flat_gid[owned]] = owned
-    src_ok = plan.src_gid >= 0
-    src_safe = torch.where(src_ok, plan.src_gid, 0)
-
-    def exchange(spiked):
-        glob = _global_spike_mask(spiked, gid_pos)
-        return glob[src_safe] & src_ok
+    from the plan once; three device operations a call): the folded
+    exchange of one slot."""
+    exchange = FoldedExchange(spec, plan.gid, 1, plan.src_gid.shape[1])
+    exchange.install(0, plan.src_gid)
     return exchange
+
+
+class FoldedExchange:
+    """`make_exchange` for B independent simulations of one layout folded
+    onto the shard axis (slot b's H shards are rows [b*H, (b+1)*H) of a
+    [B*H, ...] plan): the global spike mask over B * n_total gids, slot b's
+    gids offset by b * n_total, so no slot sees another's spikes.
+
+    Its tables are static tensors (what a captured CUDA graph reads):
+    gid_pos [B * n_total] from the layout's gid table `gid` [H, N] (every
+    slot's is the same), and src_safe / src_ok [B*H, S], which
+    `install(b, src_gid)` rewrites in place for a slot's own source table.
+    A call is three device operations."""
+
+    def __init__(self, spec: SimSpec, gid: torch.Tensor, slots: int,
+                 s_cap: int):
+        H = gid.shape[0]        # a rank's block of shards over a mesh
+        dev = gid.device
+        self.slots, self.H, self.n_total = int(slots), H, spec.n_total
+        flat_gid = gid.reshape(-1)
+        owned = torch.nonzero(flat_gid >= 0).reshape(-1)
+        one = torch.zeros(spec.n_total, dtype=torch.int64, device=dev)
+        one[flat_gid[owned]] = owned
+        # slot b's neurons lie b * H * N further on in the folded raster
+        step = H * gid.shape[1]
+        offs = torch.arange(self.slots, dtype=torch.int64, device=dev)
+        self.gid_pos = (one[None, :] + offs[:, None] * step).reshape(-1)
+        self.src_safe = torch.zeros((self.slots * H, s_cap),
+                                    dtype=torch.int64, device=dev)
+        self.src_ok = torch.zeros((self.slots * H, s_cap), dtype=torch.bool,
+                                  device=dev)
+
+    def install(self, b: int, src_gid: torch.Tensor) -> None:
+        """Slot b's source table src_gid [H, S] (-1 pad), in place."""
+        rows = slice(b * self.H, (b + 1) * self.H)
+        ok = src_gid >= 0
+        self.src_ok[rows].copy_(ok)
+        self.src_safe[rows].copy_(torch.where(ok, src_gid + b * self.n_total,
+                                              0))
+
+    def __call__(self, spiked: torch.Tensor) -> torch.Tensor:
+        glob = _global_spike_mask(spiked, self.gid_pos)
+        return glob[self.src_safe] & self.src_ok
 
 
 def make_step_fn(spec: SimSpec, plan: ShardPlan, t0: int,
@@ -612,8 +657,9 @@ class CapturedRun:
     static window buffers, so a step has no launch argument that changes
     with t.  Everything runs on the runner's own stream, and every kernel's
     integer scratch is the runner's own (`kernels._build.Scratch`), kept
-    as long as its graph.  The first full window of RUN_WINDOW steps runs
-    eagerly (the scratch and every buffer the steps use are made there),
+    as long as its graph.  The first full window of `window` steps (by
+    default RUN_WINDOW) runs eagerly (the scratch and every buffer the
+    steps use are made there),
     and then the same steps are captured as one CUDA graph; every later
     full window replays it, and a remainder shorter than a window runs the
     same steps eagerly.  `graph=False` runs every step eagerly, through
@@ -625,10 +671,18 @@ class CapturedRun:
 
     `step(state, ctr, stim_index, stim_amp) -> (spiked [H, N], timings)`
     updates the static state in place; stim_index / stim_amp are the
-    window buffers [RUN_WINDOW, H, K], made by the first run."""
+    window buffers [window, H, K], made by the first run.  `t_base`, where
+    the step's kernels read per-shard step offsets (int64 [H]), is that
+    static buffer: `run(..., t_base=values)` writes it on the runner's
+    stream before the run's steps."""
 
-    def __init__(self, step: Callable, state):
+    def __init__(self, step: Callable, state, *, window: int = RUN_WINDOW,
+                 t_base: Optional[torch.Tensor] = None):
         self.step = step
+        self.window = int(window)
+        # per-shard step offsets the step's kernels read (int64 [H]), or
+        # None: a static buffer the caller rewrites between runs
+        self.t_base = t_base
         v = state_tensors(state)[0]                  # [H, N]
         H = v.shape[0]
         self.device = v.device
@@ -636,13 +690,14 @@ class CapturedRun:
         self.state = map_state(torch.empty_like, state)
         self.ctr = torch.zeros(2, dtype=torch.int64, device=self.device)
         self.stim_index = self.stim_amp = None
-        self.raster = torch.zeros((RUN_WINDOW,) + v.shape, dtype=torch.bool,
+        self.raster = torch.zeros((self.window,) + v.shape, dtype=torch.bool,
                                   device=self.device)
-        self.spikes = torch.zeros((RUN_WINDOW, H), dtype=torch.int64,
+        self.spikes = torch.zeros((self.window, H), dtype=torch.int64,
                                   device=self.device)
         self.arrivals = torch.zeros_like(self.spikes)
         self.scratch = kbuild.Scratch(self.device)
         self.graph = None
+        self.captures = 0       # graphs captured (one, once warm)
         self.recorded = {}      # kernel -> launches a window's graph holds
         self.replays = 0        # of the last run
 
@@ -665,12 +720,13 @@ class CapturedRun:
         before = dict(kbuild.recorded)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=self.stream):
-            for _ in range(RUN_WINDOW):
+            for _ in range(self.window):
                 self._one_step()
         self.recorded = {k: n - before.get(k, 0)
                          for k, n in kbuild.recorded.items()
                          if n != before.get(k, 0)}
         self.graph = graph
+        self.captures += 1
 
     def replayed_launches(self) -> dict:
         """Launches of each kernel by the last run's replays: the replays
@@ -678,12 +734,16 @@ class CapturedRun:
         return {k: self.replays * n for k, n in self.recorded.items()}
 
     def run(self, state, t0: int, n_steps: int, stim_index, stim_amp, *,
-            graph: bool = True):
+            graph: bool = True, t_base=None):
         """Steps t0 .. t0 + n_steps - 1 from `state` (not modified), with
         the run's stimulus rows stim_index / stim_amp [n_steps, H, K] on
-        the card -> (state, raster [T, H, N], timings [T, H]).  Nothing is
-        read back; only the capture waits for the card."""
-        W = RUN_WINDOW
+        the card -> (state, raster [T, H, N], timings [T, H]); `t_base`
+        (int64 [H]) the per-shard step offsets of this run, for a runner
+        made with a t_base buffer.  Nothing is read back; only the capture
+        waits for the card."""
+        if t_base is not None and self.t_base is None:
+            raise ValueError("this runner's steps read no t_base")
+        W = self.window
         H, N = self.raster.shape[1:]
         if self.stim_index is None:
             self.stim_index = stim_index.new_zeros((W,) + stim_index.shape[1:])
@@ -699,6 +759,8 @@ class CapturedRun:
         self.stream.wait_stream(cur)
         with (torch.cuda.stream(self.stream),
               kbuild.own_scratch(self.scratch)):
+            if t_base is not None:
+                self.t_base.copy_(t_base)
             for dst, src in zip(static, state_tensors(state)):
                 dst.copy_(src)
             for w0 in range(0, n_steps, W):
@@ -721,34 +783,49 @@ class CapturedRun:
         return out, raster, StepTimings(spikes=spikes, arrivals=arrivals)
 
 
-def stim_rows(spec: SimSpec, plan: ShardPlan, t0: int, n_steps: int):
+def stim_rows(spec: SimSpec, plan: ShardPlan, t0: int, n_steps: int,
+              cfg: Optional[GridConfig] = None):
     """The stimulus (index, amp) rows [n_steps, H, C*K] of steps t0 ..
-    t0 + n_steps - 1 on the plan's device."""
-    w = StimWindow(spec, plan, t0, n_steps)
+    t0 + n_steps - 1 on the plan's device, drawn from `cfg`'s stimulus
+    stream (by default the spec's)."""
+    w = StimWindow(spec, plan, t0, n_steps, cfg)
     return w.index, w.amp
 
 
-def make_runner(spec: SimSpec, plan: ShardPlan,
-                state: ShardState) -> CapturedRun:
-    """The dense run on the card (`CapturedRun`): each step is the phase-A
-    kernel and phase B's, both reading the step counter, with the run's
-    exchange between them."""
+def make_step(spec: SimSpec, plan: ShardPlan, exchange: Callable, *,
+              t_base: Optional[torch.Tensor] = None) -> Callable:
+    """The dense step `step(state, t, stim_index, stim_amp) -> (spiked,
+    timings)`: phase A, the exchange, phase B, in place.  `t` is an int
+    with the step's stimulus row [H, C*K], or on the card the device step
+    counter with the window [W, H, C*K]; `t_base` (int64 [H]) gives each
+    shard its own step t + t_base[h].  The plain version's a, b, c, d and
+    segment index are derived from the plan here, once."""
+    cpu = plan.gid.device.type != "cuda"
     seg = kref.make_segments(plan.row_ptr, plan.syn_valid.shape[1],
-                             with_index=False)
-    exchange = make_exchange(spec, plan)
+                             with_index=cpu)
+    coeffs = kref.izh_coefficients(plan.exc_mask, spec.izh) if cpu else None
 
-    def step(state, ctr, stim_index, stim_amp):
-        spiked, n_arrived, n_spikes = kops.stdp_phase_a(
-            state.arr_ring, None, seg, plan.syn_valid, plan.syn_tgt,
-            plan.syn_plastic, plan.exc_mask, plan.neuron_valid, stim_index,
-            stim_amp, state.v, state.u, state.last_post, state.w,
-            state.last_arr, ctr, izh=spec.izh, stdp=spec.stdp,
-            neg_time=NEG_TIME, with_ltp=True)
-        kops.arborize(state.arr_ring, exchange(spiked),
-                      *arborize_tables(plan), ctr)
-        return spiked, StepTimings(spikes=n_spikes, arrivals=n_arrived)
+    def step(state, t, stim_index, stim_amp):
+        state, spiked, tm = phase_a(spec, plan, state, t,
+                                    (stim_index, stim_amp), seg, coeffs,
+                                    t_base=t_base)
+        phase_b(spec, plan, state, exchange(spiked), t, t_base=t_base)
+        return spiked, tm
 
-    return CapturedRun(step, state)
+    return step
+
+
+def make_runner(spec: SimSpec, plan: ShardPlan, state: ShardState, *,
+                t_base: Optional[torch.Tensor] = None,
+                exchange: Optional[Callable] = None,
+                window: int = RUN_WINDOW) -> CapturedRun:
+    """The dense run on the card (`CapturedRun` of `window` steps): each
+    step is the phase-A kernel and phase B's, both reading the step counter
+    (and `t_base`, each shard's offset, where given), with the run's
+    exchange (by default `make_exchange`'s) between them."""
+    exchange = exchange or make_exchange(spec, plan)
+    return CapturedRun(make_step(spec, plan, exchange, t_base=t_base), state,
+                       window=window, t_base=t_base)
 
 
 def run(spec: SimSpec, plan: ShardPlan, state: ShardState, t0: int,

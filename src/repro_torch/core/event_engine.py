@@ -144,36 +144,40 @@ def init_event_state(spec: SimSpec, base: ShardState, cap_ev: int
 # ---------------------------------------------------------------------------
 
 
-def _arrivals(spec: SimSpec, plan: ShardPlan, st: EventState, t):
+def _arrivals(spec: SimSpec, plan: ShardPlan, st: EventState, t,
+              t_base=None):
     """This step's event list -> (i_syn, n_arrived): currents, LTD and the
-    last-arrival refresh, the slot's list and count cleared (in place)."""
+    last-arrival refresh, the slot's list and count cleared (in place).
+    `t_base` (int64 [H]) gives each shard its own step t + t_base[h], as in
+    every phase below."""
     stdp = spec.stdp
     b = st.base
     return kops.event_arrival(
         st.ev_ring, st.ev_count, plan.syn_tgt, plan.row_ptr,
         plan.syn_plastic, b.last_post, b.w, b.last_arr, t,
         a_minus=stdp.a_minus, tau_minus=stdp.tau_minus, w_min=stdp.w_min,
-        w_max=stdp.w_max, neg_time=NEG_TIME)
+        w_max=stdp.w_max, neg_time=NEG_TIME, t_base=t_base)
 
 
 def _neurons(spec: SimSpec, plan: ShardPlan, st: EventState, i_syn, t, stim,
-             coeffs, c_post: Optional[int]):
+             coeffs, c_post: Optional[int], t_base=None):
     """Stimulus -> neuron update -> spikes, and with c_post the list of the
     first c_post spiking neurons, last_post and sat (in place)."""
     b = st.base
     return kops.event_neurons(
         i_syn, *stim, plan.exc_mask, plan.neuron_valid, b.v, b.u,
-        b.last_post, st.sat, t, izh=spec.izh, c_post=c_post, coeffs=coeffs)
+        b.last_post, st.sat, t, izh=spec.izh, c_post=c_post, coeffs=coeffs,
+        t_base=t_base)
 
 
 def _ltp(spec: SimSpec, plan: ShardPlan, st: EventState, ids, count,
-         t) -> None:
+         t, t_base=None) -> None:
     """LTP on the incoming rows of the listed neurons (w in place)."""
     stdp = spec.stdp
     kops.event_ltp(ids, count, plan.row_ptr, plan.syn_plastic,
                    st.base.last_arr, st.base.w, t, a_plus=stdp.a_plus,
                    tau_plus=stdp.tau_plus, w_min=stdp.w_min,
-                   w_max=stdp.w_max, neg_time=NEG_TIME)
+                   w_max=stdp.w_max, neg_time=NEG_TIME, t_base=t_base)
 
 
 def phase_a_dynamics(spec: SimSpec, plan: ShardPlan, eplan: EventPlan,
@@ -211,34 +215,35 @@ def phase_a_plasticity(spec: SimSpec, plan: ShardPlan, eplan: EventPlan,
 
 
 def phase_a(spec: SimSpec, plan: ShardPlan, eplan: EventPlan,
-            st: EventState, t, stim, coeffs, c_post: Optional[int] = None
-            ) -> Tuple[EventState, torch.Tensor, StepTimings]:
+            st: EventState, t, stim, coeffs, c_post: Optional[int] = None,
+            t_base=None) -> Tuple[EventState, torch.Tensor, StepTimings]:
     """`phase_a_dynamics` then `phase_a_plasticity`, in three ops: the
     arrivals, the neurons with the spike list and its bookkeeping
     (`kernels.ops.event_neurons`), LTP.  (state, spiked, tm), the contract
-    of `engine.phase_a`."""
+    of `engine.phase_a`; `t_base` as `_arrivals`'."""
     if c_post is None:
         c_post = default_caps(spec)[0]
-    i_syn, n_arrived = _arrivals(spec, plan, st, t)
+    i_syn, n_arrived = _arrivals(spec, plan, st, t, t_base)
     spiked, count, ids = _neurons(spec, plan, st, i_syn, t, stim, coeffs,
-                                  c_post)
-    _ltp(spec, plan, st, ids, count, t)
+                                  c_post, t_base)
+    _ltp(spec, plan, st, ids, count, t, t_base)
     return st, spiked, StepTimings(spikes=count, arrivals=n_arrived)
 
 
 def phase_b(spec: SimSpec, plan: ShardPlan, eplan: EventPlan,
             st: EventState, spiked_src: torch.Tensor, t,
-            c_src: Optional[int] = None) -> EventState:
+            c_src: Optional[int] = None, t_base=None) -> EventState:
     """Emission: the first c_src spiking sources (compacted) append their
     forward rows to slot (t + delay) mod D (floor mod; the pipelined
     prologue's t = -1 included); the compaction's overflow and the events
-    past cap_ev count in `sat`.  In place; returns `st`."""
+    past cap_ev count in `sat`.  In place; returns `st`.  `t_base` as
+    `_arrivals`'."""
     S = spiked_src.shape[1]
     if c_src is None:
         c_src = default_caps(spec)[1]
     ids, dropped = aer.compact_indices(spiked_src, c_src, fill=S)
     kops.event_emit(ids.contiguous(), dropped, eplan.fwd_rows, plan.syn_delay,
-                    st.ev_ring, st.ev_count, st.sat, t)
+                    st.ev_ring, st.ev_count, st.sat, t, t_base=t_base)
     return st
 
 
@@ -301,22 +306,39 @@ def make_step_fn(spec: SimSpec, plan: ShardPlan, eplan: EventPlan, t0: int,
                    stim=stim)
 
 
-def make_runner(spec: SimSpec, plan: ShardPlan, eplan: EventPlan,
-                state: EventState, c_post: Optional[int] = None,
-                c_src: Optional[int] = None) -> engine.CapturedRun:
-    """The event run on the card (`engine.CapturedRun`): every kernel reads
-    t from the step counter, and the neuron pass its stimulus row from the
-    window at the counter's row."""
-    exchange = engine.make_exchange(spec, plan)
+def make_step(spec: SimSpec, plan: ShardPlan, eplan: EventPlan,
+              exchange, c_post: Optional[int] = None,
+              c_src: Optional[int] = None, *, t_base=None):
+    """The event step `step(state, t, stim_index, stim_amp) -> (spiked,
+    timings)`, `engine.make_step`'s contract: phase A, the exchange, phase
+    B, in place, each shard at t + t_base[h] where `t_base` is given."""
+    coeffs = (kref.izh_coefficients(plan.exc_mask, spec.izh)
+              if plan.gid.device.type != "cuda" else None)
 
-    def step(state, ctr, stim_index, stim_amp):
-        state, spiked, tm = phase_a(spec, plan, eplan, state, ctr,
-                                    (stim_index, stim_amp), None,
-                                    c_post=c_post)
-        phase_b(spec, plan, eplan, state, exchange(spiked), ctr, c_src=c_src)
+    def step(state, t, stim_index, stim_amp):
+        state, spiked, tm = phase_a(spec, plan, eplan, state, t,
+                                    (stim_index, stim_amp), coeffs,
+                                    c_post=c_post, t_base=t_base)
+        phase_b(spec, plan, eplan, state, exchange(spiked), t, c_src=c_src,
+                t_base=t_base)
         return spiked, tm
 
-    return engine.CapturedRun(step, state)
+    return step
+
+
+def make_runner(spec: SimSpec, plan: ShardPlan, eplan: EventPlan,
+                state: EventState, c_post: Optional[int] = None,
+                c_src: Optional[int] = None, *, t_base=None, exchange=None,
+                window: int = engine.RUN_WINDOW) -> engine.CapturedRun:
+    """The event run on the card (`engine.CapturedRun` of `window` steps):
+    every kernel reads t from the step counter (plus each shard's offset
+    in `t_base` where given), and the neuron pass its stimulus row from
+    the window at the counter's row; the exchange is `exchange` (by
+    default `engine.make_exchange`'s)."""
+    exchange = exchange or engine.make_exchange(spec, plan)
+    return engine.CapturedRun(
+        make_step(spec, plan, eplan, exchange, c_post, c_src, t_base=t_base),
+        state, window=window, t_base=t_base)
 
 
 def run(spec: SimSpec, plan: ShardPlan, eplan: EventPlan, state: EventState,

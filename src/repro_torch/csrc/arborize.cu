@@ -70,8 +70,13 @@
 // All take the ring slot as the floor modulo of `jnp.mod`, computed from
 // t mod D and delay mod D in 32 bits; t mod D is given by the host, or read
 // from the device step counter `ctr[0]` when one is given (so that a
-// captured CUDA graph advances it).  Every tensor is read an element at a
-// time, so any view of the tensors' dtypes is aligned enough.
+// captured CUDA graph advances it).  `arborize_rows` and
+// `arborize_elements` also take `t_base`, per-shard step offsets [H]
+// (int64; null: none), for a batch of independent simulations folded onto
+// the shard axis, each at its own step (`repro_torch.simserve`): shard h
+// then steps at ctr[0] + t_base[h] (or t + t_base[h]).  Every tensor is
+// read an element at a time, so any view of the tensors' dtypes is
+// aligned enough.
 //
 // Bits: the ring holds bools that are only ever set, and each synapse owns
 // its column e of the ring, so the result is exact whatever the order of
@@ -90,9 +95,21 @@ __device__ __forceinline__ int ring_slot(int delay, int t_mod, int d) {
   return slot >= d ? slot - d : slot;
 }
 
+__device__ __forceinline__ int64_t floor_mod(int64_t x, int64_t D) {
+  return ((x % D) + D) % D;
+}
+
+// t mod D of shard h: from the counter or the host's t_mod, plus the
+// shard's own offset t_base[h] where one is given (a batch of simulations
+// folded onto the shard axis, each at its own step); t_base null is the
+// solo path, unchanged.
 __device__ __forceinline__ int step_mod(const int64_t* ctr, int t_mod,
-                                        int64_t D) {
-  return ctr != nullptr ? (int)(((ctr[0] % D) + D) % D) : t_mod;
+                                        int64_t D, const int64_t* t_base,
+                                        int64_t h) {
+  if (t_base == nullptr)
+    return ctr != nullptr ? (int)floor_mod(ctr[0], D) : t_mod;
+  return ctr != nullptr ? (int)floor_mod(ctr[0] + t_base[h], D)
+                        : (int)floor_mod(t_mod + floor_mod(t_base[h], D), D);
 }
 
 // ---------------------------------------------------------------------------
@@ -146,9 +163,10 @@ __device__ __forceinline__ void element_walk(uint8_t* ring,
 __global__ void __launch_bounds__(kThreads) arborize_elements(
     uint8_t* __restrict__ ring, const uint8_t* __restrict__ spiked_src,
     Elements el, int64_t D, int64_t E, int64_t S, int t_mod,
-    const int64_t* __restrict__ ctr) {
+    const int64_t* __restrict__ ctr, const int64_t* __restrict__ t_base) {
   element_walk(ring, spiked_src, el, blockIdx.y, D, E, S,
-               step_mod(ctr, t_mod, D), blockIdx.x, gridDim.x);
+               step_mod(ctr, t_mod, D, t_base, blockIdx.y), blockIdx.x,
+               gridDim.x);
 }
 
 // Entries i (grid-stride) of shard blockIdx.y's chunk tables below its kept
@@ -162,7 +180,7 @@ __global__ void __launch_bounds__(kThreads) arborize_chunk(
   const int64_t h = blockIdx.y;
   const int32_t* rp = row_ptr + h * rp_stride;
   const int64_t e0 = rp[0], kept = rp[rp_stride - 1] - e0;
-  const int tm = step_mod(ctr, t_mod, D);
+  const int tm = step_mod(ctr, t_mod, D, nullptr, h);
   const uint8_t* spiked = spiked_src + h * S;
   for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < kept;
        i += (int64_t)gridDim.x * kThreads) {
@@ -186,7 +204,8 @@ __global__ void __launch_bounds__(kRowThreads) arborize_rows(
     uint8_t* __restrict__ ring, const uint8_t* __restrict__ spiked_src,
     const int32_t* __restrict__ fwd_ptr, const int32_t* __restrict__ fwd_ids,
     const int32_t* __restrict__ fwd_delay, Elements el, int64_t D, int64_t E,
-    int64_t S, int t_mod, const int64_t* __restrict__ ctr) {
+    int64_t S, int t_mod, const int64_t* __restrict__ ctr,
+    const int64_t* __restrict__ t_base) {
   __shared__ int32_t first[kRowSources];    // listed row k's first entry
   __shared__ int32_t offset[kRowSources];   // its place in the block's list
   __shared__ int32_t warp_sample[kRowWarps];
@@ -194,7 +213,7 @@ __global__ void __launch_bounds__(kRowThreads) arborize_rows(
   const int64_t h = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const uint8_t* spiked_h = spiked_src + h * S;
-  const int tm = step_mod(ctr, t_mod, D);
+  const int tm = step_mod(ctr, t_mod, D, t_base, h);
   // the shard's spiking share, from the sample every block reads alike
   const unsigned sampled = __ballot_sync(
       kFull, spiked_h[(int64_t)threadIdx.x * S / kRowThreads] != 0);
@@ -295,13 +314,15 @@ int64_t rows_blocks(int64_t S, int64_t E) {
 // ring [H, D, E] bool, spiked_src [H, S] bool, fwd_ptr [H, S + 1], fwd_ids
 // and fwd_delay [H, E] int32 (the source-major walk), syn_src [H, E]
 // int64, syn_delay [H, E] int32, syn_valid [H, E] bool (the element-major
-// walk); ctr the step counter or null.
+// walk); ctr the step counter or null; t_base the per-shard step offsets
+// [H] int64 or null.
 extern "C" int repro_arborize(void* ring, const void* spiked_src,
                               const void* fwd_ptr, const void* fwd_ids,
                               const void* fwd_delay, const void* syn_src,
                               const void* syn_delay, const void* syn_valid,
                               int64_t H, int64_t D, int64_t E, int64_t S,
-                              int64_t t, const void* ctr, void* stream) {
+                              int64_t t, const void* ctr,
+                              const void* t_base, void* stream) {
   if (S == 0) return 0;  // no source, no flag
   const Elements el{(const int64_t*)syn_src, (const int32_t*)syn_delay,
                     (const uint8_t*)syn_valid};
@@ -309,7 +330,7 @@ extern "C" int repro_arborize(void* ring, const void* spiked_src,
                   kRowThreads, 0, (cudaStream_t)stream>>>(
       (uint8_t*)ring, (const uint8_t*)spiked_src, (const int32_t*)fwd_ptr,
       (const int32_t*)fwd_ids, (const int32_t*)fwd_delay, el, D, E, S,
-      host_t_mod(t, D), (const int64_t*)ctr);
+      host_t_mod(t, D), (const int64_t*)ctr, (const int64_t*)t_base);
   return (int)cudaGetLastError();
 }
 
@@ -321,14 +342,14 @@ extern "C" int repro_arborize_elements(void* ring, const void* spiked_src,
                                        const void* syn_valid, int64_t H,
                                        int64_t D, int64_t E, int64_t S,
                                        int64_t t, const void* ctr,
-                                       void* stream) {
+                                       const void* t_base, void* stream) {
   const int64_t blocks = (E + kChunk - 1) / kChunk;
   const Elements el{(const int64_t*)syn_src, (const int32_t*)syn_delay,
                     (const uint8_t*)syn_valid};
   arborize_elements<<<dim3((unsigned)blocks, (unsigned)H), kThreads, 0,
                       (cudaStream_t)stream>>>(
       (uint8_t*)ring, (const uint8_t*)spiked_src, el, D, E, S,
-      host_t_mod(t, D), (const int64_t*)ctr);
+      host_t_mod(t, D), (const int64_t*)ctr, (const int64_t*)t_base);
   return (int)cudaGetLastError();
 }
 

@@ -13,7 +13,10 @@
 //
 // The step t is read from a device counter (`ctr[0]`, int64) when `ctr`
 // is given, so a captured CUDA graph advances it; else from the launch
-// argument `t`.  Slots are the floor modulo of `jnp.mod`, also for the
+// argument `t`.  With per-shard step offsets `t_base` ([H] int64; null:
+// none) shard h steps at t + t_base[h], added in int64: a batch of
+// independent simulations folded onto the shard axis, each at its own
+// step (`repro_torch.simserve`).  Slots are the floor modulo of `jnp.mod`, also for the
 // pipelined prologue's t = -1.
 //
 // Arrival (`repro_event_arrival`), two launches on the stream.
@@ -115,8 +118,9 @@ namespace {
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ int64_t step_t(const int64_t* ctr, int64_t t) {
-  return ctr != nullptr ? ctr[0] : t;
+__device__ __forceinline__ int64_t step_t(const int64_t* ctr, int64_t t,
+                                          const int64_t* t_base, int64_t h) {
+  return (ctr != nullptr ? ctr[0] : t) + (t_base != nullptr ? t_base[h] : 0);
 }
 
 __device__ __forceinline__ int64_t floor_mod(int64_t x, int64_t d) {
@@ -160,13 +164,14 @@ struct ArrivalArgs {
   int2* pairs;                 // [H, E] scratch: (list index, weight bits)
   unsigned long long* total;   // [H] scratch, zero between launches
   const int64_t* ctr;          // step counter or nullptr
+  const int64_t* t_base;       // [H] per-shard step offsets or nullptr
   int64_t t, D, cap, E, N;
   float a_minus, inv_tau_minus, w_min, w_max, half_neg_time;
 };
 
 __global__ void __launch_bounds__(kThreads) arrival_place(ArrivalArgs a) {
   const int64_t h = blockIdx.y;
-  const int64_t tt = step_t(a.ctr, a.t);
+  const int64_t tt = step_t(a.ctr, a.t, a.t_base, h);
   const int64_t r = floor_mod(tt, a.D);
   const float t = (float)tt;
   const int64_t n_ev = list_len(a.count, h, a.D, r, a.cap);
@@ -227,7 +232,7 @@ __global__ void __launch_bounds__(kThreads) arrival_sum(ArrivalArgs a) {
     // the place kernel has ended: its count is complete
     a.n_arrived[h] = (int64_t)a.total[h];
     a.total[h] = 0;
-    a.count[h * a.D + floor_mod(step_t(a.ctr, a.t), a.D)] = 0;
+    a.count[h * a.D + floor_mod(step_t(a.ctr, a.t, a.t_base, h), a.D)] = 0;
   }
   const int32_t* rp = a.row_ptr + h * (a.N + 1);
   int k = 0;
@@ -312,6 +317,7 @@ struct EmitArgs {
   unsigned long long* words;
   unsigned int* ctrl;          // [H, 2] scratch: tile counter, blocks out
   const int64_t* ctr;          // step counter or nullptr
+  const int64_t* t_base;       // [H] per-shard step offsets or nullptr
   int64_t t, D, cap, E, S, Kf, C, tiles;
 };
 
@@ -468,7 +474,7 @@ __global__ void __launch_bounds__(kEmitThreads) emit_scan(EmitArgs a) {
   __shared__ bool last;
   const int64_t h = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t t = step_t(a.ctr, a.t);
+  const int64_t t = step_t(a.ctr, a.t, a.t_base, h);
   unsigned long long* words = a.words + h * a.tiles * a.D;
   unsigned int* ctrl = a.ctrl + 2 * h;
   for (;;) {
@@ -605,7 +611,7 @@ int64_t stride_blocks(int64_t items, int64_t per_block, int64_t H) {
 }  // namespace
 
 // ptrs: ring, count, syn_tgt, row_ptr, plastic, last_post, w, last_arr,
-// i_syn, n_arrived, fill, pairs, total, ctr (or null).
+// i_syn, n_arrived, fill, pairs, total, ctr (or null), t_base (or null).
 // ints: H, D, cap, E, N, t.
 // floats: a_minus, inv_tau_minus, w_min, w_max, half_neg_time.
 extern "C" int repro_event_arrival(void* const* ptrs, const int64_t* ints,
@@ -625,6 +631,7 @@ extern "C" int repro_event_arrival(void* const* ptrs, const int64_t* ints,
   a.pairs = (int2*)ptrs[11];
   a.total = (unsigned long long*)ptrs[12];
   a.ctr = (const int64_t*)ptrs[13];
+  a.t_base = (const int64_t*)ptrs[14];
   const int64_t H = ints[0];
   a.D = ints[1];
   a.cap = ints[2];
@@ -671,7 +678,7 @@ static int emit_blocks(int64_t H, int64_t tiles, int64_t* out) {
 }
 
 // ptrs: src_ids, n_dropped, fwd, delay, ring, count, sat, words, ctrl,
-// ctr (or null).  ints: H, D, cap, E, S, Kf, C, t, tiles (the words'
+// ctr (or null), t_base (or null).  ints: H, D, cap, E, S, Kf, C, t, tiles (the words'
 // tiles a shard: ceil(C / 8), at least 1).
 extern "C" int repro_event_emit(void* const* ptrs, const int64_t* ints,
                                 void* stream) {
@@ -686,6 +693,7 @@ extern "C" int repro_event_emit(void* const* ptrs, const int64_t* ints,
   a.words = (unsigned long long*)ptrs[7];
   a.ctrl = (unsigned int*)ptrs[8];
   a.ctr = (const int64_t*)ptrs[9];
+  a.t_base = (const int64_t*)ptrs[10];
   const int64_t H = ints[0];
   a.D = ints[1];
   a.cap = ints[2];

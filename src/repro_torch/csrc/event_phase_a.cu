@@ -24,7 +24,11 @@
 // The step t and the stimulus row come from the device step counter
 // (ctr[0], ctr[1]) when it is given, so nothing of the step is a launch
 // argument and a captured CUDA graph replays the launches; else t is the
-// launch argument and the stimulus is the step's own [H, K] row.
+// launch argument and the stimulus is the step's own [H, K] row.  With
+// per-shard step offsets `t_base` ([H] int64; null: none) shard h steps at
+// t + t_base[h], added in int64 before the conversion to float: a batch of
+// independent simulations folded onto the shard axis, each at its own
+// step (`repro_torch.simserve`).
 //
 // What bounds them.  The neuron pass moves ~23 bytes a neuron (v, u in
 // and out, i_syn, the two flags, the spike) and the list: 1.5 MB at 8x8,
@@ -159,6 +163,7 @@ struct NeuronArgs {
   unsigned long long* words;   // [H, tiles] scratch, zero between launches
   unsigned int* ctrl;          // [H, 2] scratch: tile counter, blocks out
   const int64_t* ctr;          // step counter, or nullptr
+  const int64_t* t_base;       // [H] per-shard step offsets, or nullptr
   int64_t t, N, C, K, tiles;
   float a_exc, a_inh, b_exc, b_inh, c_exc, c_inh, d_exc, d_inh, v_peak, h,
       dt;
@@ -177,7 +182,8 @@ __global__ void __launch_bounds__(kThreads) neuron_scan(NeuronArgs a) {
   const int64_t h = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t N = a.N, C = a.C;
-  const int64_t tt = a.ctr != nullptr ? a.ctr[0] : a.t;
+  const int64_t tt = (a.ctr != nullptr ? a.ctr[0] : a.t) +
+                     (a.t_base != nullptr ? a.t_base[h] : 0);
   const float t = (float)tt;
   const int64_t srow = a.ctr != nullptr ? a.ctr[1] : 0;
   const int64_t* sidx = a.stim_idx + (srow * gridDim.y + h) * a.K;
@@ -359,6 +365,7 @@ struct LtpArgs {
   const float* last_arr;       // [H, E]
   float* w;                    // [H, E]
   const int64_t* ctr;          // step counter, or nullptr
+  const int64_t* t_base;       // [H] per-shard step offsets, or nullptr
   int64_t t, N, E, C;
   float a_plus, inv_tau_plus, w_min, w_max, half_neg_time;
 };
@@ -393,12 +400,14 @@ __global__ void __launch_bounds__(kThreads) ltp_synapses(LtpArgs a) {
   const int lane = threadIdx.x & 31;
   const int32_t* ids = a.ids + h * C;
   const int32_t* rp = a.row_ptr + h * (a.N + 1);
-  // the warp's first row, loaded beside the count
+  // the warp's first row and the step, loaded beside the count
   const int32_t mine = wid < C ? ids[wid] : (int32_t)a.N;
   const int64_t count = a.count[h];
+  const int64_t step = (a.ctr != nullptr ? a.ctr[0] : a.t) +
+                       (a.t_base != nullptr ? a.t_base[h] : 0);
   const int64_t L = count < C ? count : C;
   if (L <= 0) return;
-  const float t = (float)(a.ctr != nullptr ? a.ctr[0] : a.t);
+  const float t = (float)step;
   const int64_t base = h * a.E;
   for (int64_t k = wid; k < L; k += warps) {
     const int32_t n = k == wid ? mine : ids[k];
@@ -444,7 +453,8 @@ int grid_blocks(const void* kernel, int slot, int per_sm, int64_t H,
 }  // namespace
 
 // ptrs: i_syn, stim_idx, stim_amp, exc, valid, v, u, spiked, last_post
-// (or null), sat (or null), count, ids, words, ctrl, ctr (or null).  ints: H, N, C, K, tiles, t, substeps, integrate (1: the
+// (or null), sat (or null), count, ids, words, ctrl, ctr (or null),
+// t_base (or null).  ints: H, N, C, K, tiles, t, substeps, integrate (1: the
 // neuron pass; 0: the scan of the given spike mask alone), blocks (a
 // shard; 0: as many as the card holds at once, at most a tile each).
 // floats: a_exc, a_inh, b_exc, b_inh, c_exc, c_inh, d_exc, d_inh, v_peak,
@@ -467,6 +477,7 @@ extern "C" int repro_event_neurons(void* const* ptrs, const int64_t* ints,
   a.words = (unsigned long long*)ptrs[12];
   a.ctrl = (unsigned int*)ptrs[13];
   a.ctr = (const int64_t*)ptrs[14];
+  a.t_base = (const int64_t*)ptrs[15];
   const int64_t H = ints[0];
   a.N = ints[1];
   a.C = ints[2];
@@ -497,7 +508,8 @@ extern "C" int repro_event_neurons(void* const* ptrs, const int64_t* ints,
   return (int)cudaGetLastError();
 }
 
-// ptrs: ids, count, row_ptr, plastic, last_arr, w, ctr (or null).
+// ptrs: ids, count, row_ptr, plastic, last_arr, w, ctr (or null), t_base
+// (or null).
 // ints: H, N, E, C, t, blocks (a shard; 0: every block the card holds at
 // once).  floats: a_plus, inv_tau_plus, w_min, w_max, half_neg_time.
 extern "C" int repro_event_ltp(void* const* ptrs, const int64_t* ints,
@@ -510,6 +522,7 @@ extern "C" int repro_event_ltp(void* const* ptrs, const int64_t* ints,
   a.last_arr = (const float*)ptrs[4];
   a.w = (float*)ptrs[5];
   a.ctr = (const int64_t*)ptrs[6];
+  a.t_base = (const int64_t*)ptrs[7];
   const int64_t H = ints[0];
   a.N = ints[1];
   a.E = ints[2];

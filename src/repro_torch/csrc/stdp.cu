@@ -339,6 +339,12 @@ struct RowConsts {
   // step counter (t, stimulus row) on the device, or nullptr: then t and
   // r above, and the stimulus list is the step's own [H, n_stim] row
   const int64_t* ctr;
+  // per-shard step offsets [H] (int64), or nullptr: shard h then steps at
+  // ctr[0] + t_base[h], or at t_int + t_base[h] without a counter (a batch
+  // of independent simulations folded onto the shard axis, each at its own
+  // step)
+  const int64_t* t_base;
+  int64_t t_int;
   // the chunk window (kWindow): rows [lo, lo + rows), row_ptr rows of
   // rp_stride entries, the plastic table's rows of pl_stride entries, and
   // whether the counts add to the step's
@@ -365,10 +371,14 @@ __global__ void __launch_bounds__(kRowThreads, 2) row_kernel(
   const int64_t h = blockIdx.y;
   const int64_t N = p.N;
   // the step from the device counter (t, row of the stimulus window) when
-  // given, else from the launch arguments
-  const int64_t tt = p.ctr != nullptr ? p.ctr[0] : 0;
-  const int64_t r = p.ctr != nullptr ? ((tt % p.D) + p.D) % p.D : p.r;
-  const float t = p.ctr != nullptr ? (float)tt : p.t;
+  // given, else from the launch arguments; plus the shard's own offset
+  // where t_base is given (added in int64, then converted, as the solo
+  // path converts its counter)
+  const bool own = p.ctr != nullptr || p.t_base != nullptr;
+  const int64_t tt = (p.ctr != nullptr ? p.ctr[0] : p.t_int) +
+                     (p.t_base != nullptr ? p.t_base[h] : 0);
+  const int64_t r = own ? ((tt % p.D) + p.D) % p.D : p.r;
+  const float t = own ? (float)tt : p.t;
   const int64_t srow = p.ctr != nullptr ? p.ctr[1] : 0;
   const int lane = threadIdx.x & 31, g = threadIdx.x & (kGroup - 1);
   const int slot = threadIdx.x / kGroup;  // the group's row of each tile
@@ -844,8 +854,10 @@ static int64_t phase_a_args(void* const* ptrs, const int64_t* ints,
 // u, last_post, w, last_arr, spiked, n_arrived, n_spikes, scratch, ctr (the
 // step counter, or null: then t and r are the launch arguments and the
 // stimulus is the step's row; else the stimulus is a window [W, H, n_stim]
-// read at row ctr[1]).
-// ints: H, D, E, N, r, n_stim, substeps, with_ltp.
+// read at row ctr[1]), t_base (per-shard step offsets [H] int64, or null:
+// shard h then steps at ctr[0] + t_base[h], or at t + t_base[h]).
+// ints: H, D, E, N, r, n_stim, substeps, with_ltp, t (the step as an
+// integer, read with t_base and no counter).
 // floats: t, a_minus, inv_tau_minus, a_plus, inv_tau_plus, w_min, w_max,
 // half_neg_time, a_exc, a_inh, b_exc, b_inh, c_exc, c_inh, d_exc, d_inh,
 // v_peak, h, dt.
@@ -854,6 +866,8 @@ extern "C" int repro_stdp_phase_a(void* const* ptrs, const int64_t* ints,
   RowPtrs a;
   RowConsts c;
   const int64_t H = phase_a_args(ptrs, ints, floats, a, c);
+  c.t_base = (const int64_t*)ptrs[17];
+  c.t_int = ints[8];
   return launch_rows<true, false>(a, c, H, stream);
 }
 

@@ -48,18 +48,18 @@ _I64 = ctypes.c_int64
 _F = ctypes.c_float
 # C entry point -> argument types; every one returns cudaGetLastError().
 SIGNATURES = {
-    "repro_arborize": [_P] * 8 + [_I64] * 5 + [_P, _P],
-    "repro_arborize_elements": [_P] * 5 + [_I64] * 5 + [_P, _P],
+    "repro_arborize": [_P] * 8 + [_I64] * 5 + [_P, _P, _P],
+    "repro_arborize_elements": [_P] * 5 + [_I64] * 5 + [_P, _P, _P],
     "repro_arborize_chunk": [_P] * 5 + [_I64] * 7 + [_P, _P],
     # (pointers [15], int64 [19], uint64 [4], stream): csrc/stream.cu
     "repro_chunk_tables": [_P] * 4,
-    # (pointers [14], int64 [6], float [5], stream): csrc/event.cu
+    # (pointers [15], int64 [6], float [5], stream): csrc/event.cu
     "repro_event_arrival": [_P] * 4,
-    # (pointers [10], int64 [9], stream): csrc/event.cu
+    # (pointers [11], int64 [9], stream): csrc/event.cu
     "repro_event_emit": [_P] * 3,
-    # (pointers [8], int64 [7], float [5], stream): csrc/event_phase_a.cu
+    # (pointers [8], int64 [6], float [5], stream): csrc/event_phase_a.cu
     "repro_event_ltp": [_P] * 4,
-    # (pointers [17], int64 [9], float [11], stream): csrc/event_phase_a.cu
+    # (pointers [16], int64 [9], float [11], stream): csrc/event_phase_a.cu
     "repro_event_neurons": [_P] * 4,
     "repro_event_ltp_rows": [_P] * 10 + [_I64] * 5 + [_F] * 5 + [_P],
     "repro_izhikevich_update": [_P] * 10 + [_I64, _F, _F, _F, ctypes.c_int,
@@ -68,7 +68,7 @@ SIGNATURES = {
     "repro_stdp_ltp": [_P] * 6 + [_I64] * 3 + [_F] * 6 + [_P],
     "repro_stdp_ltp_chunk": [_P] * 6 + [_I64] * 7 + [_F] * 6 + [_P],
     "repro_stdp_arrival_current": [_P] * 9 + [_I64] * 5 + [_F] * 6 + [_P],
-    # (pointers [17], int64 [8], float [19], stream): csrc/stdp.cu
+    # (pointers [18], int64 [9], float [19], stream): csrc/stdp.cu
     "repro_stdp_phase_a": [_P] * 4,
     # (pointers [17], int64 [13], float [19], stream): csrc/stdp.cu
     "repro_stdp_phase_a_chunk": [_P] * 4,
@@ -336,3 +336,20 @@ def step_counter(name: str, t, device: torch.device):
                              f"{t.dtype}{tuple(t.shape)} on {t.device}")
         return t.data_ptr(), 0
     return None, int(t)
+
+
+def step_base(name: str, t_base, H: int, device: torch.device):
+    """The pointer of a kernel's per-shard step offsets: None for None, else
+    the address of t_base, which must be a contiguous int64 [H] tensor on
+    `device` (shard h then steps at t + t_base[h]: a batch of simulations
+    folded onto the shard axis, each at its own step)."""
+    if t_base is None:
+        return None
+    if (not isinstance(t_base, torch.Tensor) or t_base.device != device
+            or t_base.dtype != torch.int64 or tuple(t_base.shape) != (H,)
+            or not t_base.is_contiguous()):
+        got = (f"{t_base.dtype}{tuple(t_base.shape)} on {t_base.device}"
+               if isinstance(t_base, torch.Tensor) else type(t_base).__name__)
+        raise ValueError(f"{name}: t_base must be a contiguous int64 [{H}] "
+                         f"tensor on {device}, got {got}")
+    return t_base.data_ptr()

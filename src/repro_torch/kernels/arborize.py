@@ -41,10 +41,11 @@ def walks_elements(spiked_src: torch.Tensor) -> list:
     return [int(x) * 100 >= DENSE_PERCENT * SAMPLE for x in n.tolist()]
 
 
-def _launch(name, entry, arr_ring, spiked_src, tables, t):
+def _launch(name, entry, arr_ring, spiked_src, tables, t, t_base):
     H, D, E = arr_ring.shape
     S = spiked_src.shape[1]
     _build.one_device(name, arr_ring, spiked_src, *tables)
+    base = _build.step_base(name, t_base, H, arr_ring.device)
     if H * E == 0 or D == 0:
         return arr_ring
     ctr, t_int = _build.step_counter(name, t, arr_ring.device)
@@ -53,7 +54,8 @@ def _launch(name, entry, arr_ring, spiked_src, tables, t):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, entry)(
             arr_ring.data_ptr(), spiked_src.data_ptr(),
-            *(x.data_ptr() for x in tables), H, D, E, S, t_int, ctr, stream)
+            *(x.data_ptr() for x in tables), H, D, E, S, t_int, ctr, base,
+            stream)
     _build.check(err, name)
     _build.counted(name)
     return arr_ring
@@ -74,7 +76,7 @@ def _require_elements(name, H, E, syn_src, syn_delay, syn_valid):
 
 
 def arborize(arr_ring, spiked_src, syn_src, syn_delay, syn_valid, fwd_ptr,
-             fwd_ids, fwd_delay, t):
+             fwd_ids, fwd_delay, t, t_base=None):
     """arr_ring [H, D, E] bool, spiked_src [H, S] bool, the plan's
     syn_src [H, E] int64 (indices into spiked_src's rows, each in [0, S)
     where valid), syn_delay [H, E] int32, syn_valid [H, E] bool, and its
@@ -83,8 +85,10 @@ def arborize(arr_ring, spiked_src, syn_src, syn_delay, syn_valid, fwd_ptr,
     (each valid synapse once, in the row of its source) and fwd_delay
     [H, E] int32 (their delays, in the same order), all contiguous CUDA
     tensors on one device; t an int, or the device step counter (int64
-    [2], `_build.step_counter`), read by the kernel.  Sets the flags in
-    place and returns arr_ring."""
+    [2], `_build.step_counter`), read by the kernel; t_base None, or
+    per-shard step offsets (int64 [H] on the card, `_build.step_base`):
+    shard h then steps at t + t_base[h].  Sets the flags in place and
+    returns arr_ring."""
     name = "arborize"
     H, E, S = _require_ring(name, arr_ring, spiked_src)
     _require_elements(name, H, E, syn_src, syn_delay, syn_valid)
@@ -93,11 +97,11 @@ def arborize(arr_ring, spiked_src, syn_src, syn_delay, syn_valid, fwd_ptr,
                    fwd_delay=fwd_delay)
     return _launch(name, "repro_arborize", arr_ring, spiked_src,
                    (fwd_ptr, fwd_ids, fwd_delay, syn_src, syn_delay,
-                    syn_valid), t)
+                    syn_valid), t, t_base)
 
 
 def arborize_elements(arr_ring, spiked_src, syn_src, syn_delay, syn_valid,
-                      t):
+                      t, t_base=None):
     """The element-major walk alone (off the path; `arborize`'s
     yardstick): arguments as `arborize`'s without the forward CSR.  The
     same flags as `arborize`, in place; returns arr_ring."""
@@ -105,7 +109,7 @@ def arborize_elements(arr_ring, spiked_src, syn_src, syn_delay, syn_valid,
     H, E, S = _require_ring(name, arr_ring, spiked_src)
     _require_elements(name, H, E, syn_src, syn_delay, syn_valid)
     return _launch(name, "repro_arborize_elements", arr_ring, spiked_src,
-                   (syn_src, syn_delay, syn_valid), t)
+                   (syn_src, syn_delay, syn_valid), t, t_base)
 
 
 def arborize_chunk(arr_ring, spiked_src, tables, t):

@@ -11,6 +11,10 @@ neurons with, in the fused phase A, `phase_a_plasticity`'s compaction
 Each updates the event state in place and reads nothing back, so the step
 never waits on the card; the step t is an int, or the device step counter
 (int64 [2], `_build.step_counter`) that a captured CUDA graph advances.
+`event_arrival`, `event_neurons`, `event_ltp` and `event_emit` also take
+`t_base`, per-shard step offsets (int64 [H], `_build.step_base`; None: the
+solo launch, unchanged): shard h then steps at t + t_base[h], for a batch
+of simulations folded onto the shard axis (`repro_torch.simserve`).
 Each call counts one launch of its op (`event_arrival` runs two kernels
 on the stream, the others one; the sources' notes); their integer scratch
 is `_build.scratch`'s, zero between launches.  Elements are read one at a
@@ -44,7 +48,7 @@ def _stream():
 
 def event_arrival(ev_ring, ev_count, syn_tgt, row_ptr, syn_plastic,
                   last_post, w, last_arr, t, *, a_minus, tau_minus, w_min,
-                  w_max, neg_time):
+                  w_max, neg_time, t_base=None):
     """ev_ring [H, D, cap] int32, ev_count [H, D] int32, syn_tgt [H, E]
     int64, row_ptr [H, N + 1] int32 (the per-target CSR of the valid
     synapses, `core.engine.make_row_ptr`), syn_plastic [H, E] bool,
@@ -70,6 +74,7 @@ def event_arrival(ev_ring, ev_count, syn_tgt, row_ptr, syn_plastic,
     _build.require(name, torch.float32, (H, E), w=w, last_arr=last_arr)
     _build.one_device(name, ev_ring, ev_count, syn_tgt, row_ptr,
                       syn_plastic, last_post, w, last_arr)
+    base = _build.step_base(name, t_base, H, dev)
     i_syn = torch.empty((H, N), dtype=torch.float32, device=dev)
     n_arrived = torch.empty(H, dtype=torch.int64, device=dev)
     if H * N == 0 or D == 0:
@@ -84,11 +89,12 @@ def event_arrival(ev_ring, ev_count, syn_tgt, row_ptr, syn_plastic,
             ("arrival_fill", H * N, torch.int32),
             ("arrival_pairs", H * E, torch.int64),
             ("arrival_total", 2 * H, torch.int32))]
-        ptrs = (ctypes.c_void_p * 14)(
+        ptrs = (ctypes.c_void_p * 15)(
             ev_ring.data_ptr(), ev_count.data_ptr(), syn_tgt.data_ptr(),
             row_ptr.data_ptr(), syn_plastic.data_ptr(), last_post.data_ptr(),
             w.data_ptr(), last_arr.data_ptr(), i_syn.data_ptr(),
-            n_arrived.data_ptr(), *(b.data_ptr() for b in scratch), ctr)
+            n_arrived.data_ptr(), *(b.data_ptr() for b in scratch), ctr,
+            base)
         ints = (ctypes.c_int64 * 6)(H, D, cap, E, N, t_int)
         floats = (ctypes.c_float * 5)(
             a_minus, reciprocal_f32(tau_minus), w_min, w_max, neg_time / 2)
@@ -98,16 +104,19 @@ def event_arrival(ev_ring, ev_count, syn_tgt, row_ptr, syn_plastic,
     return i_syn, n_arrived
 
 
-def _scan(name, spiked, last_post, sat, t, c_post, neurons=None, blocks=0):
+def _scan(name, spiked, last_post, sat, t, c_post, neurons=None, blocks=0,
+          t_base=None):
     """Launch `csrc/event_phase_a.cu::neuron_scan` -> (count, ids):
     with `neurons` = (i_syn, stim_idx, stim_amp, exc_mask, neuron_valid, v,
     u, izh) the neuron pass writing `spiked`, else the scan of `spiked`
     alone.  Without c_post nothing is listed and last_post and sat are not
     touched.  `blocks` > 0 caps the grid's blocks a shard (each then walks
-    several tiles; for tests), 0 sizes it to the card."""
+    several tiles; for tests), 0 sizes it to the card.  `t_base`:
+    `_build.step_base`'s."""
     H, N = spiked.shape
     C = 0 if c_post is None else int(c_post)
     dev = spiked.device
+    base = _build.step_base(name, t_base, H, dev)
     if not 0 <= C <= N:
         raise ValueError(f"{name}: c_post = {C} outside [0, N = {N}]")
     count = torch.empty(H, dtype=torch.int64, device=dev)
@@ -136,10 +145,10 @@ def _scan(name, spiked, last_post, sat, t, c_post, neurons=None, blocks=0):
         # blocks that have left
         words = _build.scratch(dev, "neuron_words", H * tiles, torch.int64)
         ctrl = _build.scratch(dev, "neuron_ctrl", 2 * H)
-        ptrs = (ctypes.c_void_p * 15)(
+        ptrs = (ctypes.c_void_p * 16)(
             i_syn, stim_idx, stim_amp, exc, valid, v, u, spiked.data_ptr(),
             *book, count.data_ptr(), ids.data_ptr(), words.data_ptr(),
-            ctrl.data_ptr(), ctr)
+            ctrl.data_ptr(), ctr, base)
         ints = (ctypes.c_int64 * 9)(
             H, N, C, K, tiles, t_int,
             0 if neurons is None else izh.v_substeps, neurons is not None,
@@ -152,7 +161,7 @@ def _scan(name, spiked, last_post, sat, t, c_post, neurons=None, blocks=0):
 
 
 def event_neurons(i_syn, stim_idx, stim_amp, exc_mask, neuron_valid, v, u,
-                  last_post, sat, t, *, izh, c_post, blocks=0):
+                  last_post, sat, t, *, izh, c_post, blocks=0, t_base=None):
     """i_syn [H, N] fp32, the stimulus (index [H, C*K] int64, amp [H, C*K]
     fp32: the step's row; with the step counter the window [W, H, C*K],
     read at the counter's row), exc_mask / neuron_valid [H, N] bool,
@@ -163,8 +172,8 @@ def event_neurons(i_syn, stim_idx, stim_amp, exc_mask, neuron_valid, v, u,
     neuron_valid, and with c_post the first c_post spiking neurons listed,
     last_post = t where spiked and sat += the spikes past c_post ->
     (spiked [H, N] bool, count [H] int64, ids [H, c_post] int32); without
-    c_post, ids [H, 0], and last_post and sat untouched.  `blocks`:
-    `_scan`'s."""
+    c_post, ids [H, 0], and last_post and sat untouched.  `blocks` and
+    `t_base`: `_scan`'s."""
     name = "event_neurons"
     H, N = v.shape
     if isinstance(t, torch.Tensor):
@@ -193,7 +202,7 @@ def event_neurons(i_syn, stim_idx, stim_amp, exc_mask, neuron_valid, v, u,
     spiked = torch.empty((H, N), dtype=torch.bool, device=v.device)
     return (spiked, *_scan(name, spiked, last_post, sat, t, c_post,
                            (i_syn, stim_idx, stim_amp, exc_mask,
-                            neuron_valid, v, u, izh), blocks))
+                            neuron_valid, v, u, izh), blocks, t_base))
 
 
 def event_compact(spiked, last_post, sat, t, *, c_post, blocks=0):
@@ -213,7 +222,8 @@ def event_compact(spiked, last_post, sat, t, *, c_post, blocks=0):
 
 
 def event_ltp(ids, count, row_ptr, syn_plastic, last_arr, w, t, *, a_plus,
-              tau_plus, w_min, w_max, neg_time, blocks=0) -> None:
+              tau_plus, w_min, w_max, neg_time, blocks=0,
+              t_base=None) -> None:
     """ids [H, C] int32 (the first C spiking neurons ascending, then the
     fill N) and count [H] int64 (`event_neurons`' or `event_compact`'s),
     row_ptr [H, N + 1] int32, syn_plastic [H, E] bool, last_arr / w
@@ -234,14 +244,16 @@ def event_ltp(ids, count, row_ptr, syn_plastic, last_arr, w, t, *, a_plus,
     _build.require(name, torch.bool, (H, E), syn_plastic=syn_plastic)
     _build.require(name, torch.float32, (H, E), last_arr=last_arr, w=w)
     _build.one_device(name, ids, count, row_ptr, syn_plastic, last_arr, w)
+    base = _build.step_base(name, t_base, H, dev)
     if H * C == 0:
         return
     ctr, t_int = _build.step_counter(name, t, dev)
     lib = _build.library()
     with torch.cuda.device(dev):
-        ptrs = (ctypes.c_void_p * 7)(
+        ptrs = (ctypes.c_void_p * 8)(
             ids.data_ptr(), count.data_ptr(), row_ptr.data_ptr(),
-            syn_plastic.data_ptr(), last_arr.data_ptr(), w.data_ptr(), ctr)
+            syn_plastic.data_ptr(), last_arr.data_ptr(), w.data_ptr(), ctr,
+            base)
         ints = (ctypes.c_int64 * 6)(H, N, E, C, t_int, blocks)
         floats = (ctypes.c_float * 5)(a_plus, reciprocal_f32(tau_plus), w_min,
                                       w_max, neg_time / 2)
@@ -292,7 +304,7 @@ def event_ltp_rows(spk_ids, n_dropped, spiked, row_ptr, syn_plastic,
 
 
 def event_emit(src_ids, n_dropped, fwd_rows, syn_delay, ev_ring, ev_count,
-               sat, t) -> None:
+               sat, t, t_base=None) -> None:
     """src_ids [H, C] int32 (the first C spiking sources ascending, then
     the fill S), n_dropped [H] int32, fwd_rows [H, S, Kf] int32 (-1 pad),
     syn_delay [H, E] int32, ev_ring [H, D, cap] int32, ev_count [H, D]
@@ -315,6 +327,7 @@ def event_emit(src_ids, n_dropped, fwd_rows, syn_delay, ev_ring, ev_count,
     _build.require(name, torch.int32, (H, D), ev_count=ev_count)
     _build.one_device(name, src_ids, n_dropped, fwd_rows, syn_delay,
                       ev_ring, ev_count, sat)
+    base = _build.step_base(name, t_base, H, dev)
     if H == 0 or D == 0:
         return
     ctr, t_int = _build.step_counter(name, t, dev)
@@ -327,10 +340,10 @@ def event_emit(src_ids, n_dropped, fwd_rows, syn_delay, ev_ring, ev_count,
         words = _build.scratch(dev, "emit_words", H * tiles * D,
                                torch.int64)
         ctrl = _build.scratch(dev, "emit_ctrl", 2 * H)
-        ptrs = (ctypes.c_void_p * 10)(
+        ptrs = (ctypes.c_void_p * 11)(
             src_ids.data_ptr(), n_dropped.data_ptr(), fwd_rows.data_ptr(),
             syn_delay.data_ptr(), ev_ring.data_ptr(), ev_count.data_ptr(),
-            sat.data_ptr(), words.data_ptr(), ctrl.data_ptr(), ctr)
+            sat.data_ptr(), words.data_ptr(), ctrl.data_ptr(), ctr, base)
         ints = (ctypes.c_int64 * 9)(H, D, cap, E, S, Kf, C, t_int, tiles)
         err = lib.repro_event_emit(ptrs, ints, stream)
     _build.check(err, name)

@@ -79,19 +79,26 @@ def izhikevich_update(v, u, current, a, b, c, d, *, v_peak, dt=1.0,
         return ref.izhikevich_update(v, u, current, a, b, c, d, **kw)
 
 
-def _plain_step(t, name: str) -> int:
+def _plain_step(t, name: str, t_base=None):
     """A plain version's step: an int (the device step counter is the
-    kernels' alone)."""
+    kernels' alone), or with per-shard step offsets t_base (int64 [H] on
+    the CPU) the int64 [H] tensor t + t_base (`ref.shardwise_step`)."""
     if isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: the plain version takes the step as an "
                         f"int, not a step counter")
-    return t
+    if t_base is None:
+        return t
+    if (not isinstance(t_base, torch.Tensor) or t_base.device.type != "cpu"
+            or t_base.dtype != torch.int64 or t_base.dim() != 1):
+        raise ValueError(f"{name}: t_base must be an int64 [H] tensor on "
+                         f"the CPU for the plain version")
+    return t_base + int(t)
 
 
 def stdp_phase_a(arr_ring, r, seg: ref.Segments, syn_valid, syn_tgt,
                  syn_plastic, exc_mask, neuron_valid, stim_idx, stim_amp, v,
                  u, last_post, w, last_arr, t, *, izh, stdp, neg_time,
-                 with_ltp, coeffs=None):
+                 with_ltp, coeffs=None, t_base=None):
     """Phase A of a step: pop ring slot r (LTD, last-arrival refresh, each
     target's in-order current), add the step's stimulus (its (index, amp)
     row [H, C*K]), update the Izhikevich neurons with a, b, c, d picked by
@@ -104,17 +111,23 @@ def stdp_phase_a(arr_ring, r, seg: ref.Segments, syn_valid, syn_tgt,
     (`ref.izh_coefficients`), is used on the CPU only: the kernel takes the
     constants as launch arguments (`kernels.stdp.stdp_phase_a`).  On the
     card `t` may be the device step counter, with r None and the stimulus
-    a window [W, H, C*K] read at the counter's row."""
+    a window [W, H, C*K] read at the counter's row.
+
+    `t_base` (None, or int64 [H] on the tensors' device) gives each shard
+    its own step, t + t_base[h] (a batch of simulations folded onto the
+    shard axis); r is then each shard's own slot."""
     kw = dict(izh=izh, stdp=stdp, neg_time=neg_time, with_ltp=with_ltp)
     if _route(w, "stdp_phase_a"):
         return _stdp.stdp_phase_a(arr_ring, r, seg, syn_plastic, exc_mask,
                                   neuron_valid, stim_idx, stim_amp, v, u,
-                                  last_post, w, last_arr, t, **kw)
+                                  last_post, w, last_arr, t, t_base=t_base,
+                                  **kw)
     with ref.flush_denormal():
         return ref.stdp_phase_a(arr_ring, r, seg, syn_valid, syn_tgt,
                                 syn_plastic, exc_mask, neuron_valid,
                                 stim_idx, stim_amp, v, u, last_post, w,
-                                last_arr, _plain_step(t, "stdp_phase_a"),
+                                last_arr,
+                                _plain_step(t, "stdp_phase_a", t_base),
                                 coeffs=coeffs, **kw)
 
 
@@ -173,7 +186,7 @@ def stdp_ltp(spiked, row_ptr, syn_plastic, last_arr, w, last_post, t, *,
 
 
 def arborize(arr_ring, spiked_src, syn_src, syn_delay, syn_valid, fwd_ptr,
-             fwd_ids, fwd_delay, t):
+             fwd_ids, fwd_delay, t, t_base=None):
     """Phase B: for every valid synapse whose source spiked, set its flag
     at ring slot (t + delay) mod D.  arr_ring [H, D, E] bool (updated in
     place and returned), spiked_src [H, S] bool, the plan's syn_src [H, E]
@@ -181,11 +194,12 @@ def arborize(arr_ring, spiked_src, syn_src, syn_delay, syn_valid, fwd_ptr,
     plain version reads, and the kernel where most sources spiked) and its
     forward CSR fwd_ptr [H, S + 1], fwd_ids [H, E] and fwd_delay [H, E]
     int32 (what the kernel walks: `core.engine.make_fwd_csr`); t an int,
-    or on the card the device step counter (`kernels.arborize.arborize`)."""
+    or on the card the device step counter (`kernels.arborize.arborize`);
+    `t_base` as `stdp_phase_a`'s."""
     args = (arr_ring, spiked_src, syn_src, syn_delay, syn_valid)
     if _route(arr_ring, "arborize"):
-        return _arb.arborize(*args, fwd_ptr, fwd_ids, fwd_delay, t)
-    return ref.arborize(*args, _plain_step(t, "arborize"))
+        return _arb.arborize(*args, fwd_ptr, fwd_ids, fwd_delay, t, t_base)
+    return ref.arborize(*args, _plain_step(t, "arborize", t_base))
 
 
 def chunk_tables(source: ref.ChunkSource, c: int, out: ref.ChunkTables,
@@ -257,7 +271,7 @@ def arborize_chunk(arr_ring, spiked_src, tables: ref.ChunkTables,
 
 def event_arrival(ev_ring, ev_count, syn_tgt, row_ptr, syn_plastic,
                   last_post, w, last_arr, t, *, a_minus, tau_minus, w_min,
-                  w_max, neg_time):
+                  w_max, neg_time, t_base=None):
     """The event backend's arrivals at step t: slot t mod D of ev_ring
     [H, D, cap] int32 (its events in [0, ev_count[:, slot]), -1 after),
     each target's current the in-list-order sum of its events' pre-LTD
@@ -266,21 +280,23 @@ def event_arrival(ev_ring, ev_count, syn_tgt, row_ptr, syn_plastic,
     [H, N + 1] int32 (the kernel's buckets; the plain version needs none)
     and syn_plastic [H, E] bool, last_post [H, N], w / last_arr [H, E] ->
     (i_syn [H, N], n_arrived [H] int64), in place
-    (`kernels.event.event_arrival`)."""
+    (`kernels.event.event_arrival`); `t_base` as `stdp_phase_a`'s."""
     kw = dict(a_minus=a_minus, tau_minus=tau_minus, w_min=w_min,
               w_max=w_max, neg_time=neg_time)
     state = (syn_plastic, last_post, w, last_arr)
     if _route(w, "event_arrival"):
         return _ev.event_arrival(ev_ring, ev_count, syn_tgt, row_ptr,
-                                 *state, t, **kw)
-    t = _plain_step(t, "event_arrival")
+                                 *state, t, t_base=t_base, **kw)
+    r = 0 if t_base is not None else t % ev_ring.shape[1]
+    t = _plain_step(t, "event_arrival", t_base)
     with ref.flush_denormal():
-        return ref.event_arrival(ev_ring, ev_count, t % ev_ring.shape[1],
-                                 syn_tgt, *state, t, **kw)
+        return ref.event_arrival(ev_ring, ev_count, r, syn_tgt, *state, t,
+                                 **kw)
 
 
 def event_neurons(i_syn, stim_idx, stim_amp, exc_mask, neuron_valid, v, u,
-                  last_post, sat, t, *, izh, c_post, coeffs=None):
+                  last_post, sat, t, *, izh, c_post, coeffs=None,
+                  t_base=None):
     """The event backend's phase A after the arrivals, up to LTP: the
     stimulus (its (index, amp) row [H, C*K]), i_syn [H, N] + it, the
     Izhikevich update with a, b, c, d picked by exc_mask from `izh` (a
@@ -295,13 +311,15 @@ def event_neurons(i_syn, stim_idx, stim_amp, exc_mask, neuron_valid, v, u,
     (`ref.izh_coefficients`), is used on the CPU only: the kernel takes the
     constants as launch arguments (`kernels.event.event_neurons`).  On the
     card `t` may be the device step counter, the stimulus then a window
-    [W, H, C*K] read at the counter's row."""
+    [W, H, C*K] read at the counter's row.  `t_base` as `stdp_phase_a`'s."""
     args = (i_syn, stim_idx, stim_amp, exc_mask, neuron_valid, v, u,
             last_post, sat)
     if _route(v, "event_neurons"):
-        return _ev.event_neurons(*args, t, izh=izh, c_post=c_post)
+        return _ev.event_neurons(*args, t, izh=izh, c_post=c_post,
+                                 t_base=t_base)
     with ref.flush_denormal():
-        return ref.event_neurons(*args, _plain_step(t, "event_neurons"),
+        return ref.event_neurons(*args,
+                                 _plain_step(t, "event_neurons", t_base),
                                  izh=izh, c_post=c_post, coeffs=coeffs)
 
 
@@ -319,32 +337,34 @@ def event_compact(spiked, last_post, sat, t, *, c_post):
 
 
 def event_ltp(ids, count, row_ptr, syn_plastic, last_arr, w, t, *, a_plus,
-              tau_plus, w_min, w_max, neg_time) -> None:
+              tau_plus, w_min, w_max, neg_time, t_base=None) -> None:
     """The event backend's LTP at step t: LTP on the CSR rows (row_ptr
     [H, N + 1]) of the neurons listed in ids [H, C] (with count as
     `event_neurons` or `event_compact` gave it), w [H, E] in place
-    (`kernels.event.event_ltp`)."""
+    (`kernels.event.event_ltp`); `t_base` as `stdp_phase_a`'s."""
     kw = dict(a_plus=a_plus, tau_plus=tau_plus, w_min=w_min, w_max=w_max,
               neg_time=neg_time)
     args = (ids, count, row_ptr, syn_plastic, last_arr, w)
     if _route(w, "event_ltp"):
-        return _ev.event_ltp(*args, t, **kw)
+        return _ev.event_ltp(*args, t, t_base=t_base, **kw)
     with ref.flush_denormal():
-        return ref.event_ltp(*args, _plain_step(t, "event_ltp"), **kw)
+        return ref.event_ltp(*args, _plain_step(t, "event_ltp", t_base),
+                             **kw)
 
 
 def event_emit(src_ids, n_dropped, fwd_rows, syn_delay, ev_ring, ev_count,
-               sat, t) -> None:
+               sat, t, t_base=None) -> None:
     """The event backend's phase B at step t: the forward rows (fwd_rows
     [H, S, Kf] int32, -1 pad) of the sources listed in src_ids [H, C] int32
     (the first C spiking sources, then the fill S) appended to slot
     (t + delay) mod D of ev_ring [H, D, cap] in (source rank, row
     position) order, ev_count [H, D] updated, sat [H] += n_dropped + the
-    events past cap; in place (`kernels.event.event_emit`)."""
+    events past cap; in place (`kernels.event.event_emit`); `t_base` as
+    `stdp_phase_a`'s."""
     args = (src_ids, n_dropped, fwd_rows, syn_delay, ev_ring, ev_count, sat)
     if _route(ev_ring, "event_emit"):
-        return _ev.event_emit(*args, t)
-    return ref.event_emit(*args, _plain_step(t, "event_emit"))
+        return _ev.event_emit(*args, t, t_base)
+    return ref.event_emit(*args, _plain_step(t, "event_emit", t_base))
 
 
 def segment_sum_ordered(contrib, seg: ref.Segments):

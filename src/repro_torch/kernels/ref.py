@@ -27,6 +27,8 @@ tolerance, not bit for bit (see their docstrings).
 from __future__ import annotations
 
 import contextlib
+import functools
+import inspect
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -38,6 +40,71 @@ F32 = torch.float32
 def f32(x: float, device) -> torch.Tensor:
     """A 0-dim float32 constant (Python floats would be doubles)."""
     return torch.tensor(np.float32(x), dtype=F32, device=device)
+
+
+def _shard_rows(x, lo: int, hi: int, H: int):
+    """x's shards [lo, hi): a tensor with a leading [H] axis as a view of
+    those rows, a tuple (Segments, coefficients) element by element, any
+    other value as it is."""
+    if isinstance(x, torch.Tensor):
+        return x[lo:hi] if x.dim() and x.shape[0] == H else x
+    if isinstance(x, tuple):
+        parts = [_shard_rows(y, lo, hi, H) for y in x]
+        return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+    return x
+
+
+def _join(parts: list):
+    """The per-run results of a shardwise call joined along the shard
+    axis (tensors concatenated, tuples element by element)."""
+    first = parts[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat(parts, 0)
+    if isinstance(first, tuple):
+        joined = [_join(list(p)) for p in zip(*parts)]
+        return type(first)(*joined) if hasattr(first, "_fields") \
+            else tuple(joined)
+    return first
+
+
+def shardwise_step(fn):
+    """Let a plain version take its step `t` as an int or as an int64 [H]
+    tensor of per-shard steps (a batch of independent simulations folded
+    onto the shard axis, each at its own step, as the kernels' `t_base`
+    gives it).  With a tensor, fn runs once for each run of consecutive
+    shards that share a step, on views of their rows (every argument whose
+    leading axis is the [H] of the first), with that step as an int, and
+    with its ring slot `r`, where fn takes one, as step mod D (D the first
+    argument's second axis); the results are joined along the shard axis.
+    Every shard thus goes through the same operations as it would alone."""
+    sig = inspect.signature(fn)
+    t_at = list(sig.parameters).index("t")
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        t = args[t_at] if len(args) > t_at else kwargs.get("t")
+        if not isinstance(t, torch.Tensor):
+            return fn(*args, **kwargs)
+        bound = sig.bind(*args, **kwargs)
+        first = next(iter(bound.arguments.values()))
+        H = first.shape[0]
+        if t.dtype != torch.int64 or tuple(t.shape) != (H,):
+            raise ValueError(f"{fn.__name__}: per-shard steps must be int64 "
+                             f"[{H}], got {t.dtype}{tuple(t.shape)}")
+        steps = t.tolist()
+        parts, lo = [], 0
+        for hi in range(1, H + 1):
+            if hi < H and steps[hi] == steps[lo]:
+                continue
+            sub = {k: _shard_rows(v, lo, hi, H)
+                   for k, v in bound.arguments.items()}
+            sub["t"] = int(steps[lo])
+            if "r" in sub:
+                sub["r"] = int(steps[lo]) % first.shape[1]
+            parts.append(fn(**sub))
+            lo = hi
+        return _join(parts)
+    return wrapped
 
 
 def reciprocal_f32(x: float) -> np.float32:
@@ -254,6 +321,7 @@ def izh_coefficients(exc_mask: torch.Tensor, izh) -> tuple:
                  for k in "abcd")
 
 
+@shardwise_step
 def stdp_phase_a(arr_ring, r: int, seg, syn_valid, syn_tgt, syn_plastic,
                  exc_mask, neuron_valid, stim_idx, stim_amp, v, u,
                  last_post, w, last_arr, t: float, *, izh, stdp,
@@ -290,6 +358,7 @@ def stdp_phase_a(arr_ring, r: int, seg, syn_valid, syn_tgt, syn_plastic,
     return spiked, n_arrived, spiked.sum(1)
 
 
+@shardwise_step
 def arborize(arr_ring, spiked_src, syn_src, syn_delay, syn_valid, t: int):
     """Plain version of kernels.arborize.arborize: phase B, the reference's
     broadcast-compare (`repro.core.engine.phase_b`) with the [H] axis.
@@ -328,6 +397,7 @@ def ordered_sum(index: torch.Tensor, values: torch.Tensor,
     return out
 
 
+@shardwise_step
 def event_arrival(ev_ring, ev_count, r: int, syn_tgt, syn_plastic,
                   last_post, w, last_arr, t: int, *, a_minus, tau_minus,
                   w_min, w_max, neg_time):
@@ -366,6 +436,7 @@ def event_arrival(ev_ring, ev_count, r: int, syn_tgt, syn_plastic,
     return i_syn.view(H, N), listed.sum(1)
 
 
+@shardwise_step
 def event_compact(spiked, last_post, sat, t: int, *, c_post: int):
     """Plain version of kernels.event.event_compact: the bookkeeping of the
     event backend's LTP (`repro.core.event_engine.phase_a_plasticity`,
@@ -384,6 +455,7 @@ def event_compact(spiked, last_post, sat, t: int, *, c_post: int):
     return spiked.sum(1), ids
 
 
+@shardwise_step
 def event_neurons(i_syn, stim_idx, stim_amp, exc_mask, neuron_valid, v, u,
                   last_post, sat, t: int, *, izh, c_post: Optional[int],
                   coeffs=None):
@@ -418,6 +490,7 @@ def event_neurons(i_syn, stim_idx, stim_amp, exc_mask, neuron_valid, v, u,
                                    c_post=c_post))
 
 
+@shardwise_step
 def event_ltp(ids, count, row_ptr, syn_plastic, last_arr, w, t: int, *,
               a_plus, tau_plus, w_min, w_max, neg_time) -> None:
     """Plain version of kernels.event.event_ltp: the event backend's LTP
@@ -439,6 +512,7 @@ def event_ltp(ids, count, row_ptr, syn_plastic, last_arr, w, t: int, *,
                  neg_time=neg_time))
 
 
+@shardwise_step
 def event_emit(src_ids, n_dropped, fwd_rows, syn_delay, ev_ring, ev_count,
                sat, t: int) -> None:
     """Plain version of kernels.event.event_emit: the event backend's phase

@@ -145,7 +145,7 @@ def _step_stimulus(name, H, r, t, stim_idx, stim_amp):
 def stdp_phase_a(arr_ring, r, seg: Segments, syn_plastic, exc_mask,
                  neuron_valid, stim_idx, stim_amp, v, u, last_post, w,
                  last_arr, t, *, izh, stdp, neg_time: float,
-                 with_ltp: bool):
+                 with_ltp: bool, t_base=None):
     """Phase A of a step in one launch: `stdp_arrival_current`'s pass, then
     in each row's own lanes the stimulus, the Izhikevich update and the
     spike, and with `with_ltp` LTP of the rows that spiked.
@@ -164,7 +164,13 @@ def stdp_phase_a(arr_ring, r, seg: Segments, syn_plastic, exc_mask,
     stimulus window; `_build.step_counter`) and r None, the kernel reads t,
     r = t mod D and the row itself: stim_idx / stim_amp are then a window
     [W, H, C*K], and nothing of the step is a launch argument (what a
-    captured CUDA graph needs)."""
+    captured CUDA graph needs).
+
+    With `t_base`, per-shard step offsets (int64 [H] on the card,
+    `_build.step_base`), shard h steps at t + t_base[h] (the counter's t,
+    or an int t, whose r is then ignored): its ring slot, its LTD / LTP
+    time differences and its last_arr / last_post stamps.  None is the
+    solo launch, unchanged."""
     name = "stdp_phase_a"
     H, D, E = arr_ring.shape
     row_ptr = seg.row_ptr
@@ -183,6 +189,7 @@ def stdp_phase_a(arr_ring, r, seg: Segments, syn_plastic, exc_mask,
     _build.require(name, torch.float32, (H, E), w=w, last_arr=last_arr)
     _build.one_device(name, arr_ring, row_ptr, syn_plastic, exc_mask,
                       stim_idx, stim_amp, v, w)
+    base = _build.step_base(name, t_base, H, w.device)
     spiked = torch.empty((H, N), dtype=torch.bool, device=w.device)
     counts = torch.empty((2, H), dtype=torch.int64, device=w.device)
     if H * N == 0:
@@ -191,15 +198,16 @@ def stdp_phase_a(arr_ring, r, seg: Segments, syn_plastic, exc_mask,
     lib = _build.library()
     with torch.cuda.device(w.device):
         stream = _stream()
-        ptrs = (ctypes.c_void_p * 17)(
+        ptrs = (ctypes.c_void_p * 18)(
             arr_ring.data_ptr(), row_ptr.data_ptr(), syn_plastic.data_ptr(),
             exc_mask.data_ptr(), neuron_valid.data_ptr(), stim_idx.data_ptr(),
             stim_amp.data_ptr(), v.data_ptr(), u.data_ptr(),
             last_post.data_ptr(), w.data_ptr(), last_arr.data_ptr(),
             spiked.data_ptr(), counts[0].data_ptr(), counts[1].data_ptr(),
-            _scratch(w.device, H).data_ptr(), ctr)
-        ints = (ctypes.c_int64 * 8)(H, D, E, N, 0 if counted else int(r), K,
-                                    int(izh.v_substeps), int(with_ltp))
+            _scratch(w.device, H).data_ptr(), ctr, base)
+        ints = (ctypes.c_int64 * 9)(H, D, E, N, 0 if counted else int(r), K,
+                                    int(izh.v_substeps), int(with_ltp),
+                                    t_int)
         floats = _phase_a_floats(t_int if counted else t, izh, stdp,
                                  neg_time)
         err = lib.repro_stdp_phase_a(ptrs, ints, floats, stream)

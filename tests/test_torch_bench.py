@@ -15,6 +15,9 @@
   accounting) and its streamed = materialized identity, and its and the
   ladder's (H = 1, 2, 4) signatures equal to the JAX package's cells at the
   same depth;
+* `simserve_throughput --quick` on the CPU: its signatures, program
+  builds and captures (`traces`) at 1, 4 and 8 tenants equal to the JAX
+  suite's `run_suite(quick=True)` (a second AVX subprocess);
 * the registry and the CLI: the ported suites, and NotImplementedError
   naming the ROADMAP item for the JAX package's others.
 """
@@ -29,7 +32,8 @@ import torch
 from repro_torch.bench import cli, registry, timing
 from repro_torch.bench import profile as BP
 from repro_torch.bench import report as R
-from repro_torch.bench.suites import table1, table2, weak_scaling
+from repro_torch.bench.suites import (simserve_throughput, table1, table2,
+                                     weak_scaling)
 from repro_torch.core import EngineConfig, GridConfig
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -84,9 +88,17 @@ def _jax_weak() -> dict:
     return out
 
 
+def _jax_simserve() -> dict:
+    """Inside the AVX subprocess: the JAX simserve_throughput suite's
+    deterministic keys, quick."""
+    import jax  # noqa: F401  (jax starts under the AVX flag)
+    from repro.bench.suites import simserve_throughput as JS
+    return JS.run_suite(quick=True)["deterministic"]
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _avx_job():
-    procs = start_avx(__file__, [["--suites"]])
+    procs = start_avx(__file__, [["--suites"], ["--simserve"]])
     yield procs
     for p in procs:
         if p.poll() is None:
@@ -95,8 +107,19 @@ def _avx_job():
 
 
 @pytest.fixture(scope="module")
-def jax_suites(_avx_job):
-    return json.loads(wait_avx(_avx_job)[0].strip().splitlines()[-1])
+def _avx_outputs(_avx_job):
+    return [json.loads(out.strip().splitlines()[-1])
+            for out in wait_avx(_avx_job)]
+
+
+@pytest.fixture(scope="module")
+def jax_suites(_avx_outputs):
+    return _avx_outputs[0]
+
+
+@pytest.fixture(scope="module")
+def jax_simserve(_avx_outputs):
+    return _avx_outputs[1]
 
 
 # -- report --------------------------------------------------------------
@@ -338,6 +361,20 @@ def test_weak_scaling_equals_jax_cells(jax_suites):
             want[tag]["spikes"], want[tag]["raster_sig"])
 
 
+# -- simserve_throughput ------------------------------------------------
+
+
+def test_simserve_throughput_quick_equals_jax_suite(jax_simserve):
+    rep = simserve_throughput.run_suite(quick=True, device="cpu")
+    assert R.validate(rep) == []
+    d = rep["deterministic"]
+    for n in simserve_throughput.TENANT_COUNTS:
+        for key in (f"t{n}_sig", f"t{n}_cache_builds", f"t{n}_traces"):
+            assert d[key] == jax_simserve[key], key
+        assert d[f"t{n}_cache_builds"] == 1 and d[f"t{n}_traces"] == 1
+    assert [r["tenants"] for r in rep["extra"]["rows"]] == [1, 4, 8]
+
+
 # -- registry and CLI ----------------------------------------------------
 
 
@@ -345,13 +382,14 @@ def test_registry_ports_three_suites():
     # (since event delivery: a fourth, event_vs_dense's single-device rows;
     # since streamed connectivity: weak_scaling; since the mesh:
     # comm_overlap, scaling and event_vs_dense's distributed cells)
-    # (since the cluster runtime: cluster_scaling)
+    # (since the cluster runtime: cluster_scaling; since the simulation
+    # service: simserve_throughput)
     assert sorted(registry.BENCHES) == ["cluster_scaling", "comm_overlap",
                                         "event_vs_dense", "profile",
-                                        "scaling", "table1", "table2",
-                                        "weak_scaling"]
+                                        "scaling", "simserve_throughput",
+                                        "table1", "table2", "weak_scaling"]
     for name in ("weak_scaling", "comm_overlap", "scaling",
-                 "cluster_scaling"):
+                 "cluster_scaling", "simserve_throughput"):
         assert name not in registry.NOT_PORTED
     for name in registry.NOT_PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
@@ -378,5 +416,6 @@ def test_cli_runs_table2_on_the_cpu(tmp_path, monkeypatch, capsys):
 
 
 if __name__ == "__main__":
-    assert sys.argv[1] == "--suites"
-    print(json.dumps(_jax_suites()))
+    assert sys.argv[1] in ("--suites", "--simserve")
+    print(json.dumps(_jax_suites() if sys.argv[1] == "--suites"
+                     else _jax_simserve()))

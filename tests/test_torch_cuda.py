@@ -1608,3 +1608,51 @@ def test_streamed_phase_handles_equal_cpu_and_never_synchronise(cuda,
     assert all(torch.equal(a, b) for a, b in zip(*(out[d][0] for d in out)))
     assert all(_bits_equal(a, b) for a, b in zip(out["cuda"][1],
                                                   out["cpu"][1]))
+
+
+# -- the simulation service's per-shard steps (t_base) and its rounds ------
+
+
+@pytest.mark.parametrize("name", ["stdp_phase_a", "arborize",
+                                  "event_arrival", "event_neurons",
+                                  "event_ltp", "event_emit"])
+def test_t_base_forms_on_card_equal_plain_and_solo(cuda, name):
+    """Each op with per-shard steps on the card (t an int, t_base [4, 9]
+    on the card): bit-equal to its plain version with the same steps on
+    the CPU, and shard h to the solo launch at t + t_base[h]; t_base of
+    zeros bit-equal to none."""
+    from test_torch_simserve import OPS, _call_op, _op_inputs
+    sp_c, st_c = _op_inputs(OPS[name])
+    sp_g, st_g = _op_inputs(OPS[name], "cuda")
+    tb = torch.tensor([4, 9])
+    got = _call_op(name, sp_g, st_g, 20, tb.cuda())
+    want = _call_op(name, sp_c, st_c, 20, tb)
+    assert all(_bits_equal(a, b) for a, b in zip(got, want))
+    solo = [_call_op(name, sp_g, st_g, t, None) for t in (24, 29)]
+    for a, b0, b1 in zip(got, *solo):
+        if a.dim() and a.shape[0] == 2:
+            assert _bits_equal(a[0], b0[0]) and _bits_equal(a[1], b1[1])
+    zeros = torch.zeros(2, dtype=torch.int64, device="cuda")
+    assert all(_bits_equal(a, b) for a, b in zip(
+        _call_op(name, sp_g, st_g, 24, zeros), solo[0]))
+    with pytest.raises(ValueError, match="t_base"):
+        _call_op(name, sp_g, st_g, 24, tb)         # on the CPU
+
+
+def test_simserve_soak_on_card_equals_cpu_service(cuda):
+    """The CPU soak of tests/test_torch_simserve.py on the card: every
+    tenant's signature and sat equal the CPU service's, one capture per
+    shape key."""
+    from test_torch_simserve import (DENSE, EVENT, _soak, _soak_requests,
+                                     CFG as SCFG)
+    from repro_torch.simserve import SimService, TenantRequest
+    out = {}
+    for dev in ("cpu", "cuda"):
+        svc = SimService(slots=2, round_steps=15, device=dev)
+        _, snap = _soak(svc, _soak_requests(TenantRequest, SCFG, DENSE,
+                                            EVENT))
+        out[dev] = ({n: (s.stream.signature(), s.sat_total)
+                     for n, s in svc.sessions.items()},
+                    snap["program_cache"])
+    assert out["cuda"] == out["cpu"]
+    assert all(n == 1 for n in out["cuda"][1]["traces"].values())
