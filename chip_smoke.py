@@ -146,7 +146,13 @@ every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
            kernel (with LTP, t from the step counter), of LTP and of the
            element walk on the interior chunk at the main density,
            bit-equal to their plain versions on a CPU copy, timed on
-           restored inputs; ptxas's registers and spills of `stream.cu`;
+           restored inputs; `chunk_tables[shard_id]`: the kernel on a
+           block of scatter rows named by their shard ids (shards 2-3 of
+           the 8x8 plan at H = 4, scatter, K = 1, the interior chunk),
+           bit-equal to its plain version and to those rows of the
+           all-shard call, timed beside its plain version and bound; row
+           S's device ms beside run XF3's (0.0402743); ptxas's
+           registers and spills of `stream.cu`;
   stream_check  streamed connectivity at 4x4 full width, 150 steps, K = 1
            and 3 (ragged at H = 4), three layouts: raster and weight
            signatures equal to `jax_reference.json`'s runs (the modes are
@@ -169,9 +175,11 @@ every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
            NCCL, H = 4 shards, at 4x4 full width, 150 steps: dense
            {allgather, halo, hier} x {sync, pipelined}, scatter with
            allgather, event with allgather and halo (`no_drop_caps`, sat
-           0) and streamed K = 1 with halo sync and pipelined (NCCL:
-           dense halo and allgather, and at R = 1 streamed K = 1 with
-           scatter placement and halo, which more ranks refuse); each
+           0), streamed K = 1 with halo sync and pipelined, and streamed
+           K = 1 with scatter placement under halo sync and hier
+           pipelined (a rank's block of scatter shards: the chunk
+           kernel's shard ids) (NCCL: dense halo and allgather, and at
+           R = 1 streamed K = 1 with scatter placement and halo); each
            cell's gathered raster and
            weights equal to `jax_reference.json`'s H = 4 run, every
            rank's kernels launched as the path launches them (eager), and
@@ -205,6 +213,26 @@ every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
            resumes at t = 50 (the corrupt epoch fails its sha256) and
            gives the h4_block signatures; restarts, steps salvaged and
            walls beside the card;
+  plan     two experiment plans (`repro_torch.bench.plans`), written as
+           JSON into a temporary directory and run on the card, each cell
+           in a fresh interpreter or, at 2 processes, as a
+           `repro_torch.cluster` launch of 2 ranks sharing the card: 4x4
+           full width, 150 steps, phase_steps 10, reps 2, materialized
+           and streamed K = 1 x halo and hier x block and scatter at H =
+           4 over 1 and 2 processes (hier only over 2): 8 cells, each
+           giving `jax_reference.json`'s h1_block raster signature and
+           spikes; and the quick plan's content (2x2, 40 neurons a
+           column, both deliveries, schedules and residencies, 1 and 2
+           processes): 15 cells, each giving its plan_quick entry (the
+           two plans at once, a thread each, beside `simserve_check`:
+           the cells are other processes, mostly start-up on the host;
+           the line comes after simserve_check's, and both mark their
+           times as contended).  Each plan runs again
+           with `assert_complete` (0 cells executed);
+           the merged report validates with every `identical_*` flag
+           true, and the dashboard is written.  Per cell: the wall (the
+           fastest rep, and each rep's), the phase split and the time per
+           synaptic event;
   simserve_check  the multi-tenant service (`repro_torch.simserve`) at
            4x4 full width (3.2 M synapses a tenant): seeds 2013, 7, 99,
            5, 123456, 42 alternating dense and event delivery and seed
@@ -236,8 +264,12 @@ every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
            at 2x2, H=4, 150 steps; it raises unless every cell gives the
            same raster and totals), and `event_vs_dense`'s single-device
            rows (2x2, 500 neurons a column, 200 steps, stim 1 and 0: both
-           deliveries' rasters must be equal), and `cluster_scaling` quick
-           (1 and 2 ranks on the card: the rasters must be equal).
+           deliveries' rasters must be equal), `cluster_scaling` quick
+           (1 and 2 ranks on the card: the rasters must be equal), and
+           `connectivity_sweep` quick (6x6, H = 4, 40 steps; each of the
+           four profiles' spikes and raster signature equal to
+           `jax_reference.json`'s connectivity_sweep entries) and full
+           (12x12, 100 neurons a column, M = 60, H = 8, 100 steps).
 
 Then the LM serving path (`recurrentgemma-2b`, `repro_torch.serve`):
 
@@ -418,7 +450,14 @@ class PhaseFailed(RuntimeError):
     pass
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line also gets `at_s`, the seconds
+    since the script started."""
+    if "phase" in obj:
+        obj = dict(obj, at_s=time.perf_counter() - _T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -2000,6 +2039,14 @@ def phase_kernels(plan8, spec8, sp8e, lookup):
                  0, lib_tgt, lib_contrib)),
     ]
     rows, failed = [], []
+    parts, t_part = {}, time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        parts[name] = now - t_part
+        t_part = now
+
     for c in cases:
         got = c["kernel"]()
         torch.cuda.synchronize()
@@ -2024,18 +2071,23 @@ def phase_kernels(plan8, spec8, sp8e, lookup):
             equal=equal, tolerance="bit-equal (every output, 0 ulp)",
             shape={"E": H * E, "N": H * N,
                                 "synapses_summed": n_valid}))
+    part("izhikevich_segment_sum")
     stdp_rows, stdp_failed = _stdp_rows(plan8, spec8)
     rows[1:1] = stdp_rows
     failed += stdp_failed
+    part("stdp")
     arb_rows, arb_failed = _arborize_rows(plan8, spec8)
     rows += arb_rows
     failed += arb_failed
+    part("arborize")
     ev_rows, ev_failed = _event_rows(sp8e, lookup)
     rows += ev_rows
     failed += ev_failed
+    part("event")
     long_rows, long_failed = _event_emit_long_rings()
     rows += long_rows
     failed += long_failed
+    part("event_emit_long_rings")
     sp4e = _program(GridConfig(grid_x=4, grid_y=4),
                     EngineConfig(delivery="event"))
     tb_rows, tb_failed = _t_base_rows(sp4e, lookup)
@@ -2043,6 +2095,7 @@ def phase_kernels(plan8, spec8, sp8e, lookup):
     torch.cuda.empty_cache()
     rows += tb_rows
     failed += tb_failed
+    part("t_base")
     # registers, shared memory and spills of the STDP kernels (row_kernel<
     # true> is phase A, row_kernel<false> the fused arrival pass) and of
     # phase B's
@@ -2050,7 +2103,7 @@ def phase_kernels(plan8, spec8, sp8e, lookup):
           "arborize_ptxas": _build.inspect("arborize.cu")["ptxas"],
           "event_ptxas": _build.inspect("event.cu")["ptxas"],
           "event_phase_a_ptxas": _build.inspect("event_phase_a.cu")["ptxas"],
-          "rows": rows})
+          "seconds_by_part": parts, "rows": rows})
     if failed:
         raise PhaseFailed(f"kernels differ from their plain versions: "
                           f"{failed}")
@@ -2398,11 +2451,16 @@ def phase_bench():
     grid, layout and 150 steps), `table1` at TABLE1_ROWS and its 300
     steps (build seconds and peak memory by row), `table2` under
     `sync` and its cell again under `pipelined` (equal raster
-    signatures), and `profile` (which raises unless every exchange x
-    placement cell gives the same raster and totals)."""
+    signatures), `profile` (which raises unless every exchange x
+    placement cell gives the same raster and totals), `event_vs_dense`'s
+    single-device rows, `cluster_scaling` quick, and `connectivity_sweep`
+    quick (each profile's spikes and raster signature equal to
+    `jax_reference.json`'s connectivity_sweep entries) and at its full
+    size (12x12, H = 8, 100 steps)."""
     with open(os.path.join(HERE, "src", "repro_torch", "data",
                            "jax_reference.json")) as f:
-        want = json.load(f)["runs"]["h1_block"]
+        ref = json.load(f)
+    want = ref["runs"]["h1_block"]
     quick = table1.run_suite(quick=True, device="cuda")
     det = quick["deterministic"]
     quick_ok = (det["sig_4x4"] == want["raster_signature"]
@@ -2431,6 +2489,25 @@ def phase_bench():
     except Exception as e:          # a failed launch or unequal rasters
         raise PhaseFailed(f"cluster_scaling: {str(e)[-3000:]}")
     _report_line("cluster_scaling", cs, points=cs["extra"]["points"])
+    sweep_want = ref["connectivity_sweep"]["profiles"]
+    t0 = time.perf_counter()
+    sweep_q = connectivity_sweep.run_suite(quick=True, device="cuda")
+    sweep_q_s = time.perf_counter() - t0
+    sdet = sweep_q["deterministic"]
+    sweep_ok = {p: (sdet[f"{connectivity_sweep._key(p)}_raster_sig"]
+                    == w["raster_signature"]
+                    and sdet[f"{connectivity_sweep._key(p)}_spikes"]
+                    == w["spikes"]) for p, w in sweep_want.items()}
+    _report_line("connectivity_sweep_quick", sweep_q,
+                 rows=sweep_q["extra"]["rows"], seconds=sweep_q_s,
+                 equal_to_jax_reference=sweep_ok)
+    t0 = time.perf_counter()
+    sweep = connectivity_sweep.run_suite(device="cuda")
+    _report_line("connectivity_sweep", sweep, rows=sweep["extra"]["rows"],
+                 seconds=time.perf_counter() - t0)
+    if not all(sweep_ok.values()) or len(sweep_ok) != 4:
+        raise PhaseFailed(f"connectivity_sweep quick differs from the JAX "
+                          f"reference: {sweep_ok}")
     if not cs["deterministic"]["identical_across_procs"]:
         raise PhaseFailed("cluster_scaling's rasters differ across process "
                           "counts")
@@ -2470,7 +2547,7 @@ def _simserve_fleet(cfg0, H: int) -> list:
     return reqs
 
 
-def phase_simserve_check(card: str) -> dict:
+def phase_simserve_check(card: str, beside: str = "") -> dict:
     """The service on the card at 4x4 full width (3.2 M synapses a
     tenant): the fleet of `_simserve_fleet` at H = 2 in 2 slots, rounds of
     SIMSERVE_ROUND steps, SIMSERVE_STEPS steps each; the first running
@@ -2482,7 +2559,8 @@ def phase_simserve_check(card: str) -> dict:
     > 0, and every kernel of both deliveries' paths launched (the
     wrappers' counts, set to 0 before the service and read after it: each
     program's first round runs eagerly, then is captured).  Returns those
-    counts."""
+    counts.  `beside` names what ran on the card at the same time: the
+    line then marks its seconds as contended."""
     with open(os.path.join(HERE, "src", "repro_torch", "data",
                            "jax_reference.json")) as f:
         ref = json.load(f)
@@ -2543,7 +2621,8 @@ def phase_simserve_check(card: str) -> dict:
           "snapshot": {k: v for k, v in snap.items()
                        if k != "program_cache"},
           "program_cache": snap["program_cache"], "launches": counts,
-          "wall_s": wall, "solo_runs_s": solo_s})
+          "wall_s": wall, "solo_runs_s": solo_s,
+          "contended_by": beside or None})
     if failed:
         raise PhaseFailed(f"simserve: tenants differ from their solo runs "
                           f"or the reference, or dropped events: {failed}")
@@ -3266,19 +3345,101 @@ def _plain_on_card_ms(name, g, tb, lo, t, D, exc, nv, kw, ltp_kw, restore):
     return in_place_ms(fn, restore, calls=3, warmup=1)
 
 
+#: Row S's device ms at the 8x8 interior chunk before the kernel took the
+#: rows' shard ids (run XF3, isolated; H100 80GB HBM3, 700 W)
+ROW_S_XF3_DEVICE_MS = 0.0402743
+SHARD_ID_ROWS = (2, 3)      # the block of the [shard_id] row, of 4 shards
+
+
+def _shard_id_row(sp8x) -> tuple:
+    """`chunk_tables` on a block of scatter rows named by their shard ids
+    (SHARD_ID_ROWS of the 8x8 streamed plan at H = 4, scatter, K = 1, as
+    a rank of two holds them), at the interior chunk: bit-equal to its
+    plain version on the card and to those rows of the all-shard plain
+    call, flag clear; timed beside its plain version and its bound
+    (`_chunk_tables_ops`)."""
+    ss = sp8x.spec.stream
+    idx = torch.tensor(SHARD_ID_ROWS, device="cuda")
+    full = stream_engine.chunk_source(sp8x.spec, sp8x.plan, sp8x.splan)
+    src = stream_engine.make_chunk_source(
+        sp8x.spec.cfg, sp8x.spec.eng, ss.q, sp8x.plan.src_gid[idx],
+        sp8x.splan.cand[idx], sp8x.splan.e_start[idx], ss.row_cap,
+        shard_id=sp8x.plan.shard_id[idx])
+    K = stream_engine.live_width(sp8x.splan)
+    z = lambda n, dt: torch.zeros((len(SHARD_ID_ROWS), n), dtype=dt,
+                                  device="cuda")
+    tables = kref.ChunkTables(row_ptr=z(ss.q + 1, torch.int32),
+                              src=z(K, torch.int32), delay=z(K, torch.int32),
+                              plastic=z(K, torch.bool))
+    status = torch.zeros(1, dtype=torch.int32, device="cuda")
+    c = ss.n_chunks // 2
+    launch = lambda: ops.chunk_tables(src, c, tables, status)
+    got = launch()
+    torch.cuda.synchronize()
+    want = kref.chunk_tables(src, c, K)
+    whole = kref.chunk_tables(full, c, K)
+    kept = (want.row_ptr[:, -1] - want.row_ptr[:, 0]).tolist()
+    equal = (int(status[0]) == 0 and min(kept) > 0
+             and bit_equal(got.row_ptr, want.row_ptr)
+             and bit_equal(want.row_ptr, whole.row_ptr[idx]))
+    for i, (h, e) in enumerate(zip(SHARD_ID_ROWS, kept)):
+        equal &= all(bit_equal(a[i, :e], b[i, :e]) and
+                     bit_equal(b[i, :e], w[h, :e])
+                     for a, b, w in zip(got[1:], want[1:], whole[1:]))
+    n_ops, _, n_bytes, shape = _chunk_tables_ops(src, c, got, kept)
+    bms, by = bound(n_bytes, n_ops, PEAK_INT32_PER_S)
+    row = dict(
+        name="chunk_tables[shard_id]", route="cuda",
+        source="src/repro_torch/csrc/stream.cu",
+        replaces="src/repro/core/stream_engine.py:172", launches=None,
+        max_abs_err=0.0 if equal else float("nan"),
+        ms=cuda_ms(launch),
+        device_ms=device_ms(launch, kernel=CHUNK_KERNELS),
+        plain_ms=cuda_ms(lambda: kref.chunk_tables(src, c, K), calls=2,
+                         reps=3, warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        library_note="no PyTorch call regenerates the tables",
+        equal=equal, status=int(status[0]),
+        tolerance="bit-equal (row pointers and every kept entry) to the "
+                  "plain version on the card and to those rows of the "
+                  "all-shard plain call",
+        shape=dict(shape, chunk=c, H=4, rows=list(SHARD_ID_ROWS),
+                   placement="scatter", K=ss.chunk_cols, q=ss.q,
+                   c_cap=ss.c_cap, live_width=K))
+    return row, [] if equal else ["chunk_tables[shard_id]"]
+
+
 def phase_stream_kernels(sp8s):
     """`chunk_tables` and the chunk-window kernels against their plain
-    versions (`_chunk_tables_rows`, `_window_rows`); returns the rows of
-    the `kernels` line (chunk_tables at the 8x8 interior chunk, the
-    windows)."""
+    versions (`_chunk_tables_rows`, `_window_rows`), and the shard-id form
+    of `chunk_tables` on a block of scatter rows (`_shard_id_row`, on the
+    8x8 streamed plan at H = 4, scatter); returns the rows of the
+    `kernels` line (chunk_tables at the 8x8 interior chunk, its shard-id
+    form, the windows).  Row S's device ms is printed beside run XF3's."""
     t0 = time.perf_counter()
     sp4r = _stream_program(GridConfig(grid_x=4, grid_y=4), 3, 4, "block")
     build_s = time.perf_counter() - t0
     rows, failed = _chunk_tables_rows(sp8s, sp4r)
+    del sp4r
+    t0 = time.perf_counter()
+    sp8x = _stream_program(GridConfig(grid_x=8, grid_y=8), 1, 4, "scatter")
+    scatter_build_s = time.perf_counter() - t0
+    sid_row, sid_failed = _shard_id_row(sp8x)
+    del sp8x
+    sid_row["density"] = "main"
+    rows.append(sid_row)
+    failed += sid_failed
     w_rows, w_failed = _window_rows(sp8s)
     rows += w_rows
     failed += w_failed
+    row_s = next(r for r in rows if r["name"] == "chunk_tables"
+                 and r.get("density") == "main")
     emit({"phase": "stream_kernels", "ragged_plan_build_s": build_s,
+          "scatter_plan_build_s": scatter_build_s,
+          "row_s_device_ms": row_s["device_ms"],
+          "row_s_xf3_device_ms": ROW_S_XF3_DEVICE_MS,
+          "row_s_vs_xf3": (row_s["device_ms"] / ROW_S_XF3_DEVICE_MS
+                           if row_s["device_ms"] else None),
           "stream_ptxas": _build.inspect("stream.cu")["ptxas"],
           "rows": rows})
     if failed:
@@ -3722,11 +3883,17 @@ def phase_mesh(card: str):
                 event, [("allgather", "sync"), ("halo", "pipelined")])]),
         dict(build=dict(connectivity="streamed:chunk=1"), cells=[
             dict(c, name="streamed_" + c["name"]) for c in cells(
-                dense, [("halo", "sync"), ("halo", "pipelined")])])]
+                dense, [("halo", "sync"), ("halo", "pipelined")])]),
+        # a rank's block of scatter shards regenerates its chunks from the
+        # plan's shard ids (the chunk kernel's shard-id argument)
+        dict(build=dict(placement="scatter",
+                        connectivity="streamed:chunk=1"),
+             cells=[dict(c, name="streamed_scatter_" + c["name"])
+                    for c in cells(scatter, [("halo", "sync"),
+                                             ("hier", "pipelined")])])]
     nccl_groups = [dict(build=dict(delivery="dense"), cells=cells(
         dense, [("halo", "sync"), ("allgather", "sync")]))]
-    # one rank holding every shard runs streamed scatter, which more ranks
-    # refuse (the chunk kernel reads a block row's index as its shard id)
+    # one rank holding every shard: streamed scatter under NCCL
     nccl_r1_groups = nccl_groups + [
         dict(build=dict(placement="scatter",
                         connectivity="streamed:chunk=1"),
@@ -3772,6 +3939,11 @@ def phase_mesh(card: str):
     if failed:
         raise PhaseFailed(f"mesh cells failed or differ from the JAX "
                           f"reference: {failed}")
+    # the shard-id form's launches: rank 0's chunk_tables in the streamed
+    # scatter cells over 2 and 4 ranks (each rank's block of scatter rows)
+    shard_id_launches = sum(
+        r["launches"].get("chunk_tables", 0) for key in ("R2", "R4")
+        for r in results[key] if r["name"].startswith("streamed_scatter_"))
 
     # 8x8 full width (12.8 M synapses): R = 1 stacked, then R = 4 ranks
     grid8 = dict(grid_x=8, grid_y=8)
@@ -3792,6 +3964,7 @@ def phase_mesh(card: str):
           "rasters_equal": same, "rows": timing_rows})
     if not same or len(timing_rows) != 4:
         raise PhaseFailed("the 8x8 mesh runs differ from the stacked one")
+    return shard_id_launches
 
 
 
@@ -4092,7 +4265,152 @@ def phase_cluster(card: str):
         raise PhaseFailed(f"supervised recovery failed or differs from the "
                           f"JAX reference: {failed}")
 
+
+# ----------------------------------------------------------------------------
+# experiment plans (repro_torch.bench.plans)
+# ----------------------------------------------------------------------------
+
+#: (a) full width: the 4x4 check's physics (`jax_reference.json` h1_block)
+#: over both residencies, halo and hier, both placements, 1 and 2 processes
+#: (2-process cells hier only): 8 cells, among them 2 processes, hier,
+#: streamed, scatter
+PLAN_FULL = dict(
+    name="chip_full_width",
+    workload=dict(neurons_per_column=1000, synapses_per_neuron=200,
+                  steps=150, phase_steps=10, seed=2013),
+    axes=dict(grid=["4x4"], connectivity=["materialized",
+                                          "streamed:chunk=1"],
+              delivery=["dense"], exchange=["halo", "hier"],
+              placement=["block", "scatter"], shards=[4], nprocs=[1, 2]),
+    exclude=[{"nprocs": 2, "exchange": "halo"}],
+    budgets=dict(timeout_s=600, reps=2))
+#: (b) the committed quick plan's content (benchmarks/plans/quick.yaml),
+#: inline: 15 cells in one physics group (`jax_reference.json` plan_quick)
+PLAN_QUICK = dict(
+    name="quick",
+    workload=dict(neurons_per_column=40, synapses_per_neuron=16, steps=40,
+                  phase_steps=10, seed=7),
+    axes=dict(grid=["2x2"], connectivity=["materialized",
+                                          "streamed:chunk=1"],
+              delivery=["dense", "event"], exchange=["halo", "allgather"],
+              exchange_schedule=["sync", "pipelined"], shards=[2],
+              nprocs=[1, 2]),
+    exclude=[{"nprocs": 2, "exchange": "allgather"},
+             {"nprocs": 2, "exchange_schedule": "pipelined"}],
+    budgets=dict(timeout_s=600, reps=2))
+PLAN_CELL_KEYS = ("wall_s", "wall_reps_s", "phase_a_s", "exchange_s",
+                  "phase_b_s", "phase_steps", "time_per_syn_event_s",
+                  "spikes", "rate_hz", "saturated")
+
+
+def _plan_check(doc: dict, want: dict, n_cells: int, tmp: str) -> tuple:
+    """Run plan `doc` (written as JSON under `tmp`) twice on the card, the
+    second time with `assert_complete`, then `write_report` and the
+    dashboard -> (what the plan line prints, whether every gate held):
+    n_cells executed then none, every cell's raster signature and spikes
+    `want`'s, the report valid with every `identical_*` flag true."""
+    from repro_torch.bench import plans
+    from repro_torch.bench import report as bench_report
+    from repro_torch.bench.plans import dashboard
+    name = doc["name"]
+    path = os.path.join(tmp, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    plan = plans.load(path)
+    store_root = os.path.join(tmp, "store")
+    log = []
+    t0 = time.perf_counter()
+    first = plans.run_plan(plan, store_root, device="cuda", log=log.append)
+    run_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    second = plans.run_plan(plan, store_root, device="cuda",
+                            assert_complete=True, log=log.append)
+    resume_s = time.perf_counter() - t0
+    failures = [ln for ln in log if "FAILED" in ln][:8]
+    try:
+        _, rep = plans.write_report(plan, store_root)
+    except plans.PlanError as e:
+        return dict(first=first, error=str(e)[-2000:], log=failures), False
+    html = dashboard.write(os.path.join(tmp, f"{name}.html"),
+                           plan.to_config(), rep["extra"]["cells"],
+                           summary=first)
+    cells = {}
+    for c in rep["extra"]["cells"]:
+        res = c["result"]
+        cells[c["key"]] = dict(
+            {k: res[k] for k in PLAN_CELL_KEYS if k in res},
+            elapsed_s=c["elapsed_s"],
+            raster_equal=res["raster_sig"] == want["raster_signature"],
+            spikes_equal=res["spikes"] == want["spikes"])
+    idents = {k: v for k, v in rep["deterministic"].items()
+              if k.startswith("identical_")}
+    errors = bench_report.validate(rep)
+    ok = (first["ok"] and first["executed"] == n_cells
+          and second["ok"] and second["executed"] == 0
+          and second["skipped"] == n_cells and len(cells) == n_cells
+          and all(c["raster_equal"] and c["spikes_equal"]
+                  for c in cells.values())
+          and bool(idents) and all(idents.values()) and not errors
+          and os.path.getsize(html) > 1000)
+    return dict(cells=cells, identical=idents, run_s=run_s,
+                resume_s=resume_s, executed=first["executed"],
+                failed_cells=first["failed_keys"],
+                resumed_executed=second["executed"],
+                resumed_skipped=second["skipped"],
+                excluded=first["excluded"], report_errors=errors,
+                dashboard_bytes=os.path.getsize(html),
+                want=dict(raster_signature=want["raster_signature"],
+                          spikes=want["spikes"]), log=failures), ok
+
+
+def run_plans(at_once: bool = True) -> tuple:
+    """The plan phase's work, printing nothing (it may run on a thread
+    beside `simserve_check`): two experiment plans written as JSON into a
+    temporary directory and run on the card through `repro_torch.bench.
+    plans.run_plan` (each cell a fresh interpreter, or a 2-rank
+    `repro_torch.cluster` launch sharing the card; `_plan_check`):
+    PLAN_FULL, whose 8 cells must each give `jax_reference.json`'s
+    h1_block raster signature and spike count, and PLAN_QUICK, whose 15
+    cells must each give its plan_quick entry's; `at_once`, a thread each
+    (their cells are mostly interpreter and CUDA start-up on the host),
+    else one after the other -> (each plan's line, the plans that failed,
+    seconds)."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    with open(os.path.join(HERE, "src", "repro_torch", "data",
+                           "jax_reference.json")) as f:
+        ref = json.load(f)
+    t0 = time.perf_counter()
+    out, failed = {}, []
+    with tempfile.TemporaryDirectory(prefix="plan_check_") as tmp:
+        checks = ((PLAN_FULL, ref["runs"]["h1_block"], 8),
+                  (PLAN_QUICK, ref["plan_quick"], 15))
+        with ThreadPoolExecutor(len(checks) if at_once else 1) as ex:
+            done = list(ex.map(lambda c: _plan_check(*c, tmp), checks))
+        for (doc, _, _), (res, ok) in zip(checks, done):
+            out[doc["name"]] = res
+            if not ok:
+                failed.append(doc["name"])
+    return out, failed, time.perf_counter() - t0
+
+
+def phase_plan(card: str, result: tuple, beside: str = "") -> None:
+    """Print `run_plans`' result: per cell the wall (the fastest of its
+    reps, and each rep's), the phase split and the time per synaptic
+    event, beside the card's name and power limit; fail if a plan
+    failed.  `beside` names what ran on the card at the same time: the
+    line then marks its walls and seconds as contended, not the cells'
+    own (`scripts/plan_phase.py` runs the plans alone)."""
+    out, failed, seconds = result
+    emit({"phase": "plan", "card": card, "plans": out, "seconds": seconds,
+          "contended_by": beside or None})
+    if failed:
+        raise PhaseFailed(f"experiment plans failed or differ from the JAX "
+                          f"reference: {failed}")
+
+
 def main() -> int:
+    from concurrent.futures import ThreadPoolExecutor
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -4127,13 +4445,23 @@ def main() -> int:
         ckpt8 = _ckpt8_state(sp8)
         del sp8, sp8e, sp8s      # so that the later peaks are their own
         torch.cuda.empty_cache()
-        phase_mesh(card)
+        shard_id_launches = phase_mesh(card)
         torch.cuda.empty_cache()
         phase_ckpt(card, ckpt8)
         del ckpt8
         phase_cluster(card)
         torch.cuda.empty_cache()
-        simserve_launches = phase_simserve_check(card)
+        # the plans' cells are other processes, mostly start-up on the
+        # host: they run beside the service's check, which they do not
+        # touch (its launch counts are this process's); both lines mark
+        # their times as contended
+        with ThreadPoolExecutor(1) as ex:
+            plans_run = ex.submit(run_plans)
+            simserve_launches = phase_simserve_check(
+                card, beside="the plan phase's cells")
+            plans_result = plans_run.result()
+        phase_plan(card, plans_result,
+                   beside="simserve_check and the other plan")
         torch.cuda.empty_cache()
         phase_simserve_timed(card)
         torch.cuda.empty_cache()
@@ -4150,11 +4478,15 @@ def main() -> int:
     for r in rows:
         # the timed eager runs launched every other SNN kernel 0 times
         # (phase_timed checks it); the t_base forms' launches are those of
-        # simserve_check's service run
+        # simserve_check's service run, the shard-id form's those of
+        # mesh_check's streamed scatter cells (rank 0)
         name = r["name"]
-        r["launches"] = (simserve_launches.get(name[:-len("[t_base]")], 0)
-                         if name.endswith("[t_base]")
-                         else launches.get(name, 0))
+        if name.endswith("[t_base]"):
+            r["launches"] = simserve_launches.get(name[:-len("[t_base]")], 0)
+        elif name.endswith("[shard_id]"):
+            r["launches"] = shard_id_launches
+        else:
+            r["launches"] = launches.get(name, 0)
     rows.append(dict(lm_rows[0], launches=lm_launches))   # prefill shape
     rows.append(dict(attn_rows[0], launches=attn_launches))  # rg_local_prefill
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
@@ -4182,8 +4514,8 @@ def import_port() -> None:
     from repro_torch.bench import profile as bench_profile
     from repro_torch.bench import timing
     from repro_torch import simserve
-    from repro_torch.bench.suites import (event_vs_dense, simserve_throughput,
-                                          table1, table2)
+    from repro_torch.bench.suites import (connectivity_sweep, event_vs_dense,
+                                          simserve_throughput, table1, table2)
     from repro_torch.cluster import cli as cluster_cli
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import (EngineConfig, GridConfig, StepProgram,

@@ -12,11 +12,9 @@ two shards), `PASSES` passes.  One JSON line a run and wire: the tree,
 ms a call (the median pass), and a digest of the outputs, which must be
 equal across trees.  Then the card's name and power limit.
 """
-import argparse
-import json
-import os
-import subprocess
 import sys
+
+import _tree_ab
 
 STEPS = 50
 PASSES = 5
@@ -58,34 +56,8 @@ for ex, groups in (("halo", None), ("hier", 2)):
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("trees", nargs=2)
-    ap.add_argument("--rounds", type=int, default=2)
-    args = ap.parse_args(argv)
-    order = []
-    for _ in range(args.rounds):
-        order += [args.trees[0], args.trees[1], args.trees[1], args.trees[0]]
-    digests = {}
-    for tree in order:
-        env = dict(os.environ, PYTHONPATH=os.path.join(
-            os.path.abspath(tree), "src"))
-        out = subprocess.run(
-            [sys.executable, "-c", _CHILD, tree, str(STEPS), str(PASSES)],
-            env=env, cwd=tree, capture_output=True, text=True, timeout=600)
-        if out.returncode:
-            print(out.stderr[-3000:], file=sys.stderr)
-            return 1
-        for line in out.stdout.splitlines():
-            print(line, flush=True)
-            row = json.loads(line)
-            digests.setdefault(row["exchange"], set()).add(row["digest"])
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True).stdout
-    print(card.strip())
-    same = all(len(d) == 1 for d in digests.values())
-    print(json.dumps(dict(outputs_equal_across_trees=same)))
-    return 0 if same else 1
+    return _tree_ab.main(__doc__, _CHILD, (STEPS, PASSES), "exchange",
+                         timeout=600, argv=argv)
 
 
 if __name__ == "__main__":

@@ -9,9 +9,11 @@
   report   — versioned BENCH_<name>.json schema + baseline comparator
              (hard-fails deterministic drift, warns on wall-clock)
   registry — suite registration; cli — `python -m repro_torch.bench
-             list|run|compare`
-  subproc  — fresh-interpreter ranks of a torch.distributed job (the
-             distributed suites start theirs)
+             list|run|compare|plan`
+  subproc  — fresh interpreters: a plan cell alone, or the ranks of a
+             torch.distributed job (the distributed suites start theirs)
+  plans    — config-driven, resumable experiment plans (schema, expand,
+             store, runner, reporting, dashboard)
 
 Suites run on the card by default (`device="cuda"`) and on the CPU when
 asked.

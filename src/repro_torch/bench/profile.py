@@ -39,11 +39,25 @@ NO_HLO = ("hlo_flops / hlo_bytes of the fused step are not recorded: they "
 
 
 def profile_cell(cfg: GridConfig, eng: EngineConfig, steps: int,
-                 device=None) -> dict:
+                 device=None, built=None) -> dict:
     """Profile one (exchange, placement[, schedule]) cell; flat metrics.
-    `device` defaults to the card."""
-    spec, plan, state = engine.build(
-        cfg, eng, device=engine.resolve_device(device))
+    `device` defaults to the card.
+
+    `built` optionally passes a prebuilt (spec, plan, state) from
+    `engine.build` for the same (cfg, shards, placement) on that device:
+    the plan is exchange-independent, so callers sweeping exchange modes
+    (the connectivity_sweep suite) skip rebuilding the synapse tables —
+    `spec.eng` is re-pointed at `eng` here, and the state is not
+    changed."""
+    if built is None:
+        spec, plan, state = engine.build(
+            cfg, eng, device=engine.resolve_device(device))
+    else:
+        spec, plan, state = built
+        if (spec.eng.n_shards, spec.eng.placement) != (eng.n_shards,
+                                                       eng.placement):
+            raise ValueError("prebuilt plan layout mismatch")
+        spec = spec._replace(eng=eng)
     sp = StepProgram.from_parts(spec, plan, state)
     pp = sp.phase_fns()
 

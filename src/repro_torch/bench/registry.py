@@ -33,6 +33,11 @@ def _comm_overlap(quick, device):
     return comm_overlap.run_suite(quick, device)
 
 
+def _connectivity_sweep(quick, device):
+    from .suites import connectivity_sweep
+    return connectivity_sweep.run_suite(quick, device)
+
+
 def _event_vs_dense(quick, device):
     from .suites import event_vs_dense
     return event_vs_dense.run_suite(quick, device)
@@ -71,6 +76,10 @@ BENCHES: Dict[str, Entry] = {e.name: e for e in [
     Entry("comm_overlap", _comm_overlap,
           "hidden vs exposed exchange time, sync vs pipelined, over "
           "torch.distributed ranks"),
+    Entry("connectivity_sweep", _connectivity_sweep,
+          "per-phase split across lateral-connectivity profiles (ring3, "
+          "ring1, gaussian, exponential) x {halo, allgather}, with reach "
+          "statistics (arXiv:1803.08833)"),
     Entry("event_vs_dense", _event_vs_dense,
           "dense O(E) vs event O(spikes x fan) delivery: single device, "
           "and H x exchange x delivery over ranks"),
@@ -97,8 +106,7 @@ BENCHES: Dict[str, Entry] = {e.name: e for e in [
 #: The JAX package's suites that the port does not run yet, and the
 #: ROADMAP item (queue 1) that ports each.
 NOT_PORTED: Dict[str, str] = {
-    "connectivity_sweep": "item 12 (the rest of the bench tooling)",
-    "roofline": "item 12 (the rest of the bench tooling)",
+    "roofline": "item 13.6 (the dry-run audit, roofline's only input)",
     "lm_throughput": "item 13 (the LM substrate)",
 }
 

@@ -1,5 +1,13 @@
-"""Fresh-interpreter ranks of a `torch.distributed` job (the part of
-`repro.bench.subproc` the mesh needs).
+"""Fresh interpreters: one alone (`run_subprocess`, a plan cell), or the
+ranks of a `torch.distributed` job (`run_ranks`; port of
+`repro.bench.subproc`).
+
+    out = run_subprocess(code, timeout=600)
+
+runs `python -c code` with the port's `src` first on its path and returns
+its standard output; a failure or a timeout raises `SubprocessError`
+with the exit code and the output's tails.  No device count is forced:
+a cell's H shards are stacked on one device.
 
     out = run_ranks(code, 4, device="cpu", timeout=120)
 
@@ -37,6 +45,60 @@ SRC = os.path.dirname(os.path.dirname(os.path.abspath(repro_torch.__file__)))
 #: Seconds a job may run when its caller gives no timeout: the suites'
 #: full-size jobs end well inside it, and a hung rank holds no one longer.
 DEFAULT_TIMEOUT = 600.0
+
+
+class SubprocessError(RuntimeError):
+    """A fresh interpreter failed or timed out; `returncode` is its exit
+    code (None on a timeout), `stdout` and `stderr` its output's tails."""
+
+    def __init__(self, msg: str, returncode: Optional[int] = None,
+                 stdout: str = "", stderr: str = ""):
+        self.returncode = returncode
+        self.stdout = stdout
+        self.stderr = stderr
+        super().__init__(msg)
+
+
+def _text_tail(stream, limit: int = 2000) -> str:
+    if stream is None:
+        return "<no output captured>"
+    if isinstance(stream, bytes):
+        stream = stream.decode("utf-8", errors="replace")
+    return stream[-limit:] if stream else "<no output captured>"
+
+
+def resolve_timeout(timeout: Optional[float]) -> float:
+    """An explicit timeout, else `DEFAULT_TIMEOUT`."""
+    return DEFAULT_TIMEOUT if timeout is None else timeout
+
+
+def run_subprocess(code: str, timeout: Optional[float] = None) -> str:
+    """Run `code` in a fresh interpreter with the port's `src` first on
+    PYTHONPATH; returns its standard output.  On a timeout the child is
+    killed; any failure raises `SubprocessError`."""
+    timeout = resolve_timeout(timeout)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (SRC, env.get("PYTHONPATH")) if p)
+    try:
+        out = subprocess.run([sys.executable, "-c", code],
+                             capture_output=True, text=True, env=env,
+                             timeout=timeout, stdin=subprocess.DEVNULL)
+    except subprocess.TimeoutExpired as e:
+        raise SubprocessError(
+            f"bench subprocess timed out after {timeout}s\n"
+            f"stdout tail:\n{_text_tail(e.stdout)}\n"
+            f"stderr tail:\n{_text_tail(e.stderr)}",
+            returncode=None, stdout=_text_tail(e.stdout),
+            stderr=_text_tail(e.stderr)) from e
+    if out.returncode != 0:
+        raise SubprocessError(
+            f"bench subprocess failed with exit code {out.returncode}:\n"
+            f"stdout tail:\n{_text_tail(out.stdout)}\n"
+            f"stderr tail:\n{_text_tail(out.stderr)}",
+            returncode=out.returncode, stdout=out.stdout or "",
+            stderr=out.stderr or "")
+    return out.stdout
 
 
 class RanksError(RuntimeError):

@@ -16,9 +16,8 @@
 
 The ranks run on the card (`--device cuda`, the default; ranks sharing
 one GPU exchange over gloo staged through pinned host memory) or, when
-asked, on the CPU.  The reference's `run_plan_cell` (an experiment-plan
-cell as a launch) needs `bench/plans`, which is not ported (ROADMAP
-queue 1, item 12).
+asked, on the CPU.  `run_plan_cell` runs one experiment-plan cell
+(`repro_torch.bench.plans`) with `nprocs > 1` as such a launch.
 """
 from __future__ import annotations
 
@@ -71,6 +70,34 @@ def run_point(args, nprocs: int, timeout: float = 900.0) -> dict:
                                tuned_env=tuned)
     return crep.summarize_point(crep.parse_worker_outputs(outputs),
                                 attempts=attempts)
+
+
+def run_plan_cell(cell: dict, timeout=None, device: str = "cuda") -> dict:
+    """One expanded experiment-plan cell (`repro_torch.bench.plans`) as a
+    real multi-process launch on `device`: the cell's axis values mapped
+    onto the worker's workload, and the aggregated scaling row (wall,
+    per-phase maxima, raster signature) returned — the shape `sweep`
+    points carry, so plan results and BENCH_cluster_scaling compare."""
+    args = workload_namespace(
+        grid=cell["grid"],
+        neurons_per_column=cell["neurons_per_column"],
+        synapses=cell["synapses_per_neuron"],
+        seed=cell["seed"],
+        steps=cell["steps"],
+        phase_steps=cell["phase_steps"],
+        shards=cell["shards"],
+        exchange=cell["exchange"],
+        exchange_schedule=cell["exchange_schedule"],
+        placement=cell["placement"],
+        delivery=cell["delivery"],
+        connectivity_mode=cell["connectivity"],
+        profile=cell["profile"],
+        stim_events=cell["stim_events"],
+        stim_amplitude=cell["stim_amplitude"],
+        device=device)
+    from ..bench import subproc
+    return run_point(args, cell["nprocs"],
+                     timeout=subproc.resolve_timeout(timeout))
 
 
 def reference_signatures(args) -> tuple:

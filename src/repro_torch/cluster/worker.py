@@ -37,9 +37,8 @@ gathered raster and state exist on the primary only, so the primary
 computes the signatures, the spike count and `saturated` and shares
 them over the wire: every rank reports the job's values.
 `local_devices` is the rank's shard count (H / R).  A combination that
-`core.step_program.check_supported` refuses (today streamed
-connectivity with scatter placement over more than one rank) exits
-non-zero with its message.
+`core.step_program.check_supported` refuses exits non-zero with its
+message.
 """
 from __future__ import annotations
 

@@ -59,9 +59,8 @@ from ..dist.mesh import Ready
 
 
 def check_supported(eng: EngineConfig, mesh=None) -> None:
-    """Raise NotImplementedError for what this port does not run yet, and
-    ValueError for a delivery or connectivity mode that does not exist, a
-    pair of them that the reference refuses (streamed with event
+    """Raise ValueError for a delivery or connectivity mode that does not
+    exist, a pair of them that the reference refuses (streamed with event
     delivery), or a mesh of another shard count."""
     if eng.delivery not in ("dense", "event"):
         raise ValueError(f"unknown delivery {eng.delivery!r}: expected "
@@ -77,12 +76,6 @@ def check_supported(eng: EngineConfig, mesh=None) -> None:
     if mesh.n_shards != eng.n_shards:
         raise ValueError(f"the mesh has {mesh.n_shards} shards, the engine "
                          f"{eng.n_shards}")
-    if mode == "streamed" and eng.placement == "scatter" and mesh.world > 1:
-        raise NotImplementedError(
-            "streamed connectivity with scatter placement over more than "
-            "one rank: the chunk kernel (csrc/stream.cu) takes a block "
-            "row's index as its shard id, which a rank's block of scatter "
-            "shards is not (ROADMAP queue 1, item 8's remainder)")
 
 
 class StepProgram:

@@ -118,11 +118,11 @@ def make_chunk_source(cfg: GridConfig, eng: EngineConfig, q: int,
     """`chunk_source` from its parts (src_gid [H, S] int64, cand [H,
     n_chunks, c_cap] int32, e_start [H, n_chunks + 1] int32, one device;
     row_cap the longest target row of any chunk, the kernel's bucket
-    width).  `shard_id` [H] names the stacked rows' shards when they are a
-    rank's block of consecutive shards (`dist.sharding.shard_put`); the
-    block bounds are then that block's (read on the device, no sync).
-    Scatter placement needs all of the shards: the kernel takes a row's
-    index as its shard id there."""
+    width).  `shard_id` [H] int64 names the stacked rows' shards (default
+    0 .. H - 1): a rank's block of consecutive shards
+    (`dist.sharding.shard_put`) passes the plan's, and the block bounds
+    are then that block's (read on the device, no sync); under scatter
+    placement row h owns the gids g with g % n_shards == shard_id[h]."""
     # the modulus arithmetic of the generator needs every modulus < 2^16
     if not (cfg.neurons_per_column < (1 << 16)
             and cfg.synapses_per_neuron < (1 << 16)):
@@ -132,30 +132,28 @@ def make_chunk_source(cfg: GridConfig, eng: EngineConfig, q: int,
     t = lambda x, dt: torch.from_numpy(np.asarray(x, dtype=dt)).to(dev)
     dspan = cfg.delay_max - cfg.delay_min + 1
     H, n_chunks, c_cap = cand.shape
-    if eng.placement == "scatter" and H != eng.n_shards:
-        raise NotImplementedError(
-            f"streamed scatter placement over a block of {H} of the "
-            f"{eng.n_shards} shards: the chunk kernel takes a row's index "
-            f"as its shard id")
+    if shard_id is None:
+        shard_id = torch.arange(H, dtype=torch.int64, device=dev)
     bounds = t(topology.shard_bounds_block(cfg.n_neurons, eng.n_shards),
                np.int64)
-    if shard_id is not None:
-        bounds = bounds[torch.cat([shard_id, shard_id[-1:] + 1])]
+    bounds = bounds[torch.cat([shard_id, shard_id[-1:] + 1])]
     geom = kref.ChunkGeometry(
         M=cfg.synapses_per_neuron, npc=cfg.neurons_per_column,
         nexc=cfg.n_exc_per_column, gx=cfg.grid_x, gy=cfg.grid_y,
         n_neurons=cfg.n_neurons, delay_min=cfg.delay_min, dspan=dspan, q=q,
         n_chunks=n_chunks, c_cap=c_cap,
         scatter=eng.placement == "scatter", lanes=tuple(lanes),
-        row_cap=int(row_cap))
-    # the order csrc/stream.cu reads them in: npc, nexc, dspan, H, rings
+        row_cap=int(row_cap), n_shards=eng.n_shards)
+    # the order csrc/stream.cu reads them in: npc, nexc, dspan, n_shards,
+    # rings
     moduli = [cfg.neurons_per_column, cfg.n_exc_per_column, dspan,
               eng.n_shards] + list(np.diff(start))
     return kref.ChunkSource(
         src_gid=src_gid, cand=cand, e_start=e_start,
         off=t(off_tab, np.int32), start=t(start, np.int32),
         thresh=t(U, np.int64), bounds=bounds.contiguous(),
-        fastmod=t(kref.fastmod_table(moduli), np.int64), geom=geom)
+        fastmod=t(kref.fastmod_table(moduli), np.int64),
+        shard_id=shard_id, geom=geom)
 
 
 def live_width(splan: StreamedPlan) -> int:

@@ -88,7 +88,8 @@ constexpr int kScanThreads = 1024;
 constexpr int kSortThreads = 128;  // a warp a row
 constexpr int kSortRegs = 16;      // a row of up to 32 x 16 keys in registers
 constexpr int kMaskRings = 64;  // rings a candidate's ring set can name
-// fastmod rows: npc, nexc, dspan, H, then ring r's size at kModRing + r
+// fastmod rows: npc, nexc, dspan, n_shards, then ring r's size at
+// kModRing + r
 enum { kModNpc, kModNexc, kModDspan, kModH, kModRing };
 
 struct Gen {
@@ -100,6 +101,7 @@ struct Gen {
   const int64_t* thresh;   // [reach + 1] U
   const int64_t* bounds;   // [H + 1] block bounds
   const int64_t* fastmod;  // [kModRing + reach + 1, 3] m, 2^32 mod m, c
+  const int64_t* shard_id; // [H] the rows' shards (scatter's residues)
   int32_t* row_ptr;        // [H, q + 1]
   int32_t* out_src;        // [H, K]
   int32_t* out_delay;      // [H, K]
@@ -108,7 +110,7 @@ struct Gen {
   uint32_t* bucket;        // [H, q, B] keys
   int32_t* count;          // [H, q, cstride] (element 0 used)
   int64_t H, S, n_chunks, c_cap, M, npc, nexc, gx, gy, delay_min, q, K, c,
-      reach, scatter, n_neurons, B, cstride, jbits, group;
+      reach, scatter, n_neurons, B, cstride, jbits, n_shards, group;
   uint64_t lane[4];
 };
 
@@ -160,13 +162,16 @@ __device__ __forceinline__ const int32_t* cand_row(const Gen& g, int64_t h) {
   return g.cand + (h * g.n_chunks + g.c) * g.c_cap;
 }
 
-// The chunk's target gids of shard h lie in [lo, hi] (hi < lo: none).
+// The chunk's target gids of row h lie in [lo, hi] (hi < lo: none).  Under
+// scatter row h is shard shard_id[h] of n_shards: its local index k is gid
+// shard_id[h] + n_shards * k.
 __device__ __forceinline__ void chunk_gids(const Gen& g, int64_t h,
                                            int64_t* lo, int64_t* hi) {
   const int64_t first = g.c * g.q;
   if (g.scatter) {
-    *lo = h + g.H * first;
-    const int64_t last = h + g.H * (first + g.q - 1);
+    const int64_t s = g.shard_id[h];
+    *lo = s + g.n_shards * first;
+    const int64_t last = s + g.n_shards * (first + g.q - 1);
     *hi = last < g.n_neurons - 1 ? last : g.n_neurons - 1;
   } else {
     *lo = g.bounds[h] + first;
@@ -663,10 +668,10 @@ __global__ void __launch_bounds__(kSortThreads) sort_kernel(const Gen g) {
 }  // namespace
 
 // ptrs: src_gid, cand, e_start, off, start, thresh, bounds, fastmod,
-// row_ptr, src, delay, plastic, status, bucket, count.  ints: H, S,
-// n_chunks, c_cap, M, npc, nexc, gx, gy, delay_min, q, K, c, reach,
-// scatter, n_neurons, B, cstride, jbits.  lanes: the four draw lanes'
-// seeds.
+// row_ptr, src, delay, plastic, status, bucket, count, shard_id.  ints: H,
+// S, n_chunks, c_cap, M, npc, nexc, gx, gy, delay_min, q, K, c, reach,
+// scatter, n_neurons, B, cstride, jbits, n_shards.  lanes: the four draw
+// lanes' seeds.
 extern "C" int repro_chunk_tables(void* const* ptrs, const int64_t* ints,
                                   const uint64_t* lanes, void* stream) {
   Gen g;
@@ -685,11 +690,13 @@ extern "C" int repro_chunk_tables(void* const* ptrs, const int64_t* ints,
   g.status = (int32_t*)ptrs[12];
   g.bucket = (uint32_t*)ptrs[13];
   g.count = (int32_t*)ptrs[14];
+  g.shard_id = (const int64_t*)ptrs[15];
   int64_t* const f[] = {&g.H,         &g.S,   &g.n_chunks, &g.c_cap,
                         &g.M,         &g.npc, &g.nexc,     &g.gx,
                         &g.gy,        &g.delay_min, &g.q,  &g.K,
                         &g.c,         &g.reach,     &g.scatter,
-                        &g.n_neurons, &g.B,   &g.cstride,  &g.jbits};
+                        &g.n_neurons, &g.B,   &g.cstride,  &g.jbits,
+                        &g.n_shards};
   for (int i = 0; i < (int)(sizeof(f) / sizeof(f[0])); ++i) *f[i] = ints[i];
   for (int k = 0; k < 4; ++k) g.lane[k] = lanes[k];
   // about kGroupSlots slots a block, as many candidates for each warp

@@ -51,7 +51,7 @@ SIGNATURES = {
     "repro_arborize": [_P] * 8 + [_I64] * 5 + [_P, _P, _P],
     "repro_arborize_elements": [_P] * 5 + [_I64] * 5 + [_P, _P, _P],
     "repro_arborize_chunk": [_P] * 5 + [_I64] * 7 + [_P, _P],
-    # (pointers [15], int64 [19], uint64 [4], stream): csrc/stream.cu
+    # (pointers [16], int64 [20], uint64 [4], stream): csrc/stream.cu
     "repro_chunk_tables": [_P] * 4,
     # (pointers [15], int64 [6], float [5], stream): csrc/event.cu
     "repro_event_arrival": [_P] * 4,

@@ -632,6 +632,7 @@ class ChunkGeometry(NamedTuple):
     scatter: bool             # placement: scatter (else block)
     lanes: tuple              # the four draw lanes' seeds (uint64 ints)
     row_cap: int              # the longest target row of any chunk
+    n_shards: int             # the plan's shards (scatter's modulus)
 
 
 class ChunkSource(NamedTuple):
@@ -654,6 +655,7 @@ class ChunkSource(NamedTuple):
     thresh: torch.Tensor
     bounds: torch.Tensor
     fastmod: torch.Tensor
+    shard_id: torch.Tensor
     geom: ChunkGeometry
 
 
@@ -824,9 +826,10 @@ def _chunk_slots(source: ChunkSource, c: int) -> dict:
                         g_.delay_min)
     # ownership (engine.make_gid_to_local) and the chunk's range
     if g_.scatter:
-        hh = torch.arange(H, device=dev).view(H, 1, 1)
-        owned = (tgt % H == hh) & (tgt >= 0) & (tgt < g_.n_neurons)
-        tloc = torch.div(tgt, H, rounding_mode="floor")
+        hh = source.shard_id.view(H, 1, 1)
+        owned = ((tgt % g_.n_shards == hh) & (tgt >= 0)
+                 & (tgt < g_.n_neurons))
+        tloc = torch.div(tgt, g_.n_shards, rounding_mode="floor")
     else:
         lo_b = source.bounds[:-1].view(H, 1, 1)
         owned = (tgt >= lo_b) & (tgt < source.bounds[1:].view(H, 1, 1))
@@ -905,13 +908,11 @@ def chunk_columns(source: ChunkSource, c: int) -> tuple:
     """(lo, hi) [H] int64: the column interval holding every target of
     chunk c of each shard, as the kernel finds it (hi < lo: no target)."""
     g_ = source.geom
-    H = source.cand.shape[0]
-    dev = source.cand.device
-    h = torch.arange(H, dtype=torch.int64, device=dev)
+    h = source.shard_id
     first = c * g_.q
     if g_.scatter:
-        gid_lo = h + H * first
-        gid_hi = torch.clamp(h + H * (first + g_.q - 1),
+        gid_lo = h + g_.n_shards * first
+        gid_hi = torch.clamp(h + g_.n_shards * (first + g_.q - 1),
                              max=g_.n_neurons - 1)
     else:
         gid_lo = source.bounds[:-1] + first

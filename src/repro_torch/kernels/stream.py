@@ -11,7 +11,9 @@ go to a bucket of `geom.row_cap` (the plan's longest row of any chunk)
 and a warp sorts each row: rows of up to 512 keys in registers, longer
 ones by counting.  A shard whose kept count differs from the plan's
 e_start difference, or exceeds K, or a row longer than row_cap, sets a
-bit of `status`, which the caller reads after the card has finished.  The
+bit of `status`, which the caller reads after the card has finished.
+Under scatter placement row h is shard `source.shard_id[h]` of
+`geom.n_shards`, so a rank's block of rows regenerates its own shards.  The
 plain version is `kernels.ref.chunk_tables`; the kernel's draw order is
 modelled by `kernels.ref.chunk_prefilter`.
 """
@@ -62,6 +64,7 @@ def chunk_tables(source: ChunkSource, c: int, out: ChunkTables,
     _build.require(name, torch.int64, (H + 1,), bounds=source.bounds)
     _build.require(name, torch.int64, (4 + reach + 1, 3),
                    fastmod=source.fastmod)
+    _build.require(name, torch.int64, (H,), shard_id=source.shard_id)
     _build.require(name, torch.int32, (H, g.q + 1), row_ptr=out.row_ptr)
     _build.require(name, torch.int32, (H, K), src=out.src, delay=out.delay)
     _build.require(name, torch.bool, (H, K), plastic=out.plastic)
@@ -69,7 +72,8 @@ def chunk_tables(source: ChunkSource, c: int, out: ChunkTables,
     dev = source.cand.device
     _build.one_device(name, source.src_gid, source.cand, source.e_start,
                       source.off, source.start, source.thresh,
-                      source.bounds, source.fastmod, *out, status)
+                      source.bounds, source.fastmod, source.shard_id, *out,
+                      status)
     B = max(g.row_cap, 1)
     scratch = (_build.scratch(dev, "chunk_bucket", H * g.q * B, torch.int32),
                _build.scratch(dev, "chunk_count", H * g.q * COUNT_STRIDE,
@@ -77,15 +81,15 @@ def chunk_tables(source: ChunkSource, c: int, out: ChunkTables,
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        ptrs = (ctypes.c_void_p * 15)(
+        ptrs = (ctypes.c_void_p * 16)(
             *(x.data_ptr() for x in (
                 source.src_gid, source.cand, source.e_start, source.off,
                 source.start, source.thresh, source.bounds, source.fastmod,
-                *out, status, *scratch)))
-        ints = (ctypes.c_int64 * 19)(
+                *out, status, *scratch, source.shard_id)))
+        ints = (ctypes.c_int64 * 20)(
             H, S, n_chunks, c_cap, g.M, g.npc, g.nexc, g.gx, g.gy,
             g.delay_min, g.q, K, int(c), reach, int(g.scatter), g.n_neurons,
-            B, COUNT_STRIDE, jbits)
+            B, COUNT_STRIDE, jbits, g.n_shards)
         lanes = (ctypes.c_uint64 * 4)(*g.lanes)
         err = lib.repro_chunk_tables(ptrs, ints, lanes, stream)
     _build.check(err, name)

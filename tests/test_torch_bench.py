@@ -18,6 +18,11 @@
 * `simserve_throughput --quick` on the CPU: its signatures, program
   builds and captures (`traces`) at 1, 4 and 8 tenants equal to the JAX
   suite's `run_suite(quick=True)` (a second AVX subprocess);
+* `connectivity_sweep` cut to a SWEEP grid and depth (`run_suite(quick=
+  True, grid=, steps=, ...)`): each profile's reach statistics equal the
+  JAX suite's `_reach_stats`, and its spikes, arrivals, raster signature
+  and rate under both exchanges the JAX `profile_cell`'s on the same
+  prebuilt plan;
 * the registry and the CLI: the ported suites, and NotImplementedError
   naming the ROADMAP item for the JAX package's others.
 """
@@ -32,7 +37,8 @@ import torch
 from repro_torch.bench import cli, registry, timing
 from repro_torch.bench import profile as BP
 from repro_torch.bench import report as R
-from repro_torch.bench.suites import (simserve_throughput, table1, table2,
+from repro_torch.bench.suites import (connectivity_sweep,
+                                     simserve_throughput, table1, table2,
                                      weak_scaling)
 from repro_torch.core import EngineConfig, GridConfig
 
@@ -47,6 +53,10 @@ CELLS = {"halo-2-scatter-pipelined": ("halo", 2, "scatter", "pipelined"),
          "allgather-4-block-sync": ("allgather", 4, "block", "sync")}
 DET = ("spikes", "arrivals", "raster_sig", "rate_hz")
 WEAK_STEPS = 4
+#: connectivity_sweep quick cut for the CPU: a 4x4 grid (H = 4, one column
+#: row a shard) and 12 steps, at the quick widths (40 neurons a column,
+#: M = 30)
+SWEEP = dict(grid=4, steps=12)
 
 
 def _jax_suites() -> dict:
@@ -56,7 +66,8 @@ def _jax_suites() -> dict:
     from repro.bench.suites import table1 as J1, table2 as J2
     from repro.core import EngineConfig as JE, GridConfig as JG
     out = dict(table1=J1.bench(rows=[(1, 1)], steps=STEPS)[0],
-               table2=J2.bench(**TABLE2), weak_scaling=_jax_weak())
+               table2=J2.bench(**TABLE2), weak_scaling=_jax_weak(),
+               connectivity_sweep=_jax_sweep())
     for key, (ex, h, pl, sched) in CELLS.items():
         cell = JP.profile_cell(JG(**CFG), JE(n_shards=h, exchange=ex,
                                              placement=pl,
@@ -85,6 +96,31 @@ def _jax_weak() -> dict:
         r = JW._run_cell(c, e, WEAK_STEPS)
         out[name] = dict(spikes=r["spikes"], raster_sig=r["raster_sig"],
                          weight_sig=r["weight_sig"])
+    return out
+
+
+def _jax_sweep() -> dict:
+    """Inside the AVX subprocess: the JAX connectivity_sweep's per-profile
+    reach statistics and `profile_cell` keys under both exchanges, at the
+    SWEEP cut (the suite's own loop at these sizes)."""
+    from repro.bench import profile as JP
+    from repro.bench.suites import connectivity_sweep as JC
+    from repro.core import EngineConfig as JE, GridConfig as JG
+    from repro.core import engine as JEN
+    out = {}
+    for pspec in JC.PROFILE_SPECS:
+        cfg = JG(grid_x=SWEEP["grid"], grid_y=SWEEP["grid"],
+                 neurons_per_column=40, synapses_per_neuron=30, seed=2013,
+                 connectivity=pspec)
+        eng0 = JE(n_shards=4, exchange=JC.EXCHANGES[0], placement="block")
+        built = JEN.build(cfg, eng0)
+        row = dict(stats=JC._reach_stats(cfg, eng0, built))
+        for ex in JC.EXCHANGES:
+            cell = JP.profile_cell(cfg, JE(n_shards=4, exchange=ex,
+                                           placement="block"),
+                                   SWEEP["steps"], built=built)
+            row[ex] = {k: cell[k] for k in DET}
+        out[pspec] = row
     return out
 
 
@@ -375,6 +411,41 @@ def test_simserve_throughput_quick_equals_jax_suite(jax_simserve):
     assert [r["tenants"] for r in rep["extra"]["rows"]] == [1, 4, 8]
 
 
+def test_connectivity_sweep_equals_jax(jax_suites, capsys):
+    rep = connectivity_sweep.run_suite(quick=True, device="cpu", **SWEEP)
+    assert R.validate(rep) == []
+    want = jax_suites["connectivity_sweep"]
+    rows = {r["profile"]: r for r in rep["extra"]["rows"]}
+    assert list(rows) == list(connectivity_sweep.PROFILE_SPECS)
+    det = rep["deterministic"]
+    for pspec, w in want.items():
+        row, key = rows[pspec], connectivity_sweep._key(pspec)
+        assert {k: row[k] for k in w["stats"]} == w["stats"]
+        assert w["halo"]["raster_sig"] == w["allgather"]["raster_sig"]
+        assert det[f"{key}_raster_sig"] == w["halo"]["raster_sig"]
+        assert det[f"{key}_spikes"] == w["halo"]["spikes"] > 0
+        assert row["rate_hz"] == w["halo"]["rate_hz"]
+    assert "halo exchange/phaseA" in capsys.readouterr().out
+
+
+def test_connectivity_sweep_profile_cell_reuses_a_build():
+    from repro_torch.core import engine
+    cfg = GridConfig(grid_x=2, grid_y=2, neurons_per_column=30,
+                     synapses_per_neuron=12, seed=2013,
+                     connectivity="exponential:lambda=1.0")
+    eng = EngineConfig(n_shards=2, exchange="halo")
+    built = engine.build(cfg, eng, device="cpu")
+    w0 = built[2].w.clone()
+    a = BP.profile_cell(cfg, EngineConfig(n_shards=2, exchange="allgather"),
+                        8, device="cpu", built=built)
+    b = BP.profile_cell(cfg, eng, 8, device="cpu")
+    assert torch.equal(built[2].w, w0)
+    assert {k: a[k] for k in DET} == {k: b[k] for k in DET}
+    with pytest.raises(ValueError, match="layout"):
+        BP.profile_cell(cfg, EngineConfig(n_shards=2, placement="scatter"),
+                        8, device="cpu", built=built)
+
+
 # -- registry and CLI ----------------------------------------------------
 
 
@@ -383,14 +454,19 @@ def test_registry_ports_three_suites():
     # since streamed connectivity: weak_scaling; since the mesh:
     # comm_overlap, scaling and event_vs_dense's distributed cells)
     # (since the cluster runtime: cluster_scaling; since the simulation
-    # service: simserve_throughput)
+    # service: simserve_throughput; since the experiment plans:
+    # connectivity_sweep)
     assert sorted(registry.BENCHES) == ["cluster_scaling", "comm_overlap",
+                                        "connectivity_sweep",
                                         "event_vs_dense", "profile",
                                         "scaling", "simserve_throughput",
                                         "table1", "table2", "weak_scaling"]
     for name in ("weak_scaling", "comm_overlap", "scaling",
-                 "cluster_scaling", "simserve_throughput"):
+                 "cluster_scaling", "simserve_throughput",
+                 "connectivity_sweep"):
         assert name not in registry.NOT_PORTED
+    assert sorted(registry.NOT_PORTED) == ["lm_throughput", "roofline"]
+    assert "13.6" in registry.NOT_PORTED["roofline"]
     for name in registry.NOT_PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             registry.get(name)

@@ -79,7 +79,9 @@ def _exhausted(tmp: Path):
 
 
 def _refused(tmp: Path):
-    args = _args(**dict(WORKLOAD, placement="scatter",
+    # streamed connectivity with event delivery, which the reference
+    # refuses too
+    args = _args(**dict(WORKLOAD, delivery="event",
                         connectivity_mode="streamed:chunk=1"))
     try:
         cli.run_point(args, 2, timeout=TIMEOUT)
@@ -227,7 +229,7 @@ def test_budget_exhaustion_with_real_workers(gangs):
 def test_a_refused_combination_fails_its_workers(gangs):
     err = gangs["refused"].result()
     assert err is not None and "cluster worker failed" in str(err)
-    assert "scatter" in str(err) and "ROADMAP" in str(err)
+    assert "requires delivery='dense'" in str(err)
 
 
 @pytest.mark.parametrize("name", list(SMOKES))

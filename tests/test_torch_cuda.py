@@ -1404,6 +1404,44 @@ def test_chunk_tables_8x8_chunk_h2_scatter(cuda):
             assert torch.equal(a[hh, :e], b[hh, :e])
 
 
+@pytest.mark.parametrize("rows", [[2, 3], [1], [0, 3]],
+                         ids=["block-2-3", "one-1", "rows-0-3"])
+def test_chunk_tables_of_scatter_rows_by_shard_id(cuda, rows):
+    """Scatter rows named by the plan's shard ids (a rank's block of two
+    of four shards, one shard, two shards apart) regenerate on the card
+    as their plain version does, and as those rows of the all-shard call:
+    every chunk, flag clear."""
+    from repro_torch.core import stream_engine as SE
+    spec, (plan, splan, _), (gplan, gsplan, _) = _streamed(
+        STREAM_WIDE, 4, "scatter", 2, cuda)
+    ss, K = spec.stream, SE.live_width(splan)
+    part = lambda p, sp, idx: SE.make_chunk_source(
+        spec.cfg, spec.eng, ss.q, p.src_gid[idx], sp.cand[idx],
+        sp.e_start[idx], ss.row_cap, shard_id=p.shard_id[idx])
+    src = part(plan, splan, rows)
+    gidx = torch.tensor(rows, device=cuda)
+    gsrc = part(gplan, gsplan, gidx)
+    full = SE.chunk_source(spec, plan, splan)
+    z = lambda n, dt: torch.zeros((len(rows), n), dtype=dt, device=cuda)
+    tables = ref.ChunkTables(row_ptr=z(ss.q + 1, torch.int32),
+                             src=z(K, torch.int32), delay=z(K, torch.int32),
+                             plastic=z(K, torch.bool))
+    status = torch.zeros(1, dtype=torch.int32, device=cuda)
+    for c in range(ss.n_chunks):
+        got = ops.chunk_tables(gsrc, c, tables, status)
+        want = ref.chunk_tables(src, c, K)
+        whole = ref.chunk_tables(full, c, K)
+        torch.cuda.synchronize()
+        assert torch.equal(got.row_ptr.cpu(), want.row_ptr)
+        assert torch.equal(want.row_ptr, whole.row_ptr[rows])
+        kept = (want.row_ptr[:, -1] - want.row_ptr[:, 0]).tolist()
+        for i, e in enumerate(kept):
+            for a, b, w in zip(got[1:], want[1:], whole[1:]):
+                assert torch.equal(a[i, :e].cpu(), b[i, :e])
+                assert torch.equal(b[i, :e], w[rows[i], :e])
+    assert int(status[0]) == 0
+
+
 @pytest.mark.parametrize("h,placement,chunk", [(1, "block", 1),
                                                (2, "scatter", 3)])
 def test_streamed_build_on_card_equals_host_build(cuda, h, placement,

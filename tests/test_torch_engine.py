@@ -7,7 +7,8 @@ signatures of the JAX package jitted under
 subprocesses:
 
 * 2x2, 100 neurons/column, M=40, seed 7, 150 steps, at H in {1,2,4} x
-  {block, scatter} and profiles {ring3, ring1, gaussian:sigma=1.5};
+  {block, scatter} and profiles {ring3, ring1, gaussian:sigma=1.5,
+  exponential:lambda=1.0};
 * 1x1 at full width (1,000 neurons, M=200), 150 steps;
 * 4x4 at full width, 150 steps, H=1, against the committed reference file
   (which `test_torch_reference.py` regenerates from JAX);
@@ -38,7 +39,8 @@ STEPS = 150
 CARRY_AT = 50
 SMALL = dict(grid_x=2, grid_y=2, neurons_per_column=100,
              synapses_per_neuron=40, seed=7)
-PROFILES = ["ring3", "ring1", "gaussian:sigma=1.5"]
+PROFILES = ["ring3", "ring1", "gaussian:sigma=1.5",
+            "exponential:lambda=1.0"]
 LAYOUTS = [(1, "block"), (1, "scatter"), (2, "block"), (2, "scatter"),
            (4, "block"), (4, "scatter")]
 CASES = {f"{p}-H{h}-{pl}": (dict(SMALL, connectivity=p),

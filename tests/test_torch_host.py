@@ -36,7 +36,8 @@ from repro_torch.kernels import ops, segment_sum as kseg, stdp as kstdp
 from repro_torch.kernels import ref as kref
 
 ROOT = Path(__file__).resolve().parents[1]
-PROFILES = ["ring3", "ring1", "gaussian:sigma=1.5"]
+PROFILES = ["ring3", "ring1", "gaussian:sigma=1.5",
+            "exponential:lambda=1.0"]
 GRIDS = [(1, 1), (2, 2), (4, 4)]
 LAYOUTS = [(1, "block"), (1, "scatter"), (2, "block"), (2, "scatter"),
            (4, "block"), (4, "scatter")]
@@ -241,18 +242,15 @@ def test_unported_options_are_refused():
                     device="cpu")
     with pytest.raises(ValueError, match="delivery"):
         StepProgram(cfg, EngineConfig(delivery="nope"), device="cpu")
-    # a mesh runs (its ranks: tests/test_torch_mesh.py); one of another
-    # shard count, or streamed scatter shards over several ranks, is
-    # refused
+    # a mesh runs (its ranks: tests/test_torch_mesh.py), streamed scatter
+    # shards over several ranks too; one of another shard count is refused
     mesh = SnnMesh(n_shards=2, world=2, rank=0, device=torch.device("cpu"),
                    wire=None, backend="gloo")
     check_supported(EngineConfig(n_shards=2), mesh)
+    check_supported(EngineConfig(n_shards=2, placement="scatter",
+                                 connectivity="streamed:chunk=1"), mesh)
     with pytest.raises(ValueError, match="the mesh has 2 shards"):
         StepProgram(cfg, EngineConfig(), device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="scatter"):
-        StepProgram(cfg, EngineConfig(n_shards=2, placement="scatter",
-                                      connectivity="streamed:chunk=1"),
-                    mesh=mesh)
     # (--ckpt-dir runs since the checkpoints: tests/test_torch_checkpoint.py;
     # --ckpt-every without it is refused)
     for argv in (["--delivery", "nope"], ["--ckpt-every", "10"],

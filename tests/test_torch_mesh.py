@@ -11,8 +11,10 @@ devices, bit for bit.
   sync, halo pipelined and allgather sync, and a 16x1 ring1 strip whose
   halo does not reach every rank; R = 2 (two shards a rank, H = 4: hier's
   groups are the ranks' blocks, halo messages straddle ranks); R = 1
-  (the four shards on one rank: streamed connectivity with scatter
-  placement, halo sync and allgather pipelined).  Each cell
+  (the four shards on one rank).  Streamed connectivity with scatter
+  placement (halo sync, allgather pipelined) runs at R = 4, 2 and 1: a
+  rank's block of scatter shards regenerates its chunks from the plan's
+  shard ids.  Each cell
   gives the raster and weight signatures (gathered on the primary), the
   spikes, the event cells' `sat` and every rank's messages by
   destination; a few cells also run `time_phases`.
@@ -23,7 +25,7 @@ devices, bit for bit.
   = R).  It starts with the module, beside the ranks.
 * Units without processes: block slicing of the plan, the states, the
   EventPlan and the StreamedPlan, the stimulus of a block plan, the chunk
-  source's bounds of a block, `mesh_shard_groups`, the halo routes, the
+  source's bounds and shard ids of a block, `mesh_shard_groups`, the halo routes, the
   cluster variables and the backend choice.
 """
 import json
@@ -98,15 +100,18 @@ CELLS[2].update(
     scatter_hier_sync=_cell(SMALL, exchange="hier", placement="scatter"),
     streamed_halo_sync=_cell(SMALL, exchange="halo",
                              connectivity="streamed:chunk=1"))
-# one rank holding all four shards: streamed connectivity with scatter
-# placement, which more ranks refuse (`check_supported`)
-CELLS[1].update(
-    streamed_scatter_halo_sync=_cell(SMALL, exchange="halo",
-                                     placement="scatter",
-                                     connectivity="streamed:chunk=1"),
-    streamed_scatter_allgather_pipelined=_cell(
-        SMALL, exchange="allgather", placement="scatter",
-        exchange_schedule="pipelined", connectivity="streamed:chunk=1"))
+# streamed connectivity with scatter placement: each rank's block of
+# scatter shards regenerates its chunks from the plan's shard ids; one rank
+# holding all four shards too
+for _R in (4, 2, 1):
+    CELLS[_R].update(
+        streamed_scatter_halo_sync=_cell(SMALL, exchange="halo",
+                                         placement="scatter",
+                                         connectivity="streamed:chunk=1"),
+        streamed_scatter_allgather_pipelined=_cell(
+            SMALL, exchange="allgather", placement="scatter",
+            exchange_schedule="pipelined",
+            connectivity="streamed:chunk=1"))
 #: cells that also run `time_phases` on the ranks
 TIMED = ("dense_halo_pipelined", "dense_hier_sync", "event_halo_pipelined")
 
@@ -409,6 +414,29 @@ def test_a_block_chunk_source_has_the_blocks_bounds():
             assert torch.equal(a, b[2:4])
 
 
+def test_a_block_chunk_source_of_scatter_shards_has_their_ids():
+    """Under scatter a rank's block regenerates its own shards' chunks:
+    the plain tables of the block equal those rows of the all-shard
+    call."""
+    sp = StepProgram(GridConfig(**SMALL), EngineConfig(
+        n_shards=4, placement="scatter", connectivity="streamed:chunk=1"),
+        device="cpu")
+    full = stream_engine.chunk_source(sp.spec, sp.plan, sp.splan)
+    from repro_torch.kernels import ref as kref
+    k = stream_engine.live_width(sp.splan)
+    for rank in range(2):
+        mesh = _stub_mesh(2, rank)
+        src = stream_engine.chunk_source(sp.spec, sharding.shard_put(
+            mesh, sp.plan), sharding.shard_put(mesh, sp.splan))
+        rows = slice(2 * rank, 2 * rank + 2)
+        assert torch.equal(src.shard_id, full.shard_id[rows])
+        for c in range(sp.spec.stream.n_chunks):
+            want = kref.chunk_tables(full, c, k)
+            got = kref.chunk_tables(src, c, k)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b[rows])
+
+
 def test_mesh_shard_groups_and_hier_groups():
     spec = StepProgram(GridConfig(**SMALL), EngineConfig(n_shards=4),
                        device="cpu").spec
@@ -443,13 +471,10 @@ def test_halo_routes_reach_only_the_neighbours():
 def test_check_supported_takes_a_mesh():
     eng = EngineConfig(n_shards=4, connectivity="streamed:chunk=1")
     check_supported(eng, _stub_mesh(2, 0))
-    check_supported(EngineConfig(n_shards=4, placement="scatter",
-                                 connectivity="streamed:chunk=1"),
-                    _stub_mesh(1, 0))
-    with pytest.raises(NotImplementedError, match="scatter"):
+    for R in (1, 2, 4):
         check_supported(EngineConfig(n_shards=4, placement="scatter",
                                      connectivity="streamed:chunk=1"),
-                        _stub_mesh(2, 0))
+                        _stub_mesh(R, 0))
     with pytest.raises(ValueError, match="shards"):
         check_supported(EngineConfig(n_shards=2), _stub_mesh(2, 0))
 

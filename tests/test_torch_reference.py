@@ -14,6 +14,13 @@ compactions of c_post = the shard's neurons and c_src = its sources, a
 ring of cap_ev = E; `caps_note` says why): raster and weight signatures,
 spike counts and the saturation counter.
 
+`plan_quick` holds the JAX run (H = 1) of the physics group of the quick
+experiment plan (`benchmarks/plans/quick.yaml`: 2x2, 40 neurons a
+column, M = 16, seed 7, 40 steps), which `chip_smoke.py`'s plan phase
+holds its 15 cells against, and `connectivity_sweep` the JAX runs (H = 1)
+of the quick `connectivity_sweep` suite's four profiles (6x6, 40 neurons
+a column, M = 30, seed 2013, 40 steps): spikes and raster signature.
+
 The test below regenerates the file in AVX subprocesses and asserts it
 equals the committed one, so it cannot go stale.  To rewrite it:
 
@@ -40,6 +47,14 @@ STEPS = 150
 GRID = dict(grid_x=4, grid_y=4)            # full width: the params defaults
 LAYOUTS = {"h1_block": (1, "block"), "h4_block": (4, "block"),
            "h4_scatter": (4, "scatter")}
+PLAN_QUICK = dict(grid_x=2, grid_y=2, neurons_per_column=40,
+                  synapses_per_neuron=16, seed=7)
+PLAN_QUICK_STEPS = 40
+SWEEP_PROFILES = ("ring3", "ring1", "gaussian:sigma=1.5",
+                  "exponential:lambda=1.0")
+SWEEP_QUICK = dict(grid_x=6, grid_y=6, neurons_per_column=40,
+                   synapses_per_neuron=30, seed=2013)
+SWEEP_STEPS = 40
 
 
 def avx_env() -> dict:
@@ -132,10 +147,14 @@ def build_reference() -> dict:
     layout and delivery, run in parallel)."""
     outs = run_avx(__file__, [[flag, name] for flag in ("--layout",
                                                         "--event-layout")
-                              for name in LAYOUTS])
+                              for name in LAYOUTS]
+                   + [["--plan-quick"]]
+                   + [["--sweep", p] for p in SWEEP_PROFILES])
     lines = [json.loads(out.strip().splitlines()[-1]) for out in outs]
-    runs = dict(zip(LAYOUTS, lines[:len(LAYOUTS)]))
-    event_runs = dict(zip(LAYOUTS, lines[len(LAYOUTS):]))
+    n = len(LAYOUTS)
+    runs = dict(zip(LAYOUTS, lines[:n]))
+    event_runs = dict(zip(LAYOUTS, lines[n:2 * n]))
+    sweep = dict(zip(SWEEP_PROFILES, lines[2 * n + 1:]))
     return dict(
         source="JAX package (repro.core.StepProgram), jitted on the CPU "
                f"with XLA_FLAGS={AVX_FLAG}",
@@ -150,7 +169,12 @@ def build_reference() -> dict:
                   "sources / 8 overflows, and without it a ring of E / 4 "
                   "does), so these runs list every spike and hold E events "
                   "a slot (each synapse is in a slot at most once): sat 0",
-        event_runs=event_runs)
+        event_runs=event_runs,
+        plan_quick=dict(PLAN_QUICK, steps=PLAN_QUICK_STEPS,
+                        **lines[2 * n]),
+        connectivity_sweep=dict(
+            config=dict(SWEEP_QUICK, steps=SWEEP_STEPS, n_shards=1),
+            profiles=sweep))
 
 
 def test_committed_reference_is_current():
@@ -170,13 +194,22 @@ def _main(argv):
         summary = jax_event_summary(GRID, dict(n_shards=h,
                                                placement=placement), STEPS)
         print(json.dumps(dict(n_shards=h, placement=placement, **summary)))
+    elif argv[:1] == ["--plan-quick"]:
+        s = jax_run_summary(PLAN_QUICK, {}, PLAN_QUICK_STEPS)
+        print(json.dumps({k: s[k] for k in ("raster_signature",
+                                             "weight_signature", "spikes")}))
+    elif argv[:1] == ["--sweep"]:
+        s = jax_run_summary(dict(SWEEP_QUICK, connectivity=argv[1]), {},
+                            SWEEP_STEPS)
+        print(json.dumps({k: s[k] for k in ("raster_signature", "spikes")}))
     elif argv[:1] == ["--write"]:
         REF_PATH.parent.mkdir(parents=True, exist_ok=True)
         REF_PATH.write_text(json.dumps(build_reference(), indent=1) + "\n")
         print(f"wrote {REF_PATH}")
     else:
         raise SystemExit(f"usage: {sys.argv[0]} --write | --layout NAME | "
-                         f"--event-layout NAME")
+                         f"--event-layout NAME | --plan-quick | --sweep "
+                         f"PROFILE")
 
 
 if __name__ == "__main__":

@@ -266,6 +266,52 @@ def test_plain_chunk_tables_equal_jax(profile, placement, chunk):
     assert ss.row_cap == longest
 
 
+@pytest.mark.parametrize("chunk", [1, 2])
+def test_plain_chunk_tables_of_a_scatter_block_equal_jax(chunk):
+    """A block of scatter rows (shards 2-3 of 4, as a rank of two holds
+    them) regenerates its own shards' chunks from the plan's shard ids:
+    those rows of the all-shard call, and JAX's `make_chunk_tables` of
+    each of the two shards."""
+    from repro.core import EngineConfig as JE, GridConfig as JG
+    from repro.core import stream_engine as JSE
+    eng = _eng(4, "scatter", chunk)
+    spec, plan, splan, _ = SE.build(GridConfig(**WIDE), EngineConfig(**eng),
+                                    device="cpu")
+    jspec, jplan, jsplan, _ = JSE.build(JG(**WIDE), JE(**eng))
+    ss, K = spec.stream, SE.live_width(splan)
+    rows = [2, 3]
+    full = SE.chunk_source(spec, plan, splan)
+    block = SE.make_chunk_source(
+        spec.cfg, spec.eng, ss.q, plan.src_gid[rows], splan.cand[rows],
+        splan.e_start[rows], ss.row_cap, shard_id=plan.shard_id[rows])
+    assert block.shard_id.tolist() == rows
+    for c in range(ss.n_chunks):
+        got = ref.chunk_tables(block, c, K)
+        want = ref.chunk_tables(full, c, K)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b[rows])
+    src_table = plan.src_gid.numpy()
+    for i, h in enumerate(rows):
+        jgen = jax.jit(JSE.make_chunk_tables(
+            jspec, jax.tree_util.tree_map(lambda a: a[h], jplan)),
+            static_argnums=2)
+        for c in range(ss.n_chunks):
+            tb = ref.chunk_tables(block, c, K)
+            rp = tb.row_ptr[i].numpy().astype(np.int64)
+            e = int(rp[-1] - rp[0])
+            jt = jgen(c, jsplan.cand[h][c], True)
+            np.testing.assert_array_equal(
+                src_table[h][tb.src[i, :e].numpy()],
+                src_table[h][np.asarray(jt.src)[:e]])
+            np.testing.assert_array_equal(
+                np.repeat(np.arange(ss.q), np.diff(rp)) + c * ss.q,
+                np.asarray(jt.tgt_rel)[:e] + c * ss.q)
+            np.testing.assert_array_equal(tb.delay[i, :e].numpy(),
+                                          np.asarray(jt.delay)[:e])
+            np.testing.assert_array_equal(tb.plastic[i, :e].numpy(),
+                                          np.asarray(jt.plastic)[:e])
+
+
 def test_plain_chunk_tables_refuse_a_wrong_plan():
     spec, plan, splan, _ = SE.build(GridConfig(**SMALL),
                                     EngineConfig(**_eng(1, "block", 1)),
