@@ -9,10 +9,10 @@ Mixer kinds:  'ga' global attention | 'la' local (sliding-window) attention
               | 'rg' RG-LRU recurrent block | 'rwkv' RWKV-6 time mix
               | 'bi' bidirectional attention (encoder)
               | 'xa' causal self-attn + cross-attn (decoder w/ encoder)
-MLP kinds:    'dense' | 'moe'
+MLP kinds:    'dense' | 'moe' | 'cmix' (RWKV-6 channel mix)
 
-Only 'rg', 'la', 'ga' with 'dense' MLPs run in the port so far (the
-`recurrentgemma-2b` serving path); the schema is kept whole.
+Every kind runs in the port but the encoder-decoder mixers 'bi' and 'xa'
+(ROADMAP queue 1 item 13.4); the schema is kept whole.
 """
 from __future__ import annotations
 

@@ -1,16 +1,19 @@
 """Serving launcher: batched requests against a (smoke or full) config.
 
-  python -m repro_torch.launch.serve --arch recurrentgemma-2b [--smoke]
+  python -m repro_torch.launch.serve --arch <id> [--smoke]
       [--requests 8] [--batch 4] [--max-new 16] [--s-max 128] [--seed 0]
       [--device cuda|cpu]
 
 Runs the port's `ServeEngine` on the card (`--device cuda`, the default;
-it raises without one) through the RG-LRU scan kernel, or on the CPU
-through its plain version.  The weights are the port's own random init
-from `--seed`.  Prints the same `[serve]` line as `python -m
-repro.launch.serve`, then the kernel launch counts.  Only
-`recurrentgemma-2b` is ported; another `--arch` exits non-zero naming the
-ROADMAP item that ports it.
+it raises without one) or on the CPU.  Every decoder-only, token-input
+architecture is ported: `recurrentgemma-2b` (its scan through the RG-LRU
+kernel on the card, the plain version on the CPU), `rwkv6-1.6b`,
+`granite-moe-3b-a800m`, `qwen3-0.6b`, `minicpm-2b`, `internlm2-20b`,
+`gemma3-27b` and `llama4-maverick-400b-a17b` (plain PyTorch).  The
+weights are the port's own random init from `--seed`.  Prints the same
+`[serve]` line as `python -m repro.launch.serve`, then the kernel launch
+counts.  `seamless-m4t-medium` and `llava-next-34b` exit non-zero naming
+the ROADMAP item that ports them (queue 1 item 13.4).
 """
 from __future__ import annotations
 

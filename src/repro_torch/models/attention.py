@@ -1,9 +1,11 @@
-"""GQA attention with rotary embedding, sliding window, a ring-buffer KV
-cache and per-slot decode positions (port of `repro.models.attention`).
+"""GQA attention with rotary embedding, optional qk-norm, sliding window,
+a ring-buffer KV cache and per-slot decode positions (port of
+`repro.models.attention`).
 
 Plain PyTorch throughout: the JAX package computes attention outside any
 Pallas kernel too (its `flash_attention` kernel is reached by no model).
-Cross-attention (`kv_override`) and qk-norm are not ported yet.
+Cross-attention (`kv_override`) is not ported yet (ROADMAP queue 1 item
+13.4).
 
 Layouts:
   x          [B, T, d]
@@ -32,8 +34,6 @@ class Attention(torch.nn.Module):
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
-        if cfg.qk_norm:
-            raise NotImplementedError(f"qk_norm is {common.NOT_PORTED}")
         self.cfg = cfg
         d, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         P = common.param
@@ -41,14 +41,21 @@ class Attention(torch.nn.Module):
         self.wk = P((d, Hkv * dh), dtype, device)
         self.wv = P((d, Hkv * dh), dtype, device)
         self.wo = P((H * dh, d), dtype, device)
+        if cfg.qk_norm:                 # [head_dim] gains in the model dtype
+            self.q_gamma = P((dh,), dtype, device)
+            self.k_gamma = P((dh,), dtype, device)
 
     def forward(self, x, positions, **kw):
         return attention(self.cfg, self, x, positions, **kw)
 
 
+@torch.no_grad()
 def init_attn(p: Attention, generator) -> None:
-    for w in p.parameters():
-        common.init_dense(w, generator)
+    for name in ("wq", "wk", "wv", "wo"):
+        common.init_dense(getattr(p, name), generator)
+    if p.cfg.qk_norm:
+        p.q_gamma.fill_(1.0)
+        p.k_gamma.fill_(1.0)
 
 
 def _pick_chunk(n: int, target: int) -> int:
@@ -190,6 +197,9 @@ def attention(cfg: ModelConfig, p: Attention, x, positions, *,
     q = (x @ p.wq).view(B, T, H, dh)
     k = (x @ p.wk).view(B, T, Hkv, dh)
     v = (x @ p.wv).view(B, T, Hkv, dh)
+    if cfg.qk_norm:
+        q = common.rms_norm(q, p.q_gamma, cfg.norm_eps)
+        k = common.rms_norm(k, p.k_gamma, cfg.norm_eps)
     q = common.rope(q, positions, cfg.rope_theta)
     k = common.rope(k, positions, cfg.rope_theta)
 

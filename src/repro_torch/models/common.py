@@ -16,7 +16,7 @@ import torch.nn.functional as F
 F32 = torch.float32
 
 #: The ROADMAP item that ports what this slice leaves out.
-NOT_PORTED = "not ported to PyTorch yet (ROADMAP queue 1 item 13)"
+NOT_PORTED = "not ported to PyTorch yet (ROADMAP queue 1 item 13.4)"
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -47,6 +47,14 @@ def init_embed(w: torch.Tensor, generator) -> None:
     tmp = torch.empty(w.shape, dtype=F32, device=w.device)
     tmp.normal_(generator=generator)
     w.copy_(tmp * w.shape[-1] ** -0.5)
+
+
+def scale_by(x: torch.Tensor, s: float) -> torch.Tensor:
+    """x * s with the Python float rounded to x's dtype first, as a JAX
+    weak-typed scalar is (bf16: 1.4 / 2 -> 0.69921875)."""
+    if s == 1.0:
+        return x
+    return x * torch.tensor(s, dtype=x.dtype, device=x.device)
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6,

@@ -13,10 +13,11 @@ one `Layer` per entry of `cfg.layers` (see `transformer`).
 * `lm_params_to_tree(params, cfg)` goes the other way (numpy leaves in the
   parameters' own dtypes; bf16 as `ml_dtypes.bfloat16`).
 * `numpy_params(cfg, seed)` draws an fp32 tree in the JAX layout from a
-  numpy seed, with the JAX package's distributions (and biases and norm
-  gains perturbed off 0 and 1, so that a comparison exercises them): the
-  weights that both packages load where their outputs are compared
-  (random final-norm gains, so that the greedy tokens vary).
+  numpy seed, with the JAX package's distributions (and biases, gains,
+  lerp weights and decays moved off their constants, so that a comparison
+  exercises them): the weights that both packages load where their
+  outputs are compared (random final-norm gains, so that the greedy tokens
+  vary).
 
 numpy's `bfloat16` leaves (`ml_dtypes`) are read through a uint16 view,
 since `torch.from_numpy` refuses them.  No JAX is imported here.
@@ -132,11 +133,14 @@ def lm_params_to_tree(params: lm.LM, cfg: ModelConfig):
 
 def numpy_params(cfg: ModelConfig, seed: int):
     """fp32 weights in the JAX layout from `np.random.default_rng(seed)`:
-    fan-in normals clipped at 3 sigma for matrices, N(0, 1/d) for the
-    embedding, the Griffin Lambda for `log_lambda`, N(0, 0.1^2) for the
-    biases, 1 + N(0, 0.1^2) for the layers' norm gains and N(0, 1) for the
-    final norm's.  With gains of 1 there, a random model with tied
-    embeddings predicts the token it was given; random gains make its
+    fan-in normals clipped at 3 sigma for matrices (the MoE router and the
+    untied `unembed` too), N(0, 1/d) for the embedding, the Griffin Lambda
+    for `log_lambda`, N(0, 0.1^2) for the biases and RWKV's `bonus_u`,
+    1 + N(0, 0.1^2) for the layers' norm gains (qk-norm's and RWKV's group
+    norm's too), U(0, 1) for RWKV's lerp weights `mu_*`, U(-6, 0) for its
+    `decay_w0` (per-step decays from 0.9975 down to 0.37), and N(0, 1) for
+    the final norm's gains.  With gains of 1 there, a random model with
+    tied embeddings predicts the token it was given; random gains make its
     greedy tokens vary, so that comparing them means something."""
     rng = np.random.default_rng(seed)
     shapes = lm.LM(cfg, torch.device("meta"))
@@ -147,8 +151,15 @@ def numpy_params(cfg: ModelConfig, seed: int):
             x = rng.standard_normal(shape) * shape[-1] ** -0.5
         elif leaf == "final_norm":
             x = rng.standard_normal(shape)
-        elif leaf.startswith("norm"):
+        elif leaf.startswith("norm") or leaf in ("q_gamma", "k_gamma",
+                                                 "ln_gamma"):
             x = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif leaf.startswith("mu_"):
+            x = rng.uniform(0.0, 1.0, shape)
+        elif leaf == "decay_w0":
+            x = rng.uniform(-6.0, 0.0, shape)
+        elif leaf == "bonus_u":
+            x = 0.1 * rng.standard_normal(shape)
         elif leaf in ("conv_b", "ba", "bi"):
             x = 0.1 * rng.standard_normal(shape)
         elif leaf == "log_lambda":

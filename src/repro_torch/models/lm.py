@@ -4,8 +4,8 @@ input).
 
 `params` is an `LM` module.  `init_params` draws it from an explicit
 `torch.Generator`; `convert.lm_params_from_jax` carries the JAX package's
-parameters across.  The training loss, enc-dec and embedding inputs wait
-for later slices (ROADMAP queue 1 item 13).
+parameters across.  Enc-dec and embedding inputs wait for ROADMAP queue 1
+item 13.4, the training loss for item 13.5.
 """
 from __future__ import annotations
 
@@ -21,21 +21,23 @@ F32 = torch.float32
 
 
 class LM(torch.nn.Module):
-    """embed [V, d] (tied unembedding), final_norm [d] fp32, and the
-    stack."""
+    """embed [V, d], final_norm [d] fp32, the stack, and unembed [d, V]
+    where the embeddings are untied."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.family != "decoder" or not cfg.tie_embeddings:
+        if cfg.family != "decoder":
             raise NotImplementedError(
-                f"family {cfg.family!r} / untied embeddings are "
-                f"{common.NOT_PORTED}")
+                f"family {cfg.family!r} is {common.NOT_PORTED}")
         dtype = common.dtype_of(cfg)
         self.cfg = cfg
         self.embed = common.param((cfg.vocab_size, cfg.d_model), dtype,
                                   device)
         self.final_norm = common.param((cfg.d_model,), F32, device)
         self.stack = transformer.Stack(cfg, dtype, device)
+        if not cfg.tie_embeddings:
+            self.unembed = common.param((cfg.d_model, cfg.vocab_size), dtype,
+                                        device)
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -55,6 +57,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     with torch.no_grad():
         p.final_norm.fill_(1.0)
     transformer.init_stack(p.stack, generator)
+    if not cfg.tie_embeddings:
+        common.init_dense(p.unembed, generator)
     return p
 
 
@@ -71,8 +75,11 @@ def embed_tokens(cfg: ModelConfig, params: LM, tokens) -> torch.Tensor:
 
 
 def unembed(cfg: ModelConfig, params: LM, x) -> torch.Tensor:
-    logits = x @ params.embed.T
-    return logits * cfg.logit_scale if cfg.logit_scale != 1.0 else logits
+    if cfg.tie_embeddings:
+        logits = x @ params.embed.T
+    else:
+        logits = x @ params.unembed
+    return common.scale_by(logits, cfg.logit_scale)
 
 
 def _tokens(batch: Dict[str, Any]) -> torch.Tensor:
@@ -85,12 +92,12 @@ def _tokens(batch: Dict[str, Any]) -> torch.Tensor:
 
 def hidden_states(cfg: ModelConfig, params: LM, batch: Dict[str, Any]
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Embed -> stack -> final norm.  Returns (x [B,T,d], aux_loss); the
-    auxiliary loss is 0, as only dense MLPs are ported."""
+    """Embed -> stack -> final norm.  Returns (x [B,T,d], aux_loss): the
+    MoE layers' load-balancing losses summed over the stack (fp32; 0
+    without MoE layers)."""
     x = embed_tokens(cfg, params, _tokens(batch))
     pos = torch.arange(x.shape[1], device=x.device)
-    x, _ = transformer.apply_stack(cfg, params.stack, x, pos)
-    aux = torch.zeros((), dtype=F32, device=x.device)
+    x, _, aux = transformer.apply_stack(cfg, params.stack, x, pos)
     return common.rms_norm(x, params.final_norm, cfg.norm_eps), aux
 
 
@@ -127,7 +134,7 @@ def prefill(cfg: ModelConfig, params: LM, cache, batch: Dict[str, Any]
     x = embed_tokens(cfg, params, _tokens(batch))
     T = x.shape[1]
     pos = cache["pos"] + torch.arange(T, device=x.device)
-    x, new_layers = transformer.apply_stack(
+    x, new_layers, _ = transformer.apply_stack(
         cfg, params.stack, x, pos, caches=cache["layers"],
         cache_pos=cache["pos"])
     xl = common.rms_norm(x[:, -1:], params.final_norm, cfg.norm_eps)
@@ -144,7 +151,7 @@ def decode_step(cfg: ModelConfig, params: LM, cache, tokens: torch.Tensor
     x = embed_tokens(cfg, params, tokens)
     pos = cache["pos"][..., None] + torch.arange(tokens.shape[1],
                                                  device=x.device)
-    x, new_layers = transformer.apply_stack(
+    x, new_layers, _ = transformer.apply_stack(
         cfg, params.stack, x, pos, caches=cache["layers"],
         cache_pos=cache["pos"])
     x = common.rms_norm(x, params.final_norm, cfg.norm_eps)

@@ -10,7 +10,10 @@ The JAX package stacks each pattern unit's parameters on a leading
 holds one `Layer` per entry of `cfg.layers`, in order: layer
 u * len(pattern) + i is the JAX package's `units/layer{i}[u]`, and layer
 n_units * len(pattern) + r is its `rem[r]`.  Caches are a list with one
-dict per layer.  Mixers 'rg', 'la' and 'ga' with dense MLPs are ported.
+dict per layer.  Every kind is ported but the encoder-decoder mixers 'xa'
+and 'bi' (ROADMAP queue 1 item 13.4): mixers 'ga', 'la', 'rg', 'rwkv';
+MLPs 'dense', 'moe', 'cmix' (the RWKV-6 channel mix, which carries its
+token shift in the layer's 'rwkv' cache entry).
 """
 from __future__ import annotations
 
@@ -19,10 +22,11 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from . import attention, common, mlp as mlp_mod, recurrent
+from . import attention, common, mlp as mlp_mod, moe as moe_mod, recurrent
 
 F32 = torch.float32
-MIXERS = ("rg", "la", "ga")
+MIXERS = ("ga", "la", "rg", "rwkv")
+MLPS = ("dense", "moe", "cmix")
 
 
 class Layer(torch.nn.Module):
@@ -30,7 +34,7 @@ class Layer(torch.nn.Module):
                  device):
         super().__init__()
         mixer_kind, mlp_kind = kinds
-        if mixer_kind not in MIXERS or mlp_kind != "dense":
+        if mixer_kind not in MIXERS or mlp_kind not in MLPS:
             raise NotImplementedError(
                 f"layer kind {kinds} is {common.NOT_PORTED}")
         self.cfg, self.kinds = cfg, kinds
@@ -38,32 +42,47 @@ class Layer(torch.nn.Module):
         self.norm2 = common.param((cfg.d_model,), F32, device)
         if mixer_kind == "rg":
             self.mixer = recurrent.RGLRU(cfg, dtype, device)
+        elif mixer_kind == "rwkv":
+            self.mixer = recurrent.RWKV(cfg, dtype, device)
         else:
             self.mixer = attention.Attention(cfg, dtype, device)
-        self.mlp = mlp_mod.MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype, device)
+        if mlp_kind == "moe":
+            self.mlp = moe_mod.MoE(cfg.d_model, cfg.moe, cfg.act, dtype,
+                                   device)
+        elif mlp_kind == "cmix":
+            self.mlp = recurrent.RWKVCMix(cfg, dtype, device)
+        else:
+            self.mlp = mlp_mod.MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype,
+                                   device)
 
     def forward(self, x, positions, cache=None, cache_pos=None):
         return _apply_layer(self.cfg, self.kinds, self, x, positions, cache,
                             cache_pos)
 
 
+_INITS = {recurrent.RGLRU: recurrent.init_rglru,
+          recurrent.RWKV: recurrent.init_rwkv,
+          attention.Attention: attention.init_attn,
+          mlp_mod.MLP: mlp_mod.init_mlp,
+          moe_mod.MoE: moe_mod.init_moe,
+          recurrent.RWKVCMix: recurrent.init_rwkv_cmix}
+
+
 @torch.no_grad()
 def init_layer(p: Layer, generator) -> None:
     p.norm1.fill_(1.0)
     p.norm2.fill_(1.0)
-    if isinstance(p.mixer, recurrent.RGLRU):
-        recurrent.init_rglru(p.mixer, generator)
-    else:
-        attention.init_attn(p.mixer, generator)
-    mlp_mod.init_mlp(p.mlp, generator)
+    _INITS[type(p.mixer)](p.mixer, generator)
+    _INITS[type(p.mlp)](p.mlp, generator)
 
 
 def _apply_layer(cfg: ModelConfig, kinds: Tuple[str, str], p: Layer, x,
                  positions, cache: Optional[dict], cache_pos) -> Tuple:
-    """Returns (x, new_cache).  Only dense MLPs are ported, so a layer has
-    no auxiliary loss (the JAX package's third return value is 0 here)."""
-    mixer_kind, _ = kinds
+    """Returns (x, new_cache, aux): aux is the MoE layer's load-balancing
+    loss, None (no device work) for the other MLP kinds."""
+    mixer_kind, mlp_kind = kinds
     rs = cfg.residual_scale
+    aux = None
     new_cache: Dict[str, Any] = {}
 
     h = common.rms_norm(x, p.norm1, cfg.norm_eps)
@@ -75,16 +94,32 @@ def _apply_layer(cfg: ModelConfig, kinds: Tuple[str, str], p: Layer, x,
             cache=kv_cache, cache_pos=cache_pos)
         if kv_new is not None:
             new_cache["kv"] = kv_new
-    else:
+    elif mixer_kind == "rg":
         st = cache.get("rg") if cache else None
         y, st_new = recurrent.rglru(cfg, p.mixer, h, st)
         if cache is not None:
             new_cache["rg"] = st_new
-    x = x + rs * y
+    else:
+        st = cache.get("rwkv") if cache else None
+        y, st_new = recurrent.rwkv_time_mix(cfg, p.mixer, h, st)
+        if cache is not None:
+            new_cache["rwkv"] = st_new
+    x = x + common.scale_by(y, rs)
 
     h = common.rms_norm(x, p.norm2, cfg.norm_eps)
-    x = x + rs * mlp_mod.mlp(p.mlp, h, cfg.act)
-    return x, (new_cache if cache is not None else None)
+    if mlp_kind == "dense":
+        y = mlp_mod.mlp(p.mlp, h, cfg.act)
+    elif mlp_kind == "moe":
+        y, aux = moe_mod.moe(p.mlp, h, cfg.moe, cfg.act)
+    else:
+        # the channel mix reads xf from the old cache and writes it into
+        # the 'rwkv' entry the time mix made
+        st = cache.get("rwkv") if cache else None
+        y, xf_new = recurrent.rwkv_channel_mix(cfg, p.mlp, h, st)
+        if cache is not None and "rwkv" in new_cache:
+            new_cache["rwkv"]["xf"] = xf_new
+    x = x + common.scale_by(y, rs)
+    return x, (new_cache if cache is not None else None), aux
 
 
 class Stack(torch.nn.Module):
@@ -101,21 +136,27 @@ def init_stack(p: Stack, generator) -> None:
 
 def apply_stack(cfg: ModelConfig, stack: Stack, x, positions, *,
                 caches: Optional[List[dict]] = None, cache_pos=None):
-    """Returns (x, new_caches)."""
+    """Returns (x, new_caches, aux_sum): the MoE layers' auxiliary losses
+    added in layer order (an fp32 0 without one)."""
     decode = caches is not None
     new_caches: Optional[List[dict]] = [] if decode else None
+    aux_total = None
     for idx, layer in enumerate(stack.layers):
         c = caches[idx] if decode else None
-        x, nc = _apply_layer(cfg, layer.kinds, layer, x, positions, c,
-                             cache_pos)
+        x, nc, a = _apply_layer(cfg, layer.kinds, layer, x, positions, c,
+                                cache_pos)
+        if a is not None:
+            aux_total = a if aux_total is None else aux_total + a
         if decode:
             new_caches.append(nc)
-    return x, new_caches
+    if aux_total is None:
+        aux_total = torch.zeros((), dtype=F32, device=x.device)
+    return x, new_caches, aux_total
 
 
 def _layer_cache(cfg: ModelConfig, kinds, batch: int, s_max: int, dtype,
                  device):
-    mixer_kind, _ = kinds
+    mixer_kind, mlp_kind = kinds
     c: Dict[str, Any] = {}
     if mixer_kind in ("ga", "la"):
         s_r = s_max
@@ -126,6 +167,8 @@ def _layer_cache(cfg: ModelConfig, kinds, batch: int, s_max: int, dtype,
                    torch.zeros(shape, dtype=dtype, device=device))
     if mixer_kind == "rg":
         c["rg"] = recurrent.init_rglru_state(cfg, batch, dtype, device)
+    if mixer_kind == "rwkv" or mlp_kind == "cmix":
+        c["rwkv"] = recurrent.init_rwkv_state(cfg, batch, dtype, device)
     return c
 
 

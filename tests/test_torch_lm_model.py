@@ -295,11 +295,15 @@ def test_init_params_draws_the_jax_distributions():
 
 
 def test_unported_kinds_are_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
-        get_config("rwkv6-1.6b")
+    """Enc-dec (the 'xa' and 'bi' mixers, `seamless-m4t-medium`) and the
+    `embeds` frontend wait for ROADMAP queue 1 item 13.4."""
+    for arch in ("seamless-m4t-medium", "llava-next-34b"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 1 item 13.4"):
+            get_config(arch)
     cfg = get_smoke_config(ARCH)
-    for kinds in [("rwkv", "cmix"), ("rg", "moe"), ("xa", "dense")]:
+    for kinds in [("xa", "dense"), ("bi", "dense")]:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             transformer.Layer(cfg, kinds, torch.float32, "meta")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.Attention(cfg.scaled(qk_norm=True), torch.float32, "meta")
+        lm.LM(cfg.scaled(family="encdec"), "meta")

@@ -57,21 +57,23 @@ SWEEP_QUICK = dict(grid_x=6, grid_y=6, neurons_per_column=40,
 SWEEP_STEPS = 40
 
 
-def avx_env() -> dict:
-    """Environment of a subprocess whose jax is pinned to AVX (no FMA)."""
+def avx_env(extra_flags: str = "") -> dict:
+    """Environment of a subprocess whose jax is pinned to AVX (no FMA),
+    with `extra_flags` appended to XLA_FLAGS."""
     env = dict(os.environ)
-    env["XLA_FLAGS"] = f"{env.get('XLA_FLAGS', '')} {AVX_FLAG}".strip()
+    env["XLA_FLAGS"] = " ".join(
+        f for f in (env.get("XLA_FLAGS", ""), AVX_FLAG, extra_flags) if f)
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (str(SRC), env.get("PYTHONPATH")) if p)
     return env
 
 
-def start_avx(script: str, arg_lists):
+def start_avx(script: str, arg_lists, extra_flags: str = ""):
     """Start `python script *args` for each args in `arg_lists`, all at
-    once, under `avx_env()`."""
+    once, under `avx_env(extra_flags)`."""
     return [subprocess.Popen([sys.executable, script, *map(str, args)],
-                             env=avx_env(), cwd=ROOT, text=True,
+                             env=avx_env(extra_flags), cwd=ROOT, text=True,
                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
             for args in arg_lists]
 
@@ -95,9 +97,10 @@ def wait_avx(procs, timeout: float = 600.0):
     return outs
 
 
-def run_avx(script: str, arg_lists, timeout: float = 600.0):
+def run_avx(script: str, arg_lists, timeout: float = 600.0,
+            extra_flags: str = ""):
     """`start_avx` then `wait_avx`."""
-    return wait_avx(start_avx(script, arg_lists), timeout)
+    return wait_avx(start_avx(script, arg_lists, extra_flags), timeout)
 
 
 def jax_run_summary(cfg_kw: dict, eng_kw: dict, steps: int) -> dict:
