@@ -339,7 +339,34 @@ Then the LM serving path (`recurrentgemma-2b`, `repro_torch.serve`):
               batch profiled: the device's idle share, its ms under each
               model function (`record_function` labels: attention,
               rwkv_time_mix, rwkv_channel_mix, moe, mlp) and the top
-              kernels.
+              kernels;
+  lm_frontends_check  `seamless-m4t-medium` (enc-dec) and
+              `llava-next-34b` (`embeds` input) at SMOKE, fp32 and bf16:
+              the serving engine's run as lm_check holds it against the
+              arch's entry of `lm_reference.json`, and the entry's
+              `frontend` run (frame embeddings encoded before a prompt
+              of tokens, or patch embeddings, drawn from the entry's
+              numpy seed; `lm.prefill`, then `lm.decode_step` fed the
+              reference's greedy tokens): logits within 2e-4 (fp32) and
+              0.1 (bf16), fp32 greedy tokens equal, all finite, no
+              kernel launched;
+  lm_frontends_serve  both at full width (bf16, the port's own init
+              from a seeded CUDA generator; the frames and patch
+              embeddings from it too, their frontends being stubs):
+              parameter count (equal to the JAX package's), bytes, the
+              free memory before the init, init seconds; seamless
+              encodes 4 x 512 frames (ms), prefills 4 prompts of 8-24
+              tokens in lockstep from the cache's encoder output and
+              takes 32 greedy steps, then serves 8 requests through
+              `ServeEngine` (no encoder input, as in the JAX package);
+              llava prefills 2 x 2,048 `embeds` positions (the chunked
+              attention path, one call a layer) into 2,080 slots and
+              takes 32 greedy steps; each reports prefill tokens/s,
+              decode ms a step, peak memory, every sampled logit
+              finite, and profiles of the prefill and of 2 decode steps
+              (the device's idle share, its ms under the labels
+              encoder, self_attention, cross_attention and mlp, the top
+              kernels) beside the weight-read floor.
 
 Then the `{"kernels": [...]}` line (launches from the timed eager run of
 the delivery whose path the kernel is on, or the streamed timed eager
@@ -355,6 +382,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -449,6 +477,20 @@ LM_FAMILIES_FULL = {"rwkv6-1.6b": 1_583_941_632,
 LM_FAMILIES_PROMPTS = (8, 24)
 LM_FAMILIES_S_MAX = 64
 LM_PROFILE_STEPS = 2
+# lm_frontends_check / lm_frontends_serve: the archs whose input is more
+# than tokens, with the JAX package's full-width parameter counts
+# (tests/test_torch_lm_encdec.py holds them equal); seamless encodes B x S
+# frames before a lockstep prefill of 8-24-token prompts (and serves 8
+# requests through ServeEngine); llava prefills B x T `embeds` positions
+# (LLaVA-NeXT's anyres gives up to 2,880; T x T > 2^21: the chunked
+# attention path) into s_max slots; each then takes FRONTEND_NEW greedy
+# lockstep steps
+LM_FRONTENDS_FULL = {"seamless-m4t-medium": 614_739_968,
+                     "llava-next-34b": 34_388_917_248}
+SEAMLESS_FRAMES = (4, 512)
+LLAVA_PROMPT = (2, 2048)
+LLAVA_S_MAX = 2080
+FRONTEND_NEW = 32
 # attn_kernels: B x heads query heads over B x kv_heads KV heads (repeated
 # to B x heads before the call).  Tolerances (rtol, atol): fp32 that of
 # tests/test_kernels.py; bf16 one bf16 ulp of the output, since the kernel
@@ -3191,27 +3233,44 @@ def phase_lm_profile(params):
 
 
 #: the model functions whose device time the LM profiles split out, by
-#: the label they get (each call runs inside `record_function(label)`)
+#: the label they get (each call runs inside `record_function(label)`; a
+#: pair of labels names the call without and with a `kv_override`
+#: argument: self- and cross-attention)
 LM_MODULES = (("attention", "attention", "attention"),
               ("rglru", "recurrent", "rglru"),
               ("rwkv_time_mix", "recurrent", "rwkv_time_mix"),
               ("rwkv_channel_mix", "recurrent", "rwkv_channel_mix"),
               ("moe", "moe", "moe"), ("mlp", "mlp", "mlp"))
+#: the enc-dec and `embeds` archs' split: the encoder whole (its layers'
+#: attention and MLPs are also counted under their own labels), the
+#: decoder's self-attention, its cross-attention, the MLPs
+LM_ENCDEC_MODULES = (("encoder", "lm", "encode"),
+                     (("self_attention", "cross_attention"), "attention",
+                      "attention"),
+                     ("mlp", "mlp", "mlp"))
+
+
+def _labels(modules) -> set:
+    return {x for label, _, _ in modules
+            for x in ((label,) if isinstance(label, str) else label)}
 
 
 @contextlib.contextmanager
-def _labelled_modules():
-    """Run every `LM_MODULES` function inside a profiler label named for
-    it (the transformer looks each up on its module at call time)."""
+def _labelled_modules(modules=LM_MODULES):
+    """Run every function of `modules` inside a profiler label named for
+    it (the model looks each up on its module at call time)."""
     from torch.profiler import record_function
-    from repro_torch.models import attention, mlp, moe, recurrent
-    mods = dict(attention=attention, recurrent=recurrent, moe=moe, mlp=mlp)
+    from repro_torch.models import attention, lm, mlp, moe, recurrent
+    mods = dict(attention=attention, recurrent=recurrent, moe=moe, mlp=mlp,
+                lm=lm)
     saved = []
-    for label, mod, fn in LM_MODULES:
+    for label, mod, fn in modules:
         real = getattr(mods[mod], fn)
 
         def wrapped(*a, _real=real, _label=label, **kw):
-            with record_function(_label):
+            name = _label if isinstance(_label, str) else \
+                _label["kv_override" in kw]
+            with record_function(name):
                 return _real(*a, **kw)
         saved.append((mods[mod], fn, real))
         setattr(mods[mod], fn, wrapped)
@@ -3222,10 +3281,10 @@ def _labelled_modules():
             setattr(mod, fn, real)
 
 
-def _profiled(fn) -> dict:
+def _profiled(fn, modules=LM_MODULES) -> dict:
     """Wall of fn() unprofiled, then the device's kernels over a second,
     profiled fn(): busy seconds, the idle share (1 - busy / the unprofiled
-    wall), the device ms under each `LM_MODULES` label, and the top 12
+    wall), the device ms under each label of `modules`, and the top 12
     kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -3233,14 +3292,14 @@ def _profiled(fn) -> dict:
     fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    with _labelled_modules(), profile(
+    with _labelled_modules(modules), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_profiled = time.perf_counter() - t0
     from torch.autograd import DeviceType
-    labels = {label for label, _, _ in LM_MODULES}
+    labels = _labels(modules)
     avgs = prof.key_averages()
     # (the labels' own spans on the device timeline are not kernels)
     rows = sorted(((e.self_device_time_total, e.key, e.count) for e in avgs
@@ -3359,6 +3418,303 @@ def phase_lm_families_serve() -> None:
         torch.cuda.empty_cache()
     if failed:
         raise PhaseFailed(f"full-width serving failed its gates: {failed}")
+
+
+def _frontend_batch(cfg, fe: dict, device) -> dict:
+    """A `frontend` entry's inputs (`lm_reference.json`): from
+    `np.random.default_rng(inputs_seed)`, standard normals [batch, length,
+    d_model] as float32, then for `enc_embeds` the prompt's tokens,
+    integers(0, vocab_size, (batch, prompt_len))."""
+    rng = np.random.default_rng(fe["inputs_seed"])
+    x = rng.standard_normal((fe["batch"], fe["length"], cfg.d_model)).astype(
+        np.float32)
+    batch = {fe["input"]: torch.from_numpy(x).to(device)}
+    if fe["input"] == "enc_embeds":
+        batch["tokens"] = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (fe["batch"], fe["prompt_len"]))).to(device)
+    return batch
+
+
+def _frontend_against(ref: dict) -> tuple:
+    """An arch's `frontend` entry on the card, fp32 and bf16: the port's
+    prefill from the frontend input, then its decode steps fed the
+    reference's greedy tokens.  (results by dtype, failed dtypes)."""
+    fe = ref["frontend"]
+    results, failed = {}, []
+    for dtype, r in fe["variants"].items():
+        cfg = get_smoke_config(ref["arch"]).scaled(dtype=dtype)
+        params = convert.lm_params_from_jax(
+            convert.numpy_params(cfg, ref["weights_seed"]), cfg, "cuda")
+        ops.reset_launch_counts()
+        got = serve_engine.lockstep_teacher_forced_logits(
+            cfg, params, _frontend_batch(cfg, fe, "cuda"), r["tokens"],
+            fe["s_max"])
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        err = max_abs_err(got, torch.tensor(r["teacher_forced_logits"]))
+        res = dict(input=fe["input"], teacher_forced_max_abs_err=err,
+                   tolerance=LM_TOL[dtype],
+                   finite=bool(torch.isfinite(got).all()),
+                   tokens_equal=got[:-1].argmax(-1).T.tolist() == r["tokens"],
+                   kernel_launches=launches)
+        if not (res["finite"] and err <= LM_TOL[dtype] and not launches
+                and (res["tokens_equal"] or dtype != "float32")):
+            failed.append(dtype)
+        results[dtype] = res
+    return results, failed
+
+
+def phase_lm_frontends_check():
+    """seamless-m4t-medium (enc-dec) and llava-next-34b (`embeds`) at
+    SMOKE, fp32 and bf16, against their entries of the committed JAX
+    reference: the serving engine's run as lm_check holds it, and the
+    frontend's lockstep run.  One line an arch."""
+    refs, failed = _lm_reference(), []
+    for arch in LM_FRONTENDS_FULL:
+        results, bad = _serve_against(refs[arch])
+        fe, bad_fe = _frontend_against(refs[arch])
+        emit({"phase": "lm_frontends_check", "arch": arch,
+              "config": "SMOKE", "runs": results, "frontend": fe})
+        failed += [f"{arch} {d}" for d in bad] + [
+            f"{arch} {d} frontend" for d in bad_fe]
+    if failed:
+        raise PhaseFailed(f"LM serving differs from the JAX reference: "
+                          f"{failed}")
+
+
+def _lockstep_profiles(cfg, params, batch: dict, s_max: int) -> dict:
+    """The device's idle share and its ms by LM_ENCDEC_MODULES label over
+    a prefill of `batch` (the encoder's run included where the batch has
+    `enc_embeds`) and over LM_PROFILE_STEPS lockstep decode steps after
+    it, each step's tokens read on the host."""
+    B = next(iter(batch.values())).shape[0]
+
+    def prefill():
+        cache = lm.init_cache(cfg, B, s_max, device="cuda")
+        return lm.prefill(cfg, params, cache, batch)
+
+    t0 = time.perf_counter()
+    pre = _profiled(prefill, LM_ENCDEC_MODULES)
+    pre["seconds"] = time.perf_counter() - t0
+    logits, cache = prefill()
+    state = {"cache": cache, "tok": logits.argmax(-1)[:, None]}
+
+    def decode(n=LM_PROFILE_STEPS):
+        for _ in range(n):
+            lg, state["cache"] = lm.decode_step(cfg, params, state["cache"],
+                                                state["tok"])
+            tok = sampling.greedy(lg[:, 0])
+            tok.tolist()
+            state["tok"] = tok[:, None]
+
+    decode(1)                                        # warm-up
+    t0 = time.perf_counter()
+    dec = _profiled(decode, LM_ENCDEC_MODULES)
+    dec["seconds"] = time.perf_counter() - t0
+    dec["steps"] = LM_PROFILE_STEPS
+    dec["ms_per_step"] = dec["wall_s"] / LM_PROFILE_STEPS * 1e3
+    return {"prefill_profile": pre, "decode_profile": dec}
+
+
+def _lockstep_run(cfg, params, batch: dict, s_max: int, n_new: int,
+                  enc_frames=None) -> dict:
+    """The timed lockstep run at full width: the encoder over `enc_frames`
+    (enc-dec: its output goes into the cache), `lm.prefill` of `batch`,
+    then `n_new` greedy `lm.decode_step`s, each step's tokens read on the
+    host; every sampled logit checked finite; the chunked attention calls
+    of the prefill counted."""
+    from repro_torch.models import attention
+    B = next(iter(batch.values())).shape[0]
+    T = next(iter(batch.values())).shape[1]
+    finite, chunked = [], []
+    real_chunked = attention._chunked_gqa
+
+    def counted(*a, **kw):
+        chunked.append(1)
+        return real_chunked(*a, **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = {}
+    enc_out = None
+    if enc_frames is not None:
+        t0 = time.perf_counter()
+        enc_out = lm.encode(cfg, params, enc_frames)
+        torch.cuda.synchronize()
+        out["encode_ms"] = (time.perf_counter() - t0) * 1e3
+        out["encode_frames"] = list(enc_frames.shape[:2])
+    attention._chunked_gqa = counted
+    try:
+        t0 = time.perf_counter()
+        cache = lm.init_cache(cfg, B, s_max, enc_out=enc_out, device="cuda")
+        logits, cache = lm.prefill(cfg, params, cache, batch)
+        finite.append(torch.isfinite(logits).all())
+        tok = sampling.greedy(logits)
+        tok.tolist()
+        prefill_s = time.perf_counter() - t0
+    finally:
+        attention._chunked_gqa = real_chunked
+    t0 = time.perf_counter()
+    for _ in range(n_new):
+        logits, cache = lm.decode_step(cfg, params, cache, tok[:, None])
+        finite.append(torch.isfinite(logits).all())
+        tok = sampling.greedy(logits[:, 0])
+        tok.tolist()
+    decode_s = time.perf_counter() - t0
+    out.update(prompt=[B, T], prefill_s=prefill_s,
+               prefill_tokens_per_s=B * T / prefill_s,
+               prefill_chunked_attention_calls=len(chunked),
+               decode_steps=n_new, decode_s=decode_s,
+               decode_ms_per_step=decode_s / n_new * 1e3,
+               decode_tokens_per_s=B * n_new / decode_s,
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+               kernel_launches={k: v for k, v in
+                                ops.launch_counts().items() if v},
+               all_logits_finite=bool(torch.stack(finite).all()))
+    return out
+
+
+def _init_full(arch: str) -> tuple:
+    """The arch at full width from a seeded CUDA generator: (cfg, params,
+    generator, the line's common fields)."""
+    cfg = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    meta = lm.init_params(cfg, device="meta")
+    need = sum(w.numel() * w.element_size() for w in meta.parameters())
+    if need > free:
+        raise PhaseFailed(f"{arch}: {need} B of weights, {free} B free of "
+                          f"{total} on the card")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = lm.init_params(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = lm.param_count(params)
+    param_bytes = sum(w.numel() * w.element_size()
+                      for w in params.parameters())
+    dec_bytes = param_bytes - (sum(
+        w.numel() * w.element_size() for w in params.enc_stack.parameters())
+        if cfg.family == "encdec" else 0)
+    line = {"arch": arch, "dtype": cfg.dtype, "layers": cfg.n_layers,
+            "encoder_layers": cfg.n_encoder_layers, "d_model": cfg.d_model,
+            "vocab": cfg.vocab_size, "params": n_params,
+            "params_expected": LM_FRONTENDS_FULL[arch],
+            "param_bytes": param_bytes, "mem_free_before_init_bytes": free,
+            "mem_total_bytes": total, "init_s": init_s,
+            "weight_read_floor_ms": param_bytes / PEAK_BYTES_PER_S * 1e3,
+            "decoder_weight_read_floor_ms": dec_bytes / PEAK_BYTES_PER_S
+            * 1e3}
+    return cfg, params, gen, line
+
+
+def _seamless_full() -> dict:
+    """seamless-m4t-medium at full width: the encoder over B x S frames,
+    a lockstep prefill of prompts of 8-24 tokens from the cache's
+    encoder output, 32 greedy decode steps; then ServeEngine with 8
+    requests; then the profiles."""
+    arch = "seamless-m4t-medium"
+    cfg, params, gen, line = _init_full(arch)
+    B, S = SEAMLESS_FRAMES
+    frames = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda")
+    lo, hi = LM_FAMILIES_PROMPTS
+    rng = np.random.default_rng(0)
+    lens = rng.integers(lo, hi + 1, B)
+    toks = np.zeros((B, int(lens.max())), np.int64)
+    for b, n in enumerate(lens):
+        toks[b, toks.shape[1] - n:] = rng.integers(0, cfg.vocab_size, n)
+    batch = {"tokens": torch.from_numpy(toks).to("cuda")}
+    s_max = toks.shape[1] + FRONTEND_NEW + 2 * LM_PROFILE_STEPS + 1
+    _lockstep_run(cfg, params, {"tokens": batch["tokens"][:, :4]}, 8, 1,
+                  enc_frames=frames[:, :16])                  # warm-up
+    line["prompt_lens"] = lens.tolist()
+    line["lockstep"] = _lockstep_run(cfg, params, batch, s_max,
+                                     FRONTEND_NEW, enc_frames=frames)
+    t0 = time.perf_counter()
+
+    eng = serve_engine.ServeEngine(cfg, params, batch=4,
+                                   s_max=LM_FAMILIES_S_MAX, device="cuda")
+    eng.run(_requests([np.arange(8)] * 2, [2, 2]))            # warm-up
+    finite, real_greedy = [], sampling.greedy
+
+    def checked(logits):
+        finite.append(torch.isfinite(logits).all())
+        return real_greedy(logits)
+
+    reqs = _full_width_requests(cfg, lo=lo, hi=hi)
+    torch.cuda.synchronize()
+    sampling.greedy = checked
+    ops.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        sampling.greedy = real_greedy
+    st = eng.stats
+    n_tok = sum(r.out.shape[0] for r in done)
+    line["serve_engine"] = dict(
+        requests=len(done), batch=eng.batch, s_max=eng.s_max,
+        prompt_lens=[int(r.prompt.shape[0]) for r in done], tokens=n_tok,
+        wall_s=wall, admissions=st["admissions"],
+        prefill_tokens_per_s=st["prompt_tokens"] / st["prefill_s"],
+        decode_steps=st["decode_steps"],
+        decode_ms_per_step=st["decode_s"] / st["decode_steps"] * 1e3,
+        decode_tokens_per_s=(n_tok - st["admissions"]) / st["decode_s"],
+        kernel_launches={k: v for k, v in ops.launch_counts().items() if v},
+        all_logits_finite=bool(torch.stack(finite).all()),
+        enc_out=None, seconds=time.perf_counter() - t0)
+    line.update(_lockstep_profiles(
+        cfg, params, dict(batch, enc_embeds=frames), s_max))
+    return line
+
+
+def _llava_full() -> dict:
+    """llava-next-34b at full width: batch 2, a prompt of `embeds`
+    positions (the chunked attention path), then 32 greedy lockstep
+    decode steps; then the profiles."""
+    arch = "llava-next-34b"
+    cfg, params, gen, line = _init_full(arch)
+    B, T = LLAVA_PROMPT
+    embeds = torch.randn((B, T, cfg.d_model), generator=gen, device="cuda")
+    _lockstep_run(cfg, params, {"embeds": embeds[:, :16]}, 17, 1)  # warm-up
+    t0 = time.perf_counter()
+    line["lockstep"] = _lockstep_run(cfg, params, {"embeds": embeds},
+                                     LLAVA_S_MAX, FRONTEND_NEW)
+    line["lockstep"]["seconds"] = time.perf_counter() - t0
+    line.update(_lockstep_profiles(cfg, params, {"embeds": embeds},
+                                   LLAVA_S_MAX))
+    return line
+
+
+def phase_lm_frontends_serve() -> None:
+    """seamless-m4t-medium and llava-next-34b at full width (bf16, the
+    port's own init from a seeded CUDA generator; frames and patch
+    embeddings from it too, their frontends being stubs): one line an
+    arch, each freed before the next."""
+    failed = []
+    for run in (_seamless_full, _llava_full):
+        t0 = time.perf_counter()
+        line = run()
+        line["seconds"] = time.perf_counter() - t0
+        emit(dict({"phase": "lm_frontends_serve"}, **line))
+        runs = [line["lockstep"]] + ([line["serve_engine"]]
+                                     if "serve_engine" in line else [])
+        ok = (line["params"] == line["params_expected"]
+              and all(r["all_logits_finite"] and not r["kernel_launches"]
+                      for r in runs))
+        if line["arch"] == "llava-next-34b":
+            ok &= line["lockstep"]["prefill_chunked_attention_calls"] == \
+                line["layers"]
+        if not ok:
+            failed.append(line["arch"])
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failed:
+        raise PhaseFailed(f"full-width frontend serving failed its gates: "
+                          f"{failed}")
 
 
 # ----------------------------------------------------------------------------
@@ -4811,6 +5167,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_lm_families_check()
         phase_lm_families_serve()
+        phase_lm_frontends_check()
+        phase_lm_frontends_serve()
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

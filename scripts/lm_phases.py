@@ -1,15 +1,18 @@
 """Run chip_smoke.py's LM serving phases alone on one card.
 
-    python3 scripts/lm_phases.py [--families-only]
+    python3 scripts/lm_phases.py [--families-only | --frontends-only]
 
 The card's name and power limit (`phase_card`), the kernels
 (`phase_build`), then `lm_check` (recurrentgemma-2b at SMOKE against
 `lm_reference.json`), `lm_serve` and `lm_profile` (recurrentgemma-2b at
 full width), `lm_families_check` (the other seven decoder-only archs at
-SMOKE against their entries) and `lm_families_serve` (rwkv6-1.6b,
-granite-moe-3b-a800m and qwen3-0.6b at full width), each printing
-chip_smoke's JSON lines and its seconds.  `--families-only` runs only the
-last two.  Exits 1 if a phase failed.  About three minutes on an H100.
+SMOKE against their entries), `lm_families_serve` (rwkv6-1.6b,
+granite-moe-3b-a800m and qwen3-0.6b at full width), `lm_frontends_check`
+(seamless-m4t-medium and llava-next-34b at SMOKE against their entries
+and frontend runs) and `lm_frontends_serve` (both at full width), each
+printing chip_smoke's JSON lines and its seconds.  `--families-only` runs
+only the families' two phases, `--frontends-only` only the frontends'.
+Exits 1 if a phase failed.  About four minutes on an H100.
 """
 import json
 import os
@@ -29,9 +32,16 @@ def main(argv) -> int:
         return 2
     cs.phase_card()
     cs.phase_build()
-    phases = [("lm_families_check", cs.phase_lm_families_check),
-              ("lm_families_serve", cs.phase_lm_families_serve)]
-    if "--families-only" not in argv:
+    families = [("lm_families_check", cs.phase_lm_families_check),
+                ("lm_families_serve", cs.phase_lm_families_serve)]
+    frontends = [("lm_frontends_check", cs.phase_lm_frontends_check),
+                 ("lm_frontends_serve", cs.phase_lm_frontends_serve)]
+    phases = families + frontends
+    if "--families-only" in argv:
+        phases = families
+    elif "--frontends-only" in argv:
+        phases = frontends
+    else:
         def rg():
             params, _ = cs.phase_lm_serve()
             cs.phase_lm_profile(params)

@@ -10,9 +10,6 @@ Mixer kinds:  'ga' global attention | 'la' local (sliding-window) attention
               | 'bi' bidirectional attention (encoder)
               | 'xa' causal self-attn + cross-attn (decoder w/ encoder)
 MLP kinds:    'dense' | 'moe' | 'cmix' (RWKV-6 channel mix)
-
-Every kind runs in the port but the encoder-decoder mixers 'bi' and 'xa'
-(ROADMAP queue 1 item 13.4); the schema is kept whole.
 """
 from __future__ import annotations
 

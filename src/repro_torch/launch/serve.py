@@ -5,15 +5,17 @@
       [--device cuda|cpu]
 
 Runs the port's `ServeEngine` on the card (`--device cuda`, the default;
-it raises without one) or on the CPU.  Every decoder-only, token-input
-architecture is ported: `recurrentgemma-2b` (its scan through the RG-LRU
-kernel on the card, the plain version on the CPU), `rwkv6-1.6b`,
-`granite-moe-3b-a800m`, `qwen3-0.6b`, `minicpm-2b`, `internlm2-20b`,
-`gemma3-27b` and `llama4-maverick-400b-a17b` (plain PyTorch).  The
-weights are the port's own random init from `--seed`.  Prints the same
-`[serve]` line as `python -m repro.launch.serve`, then the kernel launch
-counts.  `seamless-m4t-medium` and `llava-next-34b` exit non-zero naming
-the ROADMAP item that ports them (queue 1 item 13.4).
+it raises without one) or on the CPU.  Every architecture of the JAX
+package is ported: `recurrentgemma-2b` (its scan through the RG-LRU
+kernel on the card, the plain version on the CPU), and in plain PyTorch
+`rwkv6-1.6b`, `granite-moe-3b-a800m`, `qwen3-0.6b`, `minicpm-2b`,
+`internlm2-20b`, `gemma3-27b`, `llama4-maverick-400b-a17b`,
+`llava-next-34b` (its text path: the engine takes token prompts) and
+`seamless-m4t-medium` (the engine takes no encoder input, so its
+cross-attention layers attend over the decoder's own states, as the JAX
+package's engine does).  The weights are the port's own random init from
+`--seed`.  Prints the same `[serve]` line as `python -m
+repro.launch.serve`, then the kernel launch counts.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.engine import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import lm
@@ -32,7 +34,7 @@ from repro_torch.serve.engine import Request, ServeEngine
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
@@ -42,11 +44,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
-    try:
-        cfg = get_smoke_config(args.arch) if args.smoke else get_config(
-            args.arch)
-    except NotImplementedError as e:
-        ap.exit(2, f"serve: {e}\n")
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(
+        args.arch)
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = lm.init_params(cfg, gen, dev)

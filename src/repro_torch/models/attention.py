@@ -4,8 +4,9 @@ a ring-buffer KV cache and per-slot decode positions (port of
 
 Plain PyTorch throughout: the JAX package computes attention outside any
 Pallas kernel too (its `flash_attention` kernel is reached by no model).
-Cross-attention (`kv_override`) is not ported yet (ROADMAP queue 1 item
-13.4).
+Cross-attention (`kv_override`: a (k, v) pair, or an object whose
+`.enc_out` this layer's own `wk` / `wv` project) rotates neither q nor k,
+is never causal and keeps no cache, as in the JAX package.
 
 Layouts:
   x          [B, T, d]
@@ -90,6 +91,16 @@ def _mask(qpos, kpos, causal, window):
     return mask
 
 
+def kv_chunks(t: int, s: int, cq: int, ck: int, q_offset: int,
+              causal: bool, window: Optional[int]):
+    """For each of the t // cq q chunks, the kv chunks `_chunked_gqa`
+    visits, in its order (ascending; every one of the s // ck without a
+    causal mask or a window, as the JAX package's dense variant)."""
+    return [[j for j in range(s // ck)
+             if _visible(i, j, cq, ck, q_offset, causal, window)]
+            for i in range(t // cq)]
+
+
 def _chunked_gqa(q, k, v, *, causal: bool, window: Optional[int],
                  softcap: Optional[float], scale: float, q_offset: int,
                  chunk_q: int = 512, chunk_k: int = 1024):
@@ -105,14 +116,12 @@ def _chunked_gqa(q, k, v, *, causal: bool, window: Optional[int],
     s = k.shape[1]
     cq = _pick_chunk(t, chunk_q)
     ck = _pick_chunk(s, chunk_k)
-    nq, nk = t // cq, s // ck
     k_ = k.permute(0, 2, 1, 3)                   # [B, Hkv, S, dh]
     v_ = v.permute(0, 2, 1, 3)
     dev = q.device
     out = torch.zeros_like(q)
-    for i in range(nq):
-        js = [j for j in range(nk)
-              if _visible(i, j, cq, ck, q_offset, causal, window)]
+    for i, js in enumerate(kv_chunks(t, s, cq, ck, q_offset, causal,
+                                     window)):
         if not js:
             continue
         qi = q[:, :, :, i * cq:(i + 1) * cq].to(F32)
@@ -186,22 +195,34 @@ def attention(cfg: ModelConfig, p: Attention, x, positions, *,
     cache: (k_cache, v_cache) each [B, S_r, Hkv, dh], updated in place;
     cache_pos: tokens already in the cache, a 0-dim tensor when all rows
     advance in lockstep or [B] for per-slot serving.  A cache with T > 1
-    is a prefill, which starts at position 0."""
-    if kv_override is not None:
-        raise NotImplementedError(f"cross-attention is {common.NOT_PORTED}")
+    is a prefill, which starts at position 0.
+
+    kv_override (cross-attention): a (k, v) pair [B, S, Hkv, dh], or an
+    object whose `.enc_out` [B, S, d] this layer's `wk` / `wv` project.
+    Then q and k are not rotated, the attention is not causal, starts at
+    position 0 and uses no cache (the caller passes none)."""
     B, T, d = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // Hkv
     dev = x.device
 
     q = (x @ p.wq).view(B, T, H, dh)
-    k = (x @ p.wk).view(B, T, Hkv, dh)
-    v = (x @ p.wv).view(B, T, Hkv, dh)
+    if kv_override is None:
+        k = (x @ p.wk).view(B, T, Hkv, dh)
+        v = (x @ p.wv).view(B, T, Hkv, dh)
+    elif isinstance(kv_override, tuple):
+        k, v = kv_override
+    else:
+        enc = kv_override.enc_out
+        S = enc.shape[1]
+        k = (enc @ p.wk).view(B, S, Hkv, dh)
+        v = (enc @ p.wv).view(B, S, Hkv, dh)
     if cfg.qk_norm:
         q = common.rms_norm(q, p.q_gamma, cfg.norm_eps)
         k = common.rms_norm(k, p.k_gamma, cfg.norm_eps)
-    q = common.rope(q, positions, cfg.rope_theta)
-    k = common.rope(k, positions, cfg.rope_theta)
+    if kv_override is None:
+        q = common.rope(q, positions, cfg.rope_theta)
+        k = common.rope(k, positions, cfg.rope_theta)
 
     # ----- KV cache: a ring buffer of S_r slots; position p lives in slot
     # p mod S_r (floor mod: torch.remainder, never torch.fmod) -----------
@@ -244,7 +265,12 @@ def attention(cfg: ModelConfig, p: Attention, x, positions, *,
                           kpos=kpos)
     else:
         s_len = k.shape[1]
-        q_offset = 0 if cache is not None else s_len - T
+        if cache is not None:
+            q_offset = 0
+        elif kv_override is not None:
+            causal, q_offset = False, 0
+        else:
+            q_offset = s_len - T
         kw = dict(causal=causal, window=window, softcap=cfg.softcap,
                   scale=scale, q_offset=q_offset)
         if T * s_len > 1024 * 2048:

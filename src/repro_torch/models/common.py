@@ -15,9 +15,6 @@ import torch.nn.functional as F
 
 F32 = torch.float32
 
-#: The ROADMAP item that ports what this slice leaves out.
-NOT_PORTED = "not ported to PyTorch yet (ROADMAP queue 1 item 13.4)"
-
 
 def dtype_of(cfg) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]

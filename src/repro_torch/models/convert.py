@@ -3,8 +3,11 @@
 The JAX package's `lm.init_params` returns a nested dict:
   {'embed', 'final_norm', 'stack': {'units': {'layer{i}': {...}} | None,
                                     'rem': [{...}, ...]}}
-with each unit leaf stacked on a leading [n_units] axis.  The port holds
-one `Layer` per entry of `cfg.layers` (see `transformer`).
+with each unit leaf stacked on a leading [n_units] axis ('unembed' where
+the embeddings are untied; for the enc-dec family also 'enc_norm' and
+'enc_stack', the same layout over `lm.encoder_view(cfg)`: 'units.layer0'
+stacked on [n_encoder_layers], 'rem' empty).  The port holds one `Layer`
+per entry of `cfg.layers` (see `transformer`).
 
 * `lm_params_from_jax(tree, cfg, device)` loads such a tree of numpy
   arrays (or anything `np.asarray` takes) into a new `LM`.  Each leaf is
@@ -34,9 +37,14 @@ from ..core.engine import resolve_device
 from . import lm
 
 
+#: The port's layer stacks: their parameters' first name, and the config
+#: each is built from.
+STACKS = {"stack": lambda cfg: cfg, "enc_stack": lm.encoder_view}
+
+
 def _layer_key(cfg: ModelConfig, k: int) -> Tuple:
-    """Where port layer k lives in the JAX tree: ('units', 'layer{i}', u)
-    or ('rem', r)."""
+    """Where port layer k of a stack over `cfg` lives in the JAX tree:
+    ('units', 'layer{i}', u) or ('rem', r)."""
     P = len(cfg.pattern)
     if k < cfg.n_units * P:
         return ("units", f"layer{k % P}", k // P)
@@ -52,14 +60,14 @@ def _get(tree, path):
 def _jax_leaf(tree, cfg: ModelConfig, name: str):
     """The JAX tree's array for the port parameter `name`."""
     parts = name.split(".")
-    if parts[0] != "stack":
+    if parts[0] not in STACKS:
         return tree[parts[0]]
     k, rest = int(parts[2]), parts[3:]
-    where = _layer_key(cfg, k)
+    where = _layer_key(STACKS[parts[0]](cfg), k)
+    stack = tree[parts[0]]
     if where[0] == "units":
-        return np.asarray(_get(tree["stack"]["units"][where[1]], rest))[
-            where[2]]
-    return _get(tree["stack"]["rem"][where[1]], rest)
+        return np.asarray(_get(stack["units"][where[1]], rest))[where[2]]
+    return _get(stack["rem"][where[1]], rest)
 
 
 def _to_torch(x) -> torch.Tensor:
@@ -87,8 +95,8 @@ def _assemble(cfg: ModelConfig, leaves: Dict[str, np.ndarray]):
     """The JAX-layout tree from per-port-parameter arrays (unit layers
     stacked on a leading [n_units] axis)."""
     tree: Dict[str, Any] = {}
-    units: Dict[str, Dict] = {}
-    rem = [dict() for _ in range(cfg.n_remainder)]
+    units: Dict[str, Dict[str, Dict]] = {}
+    rems: Dict[str, list] = {}
 
     def put(d, path, value):
         for key in path[:-1]:
@@ -97,22 +105,28 @@ def _assemble(cfg: ModelConfig, leaves: Dict[str, np.ndarray]):
 
     for name, arr in leaves.items():
         parts = name.split(".")
-        if parts[0] != "stack":
+        if parts[0] not in STACKS:
             tree[parts[0]] = arr
             continue
-        where = _layer_key(cfg, int(parts[2]))
+        scfg = STACKS[parts[0]](cfg)
+        rem = rems.setdefault(parts[0],
+                              [dict() for _ in range(scfg.n_remainder)])
+        where = _layer_key(scfg, int(parts[2]))
         if where[0] == "units":
-            put(units, [where[1]] + parts[3:] + [where[2]], arr)
+            put(units.setdefault(parts[0], {}),
+                [where[1]] + parts[3:] + [where[2]], arr)
         else:
             put(rem[where[1]], parts[3:], arr)
 
-    def stack(d):
+    def stacked(d, n):
         if all(isinstance(k, int) for k in d):
-            return np.stack([d[u] for u in range(cfg.n_units)])
-        return {k: stack(v) for k, v in d.items()}
+            return np.stack([d[u] for u in range(n)])
+        return {k: stacked(v, n) for k, v in d.items()}
 
-    tree["stack"] = {"units": stack(units) if cfg.n_units else None,
-                     "rem": rem}
+    for top in rems:
+        n = STACKS[top](cfg).n_units
+        tree[top] = {"units": stacked(units[top], n) if n else None,
+                     "rem": rems[top]}
     return tree
 
 
@@ -136,10 +150,11 @@ def numpy_params(cfg: ModelConfig, seed: int):
     fan-in normals clipped at 3 sigma for matrices (the MoE router and the
     untied `unembed` too), N(0, 1/d) for the embedding, the Griffin Lambda
     for `log_lambda`, N(0, 0.1^2) for the biases and RWKV's `bonus_u`,
-    1 + N(0, 0.1^2) for the layers' norm gains (qk-norm's and RWKV's group
-    norm's too), U(0, 1) for RWKV's lerp weights `mu_*`, U(-6, 0) for its
-    `decay_w0` (per-step decays from 0.9975 down to 0.37), and N(0, 1) for
-    the final norm's gains.  With gains of 1 there, a random model with
+    1 + N(0, 0.1^2) for the layers' norm gains (qk-norm's, RWKV's group
+    norm's, the 'xa' layers' `norm3` and the encoder's `enc_norm` too),
+    U(0, 1) for RWKV's lerp weights `mu_*`, U(-6, 0) for its `decay_w0`
+    (per-step decays from 0.9975 down to 0.37), and N(0, 1) for the final
+    norm's gains.  With gains of 1 there, a random model with
     tied embeddings predicts the token it was given; random gains make its
     greedy tokens vary, so that comparing them means something."""
     rng = np.random.default_rng(seed)
@@ -152,7 +167,7 @@ def numpy_params(cfg: ModelConfig, seed: int):
         elif leaf == "final_norm":
             x = rng.standard_normal(shape)
         elif leaf.startswith("norm") or leaf in ("q_gamma", "k_gamma",
-                                                 "ln_gamma"):
+                                                 "ln_gamma", "enc_norm"):
             x = 1.0 + 0.1 * rng.standard_normal(shape)
         elif leaf.startswith("mu_"):
             x = rng.uniform(0.0, 1.0, shape)

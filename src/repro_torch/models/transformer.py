@@ -10,10 +10,12 @@ The JAX package stacks each pattern unit's parameters on a leading
 holds one `Layer` per entry of `cfg.layers`, in order: layer
 u * len(pattern) + i is the JAX package's `units/layer{i}[u]`, and layer
 n_units * len(pattern) + r is its `rem[r]`.  Caches are a list with one
-dict per layer.  Every kind is ported but the encoder-decoder mixers 'xa'
-and 'bi' (ROADMAP queue 1 item 13.4): mixers 'ga', 'la', 'rg', 'rwkv';
-MLPs 'dense', 'moe', 'cmix' (the RWKV-6 channel mix, which carries its
-token shift in the layer's 'rwkv' cache entry).
+dict per layer.  Every kind is ported: mixers 'ga', 'la', 'rg', 'rwkv',
+'bi' (the encoder's bidirectional attention, no cache) and 'xa' (causal
+self-attention with its ring cache, then cross-attention over the
+encoder's output with the layer's `cross` weights after `norm3`, no
+cache); MLPs 'dense', 'moe', 'cmix' (the RWKV-6 channel mix, which
+carries its token shift in the layer's 'rwkv' cache entry).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from ..configs.base import ModelConfig
 from . import attention, common, mlp as mlp_mod, moe as moe_mod, recurrent
 
 F32 = torch.float32
-MIXERS = ("ga", "la", "rg", "rwkv")
+MIXERS = ("ga", "la", "rg", "rwkv", "bi", "xa")
 MLPS = ("dense", "moe", "cmix")
 
 
@@ -35,8 +37,7 @@ class Layer(torch.nn.Module):
         super().__init__()
         mixer_kind, mlp_kind = kinds
         if mixer_kind not in MIXERS or mlp_kind not in MLPS:
-            raise NotImplementedError(
-                f"layer kind {kinds} is {common.NOT_PORTED}")
+            raise ValueError(f"unknown layer kind {kinds}")
         self.cfg, self.kinds = cfg, kinds
         self.norm1 = common.param((cfg.d_model,), F32, device)
         self.norm2 = common.param((cfg.d_model,), F32, device)
@@ -46,6 +47,9 @@ class Layer(torch.nn.Module):
             self.mixer = recurrent.RWKV(cfg, dtype, device)
         else:
             self.mixer = attention.Attention(cfg, dtype, device)
+        if mixer_kind == "xa":
+            self.cross = attention.Attention(cfg, dtype, device)
+            self.norm3 = common.param((cfg.d_model,), F32, device)
         if mlp_kind == "moe":
             self.mlp = moe_mod.MoE(cfg.d_model, cfg.moe, cfg.act, dtype,
                                    device)
@@ -55,9 +59,10 @@ class Layer(torch.nn.Module):
             self.mlp = mlp_mod.MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype,
                                    device)
 
-    def forward(self, x, positions, cache=None, cache_pos=None):
+    def forward(self, x, positions, cache=None, cache_pos=None,
+                enc_kv=None):
         return _apply_layer(self.cfg, self.kinds, self, x, positions, cache,
-                            cache_pos)
+                            cache_pos, enc_kv)
 
 
 _INITS = {recurrent.RGLRU: recurrent.init_rglru,
@@ -73,27 +78,38 @@ def init_layer(p: Layer, generator) -> None:
     p.norm1.fill_(1.0)
     p.norm2.fill_(1.0)
     _INITS[type(p.mixer)](p.mixer, generator)
+    if p.kinds[0] == "xa":
+        attention.init_attn(p.cross, generator)
+        p.norm3.fill_(1.0)
     _INITS[type(p.mlp)](p.mlp, generator)
 
 
 def _apply_layer(cfg: ModelConfig, kinds: Tuple[str, str], p: Layer, x,
-                 positions, cache: Optional[dict], cache_pos) -> Tuple:
+                 positions, cache: Optional[dict], cache_pos,
+                 enc_kv=None) -> Tuple:
     """Returns (x, new_cache, aux): aux is the MoE layer's load-balancing
-    loss, None (no device work) for the other MLP kinds."""
+    loss, None (no device work) for the other MLP kinds.  enc_kv is an
+    'xa' layer's cross-attention source (`attention`'s kv_override; None
+    attends over the layer's own normed states)."""
     mixer_kind, mlp_kind = kinds
     rs = cfg.residual_scale
     aux = None
     new_cache: Dict[str, Any] = {}
 
     h = common.rms_norm(x, p.norm1, cfg.norm_eps)
-    if mixer_kind in ("ga", "la"):
+    if mixer_kind in ("ga", "la", "bi", "xa"):
         window = cfg.window if mixer_kind == "la" else None
         kv_cache = cache.get("kv") if cache else None
         y, kv_new = attention.attention(
-            cfg, p.mixer, h, positions, causal=True, window=window,
-            cache=kv_cache, cache_pos=cache_pos)
+            cfg, p.mixer, h, positions, causal=(mixer_kind != "bi"),
+            window=window, cache=kv_cache, cache_pos=cache_pos)
         if kv_new is not None:
             new_cache["kv"] = kv_new
+        if mixer_kind == "xa":
+            x = x + common.scale_by(y, rs)
+            h = common.rms_norm(x, p.norm3, cfg.norm_eps)
+            y, _ = attention.attention(cfg, p.cross, h, positions,
+                                       causal=False, kv_override=enc_kv)
     elif mixer_kind == "rg":
         st = cache.get("rg") if cache else None
         y, st_new = recurrent.rglru(cfg, p.mixer, h, st)
@@ -135,16 +151,18 @@ def init_stack(p: Stack, generator) -> None:
 
 
 def apply_stack(cfg: ModelConfig, stack: Stack, x, positions, *,
-                caches: Optional[List[dict]] = None, cache_pos=None):
+                caches: Optional[List[dict]] = None, cache_pos=None,
+                enc_kv=None):
     """Returns (x, new_caches, aux_sum): the MoE layers' auxiliary losses
-    added in layer order (an fp32 0 without one)."""
+    added in layer order (an fp32 0 without one).  enc_kv goes to every
+    'xa' layer's cross-attention."""
     decode = caches is not None
     new_caches: Optional[List[dict]] = [] if decode else None
     aux_total = None
     for idx, layer in enumerate(stack.layers):
         c = caches[idx] if decode else None
         x, nc, a = _apply_layer(cfg, layer.kinds, layer, x, positions, c,
-                                cache_pos)
+                                cache_pos, enc_kv)
         if a is not None:
             aux_total = a if aux_total is None else aux_total + a
         if decode:
@@ -158,7 +176,7 @@ def _layer_cache(cfg: ModelConfig, kinds, batch: int, s_max: int, dtype,
                  device):
     mixer_kind, mlp_kind = kinds
     c: Dict[str, Any] = {}
-    if mixer_kind in ("ga", "la"):
+    if mixer_kind in ("ga", "la", "xa"):
         s_r = s_max
         if mixer_kind == "la" and cfg.window:
             s_r = min(s_max, cfg.window)   # ring buffer: O(window) memory

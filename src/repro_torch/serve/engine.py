@@ -14,6 +14,14 @@ request and output bookkeeping stays on the host.
 The caches are updated in place: the slot write-back copies into the
 batch cache, and each attention layer writes its ring buffer in place.
 
+The cache's 'enc_out' is always None, as in the JAX package's engine,
+which takes no encoder input: an enc-dec model's cross-attention layers
+(`seamless-m4t-medium`) then attend over their own normed states with
+the cross weights, rotated, not causal and uncached, so that at a decode
+step each token attends only to itself.  The engine reproduces this; a
+caller with encoder input drives `lm.prefill` and `lm.decode_step`
+itself.
+
 `stats` counts the last `run`'s admissions (slot prefills), decode steps
 and prompt tokens, and the host-clock seconds each part took; every
 admission and decode step ends by reading its sampled tokens on the host,
@@ -169,4 +177,27 @@ def teacher_forced_logits(cfg: ModelConfig, params: lm.LM, prompt, tokens,
         step = torch.tensor([[int(tok)]], dtype=torch.int64, device=dev)
         logits, cache = lm.decode_step(cfg, params, cache, step)
         rows.append(logits[0, 0])
+    return torch.stack(rows).to(torch.float32).cpu()
+
+
+@torch.no_grad()
+def lockstep_teacher_forced_logits(cfg: ModelConfig, params: lm.LM, batch,
+                                   tokens, s_max: int) -> torch.Tensor:
+    """The logits of a lockstep run from a frontend input: `lm.prefill` of
+    `batch` ('tokens' or 'embeds', and 'enc_embeds' for an enc-dec model:
+    tensors on the params' device) into a fresh cache of `s_max` slots,
+    then one `lm.decode_step` per column of `tokens` [B, n], each fed that
+    column instead of the sampled tokens.  Returns [n + 1, B, V] fp32 on
+    the CPU (row 0 the prefill's last position)."""
+    dev = params.embed.device
+    B = next(iter(batch.values())).shape[0]
+    cache = lm.init_cache(cfg, B, s_max, device=dev)
+    logits, cache = lm.prefill(cfg, params, cache, batch)
+    rows = [logits]
+    tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
+                             device=dev)
+    for i in range(tokens.shape[1]):
+        logits, cache = lm.decode_step(cfg, params, cache,
+                                       tokens[:, i:i + 1])
+        rows.append(logits[:, 0])
     return torch.stack(rows).to(torch.float32).cpu()

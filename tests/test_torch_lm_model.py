@@ -6,6 +6,8 @@ key(0))` of `recurrentgemma-2b`, fp32 variant), carried across with
 Tolerance: rtol = atol = 2e-4 in fp32 (different summation orders in the
 matrix products, and `exp`/`sin`/`cos` of two libraries a few ulps apart).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -294,16 +296,27 @@ def test_init_params_draws_the_jax_distributions():
                        p.stack.layers[4].mlp.w_in)
 
 
-def test_unported_kinds_are_refused():
-    """Enc-dec (the 'xa' and 'bi' mixers, `seamless-m4t-medium`) and the
-    `embeds` frontend wait for ROADMAP queue 1 item 13.4."""
-    for arch in ("seamless-m4t-medium", "llava-next-34b"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 13.4"):
-            get_config(arch)
+def test_every_arch_and_kind_is_ported():
+    """The port takes all of the JAX package's architectures, enc-dec
+    (the 'xa' and 'bi' mixers, `seamless-m4t-medium`) and the `embeds`
+    frontend (`llava-next-34b`) included, and builds every layer kind."""
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+    from repro_torch.configs import ARCH_IDS
+    assert ARCH_IDS == JAX_ARCH_IDS
+    for arch in ARCH_IDS:
+        for mine, theirs in [(get_config, jax_config),
+                             (get_smoke_config, jax_smoke)]:
+            assert dataclasses.asdict(mine(arch)) == dataclasses.asdict(
+                theirs(arch))
     cfg = get_smoke_config(ARCH)
-    for kinds in [("xa", "dense"), ("bi", "dense")]:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            transformer.Layer(cfg, kinds, torch.float32, "meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.LM(cfg.scaled(family="encdec"), "meta")
+    xa = transformer.Layer(cfg, ("xa", "dense"), torch.float32, "meta")
+    assert isinstance(xa.cross, attention.Attention)
+    assert xa.norm3.dtype == torch.float32
+    bi = transformer.Layer(cfg, ("bi", "dense"), torch.float32, "meta")
+    assert isinstance(bi.mixer, attention.Attention)
+    assert not hasattr(bi, "cross") and not hasattr(bi, "norm3")
+    encdec = lm.LM(get_smoke_config("seamless-m4t-medium"), "meta")
+    assert [layer.kinds for layer in encdec.enc_stack.layers] == [
+        ("bi", "dense")] * 2
+    with pytest.raises(ValueError, match="unknown layer kind"):
+        transformer.Layer(cfg, ("xx", "dense"), torch.float32, "meta")

@@ -28,6 +28,15 @@ them all:
 
     python tests/test_torch_lm_serve.py --write
 
+The archs whose input is more than tokens (`FRONTENDS`) also have a
+`frontend` entry: a lockstep run from their frontend's input, which the
+serving engine does not take.  `seamless-m4t-medium` prefills a prompt
+of tokens after encoding frame embeddings (`enc_embeds`), and
+`llava-next-34b` prefills patch embeddings (`embeds`); both then decode
+greedily in lockstep (`lm.prefill`, `lm.decode_step`), and the entry keeps
+the greedy tokens and the logits of every step.  The inputs are drawn
+from `np.random.default_rng(inputs_seed)` as the entry's `inputs` says.
+
 Tolerances: fp32 logits within 2e-4 of JAX and greedy tokens equal; bf16
 teacher-forced logits within 0.1 (about twice the gap between the bf16 and
 the fp32 `recurrentgemma-2b` on the same weights).
@@ -66,6 +75,29 @@ MAX_NEW = (12, 4, 5, 6)
 BATCH, S_MAX = 2, 48
 VARIANTS = ("float32", "bfloat16")
 TOL = {"float32": 2e-4, "bfloat16": 0.1}
+#: the frontend runs: the input, its rows, and its length (frames before a
+#: prompt of tokens for the enc-dec model, positions for `embeds`)
+FRONTENDS = {
+    "seamless-m4t-medium": dict(input="enc_embeds", batch=2, length=16,
+                                prompt_len=6),
+    "llava-next-34b": dict(input="embeds", batch=2, length=12),
+}
+FRONTEND_SEED, FRONTEND_NEW, FRONTEND_S_MAX = 2, 6, 24
+FRONTEND_INPUTS = ("standard_normal((batch, length, d_model)) as float32, "
+                   "then for enc_embeds integers(0, vocab_size, (batch, "
+                   "prompt_len)), the prompt's tokens")
+
+
+def frontend_inputs(arch: str) -> dict:
+    """The frontend run's batch, numpy arrays (FRONTEND_INPUTS)."""
+    f, cfg = FRONTENDS[arch], get_smoke_config(arch)
+    rng = np.random.default_rng(FRONTEND_SEED)
+    x = rng.standard_normal((f["batch"], f["length"], cfg.d_model)).astype(
+        np.float32)
+    if f["input"] == "embeds":
+        return {"embeds": x}
+    return {"enc_embeds": x, "tokens": rng.integers(
+        0, cfg.vocab_size, (f["batch"], f["prompt_len"]))}
 
 
 def make_requests(vocab: int):
@@ -112,16 +144,51 @@ def jax_variant(arch: str, dtype: str) -> dict:
                                        for row in tf])
 
 
+def jax_frontend(arch: str, dtype: str) -> dict:
+    """The frontend run of one arch and dtype (inside an AVX subprocess):
+    prefill, then FRONTEND_NEW greedy lockstep steps."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_smoke_config as jax_smoke
+    from repro.models import lm as jlm
+
+    jc = jax_smoke(arch).scaled(dtype=dtype)
+    tree = convert.numpy_params(get_smoke_config(arch).scaled(dtype=dtype),
+                                WEIGHTS_SEED)
+    shapes = jax.eval_shape(lambda k: jlm.init_params(jc, k),
+                            jax.random.key(0))
+    params = jax.tree.map(lambda x, s: jnp.asarray(x).astype(s.dtype), tree,
+                          shapes)
+    batch = {k: jnp.asarray(v, jnp.int32 if k == "tokens" else jnp.float32)
+             for k, v in frontend_inputs(arch).items()}
+    prefill = jax.jit(lambda p, c, b: jlm.prefill(jc, p, c, b))
+    step = jax.jit(lambda p, c, t: jlm.decode_step(jc, p, c, t))
+    cache = jlm.init_cache(jc, FRONTENDS[arch]["batch"], FRONTEND_S_MAX)
+    logits, cache = prefill(params, cache, batch)
+    rows, toks = [logits], []
+    for _ in range(FRONTEND_NEW):
+        tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+        toks.append(tok)
+        logits, cache = step(params, cache, tok[:, None])
+        logits = logits[:, 0]
+        rows.append(logits)
+    tf = np.asarray(jnp.stack(rows).astype(jnp.float32))
+    return dict(dtype=dtype,
+                tokens=np.asarray(jnp.stack(toks, axis=1)).tolist(),
+                teacher_forced_logits=tf.tolist())
+
+
 def build_reference() -> dict:
     """Every ported arch's entry, keyed by arch."""
-    jobs = [f"{a}:{v}" for a in ARCH_IDS for v in VARIANTS]
+    jobs = [f"{a}:{v}" for a in ARCH_IDS for v in VARIANTS] + [
+        f"{a}:{v}:frontend" for a in FRONTENDS for v in VARIANTS]
     outs = run_avx(__file__, [["--variants", ",".join(jobs[i::N_PROCS])]
                               for i in range(N_PROCS)], timeout=900,
                    extra_flags=EXACT_FLAG)
     got = {}
     for o in outs:
         got.update(json.loads(o.strip().splitlines()[-1]))
-    return {arch: dict(
+    refs = {arch: dict(
         source="JAX package (repro.serve.engine.ServeEngine and "
                "repro.models.lm.decode_step), on the CPU with "
                f"XLA_FLAGS='{AVX_FLAG} {EXACT_FLAG}'",
@@ -132,6 +199,15 @@ def build_reference() -> dict:
         requests=make_requests(get_smoke_config(arch).vocab_size),
         variants={v: got[f"{arch}:{v}"] for v in VARIANTS})
         for arch in ARCH_IDS}
+    for arch, f in FRONTENDS.items():
+        refs[arch]["frontend"] = dict(
+            f, source="JAX package (repro.models.lm.prefill, then "
+                      "decode_step fed the argmax in lockstep)",
+            inputs_seed=FRONTEND_SEED,
+            inputs=f"np.random.default_rng(inputs_seed): {FRONTEND_INPUTS}",
+            new_tokens=FRONTEND_NEW, s_max=FRONTEND_S_MAX,
+            variants={v: got[f"{arch}:{v}:frontend"] for v in VARIANTS})
+    return refs
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -168,15 +244,22 @@ def test_committed_lm_reference_is_current():
     committed = json.loads(REF_PATH.read_text())
     fresh = build_reference()
     assert sorted(committed) == sorted(fresh) == sorted(ARCH_IDS)
-    for arch in ARCH_IDS:
-        for v in VARIANTS:
-            c = committed[arch]["variants"].pop(v)
-            f = fresh[arch]["variants"].pop(v)
-            assert c["tokens"] == f["tokens"], (arch, v)
-            np.testing.assert_allclose(f["teacher_forced_logits"],
-                                       c["teacher_forced_logits"], rtol=0,
-                                       atol=1e-6, err_msg=f"{arch} {v}")
+    runs = [(arch, v, ()) for arch in ARCH_IDS for v in VARIANTS] + [
+        (arch, v, ("frontend",)) for arch in FRONTENDS for v in VARIANTS]
+    for arch, v, where in runs:
+        c = _get(committed[arch], where)["variants"].pop(v)
+        f = _get(fresh[arch], where)["variants"].pop(v)
+        assert c["tokens"] == f["tokens"], (arch, v, where)
+        np.testing.assert_allclose(f["teacher_forced_logits"],
+                                   c["teacher_forced_logits"], rtol=0,
+                                   atol=1e-6, err_msg=f"{arch} {v} {where}")
     assert committed == fresh
+
+
+def _get(entry, where):
+    for key in where:
+        entry = entry[key]
+    return entry
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -293,16 +376,44 @@ def test_cli_serves_a_new_family_on_cpu(arch):
     assert "3 slot prefills" in out.stdout
 
 
-def test_cli_refuses_unported_arch():
-    out = _cli("--arch", "seamless-m4t-medium", "--smoke", "--device",
-               "cpu")
-    assert out.returncode != 0
-    assert "ROADMAP queue 1 item 13.4" in out.stderr
+@pytest.mark.parametrize("arch", sorted(FRONTENDS))
+def test_cli_serves_a_frontend_arch_on_cpu(arch):
+    """The engine serves token prompts: llava's text path, and seamless
+    with its cross-attention over the decoder's own states (no encoder
+    input, as in the JAX package's engine)."""
+    out = _cli("--arch", arch, "--smoke", "--device", "cpu", "--requests",
+               "3", "--max-new", "4")
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "[serve] 3 requests, 12 tokens" in out.stdout
+    assert "3 slot prefills" in out.stdout
+
+
+@pytest.mark.parametrize("dtype", VARIANTS)
+@pytest.mark.parametrize("arch", sorted(FRONTENDS))
+def test_frontend_lockstep_equals_jax(references, arch, dtype):
+    """The `frontend` entry: the port's prefill from the frontend's input
+    and its decode steps, fed the reference's greedy tokens: logits
+    within the tolerance, and in fp32 the same greedy tokens."""
+    fe = references[arch]["frontend"]
+    cfg, params = _port(arch, dtype, references[arch])
+    ref = fe["variants"][dtype]
+    batch = {k: torch.from_numpy(v) for k, v in frontend_inputs(arch).items()}
+    got = tengine.lockstep_teacher_forced_logits(cfg, params, batch,
+                                                 ref["tokens"], fe["s_max"])
+    want = np.asarray(ref["teacher_forced_logits"], np.float32)
+    assert got.shape == want.shape == (fe["new_tokens"] + 1, fe["batch"],
+                                       cfg.vocab_size)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL[dtype])
+    if dtype == "float32":
+        assert got[:-1].argmax(-1).T.tolist() == ref["tokens"]
 
 
 def _main(argv):
     if argv[:1] == ["--variants"]:
-        print(json.dumps({job: jax_variant(*job.split(":"))
+        print(json.dumps({job: (jax_frontend(*job.split(":")[:2])
+                                if job.endswith(":frontend")
+                                else jax_variant(*job.split(":")))
                           for job in argv[1].split(",")}))
     elif argv[:1] == ["--write"]:
         REF_PATH.write_text(json.dumps(build_reference()) + "\n")
