@@ -13,7 +13,8 @@ every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
   build    nvcc builds the kernels from `src/repro_torch/csrc` (one nvcc
            per source, all at once), and beside them `event.cu` alone
            with the arrivals' other target lookup (REPRO_ARRIVAL_TARGET
-           flipped), the yardstick of the lookup the library keeps;
+           flipped), the yardstick of the lookup the library keeps, and
+           the `-Xptxas -v` reports the later phases print (INSPECTED);
   attn_sass  `-Xptxas -v` of the bf16 prefill and the decode attention
            sources (registers, spills) and the count of wgmma (HGMMA) and
            TMA load (UTMALDG) instructions in the prefill kernel's SASS
@@ -205,7 +206,9 @@ every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
            event) has the payload digest of the CPU plain path's; an R = 2
            job saves and an R = 4 job restores (sharing the card); at 8x8
            dense the keys', save's and load's seconds and the file's
-           bytes (host work), beside the card and the host's CPUs;
+           bytes (host work), beside the card and the host's CPUs (the
+           plans, cluster_check and cluster_scaling run beside it, so the
+           line marks its seconds as contended);
   cluster_check  `repro_torch.cluster run --supervise --ckpt-every 50`
            at 4x4 full width, H = 4 over 2 ranks sharing the card, 150
            steps, with `crash@step=50:rank=1` and with
@@ -213,8 +216,9 @@ every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
            resumes at t = 50 (the corrupt epoch fails its sha256) and
            gives the h4_block signatures; restarts, steps salvaged and
            walls beside the card (its ranks are other processes: they
-           run beside `simserve_check` and the plans, and the line, after
-           simserve_check's, marks its walls as contended);
+           run beside `ckpt_check`, `simserve_check` and the plans, then
+           cluster_scaling's ranks run on the same thread, and the line,
+           after simserve_check's, marks its walls as contended);
   plan     two experiment plans (`repro_torch.bench.plans`), written as
            JSON into a temporary directory and run on the card, each cell
            in a fresh interpreter or, at 2 processes, as a
@@ -226,10 +230,10 @@ every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
            spikes; and the quick plan's content (2x2, 40 neurons a
            column, both deliveries, schedules and residencies, 1 and 2
            processes): 15 cells, each giving its plan_quick entry (the
-           two plans at once, a thread each, beside `simserve_check`:
-           the cells are other processes, mostly start-up on the host;
-           the line comes after simserve_check's, and both mark their
-           times as contended).  Each plan runs again
+           two plans at once, a thread each, beside `ckpt_check` and
+           `simserve_check`: the cells are other processes, mostly
+           start-up on the host; the line comes after simserve_check's,
+           and the lines mark their times as contended).  Each plan runs again
            with `assert_complete` (0 cells executed);
            the merged report validates with every `identical_*` flag
            true, and the dashboard is written.  Per cell: the wall (the
@@ -247,7 +251,10 @@ every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
            `jax_reference.json`'s h1_block runs, sat 0, one capture per
            shape key over 3 keys, preemptions > 0, and every kernel of
            both paths launched by the service (the counts the `[t_base]`
-           rows carry);
+           rows carry).  The checks (`check`, the cases of `ckpt_check`,
+           this one) build each layout's host tables once and reuse
+           copies (`_shared_tables`: connectivity is a pure function of
+           the grid, the shard count and the placement);
   simserve_timed  `simserve_throughput` at 4x4 full width, dense, H = 1:
            1, 4 and 8 tenants, 300 steps in rounds of 50: tenant-steps/s,
            the wall and the admissions' host builds, the paper's time per
@@ -267,7 +274,8 @@ every x86-64 host runs alike (`ATEN_CPU_CAPABILITY=default`,
            same raster and totals), and `event_vs_dense`'s single-device
            rows (2x2, 500 neurons a column, 200 steps, stim 1 and 0: both
            deliveries' rasters must be equal), `cluster_scaling` quick
-           (1 and 2 ranks on the card: the rasters must be equal), and
+           (1 and 2 ranks on the card, run beside the checks above: the
+           rasters must be equal; its walls are contended), and
            `connectivity_sweep` quick (6x6, H = 4, 40 steps; each of the
            four profiles' spikes and raster signature equal to
            `jax_reference.json`'s connectivity_sweep entries) and full
@@ -315,6 +323,36 @@ Then the LM serving path (`recurrentgemma-2b`, `repro_torch.serve`):
               gives layer 0;
   lm_profile  device time by kernel and the device's idle share over a
               short serving run at full width;
+  train_full  recurrentgemma-2b trained at full width on lm_serve's
+              weights (`train.train_state.create` turns their gradients
+              on): batches of 4 x 512 from `data.pipeline.Batcher(seed=1)`,
+              `train.step.make_train_step` with the launcher's WSD
+              schedule, one warm-up step, three timed, one profiled:
+              parameter count (equal to the JAX package's), ms a step,
+              tokens/s, peak memory, every loss finite, the RG-LRU
+              launches of each timed step (`rg_lru_scan` twice a layer,
+              forward and recompute, `rg_lru_scan_bwd` once: 36 and 18),
+              the device's idle share and the scan kernels' device ms;
+  train_kernels  the backward scan kernel (`rg_lru_scan_bwd`) on
+              numpy-seeded inputs at 1 x 512 x 2560, the training shape
+              4 x 512 x 2560 and a ragged one, and on the inputs the
+              full-width run's warm-up step gave layer 0: bit-equal to
+              its plain version on a CPU copy and on the card, timed
+              beside its plain version and its bound (20 B an element);
+  train_check  SMOKE training on the card against
+              `src/repro_torch/data/train_reference.json` (the JAX
+              package's loss and gradients, AVX-pinned): for
+              qwen3-0.6b, recurrentgemma-2b, rwkv6-1.6b and
+              granite-moe-3b-a800m in fp32 and bf16 and
+              seamless-m4t-medium and llava-next-34b in fp32, the loss
+              and MoE aux within 2e-5 (fp32) / 0.05 (bf16), the global
+              gradient norm and each leaf's sampled entries, largest
+              magnitude and sum within 1e-3 (fp32) / 0.1 (bf16) of the
+              leaf's largest magnitude (the sum times its size), the
+              RG-LRU launches, and a second run bit for bit; then the
+              reference's three-step `train.step` trajectories (losses
+              within 1e-4, gradient norms within 1e-4 of theirs), each
+              run twice, bit for bit;
   lm_families_check  the other seven decoder-only archs (RWKV-6, MoE,
               qk-norm, untied embeddings: LM_FAMILIES) as lm_check does
               it, each against its own entry of `lm_reference.json`: fp32
@@ -368,11 +406,13 @@ Then the LM serving path (`recurrentgemma-2b`, `repro_torch.serve`):
               encoder, self_attention, cross_attention and mlp, the top
               kernels) beside the weight-read floor.
 
-Then the `{"kernels": [...]}` line (launches from the timed eager run of
-the delivery whose path the kernel is on, or the streamed timed eager
-run, counted by the wrappers; of the `[t_base]` rows from simserve_check's
-service run; from the lm_serve run, and from attn_kernels' one call per
-shape) and, last,
+Then, where the kept end of the output holds them, train_full's and
+train_kernels' main numbers again and the card's name and power limit
+(nvidia-smi's line), the `{"kernels": [...]}` line (launches from the
+timed eager run of the delivery whose path the kernel is on, or the
+streamed timed eager run, counted by the wrappers; of the `[t_base]` rows from simserve_check's
+service run; from the lm_serve run, from attn_kernels' one call per
+shape, and from train_full's three timed steps) and, last,
 `{"ok": true, "device": {...}}`.  Any failed phase exits non-zero before
 that line.  Without a CUDA device, or without the rest of the repository
 beside it, it exits non-zero and prints no result.
@@ -380,6 +420,7 @@ beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import copy
 import ctypes
 import dataclasses
 import gc
@@ -548,17 +589,26 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def _together(a, b) -> tuple:
+    """a and b on one device: the card's where either lies there (the
+    comparisons below are exact, so the device does not change their
+    result, and the card's copy of the other is quicker than the host's
+    pass over tens of millions of elements)."""
+    dev = a.device if a.is_cuda else b.device
+    return a.detach().to(dev), b.detach().to(dev)
+
+
 def bit_equal(a, b) -> bool:
-    a, b = a.detach().cpu(), b.detach().cpu()
     if a.dtype != b.dtype or a.shape != b.shape:
         return False
+    a, b = _together(a, b)
     if a.dtype.is_floating_point:
         return bool((a.view(torch.int32) == b.view(torch.int32)).all())
     return bool((a == b).all())
 
 
 def max_abs_err(a, b) -> float:
-    a, b = a.detach().cpu(), b.detach().cpu()
+    a, b = _together(a, b)
     if a.dtype == torch.bool:
         return float((a != b).sum())
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
@@ -660,11 +710,29 @@ def phase_card():
     return line
 
 
+#: the sources whose ptxas report (`_build.inspect`, an nvcc of its own
+#: each) the phases print: `phase_build` starts them all beside the build
+INSPECTED = ("flash_attention_sm90.cu", "flash_decode.cu", "stdp.cu",
+             "arborize.cu", "event.cu", "event_phase_a.cu", "stream.cu")
+_INSPECTS: dict = {}
+
+
+def _inspect(name: str) -> dict:
+    """`_build.inspect(name)`: the report `phase_build` started, where it
+    ran."""
+    fut = _INSPECTS.get(name)
+    return fut.result() if fut is not None else _build.inspect(name)
+
+
 def phase_build():
     """Build the library, and `event.cu` alone with the arrivals' other
-    target lookup beside it; returns the latter's (kept lookup, other
-    lookup, loaded library)."""
+    target lookup beside it, and start the INSPECTED sources' reports;
+    returns the latter's (kept lookup, other lookup, loaded library)."""
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
+    pool = ThreadPoolExecutor(len(INSPECTED))
+    _INSPECTS.update({n: pool.submit(_build.inspect, n) for n in INSPECTED})
+    pool.shutdown(wait=False)
     src = _build.CSRC / "event.cu"
     kept = int(re.search(r"#define REPRO_ARRIVAL_TARGET (\d)",
                          src.read_text()).group(1))
@@ -713,8 +781,8 @@ def phase_attn_sass():
     """What ptxas says of the bf16 prefill and the decode attention sources
     (registers, spills), and the prefill kernel's wgmma (HGMMA) and TMA
     load (UTMALDG) instructions in its SASS, where a disassembler is."""
-    reports = [_build.inspect(name) for name in ("flash_attention_sm90.cu",
-                                                 "flash_decode.cu")]
+    reports = [_inspect(name) for name in ("flash_attention_sm90.cu",
+                                           "flash_decode.cu")]
     emit({"phase": "attn_sass", "reports": reports})
     counts = reports[0]["sass_counts"]
     if counts is not None and not (counts["HGMMA"] and counts["UTMALDG"]):
@@ -1262,7 +1330,7 @@ def _event_state(rng, plan_cpu, t: int, density: float, cap: int, D: int):
         nv = int(valid[h].sum())
         for d in range(D):
             k = min(cap, int((density if d == t % D else density / 3) * nv))
-            ring[h, d, :k] = rng.permutation(nv)[:k]
+            ring[h, d, :k] = rng.choice(nv, k, replace=False)
             count[h, d] = k
     return dict(ev_ring=torch.from_numpy(ring),
                 ev_count=torch.from_numpy(count), w=f(rng.uniform(
@@ -2175,8 +2243,9 @@ def phase_kernels(plan8, spec8, sp8e, lookup):
     rows += long_rows
     failed += long_failed
     part("event_emit_long_rings")
-    sp4e = _program(GridConfig(grid_x=4, grid_y=4),
-                    EngineConfig(delivery="event"))
+    with _shared_tables():
+        sp4e = _program(GridConfig(grid_x=4, grid_y=4),
+                        EngineConfig(delivery="event"))
     tb_rows, tb_failed = _t_base_rows(sp4e, lookup)
     del sp4e
     torch.cuda.empty_cache()
@@ -2186,10 +2255,10 @@ def phase_kernels(plan8, spec8, sp8e, lookup):
     # registers, shared memory and spills of the STDP kernels (row_kernel<
     # true> is phase A, row_kernel<false> the fused arrival pass) and of
     # phase B's
-    emit({"phase": "kernels", "stdp_ptxas": _build.inspect("stdp.cu")["ptxas"],
-          "arborize_ptxas": _build.inspect("arborize.cu")["ptxas"],
-          "event_ptxas": _build.inspect("event.cu")["ptxas"],
-          "event_phase_a_ptxas": _build.inspect("event_phase_a.cu")["ptxas"],
+    emit({"phase": "kernels", "stdp_ptxas": _inspect("stdp.cu")["ptxas"],
+          "arborize_ptxas": _inspect("arborize.cu")["ptxas"],
+          "event_ptxas": _inspect("event.cu")["ptxas"],
+          "event_phase_a_ptxas": _inspect("event_phase_a.cu")["ptxas"],
           "seconds_by_part": parts, "rows": rows})
     if failed:
         raise PhaseFailed(f"kernels differ from their plain versions: "
@@ -2226,6 +2295,40 @@ def _main_path_counts(steps: int, delivery: str = "dense") -> dict:
     kernel never."""
     return dict(dict.fromkeys(_snn_counted(), 0),
                 **dict.fromkeys(_path_kernels(delivery), steps))
+
+
+#: how many layouts' host tables `_shared_tables` keeps (a 4x4 full-width
+#: layout's are about 90 MB)
+TABLES_KEPT = 12
+_TABLES: dict = {}
+
+
+@contextlib.contextmanager
+def _shared_tables():
+    """Inside the block, each layout's host connectivity tables
+    (`connectivity.build_all_shards`) are built once and handed out as
+    copies.  The checks build the same 4x4 layouts again and again (each
+    program, each checkpoint's synapse keys, each solo run beside the
+    service), and the tables are a pure function of the grid, the shard
+    count and the placement, so a copy is what the build would give.
+    The phases that time a build (`build_8x8`, mesh_timed, the 8x8
+    checkpoint keys, simserve_timed, the bench suites) run outside it."""
+    real = connectivity.build_all_shards
+
+    def shared(cfg, eng):
+        key = (cfg, eng.n_shards, eng.placement)
+        if key in _TABLES:
+            _TABLES[key] = _TABLES.pop(key)          # the newest
+        else:
+            _TABLES[key] = real(cfg, eng)
+            while len(_TABLES) > TABLES_KEPT:
+                del _TABLES[next(iter(_TABLES))]     # the oldest
+        return copy.deepcopy(_TABLES[key])
+    connectivity.build_all_shards = shared
+    try:
+        yield
+    finally:
+        connectivity.build_all_shards = real
 
 
 def _program(cfg, eng, device: str = "cuda") -> "StepProgram":
@@ -2531,7 +2634,17 @@ def _report_line(suite: str, rep: dict, **more) -> None:
           "wall": rep["wall"], **more})
 
 
-def phase_bench():
+def _run_cluster_scaling():
+    """`cluster_scaling` quick on the card (its ranks are other processes,
+    so it may run on a thread) -> its report, or the error's text (a
+    failed launch or unequal rasters)."""
+    try:
+        return cluster_cli.sweep_report(quick=True, device="cuda")
+    except Exception as e:
+        return str(e)[-3000:] or repr(e)
+
+
+def phase_bench(scaling=None):
     """The ported bench suites on the card (`repro_torch.bench`), one line
     per report: `table1` quick (its 4x4 row's raster signature and spike
     count must be the committed JAX reference's h1_block run: the same
@@ -2540,7 +2653,9 @@ def phase_bench():
     `sync` and its cell again under `pipelined` (equal raster
     signatures), `profile` (which raises unless every exchange x
     placement cell gives the same raster and totals), `event_vs_dense`'s
-    single-device rows, `cluster_scaling` quick, and `connectivity_sweep`
+    single-device rows, `cluster_scaling` quick (`scaling`: its report or
+    error, run beside the checkpoint and service checks), and
+    `connectivity_sweep`
     quick (each profile's spikes and raster signature equal to
     `jax_reference.json`'s connectivity_sweep entries) and at its full
     size (12x12, H = 8, 100 steps)."""
@@ -2571,11 +2686,13 @@ def phase_bench():
     _report_line("profile", prof, cells=prof["extra"]["cells"])
     evd = event_vs_dense.run_suite(device="cuda", distributed=False)
     _report_line("event_vs_dense", evd, rows=evd["extra"]["rows"])
-    try:
-        cs = cluster_cli.sweep_report(quick=True, device="cuda")
-    except Exception as e:          # a failed launch or unequal rasters
-        raise PhaseFailed(f"cluster_scaling: {str(e)[-3000:]}")
-    _report_line("cluster_scaling", cs, points=cs["extra"]["points"])
+    cs = scaling or _run_cluster_scaling()
+    if isinstance(cs, str):
+        raise PhaseFailed(f"cluster_scaling: {cs}")
+    _report_line("cluster_scaling", cs, points=cs["extra"]["points"],
+                 contended_by=None if scaling is None else
+                 "ckpt_check, simserve_check, the plan phase's cells and "
+                 "cluster_check's ranks")
     sweep_want = ref["connectivity_sweep"]["profiles"]
     t0 = time.perf_counter()
     sweep_q = connectivity_sweep.run_suite(quick=True, device="cuda")
@@ -2709,6 +2826,7 @@ def phase_simserve_check(card: str, beside: str = "") -> dict:
                        if k != "program_cache"},
           "program_cache": snap["program_cache"], "launches": counts,
           "wall_s": wall, "solo_runs_s": solo_s,
+          "host_tables": "each layout's built once (_shared_tables)",
           "contended_by": beside or None})
     if failed:
         raise PhaseFailed(f"simserve: tenants differ from their solo runs "
@@ -4113,7 +4231,7 @@ def phase_stream_kernels(sp8s):
           "row_s_xf3_device_ms": ROW_S_XF3_DEVICE_MS,
           "row_s_vs_xf3": (row_s["device_ms"] / ROW_S_XF3_DEVICE_MS
                            if row_s["device_ms"] else None),
-          "stream_ptxas": _build.inspect("stream.cu")["ptxas"],
+          "stream_ptxas": _inspect("stream.cu")["ptxas"],
           "rows": rows})
     if failed:
         raise PhaseFailed(f"streamed kernels differ from their plain "
@@ -4490,15 +4608,18 @@ def _start_mesh_job(fn: str, args: dict, n_ranks: int, timeout: float):
     return subproc.Ranks(code, n_ranks, device="cuda", timeout=timeout)
 
 
-def _stacked_timing(grid: dict, steps: int) -> list:
-    """R = 1: the same 8x8 halo program at H = MESH_SHARDS stacked on the
-    card in this process: `time_phases` under each schedule and the
-    captured graph's run, after a warm-up."""
-    cfg = GridConfig(**grid)
+def _stacked_program(grid: dict) -> tuple:
+    """R = 1: the 8x8 halo program at H = MESH_SHARDS stacked on the card
+    in this process -> (the program, its build seconds)."""
     t0 = time.perf_counter()
-    sp0 = StepProgram(cfg, EngineConfig(n_shards=MESH_SHARDS,
-                                        exchange="halo"), device="cuda")
-    build_s = time.perf_counter() - t0
+    sp0 = StepProgram(GridConfig(**grid), EngineConfig(
+        n_shards=MESH_SHARDS, exchange="halo"), device="cuda")
+    return sp0, time.perf_counter() - t0
+
+
+def _stacked_timing(sp0, build_s: float, steps: int) -> list:
+    """R = 1: `_stacked_program`'s program, `time_phases` under each
+    schedule and the captured graph's run, after a warm-up."""
     state0 = sp0.init_state()
     out = []
     for sched in ("sync", "pipelined"):
@@ -4574,6 +4695,7 @@ def phase_mesh(card: str):
                     for c in cells(scatter, [("halo", "sync")])])]
     args = dict(grid=grid, steps=ref["steps"], groups=groups)
     n_dev = torch.cuda.device_count()
+    grid8 = dict(grid_x=8, grid_y=8)
     t0 = time.perf_counter()
     jobs = {f"R{R}": _start_mesh_job("mesh_rank", args, R, 420)
             for R in (2, 4)}
@@ -4582,6 +4704,14 @@ def phase_mesh(card: str):
     if n_dev >= 2:
         jobs["nccl_R2"] = _start_mesh_job(
             "mesh_rank", dict(args, groups=nccl_groups), 2, 420)
+    # the 8x8 stacked program's host build (about 20 s) while the ranks
+    # run: mesh_check's seconds are then contended, not its bits
+    try:
+        stacked8 = _stacked_program(grid8)
+    except BaseException:
+        for job in jobs.values():
+            subproc.reap(job.procs)
+        raise
     results, failed = {}, []
     for key, job in jobs.items():
         try:
@@ -4606,6 +4736,7 @@ def phase_mesh(card: str):
             failed.append(key)
     emit({"phase": "mesh_check", "grid": "4x4", "shards": MESH_SHARDS,
           "steps": ref["steps"], "device_count": n_dev,
+          "beside": "the 8x8 stacked program's build",
           "nccl_multi_rank": ("run: R = 2" if n_dev >= 2
                               else "not run: 1 device"),
           "seconds": check_s, "jobs": results})
@@ -4619,9 +4750,9 @@ def phase_mesh(card: str):
         for r in results[key] if r["name"].startswith("streamed_scatter_"))
 
     # 8x8 full width (12.8 M synapses): R = 1 stacked, then R = 4 ranks
-    grid8 = dict(grid_x=8, grid_y=8)
     t0 = time.perf_counter()
-    timing_rows = _stacked_timing(grid8, MESH_STEPS_8X8)
+    timing_rows = _stacked_timing(*stacked8, MESH_STEPS_8X8)
+    del stacked8
     torch.cuda.empty_cache()
     try:
         timing_rows += subproc.results(_start_mesh_job(
@@ -4738,7 +4869,7 @@ def ckpt_rank(args: dict) -> None:
             weight_signature=sp.weight_signature(full).hex()))
 
 
-def phase_ckpt(card: str, ckpt8: tuple):
+def phase_ckpt(card: str, ckpt8: tuple, beside: str = ""):
     """Checkpoints on the card (`core.checkpoint`, `StepProgram.load`) at
     the full width of `jax_reference.json` (4x4, 150 steps): each case of
     CKPT_CASES runs 0 -> t on the card through the graph, saves, loads
@@ -4765,55 +4896,56 @@ def phase_ckpt(card: str, ckpt8: tuple):
                      path=os.path.join(tmp, "ranks.npz"))
     job = _start_mesh_job("ckpt_rank", dict(rank_args, mode="save"), 2, 420)
     programs, cases, failed = {}, {}, []
-    for name, a, b, t in CKPT_CASES:
-        spa = _ckpt_program(cfg, a, programs)
-        spb = _ckpt_program(cfg, b, programs)
-        s_a, r_a, _ = spa.run(spa.init_state(), 0, t)
-        torch.cuda.synchronize()
-        c0 = time.perf_counter()
-        path = checkpoint.save(os.path.join(tmp, f"{name}.npz"), spa.spec,
-                               spa.plan, s_a, t)
-        save_s = time.perf_counter() - c0
-        c0 = time.perf_counter()
-        state, t_back = spb.load(path)
-        load_s = time.perf_counter() - c0
-        s_b, r_b, _ = spb.run(state, t_back, steps - t_back)
-        ev = [observables.raster_events(r.cpu().numpy(),
-                                        sp.plan.gid.cpu().numpy(), t0=t0)
-              for r, sp, t0 in ((r_a, spa, 0), (r_b, spb, t_back))]
-        rsig = observables.events_signature(
-            np.concatenate([e[0] for e in ev]),
-            np.concatenate([e[1] for e in ev])).hex()
-        want = _ckpt_want(ref, b)
-        res = dict(t=t_back, raster_equal=rsig == want["raster_signature"],
-                   weights_equal=(spb.weight_signature(s_b).hex()
-                                  == want["weight_signature"]),
-                   restore_replays=spb.runner.replays, save_s=save_s,
-                   load_s=load_s, file_bytes=os.path.getsize(path))
-        if a[0] == "event":
-            res["sat"] = int(s_b.sat.sum())
-        cases[name] = res
-        if not (res["raster_equal"] and res["weights_equal"]
-                and t_back == t and not res.get("sat")):
-            failed.append(name)
-    del programs
-    torch.cuda.empty_cache()
+    with _shared_tables():
+        for name, a, b, t in CKPT_CASES:
+            spa = _ckpt_program(cfg, a, programs)
+            spb = _ckpt_program(cfg, b, programs)
+            s_a, r_a, _ = spa.run(spa.init_state(), 0, t)
+            torch.cuda.synchronize()
+            c0 = time.perf_counter()
+            path = checkpoint.save(os.path.join(tmp, f"{name}.npz"), spa.spec,
+                                   spa.plan, s_a, t)
+            save_s = time.perf_counter() - c0
+            c0 = time.perf_counter()
+            state, t_back = spb.load(path)
+            load_s = time.perf_counter() - c0
+            s_b, r_b, _ = spb.run(state, t_back, steps - t_back)
+            ev = [observables.raster_events(r.cpu().numpy(),
+                                            sp.plan.gid.cpu().numpy(), t0=t0)
+                  for r, sp, t0 in ((r_a, spa, 0), (r_b, spb, t_back))]
+            rsig = observables.events_signature(
+                np.concatenate([e[0] for e in ev]),
+                np.concatenate([e[1] for e in ev])).hex()
+            want = _ckpt_want(ref, b)
+            res = dict(t=t_back, raster_equal=rsig == want["raster_signature"],
+                       weights_equal=(spb.weight_signature(s_b).hex()
+                                      == want["weight_signature"]),
+                       restore_replays=spb.runner.replays, save_s=save_s,
+                       load_s=load_s, file_bytes=os.path.getsize(path))
+            if a[0] == "event":
+                res["sat"] = int(s_b.sat.sum())
+            cases[name] = res
+            if not (res["raster_equal"] and res["weights_equal"]
+                    and t_back == t and not res.get("sat")):
+                failed.append(name)
+        del programs
+        torch.cuda.empty_cache()
 
-    # the card's file and the CPU plain path's, 2x2 full width, t = 50
-    cfg2, devices = GridConfig(grid_x=2, grid_y=2), {}
-    for delivery in ("dense", "event"):
-        layout = (delivery, 2, "block", None)
-        digests = []
-        for device in ("cuda", "cpu"):
-            sp = _ckpt_program(cfg2, layout, {}, device=device)
-            s, _, _ = sp.run(sp.init_state(), 0, CKPT_SAVE_T)
-            digests.append(_digest(checkpoint.save(os.path.join(
-                tmp, f"cross_{delivery}_{device}.npz"), sp.spec, sp.plan,
-                s, CKPT_SAVE_T)))
-        devices[delivery] = dict(card=digests[0][:16],
-                                 equal=digests[0] == digests[1])
-        if not devices[delivery]["equal"]:
-            failed.append(f"card vs cpu file ({delivery})")
+        # the card's file and the CPU plain path's, 2x2 full width, t = 50
+        cfg2, devices = GridConfig(grid_x=2, grid_y=2), {}
+        for delivery in ("dense", "event"):
+            layout = (delivery, 2, "block", None)
+            digests = []
+            for device in ("cuda", "cpu"):
+                sp = _ckpt_program(cfg2, layout, {}, device=device)
+                s, _, _ = sp.run(sp.init_state(), 0, CKPT_SAVE_T)
+                digests.append(_digest(checkpoint.save(os.path.join(
+                    tmp, f"cross_{delivery}_{device}.npz"), sp.spec, sp.plan,
+                    s, CKPT_SAVE_T)))
+            devices[delivery] = dict(card=digests[0][:16],
+                                     equal=digests[0] == digests[1])
+            if not devices[delivery]["equal"]:
+                failed.append(f"card vs cpu file ({delivery})")
 
     # R = 2 saves, R = 4 restores
     ranks = {}
@@ -4851,6 +4983,8 @@ def phase_ckpt(card: str, ckpt8: tuple):
     emit({"phase": "ckpt_check", "card": card, "grid": "4x4",
           "steps": steps, "cases": cases, "card_vs_cpu_file_2x2": devices,
           "ranks_r2_to_r4": ranks,
+          "host_tables": "the cases share each layout's "
+                         "(_shared_tables); 8x8 builds its own",
           "dense_8x8": dict(
               synapses=int(plan8.row_ptr[:, -1].sum()), t=t8,
               keys_s=keys_s, save_s=save_s, load_s=load_s,
@@ -4860,7 +4994,8 @@ def phase_ckpt(card: str, ckpt8: tuple):
                    "the save and the load then reuse",
               host_cpus=os.cpu_count(),
               host_cpus_usable=len(os.sched_getaffinity(0))),
-          "seconds": time.perf_counter() - t_phase})
+          "seconds": time.perf_counter() - t_phase,
+          "contended_by": beside or None})
     import shutil
     shutil.rmtree(tmp, ignore_errors=True)
     if failed:
@@ -5095,6 +5230,316 @@ def phase_plan(card: str, result: tuple, beside: str = "") -> None:
                           f"reference: {failed}")
 
 
+# ----------------------------------------------------------------------------
+# training (the train phases)
+# ----------------------------------------------------------------------------
+
+#: the backward scan's shapes: (label, shape) on numpy-seeded inputs; the
+#: training shape is the full-width run's (B = 4, T = 512)
+TRAIN_SCAN_SHAPES = (("prefill", (1, 512, 2560)), ("train", (4, 512, 2560)),
+                     ("ragged", (3, 77, 100)))
+TRAIN_FULL = dict(batch=4, seq=512, steps=3, lr=3e-4)
+TRAIN_FULL_PARAMS = 2_894_574_080    # the JAX package's init_params count
+TRAIN_TRAJ_TOL = 1e-4
+TRAIN_TOL = {"float32": dict(loss=2e-5, leaf=1e-3),
+             "bfloat16": dict(loss=0.05, leaf=0.1)}
+
+
+def _train_reference() -> dict:
+    with open(os.path.join(HERE, "src", "repro_torch", "data",
+                           "train_reference.json")) as f:
+        return json.load(f)
+
+
+def _scan_bwd_row(label, cpu, gpu, shape_kw):
+    """One `rg_lru_scan_bwd` row: (a, h0, h, gh) on the CPU and the card;
+    bit-equal to the plain version on the CPU copy and on the card."""
+    got = krg.rg_lru_scan_bwd(*gpu)
+    torch.cuda.synchronize()
+    with kref.flush_denormal():
+        want_cpu = kref.rg_lru_scan_bwd(*cpu)
+    want_gpu = kref.rg_lru_scan_bwd(*gpu)
+    equal = all(bit_equal(g, w) and bit_equal(g, v)
+                for g, w, v in zip(got, want_cpu, want_gpu))
+    a = gpu[0]
+    B, T, D = a.shape
+    # read gh, a, h and h0, write da, db and dh0; 3 operations an element
+    bms, by = bound(nbytes(*gpu) + nbytes(*got), 3 * B * T * D)
+    return dict(
+        name="rg_lru_scan_bwd", route="cuda",
+        source="src/repro_torch/csrc/rg_lru.cu",
+        replaces="src/repro/kernels/rg_lru.py:39", launches=None,
+        max_abs_err=max(max(max_abs_err(g, w), max_abs_err(g, v))
+                        for g, w, v in zip(got, want_cpu, want_gpu)),
+        ms=cuda_ms(lambda: krg.rg_lru_scan_bwd(*gpu)),
+        device_ms=device_ms(lambda: krg.rg_lru_scan_bwd(*gpu),
+                            kernel="rg_lru_scan_bwd"),
+        plain_ms=cuda_ms(lambda: kref.rg_lru_scan_bwd(*gpu), calls=2,
+                         reps=3, warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=None, equal=equal,
+        tolerance="bit-equal (0 ulp), to the plain version on a CPU copy "
+                  "and on the card",
+        note="the JAX package has no backward kernel: jax.grad of its "
+             "oracle src/repro/kernels/ref.py:73 (the Pallas forward "
+             "src/repro/kernels/rg_lru.py:39 has no VJP)",
+        shape=dict(shape_kw, B=B, T=T, D=D))
+
+
+def phase_train_kernels(layer0=None):
+    """The backward scan against its plain version: numpy-seeded inputs at
+    three shapes, and layer 0's real inputs from the full-width run."""
+    rng = np.random.default_rng(31)
+    rows = []
+    for label, shape in TRAIN_SCAN_SHAPES:
+        a, b, h0 = _scan_inputs(rng, shape)
+        h = kref.rg_lru_scan(a, b, h0)
+        gh = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        cpu = (a, h0, h, gh)
+        rows.append(_scan_bwd_row(label, cpu, tuple(x.cuda() for x in cpu),
+                                  {"label": label}))
+    if layer0 is not None:
+        gpu = tuple(x.contiguous() for x in layer0)
+        rows.append(_scan_bwd_row("full_width_layer0",
+                                  tuple(x.cpu() for x in gpu), gpu,
+                                  {"label": "full_width_layer0"}))
+    emit({"phase": "train_kernels", "rows": rows})
+    failed = [r["shape"]["label"] for r in rows if not r["equal"]]
+    if failed:
+        raise PhaseFailed(f"rg_lru_scan_bwd differs from its plain version "
+                          f"at {failed}")
+    return rows
+
+
+def _train_batch(cfg, ref: dict, device) -> dict:
+    """train_reference.json's loss batch, from the synthetic stream."""
+    from repro_torch.data import synthetic
+    bk = ref["batch"]
+    toks = synthetic.batch_tokens(bk["seed"], bk["index"], bk["B"], bk["T"],
+                                  cfg.vocab_size)
+    b = {"tokens": toks[:, :-1], "labels": toks[:, 1:].copy()}
+    for i, t in bk["masked"]:
+        b["labels"][i, t] = -100
+    if cfg.modality == "vlm":
+        b["embeds"] = synthetic.batch_embeds(bk["seed"], bk["index"],
+                                             bk["B"], bk["T"], cfg.d_model)
+    if cfg.family == "encdec":
+        b["enc_embeds"] = synthetic.batch_embeds(
+            bk["seed"], bk["index"], bk["B"], bk["enc_T"], cfg.d_model)
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+def _train_grads(cfg, ref: dict) -> tuple:
+    params = convert.lm_params_from_jax(
+        convert.numpy_params(cfg, ref["weights_seed"]), cfg, "cuda")
+    params.requires_grad_(True)
+    loss, metrics = lm.loss_fn(cfg, params, _train_batch(cfg, ref, "cuda"),
+                               xent_chunk=ref["xent_chunk"])
+    names, ws = zip(*params.named_parameters())
+    gs = torch.autograd.grad(loss, ws, allow_unused=True,
+                             materialize_grads=True)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
+        dict(zip(names, gs))
+
+
+def _trajectory(arch: str, config: str, traj: dict) -> dict:
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
+    kw = traj["configs"][config]
+    params = convert.lm_params_from_jax(convert.numpy_params(cfg, 0), cfg,
+                                        "cuda")
+    state = train_state.create(params, use_error_feedback=kw.get(
+        "compress_grads", False))
+    step = train_step.make_train_step(
+        cfg, lr_schedule=schedules.wsd(*traj["wsd"]), **kw)
+    data = iter(pipeline.Batcher(cfg, traj["B"], traj["T"],
+                                 seed=traj["batcher_seed"], device="cuda"))
+    rows = {"loss": [], "grad_norm": [], "lr": [], "xent": []}
+    for _ in range(traj["steps"]):
+        state, m = step(state, next(data))
+        for k in rows:
+            rows[k].append(float(m[k]))
+    rows["params"] = [w.detach().clone() for w in params.parameters()]
+    return rows
+
+
+def phase_train_check():
+    """The SMOKE training gates on the card against train_reference.json:
+    each variant's loss, aux, global gradient norm and per-leaf gradient
+    (the sampled entries and the largest magnitude within the leaf's
+    tolerance of its largest magnitude, the sum within that times the
+    leaf's size), its RG-LRU launches (2 forward, 1 backward a layer);
+    the three-step trajectories within 1e-4; and each variant and
+    trajectory run twice, bit for bit."""
+    ref = _train_reference()
+    results, failed = [], []
+    for v, want in ref["variants"].items():
+        arch, dtype = v.split(":")
+        cfg = get_smoke_config(arch).scaled(dtype=dtype)
+        tol = TRAIN_TOL[dtype]
+        ops.reset_launch_counts()
+        loss, metrics, grads = _train_grads(cfg, ref)
+        counts = ops.launch_counts()
+        loss2, _, grads2 = _train_grads(cfg, ref)
+        same = bit_equal(loss, loss2) and all(
+            bit_equal(grads[k], grads2[k]) for k in grads)
+        gnorm = float(optim_grad_utils.global_norm(
+            grads, [g.names for g in convert.jax_leaf_groups(cfg)]))
+        worst, worst_leaf, finite = 0.0, None, True
+        for name, g in grads.items():
+            w = want["leaves"][name]
+            flat = g.float().flatten()
+            finite &= bool(torch.isfinite(flat).all())
+            scale = max(w["max_abs"], 1e-30)
+            errs = [abs(float(flat[i]) - x) / scale
+                    for i, x in zip(w["idx"], w["val"])]
+            errs.append(abs(float(flat.abs().max()) - w["max_abs"]) / scale)
+            errs.append(abs(float(flat.double().sum()) - w["sum"])
+                        / (scale * flat.numel()))
+            if max(errs) > worst:
+                worst, worst_leaf = max(errs), name
+        n_rg = _n_rg(cfg)
+        res = dict(variant=v, loss=float(loss), want_loss=want["loss"],
+                   loss_err=abs(float(loss) - want["loss"]),
+                   aux_err=abs(float(metrics["aux"]) - want["aux"]),
+                   grad_norm=gnorm, want_grad_norm=want["grad_norm"],
+                   worst_leaf_err=worst, worst_leaf=worst_leaf,
+                   leaf_tol=tol["leaf"], finite=finite, two_runs_equal=same,
+                   rg_lru_scan=counts["rg_lru_scan"],
+                   rg_lru_scan_bwd=counts["rg_lru_scan_bwd"],
+                   expected=[2 * n_rg, n_rg])
+        ok = (finite and same and res["loss_err"] <= tol["loss"]
+              and res["aux_err"] <= tol["loss"] and worst <= tol["leaf"]
+              and abs(gnorm - want["grad_norm"]) <= tol["leaf"]
+              * want["grad_norm"]
+              and [res["rg_lru_scan"], res["rg_lru_scan_bwd"]]
+              == res["expected"])
+        results.append(dict(res, ok=ok))
+        if not ok:
+            failed.append(v)
+    traj_rows = []
+    for key, want in ref["trajectories"].items():
+        arch, config = key.split(":")
+        a = _trajectory(arch, config, ref["trajectory"])
+        b = _trajectory(arch, config, ref["trajectory"])
+        same = a["loss"] == b["loss"] and all(
+            bit_equal(x, y) for x, y in zip(a["params"], b["params"]))
+        err = max(abs(x - y) for x, y in zip(a["loss"], want["loss"]))
+        gerr = max(abs(x - y) / y for x, y in zip(a["grad_norm"],
+                                                  want["grad_norm"]))
+        ok = (same and err <= TRAIN_TRAJ_TOL and gerr <= TRAIN_TRAJ_TOL
+              and all(np.isfinite(a["loss"])))
+        traj_rows.append(dict(run=key, loss=a["loss"],
+                              want_loss=want["loss"], loss_err=err,
+                              grad_norm_rel_err=gerr, lr=a["lr"],
+                              two_runs_equal=same, ok=ok))
+        if not ok:
+            failed.append(key)
+    emit({"phase": "train_check", "config": "SMOKE",
+          "tolerance": {"variants": TRAIN_TOL,
+                        "trajectory_loss": TRAIN_TRAJ_TOL},
+          "variants": results, "trajectories": traj_rows})
+    if failed:
+        raise PhaseFailed(f"training differs from the JAX reference: "
+                          f"{failed}")
+
+
+def phase_train_full(params):
+    """recurrentgemma-2b at full width: AdamW steps through
+    `train.step.make_train_step` with the launcher's WSD schedule, on the
+    serving phase's weights, batches from `data.pipeline.Batcher(seed=1)`;
+    one warm-up step, then TRAIN_FULL['steps'] timed, each with its RG-LRU
+    launches counted (n_rg x 2 forward, n_rg backward), then one step under
+    the profiler (device ms by kernel, idle share).  Returns (the backward
+    scan's launches in the timed steps, layer 0's backward inputs, the
+    phase's main numbers)."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config(LM_ARCH)
+    B, T, n = TRAIN_FULL["batch"], TRAIN_FULL["seq"], TRAIN_FULL["steps"]
+    total = n + 2
+    sched = schedules.wsd(TRAIN_FULL["lr"], warmup=min(100, total // 10 + 1),
+                          stable=total, decay=max(total // 10, 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train_state.create(params)
+    torch.cuda.synchronize()
+    create_s = time.perf_counter() - t0
+    step = train_step.make_train_step(cfg, lr_schedule=sched)
+    data = iter(pipeline.Batcher(cfg, B, T, seed=1, device="cuda"))
+    last_bwd = {}
+    real_bwd = krg.rg_lru_scan_bwd
+
+    def keep(a, h0, h, gh):
+        last_bwd.update(a=a, h0=h0, h=h, gh=gh)   # layer 0 is the last
+        return real_bwd(a, h0, h, gh)
+
+    losses, lrs, norms, walls, counts = [], [], [], [], []
+    try:
+        krg.rg_lru_scan_bwd = keep
+        t0 = time.perf_counter()
+        state, m = step(state, next(data))          # warm-up
+        losses.append(float(m["loss"]))
+        warm_s = time.perf_counter() - t0
+    finally:
+        krg.rg_lru_scan_bwd = real_bwd
+    layer0 = tuple(last_bwd[k] for k in ("a", "h0", "h", "gh"))
+    for _ in range(n):
+        batch = next(data)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))             # a sync
+        walls.append(time.perf_counter() - t0)
+        c = ops.launch_counts()
+        counts.append([c["rg_lru_scan"], c["rg_lru_scan_bwd"]])
+        lrs.append(float(m["lr"]))
+        norms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    batch = next(data)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        prof_wall = time.perf_counter() - t0
+    rows = sorted(((us, k, c) for k, us, c in device_kernel_events(prof)),
+                  reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    scan = {k: sum(us for us, name, _ in rows if k + "(" in name)
+            for k in ("rg_lru_scan_kernel", "rg_lru_scan_bwd_kernel")}
+    n_rg = _n_rg(cfg)
+    ms = statistics.median(walls) * 1e3
+    finite = all(np.isfinite(losses))
+    launches_ok = all(c == [2 * n_rg, n_rg] for c in counts)
+    n_params = lm.param_count(params)
+    line = {"phase": "train_full", "arch": LM_ARCH, "dtype": cfg.dtype,
+          "params": n_params, "expected_params": TRAIN_FULL_PARAMS,
+          "batch": B, "seq": T, "tokens_per_step": B * T,
+          "create_s": create_s, "warmup_step_s": warm_s,
+          "ms_per_step": ms, "step_walls_s": walls,
+          "tokens_per_s": B * T / (ms * 1e-3),
+          "max_memory_allocated_bytes": peak,
+          "losses": losses, "all_losses_finite": finite, "lr": lrs,
+          "grad_norm": norms,
+          "launches_per_step": counts, "expected_per_step": [2 * n_rg, n_rg],
+          "profiled_step_wall_s": prof_wall,
+          "device_busy_ms": busy_us * 1e-3 if rows else None,
+          "device_idle_share": (1.0 - busy_us * 1e-6 / prof_wall) if rows
+          else None,
+          "scan_device_ms": {k: v * 1e-3 for k, v in scan.items()},
+          "top": [dict(name=k[:90], device_ms=us * 1e-3, calls=c)
+                  for us, k, c in rows[:12]],
+          "layer0_scan_shape": list(layer0[0].shape)}
+    emit(line)
+    del state, m
+    if not (finite and launches_ok and n_params == TRAIN_FULL_PARAMS):
+        raise PhaseFailed("full-width training failed its gates")
+    keep = ("ms_per_step", "tokens_per_s", "max_memory_allocated_bytes",
+            "losses", "launches_per_step", "device_busy_ms",
+            "device_idle_share", "scan_device_ms")
+    return sum(c[1] for c in counts), layer0, {k: line[k] for k in keep}
+
+
 def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
     if not torch.cuda.is_available():
@@ -5119,7 +5564,8 @@ def main() -> int:
               "fwd_rows": list(sp8e.eplan.fwd_rows.shape),
               "in_rows": list(sp8e.eplan.in_rows.shape)})
         rows = phase_kernels(sp8.plan, sp8.spec, sp8e, lookup)
-        phase_check()
+        with _shared_tables():
+            phase_check()
         launches = phase_timed(sp8, sp8e)
         phase_profile(sp8, sp8e)
         t0 = time.perf_counter()
@@ -5133,38 +5579,50 @@ def main() -> int:
         torch.cuda.empty_cache()
         shard_id_launches = phase_mesh(card)
         torch.cuda.empty_cache()
-        phase_ckpt(card, ckpt8)
-        del ckpt8
-        torch.cuda.empty_cache()
-        # the plans' cells and the cluster check's ranks are other
-        # processes, mostly start-up on the host: they run beside the
-        # service's check, which they do not touch (its launch counts are
-        # this process's); the three lines mark their times as contended
+        # the plans' cells, the cluster check's ranks and cluster_scaling's
+        # are other processes, mostly start-up on the host: they run beside
+        # the checkpoint and service checks, which they do not touch (their
+        # launch counts are this process's); the lines mark their times as
+        # contended
         with ThreadPoolExecutor(2) as ex:
             plans_run = ex.submit(run_plans)
-            cluster_run = ex.submit(run_cluster)
-            simserve_launches = phase_simserve_check(
-                card, beside="the plan phase's cells and cluster_check's "
-                             "ranks")
+            cluster_run = ex.submit(
+                lambda: (run_cluster(), _run_cluster_scaling()))
+            phase_ckpt(card, ckpt8,
+                       beside="the plan phase's cells, cluster_check's and "
+                              "cluster_scaling's ranks")
+            del ckpt8
+            torch.cuda.empty_cache()
+            with _shared_tables():
+                simserve_launches = phase_simserve_check(
+                    card, beside="the plan phase's cells, cluster_check's "
+                                 "and cluster_scaling's ranks")
+            _TABLES.clear()
             plans_result = plans_run.result()
-            cluster_result = cluster_run.result()
+            cluster_result, scaling = cluster_run.result()
         phase_cluster(card, cluster_result,
-                      beside="simserve_check and the plan phase's cells")
+                      beside="ckpt_check, simserve_check and the plan "
+                             "phase's cells")
         phase_plan(card, plans_result,
-                   beside="simserve_check, cluster_check and the other "
-                          "plan")
+                   beside="ckpt_check, simserve_check, cluster_check, "
+                          "cluster_scaling and the other plan")
         torch.cuda.empty_cache()
         phase_simserve_timed(card)
         torch.cuda.empty_cache()
-        phase_bench()
+        phase_bench(scaling)
         torch.cuda.empty_cache()
         lm_rows = phase_lm_kernels()
         attn_rows, attn_launches = phase_attn_kernels()
         phase_lm_check()
         params, lm_launches = phase_lm_serve()
         phase_lm_profile(params)
+        train_launches, layer0, train_summary = phase_train_full(params)
         del params
         torch.cuda.empty_cache()
+        train_rows = phase_train_kernels(layer0)
+        del layer0
+        torch.cuda.empty_cache()
+        phase_train_check()
         phase_lm_families_check()
         phase_lm_families_serve()
         phase_lm_frontends_check()
@@ -5186,7 +5644,15 @@ def main() -> int:
             r["launches"] = launches.get(name, 0)
     rows.append(dict(lm_rows[0], launches=lm_launches))   # prefill shape
     rows.append(dict(attn_rows[0], launches=attn_launches))  # rg_local_prefill
+    # the training shape (B = 4, T = 512); its launches are train_full's
+    rows.append(dict(train_rows[1], launches=train_launches))
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    # the training phases' numbers again, and the card's name and power
+    # limit, where the end of the output keeps them
+    emit({"train_full": train_summary, "train_kernels": [
+        {k: r[k] for k in ("ms", "device_ms", "bound_ms", "plain_ms")}
+        | {"shape": r["shape"]["label"]} for r in train_rows]})
+    print(card, flush=True)
     emit({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
@@ -5227,8 +5693,13 @@ def import_port() -> None:
     from repro_torch.kernels import rg_lru as krg
     from repro_torch.kernels import segment_sum as kseg
     from repro_torch.kernels import stdp as kstdp
+    from repro_torch.data import pipeline
     from repro_torch.models import convert, lm
     from repro_torch.models import moe as moe_mod
+    from repro_torch.optim import grad_utils as optim_grad_utils
+    from repro_torch.optim import schedules
+    from repro_torch.train import step as train_step
+    from repro_torch.train import train_state
     from repro_torch.serve import engine as serve_engine
     from repro_torch.serve import sampling
     globals().update(locals())

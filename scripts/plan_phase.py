@@ -8,8 +8,8 @@ The card's name and power limit (`phase_card`), the kernels
 each run twice, the report and the dashboard) one after the other with
 nothing else on the card, printing chip_smoke's `plan` line: the cells'
 walls, phase splits and times per synaptic event are then their own
-(chip_smoke.py runs the plans beside `simserve_check` and marks its line
-as contended).  Exits 1 if a plan failed.  About four minutes on an H100.
+(chip_smoke.py runs the plans beside `ckpt_check` and `simserve_check`
+and marks its line as contended).  Exits 1 if a plan failed.  About four minutes on an H100.
 """
 import os
 import sys

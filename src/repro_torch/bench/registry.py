@@ -18,6 +18,11 @@ class Entry:
     doc: str
 
 
+def _lm_throughput(quick, device):
+    from .suites import lm_throughput
+    return lm_throughput.run_suite(quick, device)
+
+
 def _profile(quick, device):
     from . import profile
     return profile.run_profile(quick, device)
@@ -83,6 +88,9 @@ BENCHES: Dict[str, Entry] = {e.name: e for e in [
     Entry("event_vs_dense", _event_vs_dense,
           "dense O(E) vs event O(spikes x fan) delivery: single device, "
           "and H x exchange x delivery over ranks"),
+    Entry("lm_throughput", _lm_throughput,
+          "LM train and decode tokens/s, reduced config (qwen3-0.6b "
+          "SMOKE)"),
     Entry("profile", _profile,
           "per-phase compute/exchange/arborization split, "
           "{allgather,halo} x {block,scatter} (paper Table 2)"),
@@ -107,8 +115,6 @@ BENCHES: Dict[str, Entry] = {e.name: e for e in [
 #: ROADMAP item (queue 1) that ports each.
 NOT_PORTED: Dict[str, str] = {
     "roofline": "item 13.6 (the dry-run audit, roofline's only input)",
-    "lm_throughput": "item 13.5 (it trains qwen3-0.6b: the training "
-                     "slice)",
 }
 
 

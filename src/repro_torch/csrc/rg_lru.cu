@@ -130,7 +130,98 @@ __global__ void __launch_bounds__(kLanes) rg_lru_scan_kernel(
   }
 }
 
+// The backward of the scan: given gh = dL/dh, walk t = T-1 .. 0 with
+// g = gh_t + a_{t+1} * g (g = gh_t at t = T-1), and write db_t = g and
+// da_t = g * h_{t-1} (h_{-1} = h0); then dh0 = a_0 * g.  The same design
+// as the forward, walking chunks from the last: a block is one warp of 32
+// channels of one batch row, staging T-chunks of gh, a and h (the h rows
+// one step back, so that h_{t-1} lands beside gh_t; row -1 is h0) with
+// cp.async, kStages - 1 chunks ahead of the one it walks.  a_{t+1} is the
+// a of the step walked before, kept in a register.  Each product and sum
+// is its own rounding (-fmad=false), in the order of the plain version
+// `kernels/ref.py::rg_lru_scan_bwd`.
+//
+// Bound: bytes.  Read gh, a and h, write da and db (20 B per element) and
+// h0 / dh0: at B = 4, T = 512, D = 2560 that is 105 MB, 31 us at
+// 3.35 TB/s.  Chunks of kBwdSteps = 32 steps keep the three staged arrays
+// at 48 KB a block.
+constexpr int kBwdSteps = 32;
+
+__global__ void __launch_bounds__(kLanes) rg_lru_scan_bwd_kernel(
+    const float* __restrict__ a, const float* __restrict__ h0,
+    const float* __restrict__ h, const float* __restrict__ gh,
+    float* __restrict__ da, float* __restrict__ db, float* __restrict__ dh0,
+    int64_t T, int64_t D) {
+  // [kStages][kBwdSteps][kLanes] of gh, of a, then of h one step back
+  __shared__ float sg[kStages * kBwdSteps * kLanes];
+  __shared__ float sa[kStages * kBwdSteps * kLanes];
+  __shared__ float sh[kStages * kBwdSteps * kLanes];
+  const int lane = threadIdx.x;
+  const int64_t bi = blockIdx.y;
+  const int64_t d = (int64_t)blockIdx.x * kLanes + lane;
+  const bool live = d < D;
+  const int64_t col = bi * T * D + d;   // (bi, 0, d)
+  const int64_t chunks = (T + kBwdSteps - 1) / kBwdSteps;
+
+  // the k-th chunk from the end into stage k % kStages, one commit group
+  // per chunk (an empty group past the first chunk keeps the count)
+  auto issue = [&](int64_t k) {
+    if (k < chunks && live) {
+      const int64_t t0 = (chunks - 1 - k) * kBwdSteps;
+      const int n = (int)(T - t0 < kBwdSteps ? T - t0 : kBwdSteps);
+      const int s = (int)(k % kStages) * kBwdSteps;
+      for (int i = 0; i < n; ++i) {
+        const int64_t t = t0 + i;
+        copy4(sg + (s + i) * kLanes + lane, gh + col + t * D);
+        copy4(sa + (s + i) * kLanes + lane, a + col + t * D);
+        copy4(sh + (s + i) * kLanes + lane,
+              t ? h + col + (t - 1) * D : h0 + bi * D + d);
+      }
+    }
+    commit();
+  };
+
+  for (int k = 0; k < kStages - 1; ++k) issue(k);
+  float g = 0.0f, a_next = 0.0f;
+  for (int64_t k = 0; k < chunks; ++k) {
+    issue(k + kStages - 1);   // into the stage walked at k - 1
+    wait_oldest();            // chunk k has landed
+    if (!live) continue;
+    const int64_t t0 = (chunks - 1 - k) * kBwdSteps;
+    const int n = (int)(T - t0 < kBwdSteps ? T - t0 : kBwdSteps);
+    const int s = (int)(k % kStages) * kBwdSteps * kLanes + lane;
+    const float* xg = sg + s;
+    const float* xa = sa + s;
+    const float* xh = sh + s;
+    float* oa = da + col + t0 * D;
+    float* ob = db + col + t0 * D;
+    for (int i = n - 1; i >= 0; --i) {
+      if (k == 0 && i == n - 1) {
+        g = xg[i * kLanes];
+      } else {
+        const float prod = a_next * g;
+        g = xg[i * kLanes] + prod;
+      }
+      ob[i * D] = g;
+      oa[i * D] = g * xh[i * kLanes];
+      a_next = xa[i * kLanes];
+    }
+  }
+  if (live) dh0[bi * D + d] = T ? a_next * g : 0.0f;
+}
+
 }  // namespace
+
+extern "C" int repro_rg_lru_scan_bwd(const void* a, const void* h0,
+                                     const void* h, const void* gh, void* da,
+                                     void* db, void* dh0, int64_t B,
+                                     int64_t T, int64_t D, void* stream) {
+  const dim3 grid((unsigned)((D + kLanes - 1) / kLanes), (unsigned)B);
+  rg_lru_scan_bwd_kernel<<<grid, kLanes, 0, (cudaStream_t)stream>>>(
+      (const float*)a, (const float*)h0, (const float*)h, (const float*)gh,
+      (float*)da, (float*)db, (float*)dh0, T, D);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int repro_rg_lru_scan(const void* a, const void* b,
                                  const void* h0, void* h, int64_t B,

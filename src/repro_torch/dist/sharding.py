@@ -1,6 +1,6 @@
 """Placement of the SNN's stacked trees on a mesh (the SNN part of
 `repro.dist.sharding`; the LM sharding rules are ROADMAP queue 1, item
-13.5).
+13.7).
 
 A tree is a tensor or a NamedTuple (nested) of tensors whose leading axis
 stacks the H shards, as `core.engine.build` returns them: a ShardPlan, an

@@ -74,6 +74,7 @@ SIGNATURES = {
     "repro_stdp_phase_a_chunk": [_P] * 4,
     "repro_segment_sum_ordered": [_P] * 3 + [_I64] * 3 + [_P],
     "repro_rg_lru_scan": [_P] * 4 + [_I64] * 3 + [_P],
+    "repro_rg_lru_scan_bwd": [_P] * 7 + [_I64] * 3 + [_P],
     "repro_flash_attention": [_P] * 4 + [_I64] * 4 + [ctypes.c_int] * 2
     + [_I64, _F, _F, _P],
     "repro_flash_attention_sm90": [_P] * 4 + [_I64] * 4 + [ctypes.c_int]

@@ -24,7 +24,8 @@ from . import segment_sum as _seg
 from . import stdp as _stdp
 from . import stream as _stream
 
-#: The kernels of the DPSNN-STDP step, of the LM's RG-LRU layers, and of
+#: The kernels of the DPSNN-STDP step, of the LM's RG-LRU layers (the
+#: scan, and its backward when training), and of
 #: the `attention` entry point (which no model of the port calls).  The
 #: main path runs phase A as one kernel (`stdp_phase_a`) and phase B as
 #: another (`arborize`, source-major over the plan's forward CSR), each
@@ -52,7 +53,7 @@ PHASE_B_KERNELS = ("arborize_elements",)
 EVENT_KERNELS = ("event_arrival", "event_neurons", "event_ltp", "event_emit")
 EVENT_SPLIT_KERNELS = ("event_compact",)
 EVENT_YARDSTICKS = ("event_ltp_rows",)
-LM_KERNELS = ("rg_lru_scan",)
+LM_KERNELS = ("rg_lru_scan", "rg_lru_scan_bwd")
 ATTN_KERNELS = ("flash_attention",)
 KERNELS = (SNN_KERNELS + PHASE_A_KERNELS + PAIR_KERNELS + PHASE_B_KERNELS
            + EVENT_KERNELS + EVENT_SPLIT_KERNELS + EVENT_YARDSTICKS
@@ -374,15 +375,38 @@ def segment_sum_ordered(contrib, seg: ref.Segments):
     return ref.segment_sum_ordered(contrib, seg)
 
 
+class RGLRUScan(torch.autograd.Function):
+    """The scan under autograd: forward `rg_lru_scan`, backward
+    `rg_lru_scan_bwd`, each the CUDA kernel on the card and the plain
+    version on the CPU.  Under `no_grad` (serving) only the forward runs,
+    with the launches and bits it had before it became differentiable."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        if _route(a, "rg_lru_scan"):
+            h = _rg.rg_lru_scan(a, b, h0)
+        else:
+            with ref.flush_denormal():
+                h = ref.rg_lru_scan(a, b, h0)
+        ctx.save_for_backward(a, h0, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, gh):
+        a, h0, h = ctx.saved_tensors
+        gh = gh.contiguous()
+        if _route(a, "rg_lru_scan_bwd"):
+            return _rg.rg_lru_scan_bwd(a, h0, h, gh)
+        with ref.flush_denormal():
+            return ref.rg_lru_scan_bwd(a, h0, h, gh)
+
+
 def rg_lru_scan(a, b, h0=None):
     """h_t = a_t * h_{t-1} + b_t.  a, b [B, T, D] fp32; h0 [B, D] or None
-    (zeros) -> h [B, T, D]."""
+    (zeros) -> h [B, T, D].  Differentiable in a, b and h0 (`RGLRUScan`)."""
     if h0 is None:
         h0 = a.new_zeros((a.shape[0], a.shape[2]))
-    if _route(a, "rg_lru_scan"):
-        return _rg.rg_lru_scan(a, b, h0)
-    with ref.flush_denormal():
-        return ref.rg_lru_scan(a, b, h0)
+    return RGLRUScan.apply(a, b, h0)
 
 
 def attention(q, k, v, *, causal=True, window=None, softcap=None,

@@ -1105,6 +1105,30 @@ def rg_lru_scan(a: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def rg_lru_scan_bwd(a: torch.Tensor, h0: torch.Tensor, h: torch.Tensor,
+                    gh: torch.Tensor):
+    """Plain version of kernels.rg_lru.rg_lru_scan_bwd: the gradients of
+    h = rg_lru_scan(a, b, h0) given gh = dL/dh -> (da, db, dh0).
+
+    The backward of a linear recurrence is one in reverse: a loop over
+    t = T-1 .. 0 with g = gh_t + a_{t+1} * g (a multiply then an add; g =
+    gh_t at t = T-1), db_t = g, da_t = g * h_{t-1} (h_{-1} = h0), and
+    finally dh0 = a_0 * g.  These are the operations autograd runs through
+    the plain forward loop, in the same order, so the bits are its; and
+    what `csrc/rg_lru.cu` computes bit for bit.  (The JAX package has no
+    backward kernel: `jax.grad` differentiates its associative-scan
+    oracle, equal to this to about 1e-5.)"""
+    T = a.shape[1]
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    g = None
+    for t in range(T - 1, -1, -1):
+        g = gh[:, t] if g is None else gh[:, t] + a[:, t + 1] * g
+        db[:, t] = g
+        da[:, t] = g * (h[:, t - 1] if t else h0)
+    dh0 = torch.zeros_like(h0) if g is None else a[:, 0] * g
+    return da, db, dh0
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               softcap: Optional[float] = None,

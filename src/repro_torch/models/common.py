@@ -22,8 +22,9 @@ def dtype_of(cfg) -> torch.dtype:
 
 def param(shape, dtype, device) -> torch.nn.Parameter:
     """An uninitialised parameter (filled by `lm.init_params` or
-    `convert.lm_params_from_jax`).  The port serves only, so it tracks no
-    gradient."""
+    `convert.lm_params_from_jax`).  It tracks no gradient, so that a
+    serving call builds no autograd graph; `train.train_state.create` turns
+    gradients on for the parameters it trains."""
     return torch.nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                               requires_grad=False)
 

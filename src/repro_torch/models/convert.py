@@ -15,6 +15,9 @@ per entry of `cfg.layers` (see `transformer`).
   gives the same bf16 bits as JAX's `astype(bfloat16)`.
 * `lm_params_to_tree(params, cfg)` goes the other way (numpy leaves in the
   parameters' own dtypes; bf16 as `ml_dtypes.bfloat16`).
+* `jax_leaf_groups(cfg)` lists the port's parameter names by the JAX
+  tree's leaves, in `jax.tree.leaves` order (what the global norm and the
+  train-state files follow).
 * `numpy_params(cfg, seed)` draws an fp32 tree in the JAX layout from a
   numpy seed, with the JAX package's distributions (and biases, gains,
   lerp weights and decays moved off their constants, so that a comparison
@@ -27,7 +30,7 @@ since `torch.from_numpy` refuses them.  No JAX is imported here.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -143,6 +146,33 @@ def lm_params_to_tree(params: lm.LM, cfg: ModelConfig):
         else:
             leaves[name] = w.numpy().copy()
     return _assemble(cfg, leaves)
+
+
+class JaxLeaf(NamedTuple):
+    """A leaf of the JAX parameter tree: the port's parameters it holds
+    (in unit order), stacked on a leading [n_units] axis or not."""
+    names: List[str]
+    stacked: bool
+
+
+def jax_leaf_groups(cfg: ModelConfig) -> List[JaxLeaf]:
+    """The JAX tree's leaves in `jax.tree.leaves` order (dict keys sorted,
+    lists in order), each with the port's parameter names it holds: a
+    pattern unit's leaf is the stack of its layers' parameters, any other
+    leaf one parameter."""
+    leaves: Dict[tuple, list] = {}
+    for name, _ in lm.LM(cfg, torch.device("meta")).named_parameters():
+        parts = name.split(".")
+        path, u = (parts[0],), 0
+        if parts[0] in STACKS:
+            where = _layer_key(STACKS[parts[0]](cfg), int(parts[2]))
+            if where[0] == "units":
+                path, u = (parts[0], "units", where[1], *parts[3:]), where[2]
+            else:
+                path = (parts[0], "rem", where[1], *parts[3:])
+        leaves.setdefault(path, []).append((u, name))
+    return [JaxLeaf([name for _, name in sorted(v)], "units" in path[1:2])
+            for path, v in sorted(leaves.items())]
 
 
 def numpy_params(cfg: ModelConfig, seed: int):

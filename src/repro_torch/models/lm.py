@@ -6,14 +6,15 @@ embedding input (`embeds`, the VLM and audio frontends' stub).
 
 `params` is an `LM` module.  `init_params` draws it from an explicit
 `torch.Generator`; `convert.lm_params_from_jax` carries the JAX package's
-parameters across.  The training loss waits for ROADMAP queue 1 item
-13.5.
+parameters across.  `loss_fn` is the training loss (sequence-chunked
+cross-entropy plus the MoE auxiliary loss).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.engine import resolve_device
@@ -148,6 +149,44 @@ def forward(cfg: ModelConfig, params: LM, batch: Dict[str, Any]
     Returns (logits [B, T, V], aux_loss)."""
     x, aux = hidden_states(cfg, params, batch)
     return unembed(cfg, params, x), aux
+
+
+def _chunk_nll(cfg: ModelConfig, params: LM, h_c, y_c):
+    """(sum of the chunk's token NLLs, its count of labels): the logits in
+    the model dtype, cast to fp32, logsumexp minus the label's logit,
+    labels of -100 masked (and clamped to 0 for the gather)."""
+    logits = unembed(cfg, params, h_c).to(F32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, y_c.clamp_min(0)[..., None])[..., 0]
+    mask = y_c != -100
+    return ((lse - ll) * mask).sum(), mask.sum()
+
+
+def loss_fn(cfg: ModelConfig, params: LM, batch: Dict[str, Any],
+            aux_weight: float = 0.01, xent_chunk: int = 512
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Sequence-chunked cross entropy (`repro.models.lm.loss_fn`): the
+    [B, T, V] fp32 logits are never materialized.  The chunk c is
+    min(xent_chunk, T), lowered until it divides T; each chunk's logits are
+    computed, reduced and, under `torch.utils.checkpoint`, recomputed in
+    the backward; the chunks' sums add from 0 in order.  batch: the
+    inputs of `forward` and 'labels' [B, T].  Returns (xent + aux_weight *
+    aux, {'xent', 'aux'})."""
+    x, aux = hidden_states(cfg, params, batch)
+    labels = batch["labels"].to(torch.int64)
+    T = x.shape[1]
+    c = min(xent_chunk, T)
+    while T % c:
+        c -= 1
+    nll = torch.zeros((), dtype=F32, device=x.device)
+    n = torch.zeros((), dtype=torch.int64, device=x.device)
+    for i in range(0, T, c):
+        ds, dn = checkpoint(_chunk_nll, cfg, params, x[:, i:i + c],
+                            labels[:, i:i + c], use_reentrant=False,
+                            preserve_rng_state=False)
+        nll, n = nll + ds, n + dn
+    loss = nll / n.clamp_min(1)
+    return loss + aux_weight * aux, {"xent": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

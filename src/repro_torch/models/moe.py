@@ -24,7 +24,7 @@ and, past capacity, which assignments drop:
 Plain PyTorch on both devices.  The JAX package's sharding constraints
 (`shard`, the 'experts' mesh axis) have no counterpart in one process;
 expert parallelism over ranks comes with the LM sharding rules (ROADMAP
-queue 1 item 13.5).
+queue 1 item 13.7).
 """
 from __future__ import annotations
 

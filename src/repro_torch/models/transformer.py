@@ -22,6 +22,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import attention, common, mlp as mlp_mod, moe as moe_mod, recurrent
@@ -150,19 +151,47 @@ def init_stack(p: Stack, generator) -> None:
         init_layer(layer, generator)
 
 
+def _recomputed(cfg: ModelConfig, kinds, layer: Layer, x, positions,
+                enc_kv):
+    """`_apply_layer` without a cache under `torch.utils.checkpoint`: the
+    backward recomputes the layer from its input (the JAX package's
+    per-layer `jax.checkpoint` with `nothing_saveable`).  No layer draws a
+    random number, so no RNG state is kept."""
+    return checkpoint(_apply_layer, cfg, kinds, layer, x, positions, None,
+                      None, enc_kv, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def apply_stack(cfg: ModelConfig, stack: Stack, x, positions, *,
                 caches: Optional[List[dict]] = None, cache_pos=None,
                 enc_kv=None):
     """Returns (x, new_caches, aux_sum): the MoE layers' auxiliary losses
     added in layer order (an fp32 0 without one).  enc_kv goes to every
-    'xa' layer's cross-attention."""
+    'xa' layer's cross-attention.
+
+    Without caches, with gradients enabled and something to differentiate
+    (training), every layer runs under `_recomputed`: the backward holds
+    one residual a layer and recomputes each layer once, so a forward
+    kernel runs twice a step (RG-LRU: `rg_lru_scan` twice, `rg_lru_scan_bwd`
+    once a layer).  The JAX package also nests a checkpoint around each
+    multi-layer pattern unit and leaves the remainder layers without one;
+    nesting saves one residual a unit instead of one a layer, but under
+    `torch.utils.checkpoint` it runs 8 layer forwards for a 3-layer unit
+    instead of 6.  The port keeps the flat form for every layer, which
+    computes the same numbers."""
     decode = caches is not None
+    train = not decode and torch.is_grad_enabled() and (
+        x.requires_grad or any(w.requires_grad for w in stack.parameters()))
     new_caches: Optional[List[dict]] = [] if decode else None
     aux_total = None
     for idx, layer in enumerate(stack.layers):
         c = caches[idx] if decode else None
-        x, nc, a = _apply_layer(cfg, layer.kinds, layer, x, positions, c,
-                                cache_pos, enc_kv)
+        if train:
+            x, nc, a = _recomputed(cfg, layer.kinds, layer, x, positions,
+                                   enc_kv)
+        else:
+            x, nc, a = _apply_layer(cfg, layer.kinds, layer, x, positions, c,
+                                    cache_pos, enc_kv)
         if a is not None:
             aux_total = a if aux_total is None else aux_total + a
         if decode:

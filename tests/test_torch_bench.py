@@ -456,16 +456,18 @@ def test_registry_ports_three_suites():
     # (since the cluster runtime: cluster_scaling; since the simulation
     # service: simserve_throughput; since the experiment plans:
     # connectivity_sweep)
+    # (since the training slice: lm_throughput)
     assert sorted(registry.BENCHES) == ["cluster_scaling", "comm_overlap",
                                         "connectivity_sweep",
-                                        "event_vs_dense", "profile",
-                                        "scaling", "simserve_throughput",
-                                        "table1", "table2", "weak_scaling"]
+                                        "event_vs_dense", "lm_throughput",
+                                        "profile", "scaling",
+                                        "simserve_throughput", "table1",
+                                        "table2", "weak_scaling"]
     for name in ("weak_scaling", "comm_overlap", "scaling",
                  "cluster_scaling", "simserve_throughput",
-                 "connectivity_sweep"):
+                 "connectivity_sweep", "lm_throughput"):
         assert name not in registry.NOT_PORTED
-    assert sorted(registry.NOT_PORTED) == ["lm_throughput", "roofline"]
+    assert sorted(registry.NOT_PORTED) == ["roofline"]
     assert "13.6" in registry.NOT_PORTED["roofline"]
     for name in registry.NOT_PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
