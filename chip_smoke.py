@@ -353,6 +353,24 @@ Then the LM serving path (`recurrentgemma-2b`, `repro_torch.serve`):
               reference's three-step `train.step` trajectories (losses
               within 1e-4, gradient norms within 1e-4 of theirs), each
               run twice, bit for bit;
+  train_sharded  granite-moe-3b-a800m at full width (d_model 1,536, 40
+              experts, top-8, vocab 49,155) trained by four ranks that
+              share the one card (`bench.subproc.Ranks`; gloo staged
+              through pinned host memory) over a 2x2 ('data', 'model')
+              mesh: the state in blocks by the JAX package's sharding
+              rules (`dist.lm_blocks`), fp32 with TF32 off, its layers
+              cut to TRAIN_SHARDED['layers']; three steps (the
+              launcher's WSD schedule), held against the same config,
+              weights and batches in one process on the card (the first
+              loss within 2e-5, each leaf of the first step's clipped
+              gradient, gathered whole, within 1e-3 of its largest
+              magnitude, the losses within 1e-4, every routing decision
+              equal but at a proven tie); each rank's
+              losses, resident bytes (equal to its blocks' under the JAX
+              specs), expert slot products (its 20 experts' only), peak
+              memory, the seconds a step and the phase's seconds (four
+              ranks sharing a card over a staged wire: no measure of
+              tensor-parallel speed);
   lm_families_check  the other seven decoder-only archs (RWKV-6, MoE,
               qk-norm, untied embeddings: LM_FAMILIES) as lm_check does
               it, each against its own entry of `lm_reference.json`: fp32
@@ -406,8 +424,10 @@ Then the LM serving path (`recurrentgemma-2b`, `repro_torch.serve`):
               encoder, self_attention, cross_attention and mlp, the top
               kernels) beside the weight-read floor.
 
-Then, where the kept end of the output holds them, train_full's and
-train_kernels' main numbers again and the card's name and power limit
+The "done" line carries the seconds the script spent reading its
+profiles (`kernel_table`, from the profiler's raw events).  Then, where
+the kept end of the output holds them, train_full's, train_kernels' and
+train_sharded's main numbers again and the card's name and power limit
 (nvidia-smi's line), the `{"kernels": [...]}` line (launches from the
 timed eager run of the delivery whose path the kernel is on, or the
 streamed timed eager run, counted by the wrappers; of the `[t_base]` rows from simserve_check's
@@ -634,16 +654,66 @@ def cuda_ms(fn, calls: int = 20, reps: int = 5, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+#: seconds the script spent reading profiles (`kernel_table`)
+PROFILE_PARSE_S = [0.0]
+
+
+def kernel_table(prof, labels=()) -> tuple:
+    """What `key_averages` would say of a torch.profiler run, read from
+    its raw events without building `key_averages`' per-event objects and
+    tree: ({name: [device microseconds, calls]} of the CUDA activities
+    (kernels, copies, sets) not named by a label, {label: device
+    microseconds of the kernels launched inside its CPU spans on the same
+    thread}).  (`key_averages` took 60.6 s of the script's host time in
+    run D31, NVIDIA H100 80GB HBM3, 700.00 W.)"""
+    import bisect
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+    t0 = time.perf_counter()
+    rows, names, launches, kernels = {}, {}, {}, []
+    spans = {label: [] for label in labels}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if _filter_name(name):
+            continue
+        if e.device_type() == DeviceType.CUDA:
+            if name in spans:
+                continue            # a label's own span on the device
+            key = names.get(name)
+            if key is None:
+                key = names[name] = _rewrite_name(name, with_wildcard=True)
+            us = (e.end_ns() - e.start_ns()) / 1e3
+            row = rows.setdefault(key, [0.0, 0])
+            row[0] += us
+            row[1] += 1
+            if spans:
+                kernels.append((e.linked_correlation_id(), us))
+        elif spans:
+            if name in spans:
+                spans[name].append((e.start_thread_id(), e.start_ns(),
+                                    e.end_ns()))
+            else:
+                launches[e.correlation_id()] = (e.start_thread_id(),
+                                                e.start_ns())
+    by_label = {}
+    spans = {k: sorted(v) for k, v in spans.items()}
+    for corr, us in kernels:
+        at = launches.get(corr)
+        if at is None:
+            continue
+        for label, sp in spans.items():
+            i = bisect.bisect_right(sp, (at[0], at[1], float("inf"))) - 1
+            if i >= 0 and sp[i][0] == at[0] and sp[i][2] >= at[1]:
+                by_label[label] = by_label.get(label, 0.0) + us
+    PROFILE_PARSE_S[0] += time.perf_counter() - t0
+    return rows, by_label
+
+
 def device_kernel_events(prof):
     """(name, device microseconds, calls) of the CUDA kernels a
     torch.profiler run recorded (operator rows are left out: they repeat
     their kernels' time)."""
-    from torch.autograd import DeviceType
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            rows.append((e.key, e.self_device_time_total, e.count))
-    return rows
+    return [(k, us, c) for k, (us, c) in kernel_table(prof)[0].items()]
 
 
 def device_ms(fn, calls: int = 10, restore=None, kernel="",
@@ -3416,16 +3486,11 @@ def _profiled(fn, modules=LM_MODULES) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_profiled = time.perf_counter() - t0
-    from torch.autograd import DeviceType
-    labels = _labels(modules)
-    avgs = prof.key_averages()
-    # (the labels' own spans on the device timeline are not kernels)
-    rows = sorted(((e.self_device_time_total, e.key, e.count) for e in avgs
-                   if e.device_type == DeviceType.CUDA
-                   and e.key not in labels), reverse=True)
+    table, by_label = kernel_table(prof, _labels(modules))
+    rows = sorted(((us, k, c) for k, (us, c) in table.items()),
+                  reverse=True)
     busy_us = sum(r[0] for r in rows)
-    by_module = {e.key: e.device_time_total * 1e-3 for e in avgs
-                 if e.key in labels and e.device_type == DeviceType.CPU}
+    by_module = {k: us * 1e-3 for k, us in by_label.items()}
     return dict(wall_s=wall, wall_profiled_s=wall_profiled,
                 device_busy_s=busy_us * 1e-6 if rows else None,
                 device_idle_share=(1.0 - busy_us * 1e-6 / wall) if rows
@@ -5540,6 +5605,244 @@ def phase_train_full(params):
     return sum(c[1] for c in counts), layer0, {k: line[k] for k in keep}
 
 
+#: the sharded train step on the card: granite-moe-3b-a800m at full width
+#: over a 2x2 ('data', 'model') mesh of four ranks sharing the one card
+#: (gloo, staged through pinned host memory), fp32 with TF32 off, its
+#: layers cut to `layers` (see `phase_train_sharded`); three steps of
+#: `batch` x `seq` tokens with the launcher's WSD schedule at `lr`, against
+#: the same run in one process
+TRAIN_SHARDED = dict(arch="granite-moe-3b-a800m", shape=(2, 2), layers=10,
+                     batch=4, seq=128, steps=3, lr=3e-4, seed=0)
+TRAIN_SHARDED_TOL = dict(loss=2e-5, leaf=1e-3, trajectory=1e-4)
+
+
+@contextlib.contextmanager
+def _router_probs(moe_module, log: list):
+    """Record each MoE call's router probabilities (`moe.top_k`'s input),
+    on the CPU."""
+    real = moe_module.top_k
+
+    def top_k(probs, k):
+        log.append(probs.detach().float().cpu())
+        return real(probs, k)
+
+    moe_module.top_k = top_k
+    try:
+        yield log
+    finally:
+        moe_module.top_k = real
+
+
+def _sharded_flips(moe_module, sharded: list, one: list, k: int) -> dict:
+    """Routing decisions (a token's set of experts) of the sharded run
+    against the one-process run's: a decision may differ only where the
+    one-process run's k-th and (k+1)-th probabilities are closer than
+    twice the two runs' largest probability gap for that token (a tie
+    within their rounding)."""
+    decisions, flips, unexplained = 0, [], 0
+    for n, (ps, po) in enumerate(zip(sharded, one)):
+        a = moe_module.top_k(ps, k)[1].sort(-1).values
+        b = moe_module.top_k(po, k)[1].sort(-1).values
+        differ = (a != b).any(-1)
+        srt = po.sort(-1, descending=True).values
+        margin = srt[:, k - 1] - srt[:, k]
+        gap = (ps - po).abs().amax(-1)
+        decisions += differ.numel()
+        for t in differ.nonzero().flatten().tolist():
+            tie = float(margin[t]) <= 2 * float(gap[t])
+            unexplained += not tie
+            flips.append(dict(call=n, token=t, margin=float(margin[t]),
+                              prob_gap=float(gap[t]), tie=tie))
+    return dict(decisions=decisions, n_flips=len(flips), flips=flips[:10],
+                unexplained_flips=unexplained,
+                same_calls=len(sharded) == len(one))
+
+
+def _sharded_config(args: dict):
+    from repro_torch.configs import get_config, get_smoke_config
+    if args.get("smoke"):
+        return get_smoke_config(args["arch"]).scaled(dtype="float32")
+    return get_config(args["arch"]).scaled(n_layers=args["layers"],
+                                           dtype="float32")
+
+
+def train_sharded_rank(args: dict) -> None:
+    """Inside each rank of the sharded training job: the state placed in
+    blocks on the mesh, then `args['steps']` timed steps, the first with
+    every router decision kept and followed by AdamW's m gathered whole
+    on the primary (after one step m is (1 - b1) times the clipped
+    gradient); each rank's losses, resident and expected bytes, slot
+    products and peak memory go to the primary, which then frees its
+    blocks, runs the same in one process on the card and compares."""
+    import torch
+    from repro_torch.bench.subproc import emit as emit_result
+    from repro_torch.cluster import runtime
+    from repro_torch.data import pipeline
+    from repro_torch.dist import lm_blocks
+    from repro_torch.dist.mesh import make_lm_mesh
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_module
+    from repro_torch.optim import schedules
+    from repro_torch.train import step as train_step
+    from repro_torch.train import train_state
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _sharded_config(args)
+    B, T, n_steps = args["batch"], args["seq"], args["steps"]
+    on_card = args.get("device", "cuda") == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_all = time.perf_counter()
+    mesh = make_lm_mesh(args["shape"], ("data", "model"))
+    dev = mesh.device
+    # the launcher's schedule for this many steps
+    sched = schedules.wsd(args["lr"], warmup=min(100, n_steps // 10 + 1),
+                          stable=n_steps, decay=max(n_steps // 10, 1))
+
+    def run(on_mesh):
+        g = torch.Generator(device=dev).manual_seed(args["seed"])
+        state = train_state.create(lm.init_params(cfg, g, dev),
+                                   mesh=on_mesh)
+        if on_card:
+            torch.cuda.empty_cache()
+        data = iter(pipeline.Batcher(cfg, B, T, seed=1, device=dev,
+                                     mesh=on_mesh))
+        batches = [next(data) for _ in range(n_steps)]
+        step = train_step.make_train_step(cfg, lr_schedule=sched,
+                                          mesh=on_mesh)
+        out = dict(losses=[], walls=[], probs=[])
+        moe_module.reset_slot_counts()
+        for i, b in enumerate(batches):
+            sync()
+            t0 = time.perf_counter()
+            with (_router_probs(moe_module, out["probs"]) if i == 0
+                  else contextlib.nullcontext()):
+                state, m = step(state, b)
+            out["losses"].append(float(m["loss"]))
+            out["walls"].append(time.perf_counter() - t0)
+            if i == 0:
+                t0 = time.perf_counter()
+                out["m1"] = (lm_blocks.gather(state.opt.m, on_mesh,
+                                              like=state.params)
+                             if on_mesh is not None else
+                             {k: v.clone() for k, v in state.opt.m.items()})
+                out["gather_s"] = time.perf_counter() - t0
+        out["slots"] = moe_module.slot_counts()
+        return state, out
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    state, sh = run(mesh)
+    resident = lm_blocks.resident_bytes(state)
+    expected = lm_blocks.expected_bytes(cfg, mesh, mesh.coords)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    probs = runtime.gather(torch.stack(sh["probs"])[None])
+    ranks = runtime.gather(torch.tensor([[resident, expected, sh["slots"],
+                                          peak] + sh["losses"]],
+                                        dtype=torch.float64))
+    del state
+    if on_card:
+        torch.cuda.empty_cache()
+    sharded_s = time.perf_counter() - t_all
+    if not runtime.is_primary():
+        return
+    # the one-process run of the same config, weights and batches
+    t0 = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    state, one = run(None)
+    one_s = time.perf_counter() - t0
+    del state
+    leaf_err = {}
+    for n, g in one["m1"].items():
+        leaf_err[n] = float((sh["m1"][n].to(g.device) - g).abs().max()
+                            / g.abs().max().clamp_min(1e-30))
+    by_data = [r for r in range(mesh.size) if mesh.coords_of(r)["model"] == 0]
+    sharded_probs = list(torch.cat([probs[r] for r in by_data], dim=1))
+    routing = _sharded_flips(moe_module, sharded_probs, one["probs"],
+                             cfg.moe.top_k)
+    E, M = cfg.moe.n_experts, mesh.shape["model"]
+    n_moe = sum(k == "moe" for _, k in cfg.layers)
+    emit_result(dict(
+        arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        params=lm.param_count(lm.LM(cfg, torch.device("meta"))),
+        shape=list(args["shape"]), wire=mesh.backend, batch=B, seq=T,
+        lr=args["lr"], loss=sh["losses"][0], loss_one=one["losses"][0],
+        loss_err=abs(sh["losses"][0] - one["losses"][0]),
+        worst_leaf_err=max(leaf_err.values()),
+        worst_leaf=max(leaf_err, key=leaf_err.get),
+        losses=sh["losses"], losses_one=one["losses"],
+        trajectory_err=max(abs(a - b) for a, b in zip(sh["losses"],
+                                                      one["losses"])),
+        routing=routing,
+        ranks=[dict(resident_bytes=int(r[0]), expected_bytes=int(r[1]),
+                    slot_products=int(r[2]), peak_bytes=int(r[3]),
+                    losses=r[4:]) for r in ranks.tolist()],
+        expected_slot_products=n_steps * 2 * n_moe * (
+            E // M if E % M == 0 else E),
+        slot_products_one=one["slots"],
+        step_walls_s=sh["walls"], s_per_step=statistics.median(sh["walls"]),
+        step_walls_one_s=one["walls"],
+        s_per_step_one=statistics.median(one["walls"]),
+        gather_s=sh["gather_s"], sharded_s=sharded_s, one_process_s=one_s,
+        peak_bytes_one=(torch.cuda.max_memory_allocated() if on_card
+                        else 0)))
+
+
+def phase_train_sharded(card: str, device: str = "cuda",
+                        args: dict = None) -> dict:
+    """granite-moe-3b-a800m at full width, trained by four ranks that share
+    the one card over a 2x2 ('data', 'model') mesh (`dist.lm_blocks`: the
+    state in blocks by the JAX package's sharding rules; gloo staged
+    through pinned host memory), fp32 with TF32 off, against the same
+    config, weights (a seeded CUDA generator) and batches in one process
+    on the card: the first batch's loss within 2e-5, each leaf of the
+    first step's clipped gradient (gathered whole: AdamW's m after one
+    step) within 1e-3 of its largest magnitude, every routing decision of
+    the first step equal but at a proven tie, three steps' losses within
+    1e-4; each rank's resident bytes equal its blocks' under the JAX
+    specs, and its slot products those of its E/M = 20 experts.  Its
+    layers are cut to TRAIN_SHARDED['layers'] for the script's time, not
+    for memory (PERF.md §6).  The step time is four ranks sharing one
+    card over a staged gloo wire: no measure of tensor-parallel speed."""
+    from repro_torch.bench import subproc
+    args = dict(args or TRAIN_SHARDED, device=device)
+    t0 = time.perf_counter()
+    code = _MESH_RANK_CODE.format(here=HERE, src=os.path.join(HERE, "src"),
+                                  fn="train_sharded_rank", args=args)
+    n = int(np.prod(args["shape"]))
+    out = subproc.Ranks(code, n, device=device, timeout=900).wait()
+    r = subproc.results(out)[0]
+    tol = TRAIN_SHARDED_TOL
+    bytes_ok = all(x["resident_bytes"] == x["expected_bytes"] > 0
+                   for x in r["ranks"])
+    slots_ok = all(x["slot_products"] == r["expected_slot_products"]
+                   for x in r["ranks"])
+    finite = all(np.isfinite(r["losses"] + r["losses_one"]))
+    ok = (finite and bytes_ok and slots_ok
+          and r["loss_err"] <= tol["loss"]
+          and r["worst_leaf_err"] <= tol["leaf"]
+          and r["trajectory_err"] <= tol["trajectory"]
+          and r["routing"]["unexplained_flips"] == 0
+          and r["routing"]["same_calls"])
+    line = dict(phase="train_sharded", card=card, tolerance=tol,
+                resident_bytes_are_blocks=bytes_ok,
+                slot_products_as_expected=slots_ok, ok=ok,
+                seconds=time.perf_counter() - t0,
+                note="four ranks share one card over gloo staged through "
+                     "pinned host memory: the step time is no measure of "
+                     "tensor-parallel speed", **r)
+    emit(line)
+    if not ok:
+        raise PhaseFailed("the sharded train step differs from the "
+                          "one-process run or its layout")
+    keep = ("n_layers", "s_per_step", "s_per_step_one", "loss_err",
+            "worst_leaf_err", "trajectory_err", "seconds")
+    return {k: line[k] for k in keep} | {
+        key: [x[key] for x in r["ranks"]] for key in (
+            "losses", "resident_bytes", "slot_products", "peak_bytes")} | {
+        "flips": r["routing"]["n_flips"], "card": card}
+
+
 def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
     if not torch.cuda.is_available():
@@ -5623,6 +5926,8 @@ def main() -> int:
         del layer0
         torch.cuda.empty_cache()
         phase_train_check()
+        torch.cuda.empty_cache()
+        sharded_summary = phase_train_sharded(card)
         phase_lm_families_check()
         phase_lm_families_serve()
         phase_lm_frontends_check()
@@ -5646,12 +5951,14 @@ def main() -> int:
     rows.append(dict(attn_rows[0], launches=attn_launches))  # rg_local_prefill
     # the training shape (B = 4, T = 512); its launches are train_full's
     rows.append(dict(train_rows[1], launches=train_launches))
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+          "profile_parse_s": PROFILE_PARSE_S[0]})
     # the training phases' numbers again, and the card's name and power
     # limit, where the end of the output keeps them
     emit({"train_full": train_summary, "train_kernels": [
         {k: r[k] for k in ("ms", "device_ms", "bound_ms", "plain_ms")}
-        | {"shape": r["shape"]["label"]} for r in train_rows]})
+        | {"shape": r["shape"]["label"]} for r in train_rows],
+        "train_sharded": sharded_summary})
     print(card, flush=True)
     emit({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",

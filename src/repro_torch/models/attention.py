@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..dist import lm_blocks as blk
 from . import common
 
 F32 = torch.float32
@@ -206,20 +207,20 @@ def attention(cfg: ModelConfig, p: Attention, x, positions, *,
     G = H // Hkv
     dev = x.device
 
-    q = (x @ p.wq).view(B, T, H, dh)
+    q = blk.linear(x, p.wq).view(B, T, H, dh)
     if kv_override is None:
-        k = (x @ p.wk).view(B, T, Hkv, dh)
-        v = (x @ p.wv).view(B, T, Hkv, dh)
+        k = blk.linear(x, p.wk).view(B, T, Hkv, dh)
+        v = blk.linear(x, p.wv).view(B, T, Hkv, dh)
     elif isinstance(kv_override, tuple):
         k, v = kv_override
     else:
         enc = kv_override.enc_out
         S = enc.shape[1]
-        k = (enc @ p.wk).view(B, S, Hkv, dh)
-        v = (enc @ p.wv).view(B, S, Hkv, dh)
+        k = blk.linear(enc, p.wk).view(B, S, Hkv, dh)
+        v = blk.linear(enc, p.wv).view(B, S, Hkv, dh)
     if cfg.qk_norm:
-        q = common.rms_norm(q, p.q_gamma, cfg.norm_eps)
-        k = common.rms_norm(k, p.k_gamma, cfg.norm_eps)
+        q = common.rms_norm(q, blk.use(p.q_gamma), cfg.norm_eps)
+        k = common.rms_norm(k, blk.use(p.k_gamma), cfg.norm_eps)
     if kv_override is None:
         q = common.rope(q, positions, cfg.rope_theta)
         k = common.rope(k, positions, cfg.rope_theta)
@@ -280,4 +281,4 @@ def attention(cfg: ModelConfig, p: Attention, x, positions, *,
             out = _direct_gqa(qg, k, v, **kw)
 
     y = out.permute(0, 3, 1, 2, 4).reshape(B, T, H * dh)
-    return y @ p.wo, cache
+    return blk.linear(y, p.wo), cache

@@ -150,9 +150,12 @@ def lm_params_to_tree(params: lm.LM, cfg: ModelConfig):
 
 class JaxLeaf(NamedTuple):
     """A leaf of the JAX parameter tree: the port's parameters it holds
-    (in unit order), stacked on a leading [n_units] axis or not."""
+    (in unit order), stacked on a leading [n_units] axis or not, and its
+    path as the JAX package's sharding rules read it
+    ('/stack/units/layer0/mixer/wq', '/stack/rem/0/norm1', '/embed')."""
     names: List[str]
     stacked: bool
+    path: str = ""
 
 
 def jax_leaf_groups(cfg: ModelConfig) -> List[JaxLeaf]:
@@ -171,7 +174,8 @@ def jax_leaf_groups(cfg: ModelConfig) -> List[JaxLeaf]:
             else:
                 path = (parts[0], "rem", where[1], *parts[3:])
         leaves.setdefault(path, []).append((u, name))
-    return [JaxLeaf([name for _, name in sorted(v)], "units" in path[1:2])
+    return [JaxLeaf([name for _, name in sorted(v)], "units" in path[1:2],
+                    "/" + "/".join(str(k) for k in path))
             for path, v in sorted(leaves.items())]
 
 

@@ -18,6 +18,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.engine import resolve_device
+from ..dist import lm_blocks as blk
+from ..dist import sharding as shd
 from . import common, transformer
 
 F32 = torch.float32
@@ -89,14 +91,14 @@ def embed_tokens(cfg: ModelConfig, params: LM, tokens) -> torch.Tensor:
     # the JAX package (bf16: 50.596 -> 50.5)
     scale = torch.tensor(cfg.emb_scale, dtype=params.embed.dtype,
                          device=params.embed.device)
-    return params.embed[tokens] * scale
+    return blk.use(params.embed)[tokens] * scale
 
 
 def unembed(cfg: ModelConfig, params: LM, x) -> torch.Tensor:
     if cfg.tie_embeddings:
-        logits = x @ params.embed.T
+        logits = blk.linear(x, params.embed, transposed=True)
     else:
-        logits = x @ params.unembed
+        logits = blk.linear(x, params.unembed)
     return common.scale_by(logits, cfg.logit_scale)
 
 
@@ -115,7 +117,7 @@ def encode(cfg: ModelConfig, params: LM, enc_embeds) -> torch.Tensor:
     pos = torch.arange(x.shape[1], device=x.device)
     h, _, _ = transformer.apply_stack(encoder_view(cfg), params.enc_stack,
                                       x, pos)
-    return common.rms_norm(h, params.enc_norm, cfg.norm_eps)
+    return common.rms_norm(h, blk.use(params.enc_norm), cfg.norm_eps)
 
 
 def _inputs(cfg: ModelConfig, params: LM, batch: Dict[str, Any]
@@ -139,7 +141,7 @@ def hidden_states(cfg: ModelConfig, params: LM, batch: Dict[str, Any]
         enc_kv = _EncOut(encode(cfg, params, batch["enc_embeds"]))
     x, _, aux = transformer.apply_stack(cfg, params.stack, x, pos,
                                         enc_kv=enc_kv)
-    return common.rms_norm(x, params.final_norm, cfg.norm_eps), aux
+    return common.rms_norm(x, blk.use(params.final_norm), cfg.norm_eps), aux
 
 
 def forward(cfg: ModelConfig, params: LM, batch: Dict[str, Any]
@@ -171,7 +173,15 @@ def loss_fn(cfg: ModelConfig, params: LM, batch: Dict[str, Any],
     computed, reduced and, under `torch.utils.checkpoint`, recomputed in
     the backward; the chunks' sums add from 0 in order.  batch: the
     inputs of `forward` and 'labels' [B, T].  Returns (xent + aux_weight *
-    aux, {'xent', 'aux'})."""
+    aux, {'xent', 'aux'}).
+
+    Over a bound mesh (`dist.sharding.use_mesh`) the batch is the rank's
+    rows, and the loss is still the global batch's: the label count is
+    summed over the 'batch' axes, the rank's loss is its rows' NLL over
+    that count plus the (global) aux term, and the metrics carry the
+    global 'xent', 'aux' and 'loss' (the value to report; the gradient of
+    the rank's loss, summed over the ranks' rows by the blocks'
+    backwards, is the global loss's)."""
     x, aux = hidden_states(cfg, params, batch)
     labels = batch["labels"].to(torch.int64)
     T = x.shape[1]
@@ -185,8 +195,14 @@ def loss_fn(cfg: ModelConfig, params: LM, batch: Dict[str, Any],
                             labels[:, i:i + c], use_reentrant=False,
                             preserve_rng_state=False)
         nll, n = nll + ds, n + dn
-    loss = nll / n.clamp_min(1)
-    return loss + aux_weight * aux, {"xent": loss, "aux": aux}
+    if shd.get_mesh() is None:
+        loss = nll / n.clamp_min(1)
+        return loss + aux_weight * aux, {"xent": loss, "aux": aux}
+    own = nll / blk.batch_sum(n).clamp_min(1)
+    xent = blk.batch_sum(own.detach())
+    aux_d = aux.detach()
+    return own + aux_weight * aux, {"xent": xent, "aux": aux_d,
+                                    "loss": xent + aux_weight * aux_d}
 
 
 # ---------------------------------------------------------------------------

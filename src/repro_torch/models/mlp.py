@@ -1,8 +1,10 @@
-"""Dense MLP block (port of `repro.models.mlp`)."""
+"""Dense MLP block (port of `repro.models.mlp`).  Its products go through
+`dist.lm_blocks.linear`: the plain expression with no mesh bound."""
 from __future__ import annotations
 
 import torch
 
+from ..dist import lm_blocks as blk
 from . import common
 
 
@@ -27,7 +29,7 @@ def init_mlp(p: MLP, generator) -> None:
 
 
 def mlp(p: MLP, x: torch.Tensor, act: str) -> torch.Tensor:
-    h = x @ p.w_in
-    gate = (x @ p.w_gate) if hasattr(p, "w_gate") else None
+    h = blk.linear(x, p.w_in)
+    gate = blk.linear(x, p.w_gate) if hasattr(p, "w_gate") else None
     h = common.activate(h, gate, act)
-    return h @ p.w_out
+    return blk.linear(h, p.w_out)

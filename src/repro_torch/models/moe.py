@@ -21,10 +21,15 @@ and, past capacity, which assignments drop:
   in the model dtype, as `.at[token].add` over the sorted assignments
   does (`index_add_` on the card uses atomics, which fix no order).
 
-Plain PyTorch on both devices.  The JAX package's sharding constraints
-(`shard`, the 'experts' mesh axis) have no counterpart in one process;
-expert parallelism over ranks comes with the LM sharding rules (ROADMAP
-queue 1 item 13.7).
+Plain PyTorch on both devices.  Over a bound mesh (`dist.lm_blocks`) the
+rows are the rank's; the load-balancing statistics are summed over the
+'batch' axes.  Where E divides the 'model' axis (the JAX package's `ep`)
+each 'model' rank runs the slot products of its E/M experts only, on the
+slots its rows dispatched, and the outputs are all-gathered over 'model'
+in expert order before the combine, which is unchanged; otherwise (40
+experts on a 16-wide axis) every expert runs data-local on weights
+gathered at use.  `slot_counts()` counts the experts whose slot products
+ran in this process (a layer's forward and its recompute each count).
 """
 from __future__ import annotations
 
@@ -33,9 +38,21 @@ from typing import Tuple
 import torch
 
 from ..configs.base import MoEConfig
+from ..dist import lm_blocks as blk
 from . import common
 
 F32 = torch.float32
+
+_SLOT_PRODUCTS = [0]
+
+
+def reset_slot_counts() -> None:
+    _SLOT_PRODUCTS[0] = 0
+
+
+def slot_counts() -> int:
+    """Experts whose slot products ran since `reset_slot_counts`."""
+    return _SLOT_PRODUCTS[0]
 
 
 class MoE(torch.nn.Module):
@@ -146,38 +163,49 @@ def moe(p: MoE, x: torch.Tensor, mcfg: MoEConfig, act: str
     dev = x.device
     xf = x.reshape(N, d)
 
-    probs = torch.softmax(xf.to(F32) @ p.router, dim=-1)     # [N, E]
+    probs = torch.softmax(xf.to(F32) @ blk.use(p.router), dim=-1)  # [N, E]
     gates, idx = top_k(probs, K)                             # [N, K]
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
 
     # load-balancing auxiliary loss (Switch / GShard form); every addend
     # is the same constant, so any order of the adds gives the same bits
-    me = probs.mean(dim=0)
+    rows = blk.batch_ranks()
+    if rows == 1:
+        me = probs.mean(dim=0)
+    else:                       # the global batch's mean over its ranks
+        me = blk.batch_sum(probs.sum(dim=0)) / (N * rows)
     ce = torch.zeros(E, dtype=F32, device=dev).index_add_(
-        0, idx.reshape(-1), torch.full((N * K,), 1.0 / (N * K), dtype=F32,
-                                       device=dev))
+        0, idx.reshape(-1), torch.full((N * K,), 1.0 / (N * K * rows),
+                                       dtype=F32, device=dev))
+    ce = blk.batch_sum(ce)
     aux = E * torch.sum(me * ce)
 
     C = capacity(mcfg, T)
     idx_r = idx.reshape(B, T, K)
     x_e, _, order, sorted_e, rank, keep = dispatch(x, idx_r, E, C)
 
-    h = torch.einsum("becd,edf->becf", x_e, p.w_in)
+    mine = blk.expert_range(E)
+    if blk.expert_parallel(E):
+        x_e = blk.copy_to_model(x_e)[:, mine.start:mine.stop]
+    h = torch.einsum("becd,edf->becf", x_e, blk.experts(p.w_in))
     if hasattr(p, "w_gate"):
-        g = torch.einsum("becd,edf->becf", x_e, p.w_gate)
+        g = torch.einsum("becd,edf->becf", x_e, blk.experts(p.w_gate))
         h = common.activate(h, g, "swiglu")
     else:
         h = common.activate(h, None, "gelu")
-    y_e = torch.einsum("becf,efd->becd", h, p.w_out)
+    y_e = torch.einsum("becf,efd->becd", h, blk.experts(p.w_out))
+    _SLOT_PRODUCTS[0] += len(mine)
+    if blk.expert_parallel(E):
+        y_e = blk.gather_from_model(y_e, 1)
 
     y = combine(y_e, gates.reshape(B, T, K).to(x.dtype), idx_r, order,
                 sorted_e, rank, keep, C)
 
     if mcfg.shared_expert:
-        hs = xf @ p.s_in
+        hs = blk.linear(xf, p.s_in)
         if hasattr(p, "s_gate"):
-            hs = common.activate(hs, xf @ p.s_gate, "swiglu")
+            hs = common.activate(hs, blk.linear(xf, p.s_gate), "swiglu")
         else:
             hs = common.activate(hs, None, "gelu")
-        y = y + (hs @ p.s_out).view(B, T, d)
+        y = y + blk.linear(hs, p.s_out).view(B, T, d)
     return y, aux

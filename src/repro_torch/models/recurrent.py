@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..dist import lm_blocks as blk
 from ..kernels import ops as kops
 from . import common
 
@@ -103,15 +104,16 @@ def _rg_lru_scan(xb, a, h0=None):
 def rglru(cfg: ModelConfig, p: RGLRU, x, state: Optional[dict] = None
           ) -> Tuple[torch.Tensor, Optional[dict]]:
     """x: [B,T,d] -> (y, new_state)."""
-    gate = common.activate(x @ p.w_gate, None, "gelu")
-    xi = x @ p.w_x
+    gate = common.activate(blk.linear(x, p.w_gate), None, "gelu")
+    xi = blk.linear(x, p.w_x)
     conv_state = None if state is None else state["conv"]
-    xi, new_conv = _causal_conv1d(xi, p.conv_w, p.conv_b, conv_state)
+    xi, new_conv = _causal_conv1d(xi, blk.use(p.conv_w), blk.use(p.conv_b),
+                                  conv_state)
 
     xf = xi.to(F32)
-    r = torch.sigmoid(xf @ p.wa.to(F32) + p.ba)
-    i = torch.sigmoid(xf @ p.wi.to(F32) + p.bi)
-    log_a = -_RG_C * F.softplus(p.log_lambda) * r
+    r = torch.sigmoid(blk.linear(xf, p.wa, F32) + blk.use(p.ba))
+    i = torch.sigmoid(blk.linear(xf, p.wi, F32) + blk.use(p.bi))
+    log_a = -_RG_C * F.softplus(blk.use(p.log_lambda)) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * xf)
 
@@ -123,7 +125,7 @@ def rglru(cfg: ModelConfig, p: RGLRU, x, state: Optional[dict] = None
         h = _rg_lru_scan(b, a, h0=state["h"])
         new_state = {"h": h[:, -1].contiguous(), "conv": new_conv}
 
-    y = (h.to(x.dtype) * gate) @ p.w_out
+    y = blk.linear(h.to(x.dtype) * gate, p.w_out)
     return y, new_state
 
 
@@ -196,20 +198,20 @@ def rwkv_time_mix(cfg: ModelConfig, p: RWKV, x, state: Optional[dict] = None
     H = d // dh
     xprev = None if state is None else state["xa"]
 
-    r = _token_shift(x, p.mu_r, xprev) @ p.w_r
-    k = _token_shift(x, p.mu_k, xprev) @ p.w_k
-    v = _token_shift(x, p.mu_v, xprev) @ p.w_v
-    g = _token_shift(x, p.mu_g, xprev) @ p.w_g
-    xw = _token_shift(x, p.mu_w, xprev)
-    dec = p.decay_w0 + torch.tanh(
-        xw.to(F32) @ p.decay_a.to(F32)) @ p.decay_b.to(F32)
+    r = blk.linear(_token_shift(x, blk.use(p.mu_r), xprev), p.w_r)
+    k = blk.linear(_token_shift(x, blk.use(p.mu_k), xprev), p.w_k)
+    v = blk.linear(_token_shift(x, blk.use(p.mu_v), xprev), p.w_v)
+    g = blk.linear(_token_shift(x, blk.use(p.mu_g), xprev), p.w_g)
+    xw = _token_shift(x, blk.use(p.mu_w), xprev)
+    dec = blk.use(p.decay_w0) + blk.linear(torch.tanh(
+        blk.linear(xw.to(F32), p.decay_a, F32)), p.decay_b, F32)
     w = torch.exp(-torch.exp(dec))                   # [B,T,d] in (0,1)
 
     r = r.view(B, T, H, dh).to(F32)
     k = k.view(B, T, H, dh).to(F32)
     v = v.view(B, T, H, dh).to(F32)
     w = w.view(B, T, H, dh)
-    u = p.bonus_u[..., None]                         # [H, dk, 1]
+    u = blk.use(p.bonus_u)[..., None]               # [H, dk, 1]
 
     S = x.new_zeros((B, H, dh, dh), dtype=F32) if state is None \
         else state["S"]
@@ -223,8 +225,9 @@ def rwkv_time_mix(cfg: ModelConfig, p: RWKV, x, state: Optional[dict] = None
     # per-head group norm, silu(g) gate, output projection
     mu_ = y.mean(-1, keepdim=True)
     var = ((y - mu_) ** 2).mean(-1, keepdim=True)
-    y = ((y - mu_) * torch.rsqrt(var + 1e-5)).reshape(B, T, d) * p.ln_gamma
-    y = (y * F.silu(g.to(F32))).to(x.dtype) @ p.w_o
+    y = ((y - mu_) * torch.rsqrt(var + 1e-5)).reshape(B, T, d) \
+        * blk.use(p.ln_gamma)
+    y = blk.linear((y * F.silu(g.to(F32))).to(x.dtype), p.w_o)
     return y, {"S": S, "xa": x[:, -1]}
 
 
@@ -255,11 +258,11 @@ def rwkv_channel_mix(cfg: ModelConfig, p: RWKVCMix, x,
     """Squared-ReLU MLP with token shift and an r gate.  Returns (y, the
     new xf carry)."""
     xprev = None if state is None else state["xf"]
-    xk = _token_shift(x, p.mu_k, xprev)
-    xr = _token_shift(x, p.mu_r, xprev)
-    k = torch.square(F.relu((xk @ p.w_k).to(F32)))
-    rgate = torch.sigmoid((xr @ p.w_r).to(F32))
-    y = rgate * (k.to(x.dtype) @ p.w_v).to(F32)
+    xk = _token_shift(x, blk.use(p.mu_k), xprev)
+    xr = _token_shift(x, blk.use(p.mu_r), xprev)
+    k = torch.square(F.relu(blk.linear(xk, p.w_k).to(F32)))
+    rgate = torch.sigmoid(blk.linear(xr, p.w_r).to(F32))
+    y = rgate * blk.linear(k.to(x.dtype), p.w_v).to(F32)
     return y.to(x.dtype), x[:, -1]
 
 

@@ -25,6 +25,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..dist import lm_blocks as blk
 from . import attention, common, mlp as mlp_mod, moe as moe_mod, recurrent
 
 F32 = torch.float32
@@ -97,7 +98,7 @@ def _apply_layer(cfg: ModelConfig, kinds: Tuple[str, str], p: Layer, x,
     aux = None
     new_cache: Dict[str, Any] = {}
 
-    h = common.rms_norm(x, p.norm1, cfg.norm_eps)
+    h = common.rms_norm(x, blk.use(p.norm1), cfg.norm_eps)
     if mixer_kind in ("ga", "la", "bi", "xa"):
         window = cfg.window if mixer_kind == "la" else None
         kv_cache = cache.get("kv") if cache else None
@@ -108,7 +109,7 @@ def _apply_layer(cfg: ModelConfig, kinds: Tuple[str, str], p: Layer, x,
             new_cache["kv"] = kv_new
         if mixer_kind == "xa":
             x = x + common.scale_by(y, rs)
-            h = common.rms_norm(x, p.norm3, cfg.norm_eps)
+            h = common.rms_norm(x, blk.use(p.norm3), cfg.norm_eps)
             y, _ = attention.attention(cfg, p.cross, h, positions,
                                        causal=False, kv_override=enc_kv)
     elif mixer_kind == "rg":
@@ -123,7 +124,7 @@ def _apply_layer(cfg: ModelConfig, kinds: Tuple[str, str], p: Layer, x,
             new_cache["rwkv"] = st_new
     x = x + common.scale_by(y, rs)
 
-    h = common.rms_norm(x, p.norm2, cfg.norm_eps)
+    h = common.rms_norm(x, blk.use(p.norm2), cfg.norm_eps)
     if mlp_kind == "dense":
         y = mlp_mod.mlp(p.mlp, h, cfg.act)
     elif mlp_kind == "moe":

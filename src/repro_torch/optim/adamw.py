@@ -11,6 +11,10 @@ divides in another order.  A tree is a dict of tensors keyed by the port's
 parameter names; `update` writes the new parameters into `params` in place
 (they may be `torch.nn.Parameter`s) and returns them with the new state.
 `b ** step` is the device's `pow` (within an fp32 ulp of XLA-CPU's).
+Over an `LmMesh` the trees hold the rank's blocks (`dist.lm_blocks`), and
+the update runs block by block: it is elementwise, so a block's bits are
+those of the whole update on equal gradients (the JAX package's state
+inherits its parameters' sharding the same way).
 """
 from __future__ import annotations
 

@@ -8,7 +8,13 @@ order, `jax.tree.leaves` of its parameter tree (dict keys sorted, each
 pattern unit's layers stacked into one leaf): pass that order as `groups`,
 a list of lists of names (`[l.names for l in
 models.convert.jax_leaf_groups(cfg)]`, a stacked leaf's names in unit
-order); by default each key is a leaf, in the dict's order."""
+order); by default each key is a leaf, in the dict's order.
+
+Over an `LmMesh` the tree holds the rank's blocks (`dist.lm_blocks`): each
+leaf's partial sum of squares is taken over the blocks this rank leads
+(one rank of each set holding the same block), the partials are summed
+over the job in rank order, and the leaves' sums are added in the JAX
+leaf order.  Clipping and compression are elementwise, block by block."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
@@ -19,16 +25,33 @@ F32 = torch.float32
 
 
 def global_norm(tree: Dict[str, torch.Tensor],
-                groups: Optional[List[List[str]]] = None) -> torch.Tensor:
+                groups: Optional[List[List[str]]] = None,
+                places: Optional[dict] = None, mesh=None) -> torch.Tensor:
+    """The global L2 norm; over a mesh (`places`: each name's
+    `lm_blocks.LeafPlace`) of the blocks every rank holds."""
     groups = groups if groups is not None else [[k] for k in tree]
-    return torch.sqrt(sum(sum(torch.sum(torch.square(tree[k].to(F32)))
-                              for k in g) for g in groups))
+    if mesh is None:
+        return torch.sqrt(sum(sum(torch.sum(torch.square(tree[k].to(F32)))
+                                  for k in g) for g in groups))
+    from ..dist import lm_blocks as blk
+    first = next(iter(tree.values()))
+    zero = torch.zeros((), dtype=F32, device=first.device)
+    partial = torch.stack([
+        sum((torch.sum(torch.square(tree[k].to(F32))) for k in g
+             if blk.replica_leader(places[k], mesh)), zero)
+        for g in groups])
+    leaves = blk.sum_over_job(partial, mesh)
+    total = leaves[0]
+    for s in leaves[1:]:
+        total = total + s
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float,
-                        groups: Optional[List[List[str]]] = None
+                        groups: Optional[List[List[str]]] = None,
+                        places: Optional[dict] = None, mesh=None
                         ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-    norm = global_norm(grads, groups)
+    norm = global_norm(grads, groups, places, mesh)
     # a true division (a Python number over a tensor would multiply by the
     # tensor's reciprocal)
     num = torch.tensor(max_norm, dtype=F32, device=norm.device)

@@ -13,6 +13,12 @@ order, `models.convert.jax_leaf_groups`, a pattern unit's layers stacked
 into one leaf), bf16 through a uint16 view, and `meta`, JSON of
 `n_leaves`, `step`, the leaves' `dtypes` and `extra`.  Writes are atomic
 (a temporary file, then a rename).
+
+Over an `LmMesh` (`create(..., mesh=)`, `dist.lm_blocks.place`) the state
+holds the rank's blocks.  `save` gathers whole leaves on the primary,
+which alone writes, so a file is the same whatever the layout; `load`
+reads a file into a template placed on any mesh, each rank keeping its
+blocks (the JAX package's elastic reshard).
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from typing import Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..dist import lm_blocks
 from ..models import convert
 from ..optim import adamw, grad_utils
 
@@ -39,10 +46,14 @@ def param_dict(params: torch.nn.Module) -> Dict[str, torch.Tensor]:
     return dict(params.named_parameters())
 
 
-def create(params: torch.nn.Module,
-           use_error_feedback: bool = False) -> TrainState:
+def create(params: torch.nn.Module, use_error_feedback: bool = False,
+           mesh=None) -> TrainState:
     """A fresh state at step 0 over `params` (an `LM`), whose parameters
-    this turns trainable (`requires_grad`)."""
+    this turns trainable (`requires_grad`); over `mesh` (an `LmMesh` bound
+    to the job) the parameters are first replaced by the rank's blocks,
+    and m, v and the residual are blocks alike."""
+    if mesh is not None:
+        lm_blocks.place(params, mesh)
     params.requires_grad_(True)
     pd = param_dict(params)
     ef = grad_utils.init_error_feedback(pd) if use_error_feedback else None
@@ -61,13 +72,22 @@ def _trees(state: TrainState) -> list:
     return parts
 
 
-def _leaves(state: TrainState) -> List[tuple]:
+def _whole_trees(state: TrainState, mesh) -> Optional[list]:
+    """`_trees` with each block gathered whole on the primary (None on the
+    other ranks)."""
+    parts = [p if isinstance(p, torch.Tensor) else
+             lm_blocks.gather(p, mesh, like=state.params)
+             for p in _trees(state)]
+    return parts if mesh.rank == 0 else None
+
+
+def _leaves(state: TrainState, trees: Optional[list] = None) -> List[tuple]:
     """The file's leaves in order: (the part of `_trees` it belongs to, the
     parameter names it holds or None for a scalar, stacked or not, its
     tensors)."""
     groups = convert.jax_leaf_groups(state.params.cfg)
     out = []
-    for k, part in enumerate(_trees(state)):
+    for k, part in enumerate(_trees(state) if trees is None else trees):
         if isinstance(part, torch.Tensor):
             out.append((k, None, False, [part]))
         else:
@@ -84,8 +104,22 @@ def _to_numpy(x: torch.Tensor) -> np.ndarray:
 
 
 def save(path: str, state: TrainState, extra: Optional[dict] = None) -> str:
+    """Write `state` to `path`; a placed state's blocks are gathered on
+    the primary, which writes, and every rank returns once the file is
+    there (a collective of the mesh's job)."""
+    mesh = getattr(state.params, "mesh", None)
+    if mesh is not None:
+        trees = _whole_trees(state, mesh)
+        if trees is not None:
+            _write(path, state, trees, extra)
+        torch.distributed.barrier()
+        return path
+    return _write(path, state, None, extra)
+
+
+def _write(path: str, state: TrainState, trees, extra) -> str:
     payload, dtypes = {}, []
-    for i, (_, _, stacked, ts) in enumerate(_leaves(state)):
+    for i, (_, _, stacked, ts) in enumerate(_leaves(state, trees)):
         a = np.stack([_to_numpy(t) for t in ts]) if stacked \
             else _to_numpy(ts[0])
         dtypes.append(str(ts[0].dtype).replace("torch.", ""))
@@ -111,8 +145,12 @@ def _from_numpy(a: np.ndarray, dtype: str) -> torch.Tensor:
 def load(path: str, template: TrainState) -> TrainState:
     """The state saved at `path`, in the layout of `template`, whose
     parameters are overwritten in place; m, v, the steps and the residual
-    are new tensors on the template's devices.  Raises on a count, shape
-    or dtype that differs from the template's."""
+    are new tensors on the template's devices (over a mesh, the rank's
+    blocks of the file's leaves).  Raises on a count, shape or dtype that
+    differs from the template's."""
+    mesh = getattr(template.params, "mesh", None)
+    places = {n: w.place for n, w in template.params.named_parameters()} \
+        if mesh is not None else None
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(str(z["meta"]))
         arrays = [z[f"leaf_{i}"] for i in range(meta["n_leaves"])]
@@ -129,10 +167,15 @@ def load(path: str, template: TrainState) -> TrainState:
                              f"the template's {want}")
         a = _from_numpy(arrays[i], want)
         vals = list(a) if stacked else [a]
-        if len(vals) != len(ts) or any(tuple(v.shape) != tuple(t.shape)
-                                       for v, t in zip(vals, ts)):
+        full = [tuple(t.shape) if names is None or places is None
+                else places[n].full for n, t in zip(names or [None], ts)]
+        if len(vals) != len(ts) or any(tuple(v.shape) != f
+                                       for v, f in zip(vals, full)):
             raise ValueError(f"{path}: leaf {i} has shape "
                              f"{tuple(a.shape)}, not the template's")
+        if names is not None and places is not None:
+            vals = [lm_blocks._block_of(v, places[n], mesh)
+                    for v, n in zip(vals, names)]
         vals = [v.to(t.device) for v, t in zip(vals, ts)]
         if names is None:
             parts[k] = vals[0]

@@ -1,7 +1,11 @@
 """Fault-tolerant training loop (port of `repro.train.trainer`):
 resume-from-latest, periodic atomic checkpoints, a non-finite-loss guard
 (restore the last checkpoint) and the loss history.  It steps eagerly; a
-CUDA graph of the step is later speed work."""
+CUDA graph of the step is later speed work.  Over an `LmMesh` (a state
+placed by `train_state.create(..., mesh=)`) every rank runs the loop: the
+primary writes the checkpoints (`train_state.save` gathers the blocks),
+every rank resumes from the latest file, placed by its own mesh, whatever
+the mesh that wrote it, and only the primary logs."""
 from __future__ import annotations
 
 import math
@@ -22,7 +26,8 @@ class Trainer:
         self.ckpt_dir = ckpt_dir
         self.ckpt_every = ckpt_every
         self.log_every = log_every
-        self.log = log_fn
+        from ..cluster import runtime
+        self.log = log_fn if runtime.is_primary() else (lambda *a: None)
         self.history = []
 
     def maybe_resume(self) -> int:
